@@ -6,10 +6,12 @@ anything of ``repro``: it keeps its own copies of what it needs. Its entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``; asked for
 ``cuda`` without a card, they raise.
 
-The first slice serves dense decoders (``qwen3-8b``, ``smollm-360m``)
-through the paged, continuously batched engine, with hand-written Hopper
-kernels for RMSNorm (Triton), paged decode attention and flash attention
-(CUDA C++). ``ROADMAP.md`` lists what comes next.
+The paged, continuously batched engine serves the dense decoders
+(``qwen3-8b``, ``smollm-360m``), the SSM family (``falcon-mamba-7b``,
+Mamba1) and the hybrid family (``zamba2-1.2b``, Mamba2 with a shared
+attention block), with hand-written Hopper kernels for RMSNorm (Triton),
+paged decode attention, flash attention, the Mamba1 selective scan and
+the Mamba2 SSD (CUDA C++). ``ROADMAP.md`` lists what comes next.
 """
 
 from __future__ import annotations

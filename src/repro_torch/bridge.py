@@ -10,9 +10,12 @@ the port's per-layer modules by the family's ``build``.
 A bf16 leaf crosses bit for bit: its raw bytes are reinterpreted
 (``view(np.int16)`` then ``view(torch.bfloat16)``), so no numpy bfloat16
 type (``ml_dtypes``) is needed on either side. An f32 leaf crosses as is
-and is then stored as the port stores it: matrices are rounded to bf16
-(round to nearest even, the same cast the reference applies before every
-use), norm weights stay f32.
+and is then stored as the port stores it (``model_api.storage_dtype``): a
+leaf the reference casts before every use is rounded to bf16 (round to
+nearest even, the same cast), every other leaf — norm weights, the SSM
+families' ``A_log`` and ``conv_w`` — stays f32 as the reference reads it.
+Nested groups (the hybrid family's ``shared.attn``/``shared.mlp``) and
+unstacked leaves (its ``app_proj``) follow the same rule.
 """
 
 from __future__ import annotations

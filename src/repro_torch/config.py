@@ -9,6 +9,7 @@ the port uses is kept.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
@@ -89,14 +90,57 @@ class ModelConfig:
                 f"n_kv_heads={self.n_kv_heads}"
             )
 
+    @property
+    def d_inner(self) -> int:
+        """Mamba inner width."""
+        return self.expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        """Mamba1 delta-projection rank."""
+        return max(1, math.ceil(self.d_model / 16))
+
+    @property
+    def n_ssm_heads(self) -> int:
+        """Mamba2 head count."""
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def uses_attention(self) -> bool:
+        return self.family != "ssm"
+
+    def hybrid_attention_layers(self) -> list[int]:
+        """Layer indices at which the shared attention block is applied."""
+        if self.family != "hybrid" or self.attn_every <= 0:
+            return []
+        return [i for i in range(self.n_layers) if i % self.attn_every == 0]
+
     def param_count(self) -> int:
-        """Parameters of a dense decoder (embedding, blocks, unembedding)."""
-        d, L = self.d_model, self.n_layers
+        """Parameters of the serving families the port carries, leaf for
+        leaf as their specs declare them (norm weights included)."""
+        d, L, V = self.d_model, self.n_layers, self.vocab_size
+        emb = V * d * (1 if self.tie_embeddings else 2) + d  # + final norm
         attn = d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head \
-            + self.n_heads * self.d_head * d
-        mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
-        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return emb + L * (attn + mlp)
+            + self.n_heads * self.d_head * d + d
+        if self.qk_norm:
+            attn += 2 * self.d_head
+        mlp = (3 if self.gated_mlp else 2) * d * self.d_ff + d
+        di, N, W = self.d_inner, self.ssm_state, self.d_conv
+        if self.family == "dense":
+            return emb + L * (attn + mlp)
+        if self.family == "ssm":      # Mamba1 block (repro/models/mamba.py)
+            R = self.dt_rank
+            block = (d + 2 * d * di + W * di + di + di * R + 2 * di * N
+                     + R * di + di + di * N + di + di * d)
+            return emb + L * block
+        if self.family == "hybrid":   # Mamba2 blocks + one shared block
+            nh, xbc = self.n_ssm_heads, di + 2 * N
+            block = (d + d * di + d * xbc + W * xbc + xbc + d * nh + 3 * nh
+                     + di + di * d)
+            apps = len(self.hybrid_attention_layers())
+            return emb + L * block + attn + mlp + apps * 2 * d * d
+        raise NotImplementedError(
+            f"param_count: the {self.family} family is not ported")
 
 
 @dataclass(frozen=True)

@@ -2,17 +2,22 @@
 
 Each module defines ``CONFIG`` (the published figures) and ``reduced()``
 (a tiny same-family twin for CPU tests), exactly as the JAX package's
-``repro/configs``. Only the dense family is ported so far; the other
-archs of the JAX package raise ``KeyError`` naming the ROADMAP item that
-ports their family.
+``repro/configs``. The dense, SSM and hybrid families are ported; the
+other archs of the JAX package raise ``KeyError`` naming the ROADMAP item
+that ports their family.
 """
 
 from __future__ import annotations
 
 from repro_torch.config import ModelConfig
-from repro_torch.configs import qwen3_8b, smollm_360m
+from repro_torch.configs import (
+    falcon_mamba_7b,
+    qwen3_8b,
+    smollm_360m,
+    zamba2_1_2b,
+)
 
-_MODULES = [qwen3_8b, smollm_360m]
+_MODULES = [qwen3_8b, smollm_360m, falcon_mamba_7b, zamba2_1_2b]
 
 ARCHS: dict[str, ModelConfig] = {m.CONFIG.arch_id: m.CONFIG for m in _MODULES}
 REDUCED: dict[str, ModelConfig] = {m.CONFIG.arch_id: m.reduced() for m in _MODULES}
@@ -23,8 +28,6 @@ _NOT_PORTED: dict[str, str] = {
     "minitron-4b": "dense configs beyond the first slice (ROADMAP Queue 1)",
     "granite-moe-1b-a400m": "MoE family (ROADMAP Queue 1, item 11)",
     "deepseek-moe-16b": "MoE family (ROADMAP Queue 1, item 11)",
-    "falcon-mamba-7b": "SSM family (ROADMAP Queue 1, item 12)",
-    "zamba2-1.2b": "hybrid family (ROADMAP Queue 1, item 12)",
     "llava-next-mistral-7b": "multimodal families (ROADMAP Queue 1, item 13)",
     "whisper-medium": "multimodal families (ROADMAP Queue 1, item 13)",
 }

@@ -25,7 +25,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("paged_decode_attention", "flash_attention")
+SOURCES = ("paged_decode_attention", "flash_attention", "selective_scan", "ssd")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

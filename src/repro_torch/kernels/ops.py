@@ -10,7 +10,9 @@ CLI.
 
 Each kernel wrapper counts its own launches (``<wrapper>.launches``); this
 module counts the calls that went to a plain version, so a run can show
-which path it took.
+which path it took. ``causal_conv1d``, ``selective_scan_step`` and
+``ssd_step`` have no TPU kernel (the JAX package runs them through XLA on
+every backend): they are plain code on every device, and not counted.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rmsnorm
+from repro_torch.kernels import selective_scan as _scan
+from repro_torch.kernels import ssd as _ssd
 
 _BACKENDS = ("kernel", "plain")
 _BACKEND: contextvars.ContextVar[str] = contextvars.ContextVar(
@@ -34,6 +38,8 @@ KERNELS = {
     "rmsnorm": _rmsnorm.rmsnorm,
     "paged_decode_attention": _paged.paged_decode_attention,
     "flash_attention": _flash.flash_attention,
+    "selective_scan": _scan.selective_scan,
+    "ssd": _ssd.ssd,
 }
 plain_calls = {name: 0 for name in KERNELS}
 
@@ -100,3 +106,41 @@ def paged_decode_attention(
                                           lengths)
     return _paged.paged_decode_attention(q, k_pages, v_pages, page_table,
                                          lengths)
+
+
+def selective_scan(
+    x: torch.Tensor,    # (B, S, Di)
+    dt: torch.Tensor,   # (B, S, Di)
+    A: torch.Tensor,    # (Di, N) f32
+    Bm: torch.Tensor,   # (B, S, N)
+    C: torch.Tensor,    # (B, S, N)
+    D: torch.Tensor,    # (Di,) f32
+    h0: torch.Tensor | None = None,  # (B, Di, N) f32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba1 scan, f32 inside whatever the model's ``ssm_dtype`` (the TPU
+    kernel ignores it too, ``repro/kernels/ops.py:423-429``)."""
+    if _plain(x, "selective_scan"):
+        return ref.selective_scan(x, dt, A, Bm, C, D, h0)
+    return _scan.selective_scan(x, dt, A, Bm, C, D, h0)
+
+
+def ssd(
+    x: torch.Tensor,    # (B, S, Hs, P)
+    dt: torch.Tensor,   # (B, S, Hs)
+    A: torch.Tensor,    # (Hs,) f32
+    Bm: torch.Tensor,   # (B, S, N)
+    C: torch.Tensor,    # (B, S, N)
+    D: torch.Tensor,    # (Hs,) f32
+    h0: torch.Tensor | None = None,  # (B, Hs, P, N) f32
+    *,
+    chunk: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    if _plain(x, "ssd"):
+        return ref.ssd(x, dt, A, Bm, C, D, h0, chunk=chunk)
+    return _ssd.ssd(x, dt, A, Bm, C, D, h0, chunk=chunk)
+
+
+# no TPU kernel behind these: plain code on every device
+causal_conv1d = ref.causal_conv1d
+selective_scan_step = ref.selective_scan_step
+ssd_step = ref.ssd_step

@@ -1,11 +1,20 @@
 """Plain PyTorch versions of the kernels on the serving path.
 
-Ported from the JAX package's oracles (``repro/kernels/ref.py:26-131``) and
-held to the same conventions: attention tensors are ``(batch, seq, heads,
+Ported from the JAX package's oracles (``repro/kernels/ref.py:26-131,
+207-298``) and its XLA paths (``repro/kernels/ops.py:381-605``), held to
+the same conventions: attention tensors are ``(batch, seq, heads,
 head_dim)``, GQA repeats each kv head ``H/K`` times on the query side, and
-softmax statistics are f32 whatever the input type. These run wherever a
-tensor lies on the CPU, and on the card they are what each hand-written
-kernel is compared with.
+softmax statistics and SSM states are f32 whatever the input type. These
+run wherever a tensor lies on the CPU, and on the card they are what each
+hand-written kernel is compared with.
+
+The SSM functions: ``selective_scan`` is the sequential oracle
+(``ref.py:211-255``), the order the CUDA kernel walks too; ``ssd`` is the
+chunked form of the reference's XLA path (``ops.py:519-576``: masked
+``c x c`` products within a chunk, a carried ``(P, N)`` state across
+chunks), the blocking the CUDA kernel follows. ``causal_conv1d``,
+``selective_scan_step`` and ``ssd_step`` have no TPU kernel: they are plain
+code on every device (``ops.py:381-405,457-477,579-605``).
 
 One deliberate difference from ``repro.kernels.ref``: a paged-decode lane of
 length 0 gives zeros, which is the kernels' contract (the TPU kernel's and
@@ -102,3 +111,135 @@ def paged_decode_attention(
     k = k_pages[idx].reshape(b, -1, kh, d)
     v = v_pages[idx].reshape(b, -1, kh, d)
     return decode_attention(q, k, v, lengths, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# Mamba: causal depthwise conv, selective scan (Mamba1), SSD (Mamba2)
+# ---------------------------------------------------------------------------
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  bias: torch.Tensor | None = None,
+                  state: torch.Tensor | None = None) -> torch.Tensor:
+    """Depthwise causal conv along seq in f32, cast back: x (B, S, C), w
+    (W, C); ``state`` (B, W-1, C) supplies the left context. Written as W
+    shifted products (no cuDNN: its f32 convolutions run in TF32)."""
+    S = x.shape[1]
+    W = w.shape[0]
+    if state is None:
+        xp = torch.nn.functional.pad(x, (0, 0, W - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    xp = xp.float()
+    wf = w.float()
+    out = xp[:, 0:S] * wf[0]
+    for k in range(1, W):
+        out = out + xp[:, k:k + S] * wf[k]
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
+def selective_scan(
+    x: torch.Tensor,    # (B, S, Di)  post-conv activations
+    dt: torch.Tensor,   # (B, S, Di)  post-softplus step sizes
+    A: torch.Tensor,    # (Di, N)     negative state matrix
+    Bm: torch.Tensor,   # (B, S, N)
+    C: torch.Tensor,    # (B, S, N)
+    D: torch.Tensor,    # (Di,)
+    h0: torch.Tensor | None = None,  # (B, Di, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential Mamba1 scan in f32: ``h_t = exp(dt_t A) h_{t-1} +
+    (dt_t x_t) B_t``, ``y_t = h_t C_t + D x_t``. Returns ``(y, h_final)``
+    with y in ``x.dtype`` and h_final f32 (B, Di, N)."""
+    b, s, di = x.shape
+    n = A.shape[1]
+    xf, dtf = x.float(), dt.float()
+    Cf = C.float()
+    h = (torch.zeros(b, di, n, dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    dA = torch.exp(dtf[..., None] * A.float()[None, None])     # (B,S,Di,N)
+    dBx = (dtf * xf)[..., None] * Bm.float()[:, :, None, :]    # (B,S,Di,N)
+    ys = []
+    for t in range(s):
+        h = dA[:, t] * h + dBx[:, t]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    y = (torch.stack(ys, dim=1) if ys else xf.new_zeros(b, 0, di))
+    y = y + D.float()[None, None] * xf
+    return y.to(x.dtype), h
+
+
+def selective_scan_step(x, dt, A, Bm, C, D, h):
+    """One decode step of the Mamba1 recurrence: x, dt (B, Di), Bm, C
+    (B, N), h (B, Di, N) f32 -> (y (B, Di) in ``x.dtype``, new h)."""
+    xf, dtf = x.float(), dt.float()
+    dA = torch.exp(dtf[..., None] * A.float()[None])
+    dBx = (dtf * xf)[..., None] * Bm.float()[:, None, :]
+    h_new = dA * h + dBx
+    y = torch.einsum("bdn,bn->bd", h_new, C.float())
+    y = y + D.float()[None] * xf
+    return y.to(x.dtype), h_new
+
+
+def ssd(
+    x: torch.Tensor,    # (B, S, Hs, P)
+    dt: torch.Tensor,   # (B, S, Hs)  post-softplus
+    A: torch.Tensor,    # (Hs,)       negative scalar per head
+    Bm: torch.Tensor,   # (B, S, N)   shared across heads
+    C: torch.Tensor,    # (B, S, N)
+    D: torch.Tensor,    # (Hs,)
+    h0: torch.Tensor | None = None,  # (B, Hs, P, N)
+    *,
+    chunk: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked Mamba2 SSD in f32 (``ops.py:519-576``). Within a chunk of
+    ``c`` steps, with ``l`` the inclusive cumsum of ``dt A``:
+    ``y_i = sum_{j<=i} exp(l_i - l_j) (C_i . B_j) dt_j x_j
+    + exp(l_i) C_i h + D x_i``; across chunks the ``(P, N)`` state carries
+    as ``h' = exp(l_last) h + sum_j exp(l_last - l_j) dt_j x_j B_j``.
+    A ragged tail is padded with zeros (dt = 0: identity steps)."""
+    b, s, hs, p = x.shape
+    n = Bm.shape[-1]
+    c = max(1, min(chunk, s))
+    pad = (-s) % c
+    F = torch.nn.functional
+    xf = F.pad(x.float(), (0, 0, 0, 0, 0, pad))
+    dtf = F.pad(dt.float(), (0, 0, 0, pad))
+    Bf = F.pad(Bm.float(), (0, 0, 0, pad))
+    Cf = F.pad(C.float(), (0, 0, 0, pad))
+    h = (torch.zeros(b, hs, p, n, dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    Af = A.float()
+    causal = torch.ones(c, c, dtype=torch.bool, device=x.device).tril()
+    ys = []
+    for c0 in range(0, s + pad, c):
+        xc, dtc = xf[:, c0:c0 + c], dtf[:, c0:c0 + c]
+        Bc, Cc = Bf[:, c0:c0 + c], Cf[:, c0:c0 + c]
+        l = torch.cumsum(dtc * Af[None, None], dim=1)         # (B,c,Hs)
+        g = torch.einsum("bin,bjn->bij", Cc, Bc)               # (B,c,c)
+        ldiff = l[:, :, None, :] - l[:, None, :, :]            # (B,i,j,Hs)
+        decay = torch.where(causal[None, :, :, None], torch.exp(ldiff),
+                            torch.zeros((), device=x.device))
+        m = g[..., None] * decay * dtc[:, None]                # (B,i,j,Hs)
+        y_intra = torch.einsum("bijh,bjhp->bihp", m, xc)
+        y_inter = torch.einsum("bin,bhpn,bih->bihp", Cc, h, torch.exp(l))
+        rev = torch.exp(l[:, -1:, :] - l)                      # (B,c,Hs)
+        s_chunk = torch.einsum("bjh,bjn,bjhp->bhpn", rev * dtc, Bc, xc)
+        h = torch.exp(l[:, -1])[:, :, None, None] * h + s_chunk
+        ys.append(y_intra + y_inter)
+    y = torch.cat(ys, dim=1)[:, :s]
+    y = y + D.float()[None, None, :, None] * xf[:, :s]
+    return y.to(x.dtype), h
+
+
+def ssd_step(x, dt, A, Bm, C, D, h):
+    """One decode step of the Mamba2 recurrence: x (B, Hs, P), dt (B, Hs),
+    Bm, C (B, N), h (B, Hs, P, N) f32 -> (y (B, Hs, P) in ``x.dtype``,
+    new h)."""
+    xf, dtf = x.float(), dt.float()
+    da = torch.exp(dtf * A.float()[None])                      # (B,Hs)
+    dbx = torch.einsum("bh,bhp,bn->bhpn", dtf, xf, Bm.float())
+    h_new = da[..., None, None] * h + dbx
+    y = torch.einsum("bhpn,bn->bhp", h_new, C.float())
+    y = y + D.float()[None, :, None] * xf
+    return y.to(x.dtype), h_new

@@ -8,6 +8,10 @@ prints each request's greedy continuation. Runs on ``cuda`` unless
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
         [--full] [--device cpu] [--requests 8 --max-new 12]
+
+``--arch`` takes every arch the port carries: ``qwen3-8b``,
+``smollm-360m`` (dense), ``falcon-mamba-7b`` (SSM) and ``zamba2-1.2b``
+(hybrid).
 """
 
 from __future__ import annotations

@@ -1,0 +1,271 @@
+"""Zamba2-style hybrid (zamba2-1.2b): the paged serving path.
+
+Ported from ``repro/models/hybrid.py``: a Mamba2 (SSD) backbone, and one
+weight-SHARED attention + MLP block applied before every ``attn_every``-th
+layer, each application with its own input projection over
+``[hidden ‖ original embedding]`` (``app_proj``, the Zamba wiring).
+
+The paged cache: the shared block's K/V pages like any attention cache,
+one pool per application (``att_k_pages``/``att_v_pages``, (n_apps,
+n_pages, P, K, dh)); the Mamba2 ``conv`` (L, n_slots, W-1, Di+2N) bf16 and
+``ssm`` (L, n_slots, Hs, P, N) f32 states stay dense per slot and are
+updated in place.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as ll
+from repro_torch.models.mamba import new_conv_state, silu, slot_state
+from repro_torch.models.model_api import ModelFns, Params, PSpec, Tree
+
+
+def mamba2_block_specs(cfg: ModelConfig, layers: int) -> dict:
+    d, di, N, W = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.d_conv
+    nh = cfg.n_ssm_heads
+    lead, lx = (layers,), ("layers",)
+    return {
+        "ln": PSpec(lead + (d,), lx + ("embed",), init="ones"),
+        "wz": PSpec(lead + (d, di), lx + ("embed_in", "inner"), cast=True),
+        "w_xbc": PSpec(lead + (d, di + 2 * N), lx + ("embed_in", "inner"),
+                       cast=True),
+        "conv_w": PSpec(lead + (W, di + 2 * N), lx + ("conv", "inner")),
+        "conv_b": PSpec(lead + (di + 2 * N,), lx + ("inner",), init="zeros"),
+        "wdt": PSpec(lead + (d, nh), lx + ("embed_in", "ssm_heads"), cast=True),
+        "dt_bias": PSpec(lead + (nh,), lx + ("ssm_heads",), init="zeros"),
+        "A_log": PSpec(lead + (nh,), lx + ("ssm_heads",), init="small"),
+        "D": PSpec(lead + (nh,), lx + ("ssm_heads",), init="ones"),
+        "gate_ln": PSpec(lead + (di,), lx + ("inner",), init="ones"),
+        "out_proj": PSpec(lead + (di, d), lx + ("inner", "embed_out"),
+                          cast=True),
+    }
+
+
+def build_specs(cfg: ModelConfig) -> dict:
+    n_apps = len(cfg.hybrid_attention_layers())
+    d = cfg.d_model
+    return {
+        **ll.embed_specs(cfg),
+        "layers": mamba2_block_specs(cfg, cfg.n_layers),
+        "shared": {
+            "attn": ll.attn_specs(cfg),
+            "mlp": ll.mlp_specs(cfg, cfg.d_ff),
+        },
+        # per-application adapter over [hidden ‖ embedding0] (Zamba wiring)
+        "app_proj": PSpec((n_apps, 2 * d, d), ("layers", "embed_in", "embed"),
+                          cast=True),
+    }
+
+
+class Shared(nn.Module):
+    def __init__(self, attn: dict, mlp: dict):
+        super().__init__()
+        self.attn = Params(**attn)
+        self.mlp = Params(**mlp)
+
+
+class HybridLM(nn.Module):
+    """Weights of the hybrid: embedding, one :class:`Params` per Mamba2
+    layer, the shared block, the per-application ``app_proj``, final norm
+    and (untied) unembedding."""
+
+    def __init__(self, cfg: ModelConfig, tree: Tree):
+        super().__init__()
+        self.cfg = cfg
+        for name, t in tree.items():
+            if name not in ("layers", "shared"):
+                self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+        stacked = tree["layers"]
+        self.layers = nn.ModuleList(
+            Params(**{k: v[i] for k, v in stacked.items()})
+            for i in range(cfg.n_layers))
+        self.shared = Shared(tree["shared"]["attn"], tree["shared"]["mlp"])
+
+
+def segments(cfg: ModelConfig) -> list[tuple[int, int, int]]:
+    """``(application index, first layer, end layer)``: the shared block
+    runs before the Mamba2 layers ``[first, end)`` of its segment."""
+    apps = cfg.hybrid_attention_layers()
+    bounds = apps + [cfg.n_layers]
+    return [(i, bounds[i], bounds[i + 1]) for i in range(len(apps))]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block
+# ---------------------------------------------------------------------------
+
+
+def _split_xbc(xbc: torch.Tensor, cfg: ModelConfig):
+    di, N = cfg.d_inner, cfg.ssm_state
+    return xbc[..., :di], xbc[..., di:di + N], xbc[..., di + N:]
+
+
+def _dt(lp: nn.Module, h: torch.Tensor) -> torch.Tensor:
+    return F.softplus((h @ lp.wdt).float() + lp.dt_bias.float())
+
+
+def _gate_out(lp: nn.Module, x: torch.Tensor, y: torch.Tensor,
+              z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    y = ops.rmsnorm(y * silu(z), lp.gate_ln, cfg.norm_eps)
+    return x + y @ lp.out_proj
+
+
+def _block(lp: nn.Module, x: torch.Tensor, cfg: ModelConfig,
+           conv_state: torch.Tensor, ssm_state: torch.Tensor, valid: int):
+    """A prompt chunk through one Mamba2 block (``hybrid.py:68-118``); pads
+    past ``valid`` get ``dt = 0``, an identity step of the SSD recurrence.
+    Returns ``(out, new conv state, new ssm state (B, Hs, P, N))``."""
+    B, S, _ = x.shape
+    h = ops.rmsnorm(x, lp.ln, cfg.norm_eps)
+    z = h @ lp.wz
+    xbc = h @ lp.w_xbc
+    pre_conv = xbc
+    xbc = silu(ops.causal_conv1d(xbc, lp.conv_w, lp.conv_b, state=conv_state))
+    xin, Bm, C = _split_xbc(xbc, cfg)
+    dt = _dt(lp, h)
+    real = torch.arange(S, device=x.device)[None, :, None] < valid
+    dt = torch.where(real, dt, torch.zeros((), device=x.device))
+    A = -torch.exp(lp.A_log.float())
+    xh = xin.reshape(B, S, cfg.n_ssm_heads, cfg.ssm_head_dim)
+    y, hT = ops.ssd(xh, dt.to(xh.dtype), A, Bm, C, lp.D.float(),
+                    h0=ssm_state, chunk=cfg.ssm_chunk)
+    out = _gate_out(lp, x, y.reshape(B, S, cfg.d_inner), z, cfg)
+    return out, new_conv_state(conv_state, pre_conv, valid), hT
+
+
+def _block_decode(lp: nn.Module, x: torch.Tensor, cfg: ModelConfig,
+                  conv_state: torch.Tensor, ssm_state: torch.Tensor):
+    """One token per lane through one Mamba2 block; x (B, 1, d)."""
+    B = x.shape[0]
+    h = ops.rmsnorm(x, lp.ln, cfg.norm_eps)
+    z = h @ lp.wz
+    xbc = h @ lp.w_xbc
+    new_conv = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)[:, 1:]
+    xbc = silu(ops.causal_conv1d(xbc, lp.conv_w, lp.conv_b, state=conv_state))
+    xin, Bm, C = _split_xbc(xbc, cfg)
+    dt = _dt(lp, h)
+    A = -torch.exp(lp.A_log.float())
+    y, h_new = ops.ssd_step(
+        xin[:, 0].reshape(B, cfg.n_ssm_heads, cfg.ssm_head_dim),
+        dt[:, 0].to(xin.dtype), A, Bm[:, 0], C[:, 0], lp.D.float(), ssm_state)
+    out = _gate_out(lp, x, y.reshape(B, 1, cfg.d_inner), z, cfg)
+    return out, new_conv.to(torch.bfloat16), h_new
+
+
+# ---------------------------------------------------------------------------
+# Shared attention block
+# ---------------------------------------------------------------------------
+
+
+def _shared_block(params: HybridLM, app: int, x: torch.Tensor,
+                  x0: torch.Tensor, cfg: ModelConfig, attend) -> torch.Tensor:
+    """Application ``app`` of the weight-shared attention + MLP block
+    (``hybrid.py:158-196``): ``attend(p, h)`` is the paged attention of
+    this call (a prefill chunk or a decode step) on the application's
+    pools."""
+    sp = params.shared
+    inp = torch.cat([x, x0], dim=-1) @ params.app_proj[app]
+    h = ops.rmsnorm(inp, sp.attn.ln, cfg.norm_eps)
+    inp = inp + attend(sp.attn, h)
+    h = ops.rmsnorm(inp, sp.mlp.ln, cfg.norm_eps)
+    inp = inp + ll.mlp_forward(sp.mlp, h, cfg)
+    return x + inp
+
+
+# ---------------------------------------------------------------------------
+# Paged serving entry points
+# ---------------------------------------------------------------------------
+
+
+def paged_cache_specs(cfg: ModelConfig, n_slots: int, n_pages: int,
+                      page_size: int) -> dict:
+    L, N, W, di = cfg.n_layers, cfg.ssm_state, cfg.d_conv, cfg.d_inner
+    nh, P = cfg.n_ssm_heads, cfg.ssm_head_dim
+    n_apps = len(cfg.hybrid_attention_layers())
+    K, dh = cfg.n_kv_heads, cfg.d_head
+    page_axes = ("layers", "pages", "page", "kv_heads", "head_dim")
+    return {
+        "conv": PSpec((L, n_slots, W - 1, di + 2 * N),
+                      ("layers", "batch", "conv", "inner"), init="zeros"),
+        "ssm": PSpec((L, n_slots, nh, P, N),
+                     ("layers", "batch", "ssm_heads", None, "state"),
+                     init="zeros"),
+        "att_k_pages": PSpec((n_apps, n_pages, page_size, K, dh), page_axes,
+                             init="zeros"),
+        "att_v_pages": PSpec((n_apps, n_pages, page_size, K, dh), page_axes,
+                             init="zeros"),
+    }
+
+
+def prefill_chunk_fn(params: HybridLM, cache: Tree, batch: dict,
+                     cfg: ModelConfig, *, offset: int) -> torch.Tensor:
+    """One prompt chunk into slot ``batch["slot"]`` (``hybrid.py:330-386``):
+    the shared block's K/V go into the slot's pages of each application's
+    pool, the Mamba2 states into the slot's rows. Returns the logits of the
+    last valid token, (1, V) f32."""
+    slot, valid = int(batch["slot"]), int(batch["valid"])
+    table = batch["page_table"]
+    x = ll.embed_lookup(params, batch["tokens"])          # (1, C, d)
+    x0 = x
+    kp, vp = cache["att_k_pages"], cache["att_v_pages"]
+    P = kp.shape[2]
+    rows = ll.chunk_rows(cfg, offset, x.shape[1], table, P)
+    n_ctx = min((offset + x.shape[1] + P - 1) // P, table.shape[0])
+    ctx = table[:n_ctx].long()
+    for app, a, b in segments(cfg):
+        x = _shared_block(params, app, x, x0, cfg, lambda p, h: (
+            ll.attn_prefill_chunk(p, h, cfg, offset, rows, ctx, kp[app],
+                                  vp[app])))
+        for i in range(a, b):
+            cs = slot_state(cache, "conv", i, slot, offset)
+            ss = slot_state(cache, "ssm", i, slot, offset)
+            x, cs, ss = _block(params.layers[i], x, cfg, cs, ss, valid)
+            cache["conv"][i, slot:slot + 1] = cs
+            cache["ssm"][i, slot:slot + 1] = ss
+    x = ops.rmsnorm(x, params.final_ln, cfg.norm_eps)
+    return ll.logits_last(params, x[:, valid - 1], cfg)
+
+
+def decode_paged_fn(params: HybridLM, cache: Tree, batch: dict,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """One batched token step over every slot (``hybrid.py:389-423``).
+    Returns (B, V) f32."""
+    positions = batch["positions"]
+    table = batch["page_table"]
+    x = ll.embed_lookup(params, batch["tokens"])          # (B, 1, d)
+    x0 = x
+    kp, vp = cache["att_k_pages"], cache["att_v_pages"]
+    rows = ll.decode_rows(cfg, positions, table, kp.shape[2])
+    lengths = (positions + 1).to(torch.int32)
+    for app, a, b in segments(cfg):
+        x = _shared_block(params, app, x, x0, cfg, lambda p, h: (
+            ll.attn_decode_paged(p, h, cfg, rows, lengths, kp[app], vp[app],
+                                 table)))
+        for i in range(a, b):
+            x, cs, ss = _block_decode(params.layers[i], x, cfg,
+                                      cache["conv"][i], cache["ssm"][i])
+            cache["conv"][i] = cs
+            cache["ssm"][i] = ss
+    x = ops.rmsnorm(x, params.final_ln, cfg.norm_eps)
+    return ll.logits_last(params, x[:, 0], cfg)
+
+
+def make_model(cfg: ModelConfig) -> ModelFns:
+    return ModelFns(
+        cfg=cfg,
+        param_specs=build_specs(cfg),
+        build=functools.partial(HybridLM, cfg),
+        paged_cache_specs=functools.partial(paged_cache_specs, cfg),
+        prefill_chunk=functools.partial(prefill_chunk_fn, cfg=cfg),
+        decode_paged=functools.partial(decode_paged_fn, cfg=cfg),
+        # attention K/V pages could be shared, but the Mamba2 recurrent
+        # state cannot be skipped: prefix sharing is bookkeeping only
+        paged_state=True,
+    )

@@ -1,4 +1,4 @@
-"""Layer primitives of the dense decoder: RoPE, GQA projections, paged
+"""Layer primitives shared by the families: RoPE, GQA projections, paged
 attention, the MLP, embeddings and logits.
 
 Ported from ``repro/models/layers.py``. Results are rounded to bf16 at
@@ -111,15 +111,21 @@ def chunk_rows(cfg: ModelConfig, offset: int, n: int,
 # ---------------------------------------------------------------------------
 
 
-def attn_specs(cfg: ModelConfig, layers: int) -> dict:
-    """Parameter specs for ``layers`` stacked attention blocks."""
+def attn_specs(cfg: ModelConfig, layers: int | None = None) -> dict:
+    """Parameter specs for one (``layers=None``, the hybrid family's shared
+    block) or ``layers`` stacked attention blocks."""
     d, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    lead, lax_ = (layers,), ("layers",)
+    lead = () if layers is None else (layers,)
+    lax_ = () if layers is None else ("layers",)
     specs = {
-        "wq": PSpec(lead + (d, H, dh), lax_ + ("embed_in", "heads", "head_dim")),
-        "wk": PSpec(lead + (d, K, dh), lax_ + ("embed_in", "kv_heads", "head_dim")),
-        "wv": PSpec(lead + (d, K, dh), lax_ + ("embed_in", "kv_heads", "head_dim")),
-        "wo": PSpec(lead + (H, dh, d), lax_ + ("heads", "head_dim", "embed_out")),
+        "wq": PSpec(lead + (d, H, dh), lax_ + ("embed_in", "heads", "head_dim"),
+                    cast=True),
+        "wk": PSpec(lead + (d, K, dh), lax_ + ("embed_in", "kv_heads", "head_dim"),
+                    cast=True),
+        "wv": PSpec(lead + (d, K, dh), lax_ + ("embed_in", "kv_heads", "head_dim"),
+                    cast=True),
+        "wo": PSpec(lead + (H, dh, d), lax_ + ("heads", "head_dim", "embed_out"),
+                    cast=True),
         "ln": PSpec(lead + (d,), lax_ + ("embed",), init="ones"),
     }
     if cfg.qk_norm:
@@ -204,15 +210,16 @@ def attn_prefill_chunk(
 # ---------------------------------------------------------------------------
 
 
-def mlp_specs(cfg: ModelConfig, width: int, layers: int) -> dict:
+def mlp_specs(cfg: ModelConfig, width: int, layers: int | None = None) -> dict:
     d = cfg.d_model
-    lead, lax_ = (layers,), ("layers",)
+    lead = () if layers is None else (layers,)
+    lax_ = () if layers is None else ("layers",)
     if not cfg.gated_mlp:
-        raise NotImplementedError("the port's dense family is gated (SwiGLU)")
+        raise NotImplementedError("the port's MLP is gated (SwiGLU)")
     return {
-        "wg": PSpec(lead + (d, width), lax_ + ("embed_in", "mlp")),
-        "wu": PSpec(lead + (d, width), lax_ + ("embed_in", "mlp")),
-        "wd": PSpec(lead + (width, d), lax_ + ("mlp", "embed_out")),
+        "wg": PSpec(lead + (d, width), lax_ + ("embed_in", "mlp"), cast=True),
+        "wu": PSpec(lead + (d, width), lax_ + ("embed_in", "mlp"), cast=True),
+        "wd": PSpec(lead + (width, d), lax_ + ("mlp", "embed_out"), cast=True),
         "ln": PSpec(lead + (d,), lax_ + ("embed",), init="ones"),
     }
 
@@ -233,11 +240,12 @@ def mlp_forward(p: nn.Module, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
 def embed_specs(cfg: ModelConfig) -> dict:
     d, v = cfg.d_model, cfg.vocab_size
     specs = {
-        "embedding": PSpec((v, d), ("vocab_gather", "embed_model"), init="normal"),
+        "embedding": PSpec((v, d), ("vocab_gather", "embed_model"),
+                           init="normal", cast=True),
         "final_ln": PSpec((d,), ("embed",), init="ones"),
     }
     if not cfg.tie_embeddings:
-        specs["unembed"] = PSpec((d, v), ("embed_in", "vocab"))
+        specs["unembed"] = PSpec((d, v), ("embed_in", "vocab"), cast=True)
     return specs
 
 

@@ -1,0 +1,209 @@
+"""Mamba1 selective-SSM LM (falcon-mamba-7b): the paged serving path.
+
+Ported from ``repro/models/mamba.py``: Mamba1 blocks with falcon-mamba's
+parameter-free RMS normalization of the SSM inputs (dt, B, C). The state of
+a slot is O(1) in sequence length, so the paged cache holds no page pool
+at all: ``conv`` (L, n_slots, W-1, Di) bf16 and ``ssm`` (L, n_slots, Di, N)
+f32, both dense per slot. Chunked prefill writes the slot's rows in place;
+decode is the ordinary batched step over every slot. Layer ``l`` updates
+``cache[...][l]`` in place, as the dense family updates its page pools.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as ll
+from repro_torch.models.model_api import ModelFns, Params, PSpec, Tree
+
+
+def mamba_block_specs(cfg: ModelConfig, layers: int) -> dict:
+    d, di, N, R, W = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
+                      cfg.d_conv)
+    lead, lx = (layers,), ("layers",)
+    return {
+        "ln": PSpec(lead + (d,), lx + ("embed",), init="ones"),
+        "wx": PSpec(lead + (d, di), lx + ("embed_in", "inner"), cast=True),
+        "wz": PSpec(lead + (d, di), lx + ("embed_in", "inner"), cast=True),
+        "conv_w": PSpec(lead + (W, di), lx + ("conv", "inner")),
+        "conv_b": PSpec(lead + (di,), lx + ("inner",), init="zeros"),
+        "wdt": PSpec(lead + (di, R), lx + ("inner", "dt_rank"), cast=True),
+        "wB": PSpec(lead + (di, N), lx + ("inner", "state"), cast=True),
+        "wC": PSpec(lead + (di, N), lx + ("inner", "state"), cast=True),
+        "dt_proj": PSpec(lead + (R, di), lx + ("dt_rank", "inner"), cast=True),
+        "dt_bias": PSpec(lead + (di,), lx + ("inner",), init="zeros"),
+        "A_log": PSpec(lead + (di, N), lx + ("inner", "state"), init="small"),
+        "D": PSpec(lead + (di,), lx + ("inner",), init="ones"),
+        "out_proj": PSpec(lead + (di, d), lx + ("inner", "embed_out"),
+                          cast=True),
+    }
+
+
+def build_specs(cfg: ModelConfig) -> dict:
+    return {**ll.embed_specs(cfg),
+            "layers": mamba_block_specs(cfg, cfg.n_layers)}
+
+
+class MambaLM(nn.Module):
+    """Weights of a Mamba1 LM: embedding, one :class:`Params` per layer,
+    final norm and (untied) unembedding."""
+
+    def __init__(self, cfg: ModelConfig, tree: Tree):
+        super().__init__()
+        self.cfg = cfg
+        for name, t in tree.items():
+            if name != "layers":
+                self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+        stacked = tree["layers"]
+        self.layers = nn.ModuleList(
+            Params(**{k: v[i] for k, v in stacked.items()})
+            for i in range(cfg.n_layers))
+
+
+# ---------------------------------------------------------------------------
+# Mamba1 block
+# ---------------------------------------------------------------------------
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU in f32, cast back (the reference's ``jax.nn.silu`` of an f32
+    copy)."""
+    return F.silu(x.float()).to(x.dtype)
+
+
+def _rms(x: torch.Tensor) -> torch.Tensor:
+    """Parameter-free RMS normalization (falcon-mamba's dt/B/C norm)."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + 1e-6)).to(x.dtype)
+
+
+def _ssm_inputs(lp: nn.Module, xin: torch.Tensor):
+    """xin (B, S, Di) -> (dt f32, Bm, C, A f32, D f32)."""
+    dt_low = _rms(xin @ lp.wdt)
+    dt = F.softplus((dt_low @ lp.dt_proj).float() + lp.dt_bias.float())
+    Bm = _rms(xin @ lp.wB)
+    C = _rms(xin @ lp.wC)
+    A = -torch.exp(lp.A_log.float())
+    return dt, Bm, C, A, lp.D.float()
+
+
+def new_conv_state(conv_state: torch.Tensor, pre_conv: torch.Tensor,
+                   valid: int) -> torch.Tensor:
+    """The last ``W-1`` real rows of ``conv_state ‖ pre_conv[:, :valid]``
+    (``repro/models/mamba.py:114-123``): rows ``[valid, valid+W-1)`` of the
+    concatenation, so pad rows past ``valid`` never enter the state."""
+    W1 = conv_state.shape[1]
+    ext = torch.cat([conv_state.to(pre_conv.dtype), pre_conv], dim=1)
+    return ext[:, valid:valid + W1].to(torch.bfloat16)
+
+
+def _block(lp: nn.Module, x: torch.Tensor, cfg: ModelConfig,
+           conv_state: torch.Tensor, ssm_state: torch.Tensor, valid: int):
+    """A prompt chunk through one Mamba1 block. ``valid`` leading tokens
+    are real: pads get ``dt = 0``, an identity step of the recurrence, so
+    the carried state is exactly the state after ``valid`` tokens. Returns
+    ``(out, new conv state (B, W-1, Di) bf16, new ssm state (B, Di, N))``."""
+    S = x.shape[1]
+    h = ops.rmsnorm(x, lp.ln, cfg.norm_eps)
+    xin = h @ lp.wx
+    z = h @ lp.wz
+    pre_conv = xin
+    xin = silu(ops.causal_conv1d(xin, lp.conv_w, lp.conv_b, state=conv_state))
+    dt, Bm, C, A, D = _ssm_inputs(lp, xin)
+    real = torch.arange(S, device=x.device)[None, :, None] < valid
+    dt = torch.where(real, dt, torch.zeros((), device=x.device))
+    y, hT = ops.selective_scan(xin, dt.to(xin.dtype), A, Bm, C, D,
+                               h0=ssm_state)
+    y = y * silu(z)
+    out = x + y @ lp.out_proj
+    return out, new_conv_state(conv_state, pre_conv, valid), hT
+
+
+def _block_decode(lp: nn.Module, x: torch.Tensor, cfg: ModelConfig,
+                  conv_state: torch.Tensor, ssm_state: torch.Tensor):
+    """One token per lane through one Mamba1 block; x (B, 1, d)."""
+    h = ops.rmsnorm(x, lp.ln, cfg.norm_eps)
+    xin = h @ lp.wx
+    z = h @ lp.wz
+    new_conv = torch.cat([conv_state.to(xin.dtype), xin], dim=1)[:, 1:]
+    xin = silu(ops.causal_conv1d(xin, lp.conv_w, lp.conv_b, state=conv_state))
+    dt, Bm, C, A, D = _ssm_inputs(lp, xin)
+    y, h_new = ops.selective_scan_step(xin[:, 0], dt[:, 0].to(xin.dtype), A,
+                                       Bm[:, 0], C[:, 0], D, ssm_state)
+    y = y[:, None] * silu(z)
+    return x + y @ lp.out_proj, new_conv.to(torch.bfloat16), h_new
+
+
+# ---------------------------------------------------------------------------
+# Paged serving entry points
+# ---------------------------------------------------------------------------
+
+
+def paged_cache_specs(cfg: ModelConfig, n_slots: int, n_pages: int,
+                      page_size: int) -> dict:
+    L, di, N, W = cfg.n_layers, cfg.d_inner, cfg.ssm_state, cfg.d_conv
+    return {
+        "conv": PSpec((L, n_slots, W - 1, di),
+                      ("layers", "batch", "conv", "inner"), init="zeros"),
+        "ssm": PSpec((L, n_slots, di, N),
+                     ("layers", "batch", "inner", "state"), init="zeros"),
+    }
+
+
+def slot_state(cache: Tree, name: str, layer: int, slot: int,
+               offset: int) -> torch.Tensor:
+    """Layer ``layer``'s state of one slot as a (1, ...) batch: zeros at a
+    fresh admission (``offset == 0``), whatever the slot last held."""
+    row = cache[name][layer, slot:slot + 1]
+    return torch.zeros_like(row) if offset == 0 else row
+
+
+def prefill_chunk_fn(params: MambaLM, cache: Tree, batch: dict,
+                     cfg: ModelConfig, *, offset: int) -> torch.Tensor:
+    """One prompt chunk into slot ``batch["slot"]`` (``mamba.py:212-249``);
+    returns the logits of the last valid token, (1, V) f32."""
+    slot, valid = int(batch["slot"]), int(batch["valid"])
+    x = ll.embed_lookup(params, batch["tokens"])          # (1, C, d)
+    for i, lp in enumerate(params.layers):
+        cs = slot_state(cache, "conv", i, slot, offset)
+        ss = slot_state(cache, "ssm", i, slot, offset)
+        x, cs, ss = _block(lp, x, cfg, cs, ss, valid)
+        cache["conv"][i, slot:slot + 1] = cs
+        cache["ssm"][i, slot:slot + 1] = ss
+    x = ops.rmsnorm(x, params.final_ln, cfg.norm_eps)
+    return ll.logits_last(params, x[:, valid - 1], cfg)
+
+
+def decode_fn(params: MambaLM, cache: Tree, batch: dict,
+              cfg: ModelConfig) -> torch.Tensor:
+    """One batched token step over every slot (``mamba.py:158-173``).
+    Returns (B, V) f32."""
+    x = ll.embed_lookup(params, batch["tokens"])          # (B, 1, d)
+    for i, lp in enumerate(params.layers):
+        x, cs, ss = _block_decode(lp, x, cfg, cache["conv"][i],
+                                  cache["ssm"][i])
+        cache["conv"][i] = cs
+        cache["ssm"][i] = ss
+    x = ops.rmsnorm(x, params.final_ln, cfg.norm_eps)
+    return ll.logits_last(params, x[:, 0], cfg)
+
+
+def make_model(cfg: ModelConfig) -> ModelFns:
+    return ModelFns(
+        cfg=cfg,
+        param_specs=build_specs(cfg),
+        build=functools.partial(MambaLM, cfg),
+        paged_cache_specs=functools.partial(paged_cache_specs, cfg),
+        prefill_chunk=functools.partial(prefill_chunk_fn, cfg=cfg),
+        decode_paged=functools.partial(decode_fn, cfg=cfg),
+        # recurrent state is not page-addressable: prefix sharing falls
+        # back to trie bookkeeping only
+        paged_state=True,
+    )

@@ -6,11 +6,13 @@ initialization is derived from that one structure, with the same fan-in rule
 (``model_api.py:43-57``): ``normal(0, 1/sqrt(fan_in))`` with fan-in over
 every axis but the last, excluding a leading ``layers`` axis.
 
-Storage: a matrix (two or more axes besides ``layers``) is stored in bf16,
-because the reference keeps f32 masters but casts every matrix to bf16
-before use (``repro/models/layers.py:21-25``), so the arithmetic is the
-same. Vectors (norm weights) stay f32, as the reference's RMSNorm reads its
-weight in f32 (``repro/kernels/ref.py:31``).
+Storage: a leaf is stored in bf16 exactly where the reference casts it to
+bf16 before every use (``ll.cast``, ``repro/models/layers.py:21-25``) —
+the spec says so with ``cast=True`` — so the arithmetic is the same.
+Every other leaf stays f32, as the reference reads it from its f32 master:
+norm weights (``repro/kernels/ref.py:31``), the SSM families' ``A_log``
+(``repro/models/mamba.py:76``, ``hybrid.py:97``), ``conv_w``
+(``repro/kernels/ops.py:395-402``) and their vectors.
 
 A family's ``build`` turns the nested tree (layer-stacked leaves
 ``(L, ...)``, the reference's layout) into its ``nn.Module``, holding one
@@ -38,7 +40,8 @@ class PSpec:
 
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]
-    init: str = "fan_in"  # fan_in | zeros | ones | normal
+    init: str = "fan_in"  # fan_in | zeros | ones | normal | small
+    cast: bool = False    # the reference casts it to bf16 before every use
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -47,10 +50,6 @@ class PSpec:
     @property
     def stacked(self) -> bool:
         return bool(self.axes) and self.axes[0] == "layers"
-
-    @property
-    def is_matrix(self) -> bool:
-        return len(self.shape) - int(self.stacked) >= 2
 
     def fan_in(self) -> int:
         """The reference's fan-in: all axes but the last, without a leading
@@ -63,7 +62,18 @@ class PSpec:
 
 
 def storage_dtype(spec: PSpec) -> torch.dtype:
-    return torch.bfloat16 if spec.is_matrix else torch.float32
+    return torch.bfloat16 if spec.cast else torch.float32
+
+
+def _init_scale(spec: PSpec) -> float:
+    """The reference's draw scale per init rule (``model_api.py:43-57``)."""
+    if spec.init == "normal":
+        return 0.02
+    if spec.init == "small":
+        return 1e-4
+    if spec.init == "fan_in":
+        return spec.fan_in() ** -0.5
+    raise ValueError(f"unknown init {spec.init!r} for spec {spec.shape}")
 
 
 def _materialize(spec: PSpec, gen: torch.Generator,
@@ -72,7 +82,7 @@ def _materialize(spec: PSpec, gen: torch.Generator,
     if spec.init in ("zeros", "ones"):
         fill = 0.0 if spec.init == "zeros" else 1.0
         return torch.full(spec.shape, fill, dtype=dtype, device=device)
-    scale = 0.02 if spec.init == "normal" else spec.fan_in() ** -0.5
+    scale = _init_scale(spec)
     out = torch.empty(spec.shape, dtype=dtype, device=device)
     # one layer at a time: the f32 draw of a whole stacked leaf would need
     # twice the memory of the bf16 weights it becomes
@@ -105,17 +115,27 @@ class Params(nn.Module):
 class ModelFns:
     """One architecture: its specs and its serving entry points.
 
-    The paged entry points update the page pools of ``cache`` in place and
-    return only the logits:
+    The paged entry points update ``cache`` in place and return only the
+    logits:
 
-    - ``paged_cache_specs(n_slots, n_pages, page_size)`` -> dict of PSpec;
+    - ``paged_cache_specs(n_slots, n_pages, page_size)`` -> dict of PSpec:
+      sequence-indexed leaves are shared page pools named ``*_pages``
+      ``(layers, n_pages, page_size, ...)``; per-slot recurrent state
+      (SSM ``conv``/``ssm``) keeps a dense ``(layers, n_slots, ...)``
+      layout;
     - ``prefill_chunk(params, cache, batch, *, offset)`` — one prompt chunk
       at absolute position ``offset``; batch carries ``tokens (1, C)``,
-      ``valid`` (int) and ``page_table (max_pages,)``; returns the logits
-      of the last valid token ``(1, V)``;
-    - ``decode_paged(params, cache, batch)`` — one batched token step;
-      batch carries ``tokens (B, 1)``, ``positions (B,)`` and
+      ``valid`` (int), ``slot`` (int) and ``page_table (max_pages,)``;
+      returns the logits of the last valid token ``(1, V)``;
+    - ``decode_paged(params, cache, batch)`` — one batched token step over
+      every slot; batch carries ``tokens (B, 1)``, ``positions (B,)`` and
       ``page_table (B, max_pages)``; returns ``(B, V)`` logits.
+
+    ``paged_state`` is True when the cache carries per-slot recurrent state
+    (``repro/models/model_api.py:121-130``): that state is not
+    page-addressable, so the engine's prefix sharing falls back to trie
+    bookkeeping only, and a decode step advances the state of every lane
+    it runs.
     """
 
     cfg: ModelConfig
@@ -124,6 +144,14 @@ class ModelFns:
     paged_cache_specs: Callable[..., Tree]
     prefill_chunk: Callable[..., torch.Tensor]
     decode_paged: Callable[..., torch.Tensor]
+    paged_state: bool = False
+
+    @property
+    def supports_prefix_sharing(self) -> bool:
+        """True when the whole per-token cache lives in shared page pools,
+        so a cached prompt prefix can be installed into another slot with
+        zero recompute (``repro/models/model_api.py:200-207``)."""
+        return not self.paged_state
 
     def init(self, generator: torch.Generator | int = 0,
              device: str | torch.device = "cuda") -> nn.Module:

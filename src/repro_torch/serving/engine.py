@@ -2,10 +2,12 @@
 
 Ported from ``repro/serving/engine.py``, paged engine only. The engine owns
 ``n_slots`` decode lanes over a shared pool of fixed-size pages with
-per-slot page tables (:mod:`repro_torch.serving.kvcache`). Admission runs
-chunked prefill at true prompt length, writing each chunk's K/V straight
-into the slot's pages; decode advances every active slot through one
-batched ``decode_paged`` step through the paged flash-decode kernel.
+per-slot page tables (:mod:`repro_torch.serving.kvcache`). It serves the
+dense (qwen3-8b, smollm-360m), SSM (falcon-mamba-7b) and hybrid
+(zamba2-1.2b) families. Admission runs chunked prefill at true prompt
+length, writing each chunk's K/V straight into the slot's pages and its
+recurrent state into the slot's rows; decode advances every active slot
+through one batched ``decode_paged`` step.
 
 What carries over from the reference, with the same semantics and the same
 ``stats`` counters:
@@ -17,6 +19,11 @@ What carries over from the reference, with the same semantics and the same
   continuous batching;
 - copy-on-write prefix sharing through the prefix trie, with the COW copy
   of a partially used shared page on a whole-prompt hit (``_copy_pages``);
+  for families with per-slot recurrent state (``model.paged_state``: the
+  SSM and hybrid families) the trie is bookkeeping only, as in the
+  reference (``engine.py:521-527,1869-1873,2015-2031``): it counts would-be
+  hits through phantom page ids registered at admission, and prefill is
+  never skipped (a preempted request re-prefills from offset 0);
 - deferral of a request whose prefix an in-flight prefill is about to
   register (``_await_inflight_prefix``);
 - token-exact preemption with re-prefill resume, shedding of expired and
@@ -24,6 +31,11 @@ What carries over from the reference, with the same semantics and the same
   force_tokens=...)``);
 - host-side sampling from numpy Gumbel noise keyed by (seed, position)
   (``_choose``), so sampled streams match the reference's exactly.
+
+One deliberate difference: a lane whose chunked prefill is still in flight
+keeps its recurrent state through the batched decode steps that run
+meanwhile, bit for bit (``_decode_step``). The reference's decode advances
+the conv/SSM state of every lane, that one included (ROADMAP Queue 3, R3).
 
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
 item where the constructor takes it): speculative decoding and ``fork``,
@@ -233,9 +245,13 @@ class ServeEngine:
         self.page_table = np.zeros((n_slots, self.max_pages), np.int32)
         self.slot_pages: list[list[int]] = [[] for _ in range(n_slots)]
         self.prefill_chunk = min(prefill_chunk, self.max_pages * page_size)
-        # copy-on-write prefix sharing through the trie (on by default)
-        self.prefix_share = True if prefix_share is None else prefix_share
+        # prefix sharing through the trie: on by default; families with
+        # recurrent state (not page-addressable) keep trie bookkeeping only
+        enabled = True if prefix_share is None else prefix_share
+        self.prefix_cache = enabled
+        self.prefix_share = enabled and model.supports_prefix_sharing
         self.prefix_index = PrefixIndex(page_size)
+        self._phantom_next = self.n_pages  # bookkeeping-only node ids
         self.cache = init_paged_cache(model, n_slots, self.n_pages,
                                       page_size, device=self.device)
         self._admit_ready = True  # new submits / freed pages to try
@@ -327,7 +343,7 @@ class ServeEngine:
             "positions": self._tensor(self.lengths),
             "page_table": self._tensor(self.page_table),
         }
-        logits = self.model.decode_paged(self.params, self.cache, batch)
+        logits = self._decode_step(batch)
         next_tokens = logits.argmax(dim=-1).cpu().numpy()
         rows = (logits.float().cpu().numpy()
                 if self._any_sampled(active) else None)
@@ -353,6 +369,24 @@ class ServeEngine:
             self.step()
             max_steps -= 1
         return [r for r in self.requests.values() if r.done]
+
+    def _decode_step(self, batch: dict) -> torch.Tensor:
+        """One batched ``decode_paged`` step. It runs every lane; a lane
+        whose chunked prefill is in flight gets its recurrent state rows
+        (every non-page leaf, ``(layers, n_slots, ...)``) back afterwards,
+        bit for bit, so its next chunk continues from the state its last
+        chunk left (R3). Its attention K/V write already goes to the
+        scratch page through its page-table row."""
+        hold = sorted(self.prefilling) if self.model.paged_state else []
+        saved = {}
+        if hold:
+            idx = torch.tensor(hold, device=self.device)
+            saved = {k: v[:, idx] for k, v in self.cache.items()
+                     if not k.endswith("_pages")}
+        logits = self.model.decode_paged(self.params, self.cache, batch)
+        for k, rows in saved.items():
+            self.cache[k][:, idx] = rows
+        return logits
 
     # -------------------------------------------------------------- sampling
     def _any_sampled(self, lanes: list[int]) -> bool:
@@ -498,7 +532,7 @@ class ServeEngine:
         slot = req.slot
         if slot is None or slot in self.prefilling:
             raise ValueError("only active decode slots can be preempted")
-        if self.prefix_share:
+        if self.prefix_cache:
             covered = int(self.lengths[slot])
             gen = req.generated[: covered - len(req.prompt)]
             self._register_prefix(req.prompt + list(gen),
@@ -540,12 +574,16 @@ class ServeEngine:
         need = pages_needed(
             min(len(req.prompt) + req.max_new_tokens, self.max_seq), P)
         key_tokens = self._admit_keys(req)
-        matched, shared = 0, []
-        if self.prefix_share:
+        matched, shared, would_be = 0, [], 0
+        if self.prefix_cache:
             chain = self.prefix_index.lookup(key_tokens)
             # cap at tlen-1: at least one suffix token must run through the
             # model to produce the first-token logits
             matched = min(len(chain) * P, tlen - 1)
+            if not self.prefix_share:
+                # recurrent state is not page-addressable: the trie tracks
+                # would-be hits only, prefill is never skipped
+                would_be, matched = matched, 0
             shared = chain[: pages_needed(matched, P)] if matched else []
         if require_shared and not shared:
             return False
@@ -557,13 +595,16 @@ class ServeEngine:
         private = self.pool.alloc(need - matched // P)
         assert private is not None  # guaranteed by the pre-check
         self._retire_cached(private)
+        if would_be:
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_hit_tokens"] += would_be
         self._prefill_paged(slot, req, shared, private, matched, key_tokens)
         return True
 
     def _retire_cached(self, pages: list[int]) -> None:
         """Freshly reallocated pages lose their cached contents: evict them
         (and their subtrees) from the prefix trie."""
-        if not self.prefix_share:
+        if not self.prefix_cache:
             return
         for p in pages:
             if p in self.prefix_index._nodes:
@@ -615,6 +656,11 @@ class ServeEngine:
             self.stats["prefix_hit_tokens"] += matched
         self.stats["peak_pages"] = max(self.stats["peak_pages"],
                                        self.pool.outstanding)
+        if self.prefix_cache and not self.prefix_share:
+            # bookkeeping-only trie: phantom ids carry no page content, so
+            # they register at begin (sharing families wait for the content,
+            # _finish_prefill)
+            self._register_prefix(key_tokens, chain)
         if cow:
             # one synthetic decode step writes the final token's K/V into
             # the COW'd page and returns its logits; other lanes re-write
@@ -630,7 +676,7 @@ class ServeEngine:
                 "positions": self._tensor(pos),
                 "page_table": self._tensor(self.page_table),
             }
-            logits = self.model.decode_paged(self.params, self.cache, batch)
+            logits = self._decode_step(batch)
             first = int(logits[slot].argmax())
             self._finish_prefill(slot, req, key_tokens, chain, first, tlen)
             return
@@ -661,7 +707,7 @@ class ServeEngine:
             off = task.offset
             toks = np.zeros((1, C), np.int32)
             toks[0, :n] = task.ptoks[off:off + n]
-            batch = {"tokens": self._tensor(toks), "valid": n,
+            batch = {"tokens": self._tensor(toks), "valid": n, "slot": slot,
                      "page_table": table_row}
             task.logits = self.model.prefill_chunk(self.params, self.cache,
                                                    batch, offset=off)
@@ -707,7 +753,18 @@ class ServeEngine:
 
     def _register_prefix(self, tokens: list[int], chain: list[int]) -> None:
         """Index the full pages of ``tokens`` (the trie key sequence, one
-        key per cache position) so later prompts can share them."""
+        key per cache position) so later prompts can share them — or, for
+        recurrent-state families, so the trie counts would-be hits through
+        phantom ids (``>= n_pages``)."""
         n = len(tokens) // self.page_size
-        if n:
+        if n == 0:
+            return
+        if self.prefix_share:
             self.prefix_index.insert(tokens, chain[:n])
+            return
+        # bookkeeping-only trie: bound its growth, it holds no pages
+        if len(self.prefix_index) > 8 * self.n_pages:
+            return
+        phantoms = list(range(self._phantom_next, self._phantom_next + n))
+        self._phantom_next += n
+        self.prefix_index.insert(tokens, phantoms)

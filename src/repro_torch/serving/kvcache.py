@@ -376,6 +376,10 @@ class PrefixIndex:
 def init_paged_cache(model: ModelFns, n_slots: int, n_pages: int,
                      page_size: int, dtype: torch.dtype = torch.bfloat16,
                      device: str | torch.device = "cuda") -> Tree:
-    """The model's zeroed paged cache: layer-stacked page pools
-    ``(L, n_pages, page_size, K, dh)`` on ``device``."""
+    """The model's zeroed paged cache on ``device``: layer-stacked page
+    pools ``*_pages`` ``(L, n_pages, page_size, K, dh)`` in ``dtype``, and,
+    for the SSM and hybrid families, dense per-slot state leaves — ``conv``
+    ``(L, n_slots, W-1, C)`` in ``dtype`` and ``ssm`` ``(L, n_slots, ...)``
+    in f32 (the reference's rule, ``model_api._cache_dtype``). The
+    engine's page operations (``_copy_pages``) touch only ``*_pages``."""
     return model.init_paged_cache(n_slots, n_pages, page_size, dtype, device)

@@ -5,7 +5,10 @@
 - ``params_from_reference`` maps the reference's layer-stacked tree onto the
   port's per-layer modules: matrices equal the reference's own bf16 cast
   bit for bit, norm weights cross as f32 unchanged;
-- a tree that does not match the model's specs is refused.
+- a tree that does not match the model's specs is refused;
+- for the SSM and hybrid families, a leaf is stored in bf16 exactly where
+  the reference casts it before use, and in f32 otherwise (``A_log``,
+  ``conv_w``).
 """
 
 import numpy as np
@@ -93,3 +96,54 @@ def test_mismatched_tree_is_refused():
     bad = {k: v for k, v in tree.items() if k != "unembed"}
     with pytest.raises(ValueError, match="keys"):
         params_from_reference(bad, model, device="cpu")
+
+
+def _port_leaf(params, path: tuple, i: int | None):
+    """The port's tensor for the reference leaf at ``path`` (layer ``i`` of
+    a layer-stacked group)."""
+    if path[0] == "layers":
+        return getattr(params.layers[i], path[-1])
+    node = params
+    for key in path:
+        node = getattr(node, key)
+    return node
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
+def test_storage_follows_the_reference_casts(arch):
+    """A leaf crosses as the reference uses it: bf16 bit for bit where its
+    code casts (``ll.cast``), f32 unchanged elsewhere — ``A_log`` and
+    ``conv_w`` included, which the reference reads in f32
+    (``repro/models/mamba.py:76``, ``hybrid.py:97``, ``ops.py:395-402``);
+    nested ``shared.*`` groups and the unstacked ``app_proj`` too."""
+    from repro_torch.models.model_api import PSpec
+
+    cfg = REDUCED[arch]
+    ref = ref_get_model(cfg).init(jax.random.key(2))
+    model = get_model(get(arch, reduced=True))
+    params = params_from_reference(jax.tree.map(np.asarray, ref), model,
+                                   device="cpu")
+    leaves = jax.tree_util.tree_flatten_with_path(
+        model.param_specs, is_leaf=lambda x: isinstance(x, PSpec))[0]
+    seen = set()
+    for kpath, spec in leaves:
+        path = tuple(k.key for k in kpath)
+        arr = np.asarray(ref[path[0]] if len(path) == 1 else
+                         ref[path[0]][path[1]] if len(path) == 2 else
+                         ref[path[0]][path[1]][path[2]])
+        for i in range(cfg.n_layers) if path[0] == "layers" else [None]:
+            want = arr[i] if i is not None else arr
+            got = _port_leaf(params, path, i)
+            if spec.cast:
+                assert got.dtype == torch.bfloat16, path
+                want = np.asarray(jnp.asarray(want, jnp.bfloat16))
+            else:
+                assert got.dtype == torch.float32, path
+            np.testing.assert_array_equal(_bits(numpy_from_tensor(got)),
+                                          _bits(want), err_msg=str(path))
+        seen.add(path[-1])
+    assert {"A_log", "conv_w", "D"} <= seen
+    if arch == "zamba2-1.2b":
+        assert {"app_proj", "wq", "wg"} <= seen
+    block = params.layers[0]
+    assert block.A_log.dtype == block.conv_w.dtype == torch.float32

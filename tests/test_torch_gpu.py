@@ -45,3 +45,43 @@ def test_kernels_match_plain_versions_on_the_card():
         want = ops.paged_decode_attention(qd, pages, pages, table, lens)
     got = ops.paged_decode_attention(qd, pages, pages, table, lens)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,h0_scale", [(37, 0.0), (200, 0.1), (300, 0.1)])
+def test_ssm_kernels_match_plain_versions_on_the_card(S, h0_scale):
+    """On the H100: the selective scan and the SSD against their plain
+    versions, ragged lengths (SSD over one and over two chunks of 256) and
+    nonzero initial states; y in bf16 at atol = rtol = 2e-2, the f32 final
+    state at 5e-3 (``tests/test_kernels.py:106,128``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(S)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=dev)
+
+    B, Di, N = 2, 200, 16
+    ins = [rnd(B, S, Di, scale=0.5).bfloat16(),
+           (rnd(B, S, Di).abs() * 0.1).bfloat16(),
+           -(rnd(Di, N).abs() + 0.1),
+           rnd(B, S, N, scale=0.5).bfloat16(), rnd(B, S, N, scale=0.5).bfloat16(),
+           rnd(Di), rnd(B, Di, N, scale=h0_scale)]
+    with ops.use_backend("plain"):
+        yw, hw = ops.selective_scan(*ins)
+    y, hT = ops.selective_scan(*ins)
+    torch.testing.assert_close(y.float(), yw.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(hT, hw, atol=5e-3, rtol=5e-3)
+
+    B, Hs, P, N = 2, 3, 48, 64
+    ins = [rnd(B, S, Hs, P, scale=0.5).bfloat16(),
+           (rnd(B, S, Hs).abs() * 0.1).bfloat16(),
+           -(rnd(Hs).abs() + 0.1),
+           rnd(B, S, N, scale=0.5).bfloat16(), rnd(B, S, N, scale=0.5).bfloat16(),
+           rnd(Hs), rnd(B, Hs, P, N, scale=h0_scale)]
+    with ops.use_backend("plain"):
+        yw, hw = ops.ssd(*ins, chunk=256)
+    y, hT = ops.ssd(*ins, chunk=256)
+    torch.testing.assert_close(y.float(), yw.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(hT, hw, atol=5e-3, rtol=5e-3)

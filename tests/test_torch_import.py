@@ -7,7 +7,10 @@
 - without a card, every entry point asked for ``cuda`` raises instead of
   running on the CPU;
 - the port's configs equal the JAX package's, and archs of families not
-  ported yet raise ``KeyError`` naming their ROADMAP item.
+  ported yet raise ``KeyError`` naming their ROADMAP item;
+- initialization follows the reference's rules (fan-in, ``normal``,
+  ``small``; an unknown rule raises), and ``param_count`` counts every
+  family's leaves.
 """
 
 import ast
@@ -41,7 +44,10 @@ def _modules() -> list[str]:
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "repro_torch.serving.engine" in mods
+    assert {"repro_torch.serving.engine", "repro_torch.models.mamba",
+            "repro_torch.models.hybrid", "repro_torch.kernels.selective_scan",
+            "repro_torch.kernels.ssd", "repro_torch.configs.falcon_mamba_7b",
+            "repro_torch.configs.zamba2_1_2b"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -112,7 +118,8 @@ def test_engine_rejects_what_the_slice_leaves_out():
             ServeEngine(model, params, **kw, **extra)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "smollm-360m"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "smollm-360m",
+                                  "falcon-mamba-7b", "zamba2-1.2b"])
 def test_configs_equal_the_reference(arch):
     from repro.configs import get as ref_get
 
@@ -123,8 +130,7 @@ def test_configs_equal_the_reference(arch):
 
 @pytest.mark.parametrize("arch", [
     "phi4-mini-3.8b", "minitron-4b", "granite-moe-1b-a400m",
-    "deepseek-moe-16b", "falcon-mamba-7b", "zamba2-1.2b",
-    "llava-next-mistral-7b", "whisper-medium",
+    "deepseek-moe-16b", "llava-next-mistral-7b", "whisper-medium",
 ])
 def test_archs_not_ported_raise(arch):
     from repro.configs import get as ref_get
@@ -135,7 +141,7 @@ def test_archs_not_ported_raise(arch):
     from repro_torch.config import ModelConfig
 
     cfg = ref_get(arch, reduced=True)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(ModelConfig(**dataclasses.asdict(cfg)))
 
@@ -185,3 +191,65 @@ def test_cache_dtype_rule():
     assert _cache_dtype(PSpec((2, 3), ("pages", "head_dim")),
                         torch.bfloat16) == torch.bfloat16
 
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
+def test_ssm_specs_follow_the_reference(arch):
+    """Every leaf's shape, init rule and fan-in equal the reference's
+    (``repro/models/model_api.py:43-57``); ``A_log`` draws with the
+    ``small`` rule (N(0, 1) * 1e-4) and stays f32, as does ``conv_w``."""
+    import jax
+    from repro.configs import get as ref_get
+    from repro.models import get_model as ref_get_model
+
+    model = get_model(get(arch, reduced=True))
+    ref_specs = ref_get_model(ref_get(arch, reduced=True)).param_specs
+    ref_flat = jax.tree_util.tree_flatten_with_path(
+        ref_specs, is_leaf=lambda x: hasattr(x, "fan_axis"))[0]
+    assert len(ref_flat) == len(jax.tree_util.tree_leaves(
+        model.param_specs, is_leaf=lambda x: isinstance(x, PSpec)))
+    for path, spec in ref_flat:
+        port = model.param_specs
+        for k in path:
+            port = port[k.key]
+        assert (port.shape, port.axes, port.init) == \
+            (spec.shape, spec.axes, spec.init), path
+        if spec.init == "fan_in":
+            fan = max(1, int(np.prod(spec.shape[1:-1] if spec.axes[0] ==
+                                     "layers" and len(spec.shape) > 2
+                                     else spec.shape[:-1])))
+            assert port.fan_in() == fan, path
+    params = model.init(torch.Generator().manual_seed(5), device="cpu")
+    a_log = torch.stack([b.A_log for b in params.layers])
+    assert a_log.dtype == torch.float32
+    assert abs(a_log.std().item() / 1e-4 - 1) < 0.2
+    assert params.layers[0].conv_w.dtype == torch.float32
+
+
+def test_unknown_init_rule_raises():
+    from repro_torch.models.model_api import _materialize
+
+    spec = PSpec((4, 4), ("embed_in", "mlp"), init="xavier")
+    with pytest.raises(ValueError, match="unknown init"):
+        _materialize(spec, torch.Generator().manual_seed(0),
+                     torch.device("cpu"))
+
+
+@pytest.mark.parametrize("arch,billions", [
+    ("qwen3-8b", 8.191), ("smollm-360m", 0.362),
+    ("falcon-mamba-7b", 7.273), ("zamba2-1.2b", 1.229),
+])
+def test_param_count_counts_every_leaf(arch, billions):
+    """``param_count`` equals the number of values the specs declare, for
+    every family the port carries (falcon-mamba-7b 7.273 B, zamba2-1.2b
+    1.229 B)."""
+    cfg = get(arch)
+    specs = _spec_leaves(get_model(cfg).param_specs)
+    assert cfg.param_count() == sum(int(np.prod(s.shape)) for s in specs)
+    assert round(cfg.param_count() / 1e9, 3) == billions
+
+
+def _spec_leaves(tree) -> list:
+    if isinstance(tree, PSpec):
+        return [tree]
+    return [leaf for v in tree.values() for leaf in _spec_leaves(v)]

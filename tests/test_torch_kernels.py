@@ -169,7 +169,8 @@ def test_cpu_tensors_dispatch_to_the_plain_versions():
                                table, lens)
     counts = ops.counts()
     assert {n: c["plain"] for n, c in counts.items()} == {
-        "rmsnorm": 1, "flash_attention": 1, "paged_decode_attention": 1}
+        "rmsnorm": 1, "flash_attention": 1, "paged_decode_attention": 1,
+        "selective_scan": 0, "ssd": 0}
     assert all(c["launches"] == 0 for c in counts.values())
     ops.reset_counts()
     assert all(c == {"launches": 0, "plain": 0} for c in ops.counts().values())
