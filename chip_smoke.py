@@ -16,7 +16,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    kernel, plain version and, where one PyTorch call computes the same
    function, that call (``library_ms``, a yardstick only); the attention
    kernels also at zamba2's shapes (D = 64, H = K = 32), the SSM kernels
-   also at a ragged length and from a nonzero state;
+   also at a ragged length and from a nonzero state; the dense decode at
+   a 2048-position cache with lengths 0 (zeros), 1 and 2048; flash
+   attention, the scan and the SSD also over a whole 2048-token dense
+   prefill;
 4. per model — full-width, full-depth ``qwen3-8b``, then ``falcon-mamba-7b``
    (Mamba1), then ``zamba2-1.2b`` (Mamba2 + shared attention), each with
    seeded random weights, freed before the next:
@@ -34,7 +37,19 @@ Phases, each of which raises on failure (the exit code is then non-zero):
       not chaotic (qwen3-8b), beside a control (the plain path with one
       bf16 ulp added to one embedding value); and every kernel call of the
       plain path is also run through the kernel on the same activations
-      and must agree within the kernel's tolerance (kernel-forced).
+      and must agree within the kernel's tolerance (kernel-forced);
+   d. dense: the same 16 requests through ``ServeEngine(paged=False)``
+      (every kernel of the dense path launched, ``decode_attention`` for
+      qwen3-8b and zamba2, no plain version called), the share of greedy
+      tokens equal to the paged serve's (a number, not a gate: the dense
+      engine attends its bucket's left pads, and the rounding differs),
+      and a teacher-forced dense run whose every kernel call is held
+      against the plain version on the same activations (kernel-forced);
+   e. continuity, paged and dense: 8 requests served, snapshotted after 6
+      steps, restored into a fresh engine and finished; every request's
+      tokens must equal an uninterrupted run's exactly (same card,
+      greedy); the blob's bytes and the snapshot and restore seconds are
+      printed.
 
 The line two before the last is the kernels summary as JSON (one row per
 kernel and model whose path runs it), the line before the last the card's
@@ -260,6 +275,54 @@ def check_paged_decode(gen, *, n_heads=32, n_kv=8, d=128) -> dict:
     }
 
 
+def check_decode(gen, *, n_heads=32, n_kv=8, d=128) -> dict:
+    """The dense-cache decode at the dense engine's shape: 8 lanes over a
+    ``MAX_SEQ`` cache, lengths from 0 (zeros) to the whole cache."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dk, ops
+
+    lengths = [0, 1, 63, MAX_SEQ, 700, 1300, MAX_SEQ - 1, 64]
+    B, S = len(lengths), MAX_SEQ
+    q = torch.randn(B, n_heads, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(B, S, n_kv, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(B, S, n_kv, d, generator=gen, device="cuda").bfloat16()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    got = dk.decode_attention(q, k, v, lens)
+    with ops.use_backend("plain"):
+        want = ops.decode_attention(q, k, v, lens)
+    err = _close(got, want, "decode_attention")
+    if bool(got[0].float().abs().max() != 0):
+        raise AssertionError("decode: zero-length lane is not zeros")
+    if not torch.equal(got, dk.decode_attention(q, k, v, lens)):
+        raise AssertionError("decode: two runs differ bitwise")
+    alone = dk.decode_attention(q[5:6], k[5:6], v[5:6], lens[5:6])
+    if not torch.equal(alone[0], got[5]):
+        raise AssertionError("decode: lane 5 changed with its batch")
+    n_keys = int(lens.sum())
+    nbytes = (n_keys * n_kv * d * 2 * 2 + 2 * q.numel() * 2
+              + lens.numel() * 4)
+    flops = 4 * n_keys * n_heads * d
+    # the yardstick: SDPA over the same cache, a boolean key mask and GQA
+    # (NaN on the empty lane; only its time is used)
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None]
+            )[:, None, None, :]
+    return {
+        "shape": {"B": B, "H": n_heads, "K": n_kv, "D": d, "S": S,
+                  "lengths": lengths},
+        "max_abs_err": err,
+        "ms": _time_ms(lambda: dk.decode_attention(q, k, v, lens),
+                       flush=True),
+        "plain_ms": _time_ms(lambda: dk.plain(q, k, v, lens), flush=True),
+        "library_ms": _time_ms(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), flush=True),
+        **_bound(nbytes, flops, F32_FLOPS),
+    }
+
+
 def check_flash(gen, *, H=32, K=8, D=128) -> list[dict]:
     import torch
     import torch.nn.functional as F
@@ -267,8 +330,10 @@ def check_flash(gen, *, H=32, K=8, D=128) -> list[dict]:
     from repro_torch.kernels import flash_attention as fk, ops
 
     rows = []
+    # paged prefill chunks, a ragged one, and a whole dense prefill
     cases = [(CHUNK, off, -(-(off + CHUNK) // PAGE) * PAGE)
-             for off in (0, 256, 1280)] + [(200, 777, 977)]
+             for off in (0, 256, 1280)] + [(200, 777, 977),
+                                            (MAX_SEQ, 0, MAX_SEQ)]
     for sq, off, sk in cases:
         q = torch.randn(1, sq, H, D, generator=gen, device="cuda").to(torch.bfloat16)
         k = torch.randn(1, sk, K, D, generator=gen, device="cuda").to(torch.bfloat16)
@@ -303,13 +368,15 @@ def check_flash(gen, *, H=32, K=8, D=128) -> list[dict]:
 
 def check_selective_scan(gen) -> list[dict]:
     """falcon-mamba's prefill chunk (S = 256, Di = 8192, N = 16) from a zero
-    and from a nonzero state, and a ragged S = 200; y (bf16) and hT (f32)."""
+    and from a nonzero state, a ragged S = 200, and a whole dense prefill
+    (S = 2048 from a zero state); y (bf16) and hT (f32)."""
     import torch
 
     from repro_torch.kernels import ops, selective_scan as sk
 
     rows = []
-    for S, h0_scale in ((CHUNK, 0.0), (CHUNK, 0.1), (200, 0.1)):
+    for S, h0_scale in ((CHUNK, 0.0), (CHUNK, 0.1), (200, 0.1),
+                        (MAX_SEQ, 0.0)):
         B, Di, N = 1, 8192, 16
         x = (0.5 * torch.randn(B, S, Di, generator=gen, device="cuda")).bfloat16()
         dt = (0.1 * torch.randn(B, S, Di, generator=gen, device="cuda").abs()
@@ -344,14 +411,16 @@ def check_selective_scan(gen) -> list[dict]:
 
 def check_ssd(gen) -> list[dict]:
     """zamba2's prefill chunk (S = c = 256, Hs = 64, P = 64, N = 64) from a
-    zero and from a nonzero state, a ragged S = 200, and S = 600 over three
-    chunks; y (bf16) and hT (f32)."""
+    zero and from a nonzero state, a ragged S = 200, S = 600 over three
+    chunks, and a whole dense prefill (S = 2048, eight chunks, from a zero
+    state); y (bf16) and hT (f32)."""
     import torch
 
     from repro_torch.kernels import ops, ssd as dk
 
     rows = []
-    for S, h0_scale in ((CHUNK, 0.0), (CHUNK, 0.1), (200, 0.1), (600, 0.1)):
+    for S, h0_scale in ((CHUNK, 0.0), (CHUNK, 0.1), (200, 0.1), (600, 0.1),
+                        (MAX_SEQ, 0.0)):
         B, Hs, P, N = 1, 64, 64, 64
         x = (0.5 * torch.randn(B, S, Hs, P, generator=gen, device="cuda")
              ).bfloat16()
@@ -396,12 +465,15 @@ def phase_kernels(seed: int = 0) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     out = {"rmsnorm": check_rmsnorm(gen),
            "paged_decode_attention": [check_paged_decode(gen)],
+           "decode_attention": [check_decode(gen)],
            "flash_attention": check_flash(gen),
            "selective_scan": check_selective_scan(gen),
            "ssd": check_ssd(gen),
            # zamba2's shared attention block: D = 64, H = K = 32 (G = 1)
            "paged_decode_attention@zamba2": [
                check_paged_decode(gen, n_heads=32, n_kv=32, d=64)],
+           "decode_attention@zamba2": [
+               check_decode(gen, n_heads=32, n_kv=32, d=64)],
            "flash_attention@zamba2": check_flash(gen, H=32, K=32, D=64)}
     for name, rows in out.items():
         for r in rows:
@@ -439,6 +511,22 @@ PATH_KERNELS = {
     "zamba2-1.2b": ("rmsnorm", "paged_decode_attention", "flash_attention",
                     "ssd"),
 }
+# the same for the dense engine (``paged=False``)
+DENSE_PATH_KERNELS = {
+    "qwen3-8b": ("rmsnorm", "decode_attention", "flash_attention"),
+    "falcon-mamba-7b": ("rmsnorm", "selective_scan"),
+    "zamba2-1.2b": ("rmsnorm", "decode_attention", "flash_attention", "ssd"),
+}
+
+
+def _check_counts(counts: dict, path: tuple, what: str) -> None:
+    """Every kernel of ``path`` launched, no plain version called."""
+    for name, c in counts.items():
+        if name in path and c["launches"] <= 0:
+            raise AssertionError(f"{what}: kernel {name} was never "
+                                 f"launched: {c}")
+        if c["plain"]:
+            raise AssertionError(f"{what}: plain {name} ran: {c}")
 
 
 def _slot_state(cache, slot: int) -> dict:
@@ -518,11 +606,7 @@ def phase_serve(model, params, seed: int = 0) -> dict:
     done = [r for r in reqs if r.done]
     if len(done) != len(reqs):
         raise AssertionError(f"{len(done)}/{len(reqs)} requests completed")
-    for name, c in counts.items():
-        if name in PATH_KERNELS[cfg.arch_id] and c["launches"] <= 0:
-            raise AssertionError(f"kernel {name} was never launched: {c}")
-        if c["plain"]:
-            raise AssertionError(f"plain {name} ran on the main path: {c}")
+    _check_counts(counts, PATH_KERNELS[cfg.arch_id], "paged serve")
     stats = engine.stats
     r3 = None
     if model.paged_state:
@@ -558,6 +642,7 @@ def phase_serve(model, params, seed: int = 0) -> dict:
         "launches": {n: c["launches"] for n, c in counts.items()},
     }
     log(out)
+    out["tokens"] = [r.generated for r in reqs]
     return out
 
 
@@ -681,12 +766,12 @@ def _teacher_forced(model, params, prompts, forced, n_steps: int):
     return torch.stack(rows).float(), per_call
 
 
-def _kernel_forced(model, params, prompts, forced, n_steps: int) -> dict:
-    """The plain path, teacher-forced, in which every call of a kernel's
-    dispatch also runs the kernel on the same input — the model's real
-    activations at the path's shapes — and holds it to the kernel's
-    tolerance (bf16 outputs 2e-2, f32 states 5e-3). The plain result
-    carries on, so no difference compounds. Returns the largest
+def _kernel_forced(run) -> dict:
+    """The plain path of ``run()`` (a teacher-forced pass), in which every
+    call of a kernel's dispatch also runs the kernel on the same input —
+    the model's real activations at the path's shapes — and holds it to
+    the kernel's tolerance (bf16 outputs 2e-2, f32 states 5e-3). The plain
+    result carries on, so no difference compounds. Returns the largest
     difference per kernel."""
     import torch
 
@@ -694,6 +779,7 @@ def _kernel_forced(model, params, prompts, forced, n_steps: int) -> dict:
 
     dispatch = {"rmsnorm": "rmsnorm", "attention": "flash_attention",
                 "paged_decode_attention": "paged_decode_attention",
+                "decode_attention": "decode_attention",
                 "selective_scan": "selective_scan", "ssd": "ssd"}
     saved = {n: getattr(ops, n) for n in dispatch}
     worst: dict[str, float] = {}
@@ -715,7 +801,7 @@ def _kernel_forced(model, params, prompts, forced, n_steps: int) -> dict:
         setattr(ops, n, both(k, saved[n], ops.KERNELS[k]))
     try:
         with ops.use_backend("plain"):
-            _teacher_forced(model, params, prompts, forced, n_steps)
+            run()
     finally:
         for n, fn in saved.items():
             setattr(ops, n, fn)
@@ -772,13 +858,206 @@ def phase_logits(model, params, seed: int = 1) -> dict:
                (nudged_all - want).abs().max().item(),
            "atol": atol, "launches_per_call": per_call}
     out["kernel_forced_max_abs_err"] = _kernel_forced(
-        model, params, prompts, forced, 8)
+        lambda: _teacher_forced(model, params, prompts, forced, 8))
     log(out)
     if atol is not None and (diff.max().item() > atol
                              or tie_gap.item() > atol):
         raise AssertionError(f"kernel and plain logits differ by "
                              f"{diff.max().item():.4g}, greedy choices by "
                              f"{tie_gap.item():.4g} (bound {atol})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 6. dense: the engine's paged=False path
+# ---------------------------------------------------------------------------
+
+
+def _teacher_forced_dense(model, params, prompts, forced, n_steps: int):
+    """The dense path's counterpart of :func:`_teacher_forced`: each prompt
+    right-aligned in its bucket, prefilled whole and scattered into its
+    slot of a dense cache, then ``n_steps`` batched ``decode_step`` calls
+    feeding ``forced`` tokens; returns the launches per call."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import _bucket
+    from repro_torch.serving.kvcache import expand_prefill_cache, scatter_slot
+
+    B = len(prompts)
+    cache = model.init_cache(B, MAX_SEQ, device="cuda")
+    per_call = {}
+
+    def launches(before):
+        return {k: ops.counts()[k]["launches"] - v["launches"]
+                for k, v in before.items()}
+
+    pos = []
+    for b, p in enumerate(prompts):
+        n = _bucket(len(p))
+        toks = torch.zeros(1, n, dtype=torch.int32, device="cuda")
+        toks[0, n - len(p):] = torch.tensor(p)
+        before = ops.counts()
+        _, pcache = model.prefill(params, {"tokens": toks})
+        per_call.setdefault("prefill", launches(before))
+        scatter_slot(cache, expand_prefill_cache(
+            pcache, {k: v[:, :1] for k, v in cache.items()}), b)
+        pos.append(n)
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    for s in range(n_steps):
+        toks = torch.tensor([[forced[b][s]] for b in range(B)],
+                            dtype=torch.int32, device="cuda")
+        before = ops.counts()
+        model.decode_step(params, cache, {"tokens": toks, "positions": pos})
+        per_call.setdefault("decode_step", launches(before))
+        pos = pos + 1
+    return per_call
+
+
+def phase_dense(model, params, paged_tokens: list, seed: int = 0) -> dict:
+    """The smoke traffic through ``ServeEngine(paged=False)``, then the
+    kernel-forced check of a teacher-forced dense run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = model.cfg
+    engine = ServeEngine(model, params, n_slots=N_SLOTS, max_seq=MAX_SEQ,
+                         paged=False, device="cuda")
+    engine.submit(list(range(1, 300)), max_new_tokens=2)   # warm-up
+    engine.run()
+    engine.reset_stats()
+    prompts = _traffic(seed, cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, max_new_tokens=32) for p in prompts]
+    ttft: dict[int, float] = {}
+    decode_ms = []
+    while engine.pending():
+        s0 = time.perf_counter()
+        queued = len(engine.queue)
+        n_active = engine.step()
+        torch.cuda.synchronize()
+        if n_active and len(engine.queue) == queued:   # no admission ran
+            decode_ms.append((time.perf_counter() - s0) * 1e3)
+        for r in reqs:
+            if r.generated and r.req_id not in ttft:
+                ttft[r.req_id] = time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    counts = ops.counts()
+    if not all(r.done for r in reqs):
+        raise AssertionError("dense serve: not every request completed")
+    _check_counts(counts, DENSE_PATH_KERNELS[cfg.arch_id], "dense serve")
+    tokens = [r.generated for r in reqs]
+    n_gen = sum(map(len, tokens))
+    same = sum(a == b for t, u in zip(tokens, paged_tokens)
+               for a, b in zip(t, u))
+    rng = np.random.default_rng(seed + 1)
+    tf_prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+                  for n in (700, 300)]
+    forced = rng.integers(1, cfg.vocab_size, (2, 8)).tolist()
+    per_call = _teacher_forced_dense(model, params, tf_prompts, forced, 8)
+    out = {
+        "phase": "dense", "arch": cfg.arch_id, "requests": len(reqs),
+        "generated_tokens": n_gen, "wall_s": wall,
+        "tokens_per_s": n_gen / wall,
+        "decode_step_ms_median": statistics.median(decode_ms),
+        "decode_steps": len(decode_ms),
+        "ttft_s_median": statistics.median(ttft.values()),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        # bucketed admission: a prompt whose bucket fills max_seq ends after
+        # one decode step, as in the reference
+        "requests_ended_at_max_seq": sum(
+            len(t) < 32 for t in tokens),
+        "greedy_agreement_with_paged": same / max(1, sum(
+            min(len(t), len(u)) for t, u in zip(tokens, paged_tokens))),
+        "launches": {n: c["launches"] for n, c in counts.items()},
+        "launches_per_call": per_call,
+        "kernel_forced_max_abs_err": _kernel_forced(
+            lambda: _teacher_forced_dense(model, params, tf_prompts, forced,
+                                          8)),
+    }
+    log(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 7. continuity: snapshot, restore on a fresh engine, finish
+# ---------------------------------------------------------------------------
+
+FAIL_AFTER = 6
+
+
+def phase_continuity(model, params, *, paged: bool, seed: int = 3) -> dict:
+    """8 requests (prompts of 100-600 tokens, 16 new tokens each) served
+    without a failure, and again with the host failing after
+    ``FAIL_AFTER`` steps: snapshot, a fresh engine restores the blob and
+    finishes. Every request's tokens must be equal, bit for bit the same
+    greedy stream."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.engine import ServeEngine
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, model.cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(100, 601, 8)]
+
+    def engine():
+        return ServeEngine(model, params, n_slots=N_SLOTS, max_seq=MAX_SEQ,
+                           page_size=PAGE, prefill_chunk=CHUNK, paged=paged,
+                           device="cuda")
+
+    def submit(eng):
+        return [eng.submit(p, max_new_tokens=16) for p in prompts]
+
+    whole = engine()
+    want = [r.generated for r in submit(whole)]
+    whole.run()
+    del whole
+    cut = engine()
+    submit(cut)
+    for _ in range(FAIL_AFTER):
+        cut.step()
+    torch.cuda.synchronize()
+    # what snapshot() does first, timed apart: finish in-flight prefills
+    t0 = time.perf_counter()
+    draining = len(cut.prefilling)
+    if draining:
+        cut._pump_prefill(None)
+    torch.cuda.synchronize()
+    t_drain = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blob = cut.snapshot()
+    t_snap = time.perf_counter() - t0
+    in_flight = sum(r is not None for r in cut.slot_req)
+    del cut
+    gc.collect()
+    resumed = engine()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed.restore(blob)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    resumed.run()
+    got = [resumed.requests[i].generated for i in range(len(prompts))]
+    out = {"phase": "continuity", "arch": model.cfg.arch_id,
+           "mode": "paged" if paged else "dense",
+           "fail_after_steps": FAIL_AFTER, "slots_in_flight": in_flight,
+           "prefills_drained": draining, "drain_s": t_drain,
+           "blob_bytes": len(blob), "snapshot_s": t_snap,
+           "restore_s": t_restore,
+           "generated_tokens": sum(map(len, got)),
+           "identical": got == want}
+    log(out)
+    if got != want:
+        raise AssertionError(f"continuity ({out['mode']}): the restored "
+                             f"engine's tokens differ from the "
+                             f"uninterrupted run's")
     return out
 
 
@@ -792,6 +1071,8 @@ ROUTES = {
     "paged_decode_attention": (
         "cuda", "src/repro_torch/csrc/paged_decode_attention.cu",
         "src/repro/kernels/paged_decode_attention.py:129"),
+    "decode_attention": ("cuda", "src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:113"),
     "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:139"),
     "selective_scan": ("cuda", "src/repro_torch/csrc/selective_scan.cu",
@@ -800,26 +1081,28 @@ ROUTES = {
             "src/repro/kernels/ssd.py:112"),
 }
 # the check row that stands for each (kernel, model) in the summary line:
-# the decode step's block norm (d 4096, or zamba2's d 2048), the paged
-# decode case, the longest prefill chunk (q_offset 1280), the SSM kernels'
-# prefill chunk from a nonzero state
+# the decode step's block norm (d 4096, or zamba2's d 2048), the paged and
+# the dense decode cases, the longest prefill chunk (q_offset 1280), the SSM
+# kernels' prefill chunk from a nonzero state
 SUMMARY_ROW = {
     "qwen3-8b": {"rmsnorm": ("rmsnorm", 0),
                  "paged_decode_attention": ("paged_decode_attention", 0),
+                 "decode_attention": ("decode_attention", 0),
                  "flash_attention": ("flash_attention", 2)},
     "falcon-mamba-7b": {"rmsnorm": ("rmsnorm", 0),
                         "selective_scan": ("selective_scan", 1)},
     "zamba2-1.2b": {"rmsnorm": ("rmsnorm", 4),
                     "paged_decode_attention": (
                         "paged_decode_attention@zamba2", 0),
+                    "decode_attention": ("decode_attention@zamba2", 0),
                     "flash_attention": ("flash_attention@zamba2", 2),
                     "ssd": ("ssd", 1)},
 }
 
 
 def run_model(arch: str) -> dict:
-    """Serve, profile and logits phases of one model at full width; its
-    weights and caches are freed before returning."""
+    """Serve, profile, logits, dense and continuity phases of one model at
+    full width; its weights and caches are freed before returning."""
     import torch
 
     from repro_torch.configs import get
@@ -835,10 +1118,19 @@ def run_model(arch: str) -> dict:
     serve = phase_serve(model, params)
     phase_profile(model, params)
     per_call = phase_logits(model, params)["launches_per_call"]
+    dense = phase_dense(model, params, serve["tokens"])
+    for paged in (True, False):
+        phase_continuity(model, params, paged=paged)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
-    return {"serve": serve, "per_call": per_call}
+    # each kernel's counts come from the path that runs it: the dense
+    # decode from the dense serve, every other kernel from the paged one
+    return {"paged": (serve["launches"], per_call["decode_step"],
+                      per_call["prefill_chunk"]),
+            "dense": (dense["launches"],
+                      dense["launches_per_call"]["decode_step"],
+                      dense["launches_per_call"]["prefill"])}
 
 
 def main() -> int:
@@ -864,13 +1156,14 @@ def main() -> int:
         for name, (check, i) in rows.items():
             route, source, replaces = ROUTES[name]
             row = checks[check][i]
+            path = "dense" if name == "decode_attention" else "paged"
+            serve, per_step, per_prefill = ran[path]
             kernels.append({
                 "name": name, "route": route, "source": source,
-                "replaces": replaces, "model": arch,
-                "launches": ran["serve"]["launches"][name],
-                "launches_per_decode_step": ran["per_call"]["decode_step"][name],
-                "launches_per_prefill_chunk":
-                    ran["per_call"]["prefill_chunk"][name],
+                "replaces": replaces, "model": arch, "path": path,
+                "launches": serve[name],
+                "launches_per_decode_step": per_step[name],
+                "launches_per_prefill": per_prefill[name],
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],

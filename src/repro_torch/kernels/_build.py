@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface (pointers and the stream as
 ``void*``, sizes as ``int``; every entry returns ``cudaGetLastError()``).
 It compiles on first use, for ``sm_90a`` only, into
 ``build/repro_torch/lib<name>-<hash>.so`` at the root of the checkout; the
-hash is the source's, so an edited source rebuilds and a stale library is
-never loaded. Nothing here runs at import time: the CPU tests import every
-module of the port on a machine without ``nvcc``.
+hash is the source's and its headers' (``csrc/*.cuh``), so an edited source
+or header rebuilds and a stale library is never loaded. Nothing here runs
+at import time: the CPU tests import every module of the port on a machine
+without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("paged_decode_attention", "flash_attention", "selective_scan", "ssd")
+SOURCES = ("paged_decode_attention", "decode_attention", "flash_attention",
+           "selective_scan", "ssd")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -39,8 +41,13 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """Where ``csrc/<name>.cu`` builds to: the hash covers the source, every
+    shared header of ``csrc/`` and the flags."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD / f"lib{name}-{digest}.so"
 
 

@@ -22,6 +22,7 @@ import contextvars
 
 import torch
 
+from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import ref
@@ -37,6 +38,7 @@ _BACKEND: contextvars.ContextVar[str] = contextvars.ContextVar(
 KERNELS = {
     "rmsnorm": _rmsnorm.rmsnorm,
     "paged_decode_attention": _paged.paged_decode_attention,
+    "decode_attention": _decode.decode_attention,
     "flash_attention": _flash.flash_attention,
     "selective_scan": _scan.selective_scan,
     "ssd": _ssd.ssd,
@@ -92,6 +94,19 @@ def attention(
     if _plain(q, "flash_attention"):
         return ref.attention(q, k, v, causal=causal, q_offset=q_offset)
     return _flash.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+
+
+def decode_attention(
+    q: torch.Tensor,        # (B, H, D)
+    k: torch.Tensor,        # (B, S, K, D)
+    v: torch.Tensor,        # (B, S, K, D)
+    lengths: torch.Tensor,  # (B,) int32
+) -> torch.Tensor:
+    """One token per lane over a dense cache; zeros for a lane of length 0,
+    as the TPU kernel gives (``ref.decode_attention``)."""
+    if _plain(q, "decode_attention"):
+        return ref.decode_attention(q, k, v, lengths)
+    return _decode.decode_attention(q, k, v, lengths)
 
 
 def paged_decode_attention(

@@ -16,10 +16,12 @@ chunks), the blocking the CUDA kernel follows. ``causal_conv1d``,
 ``selective_scan_step`` and ``ssd_step`` have no TPU kernel: they are plain
 code on every device (``ops.py:381-405,457-477,579-605``).
 
-One deliberate difference from ``repro.kernels.ref``: a paged-decode lane of
-length 0 gives zeros, which is the kernels' contract (the TPU kernel's and
-the port's; ``tests/test_paged.py:114-120``), where the JAX oracle averages
-the masked values.
+One deliberate difference from ``repro.kernels.ref``: a decode lane of
+length 0, dense or paged, gives zeros, which is the kernels' contract (the
+TPU kernels' ``acc / max(l, 1e-30)`` and the port's;
+``tests/test_paged.py:114-120``), where the JAX oracle and the XLA path
+(``repro/kernels/ops.py:205-219``) average the masked values (ROADMAP
+Queue 3, P2).
 """
 
 from __future__ import annotations

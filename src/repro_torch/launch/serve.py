@@ -2,12 +2,15 @@
 
 A :class:`~repro_torch.serving.engine.ServeEngine` serves a batch of random
 prompts with continuous batching, from weights drawn from ``--seed``, and
-prints each request's greedy continuation. Runs on ``cuda`` unless
-``--device cpu`` is given.
+prints each request's greedy continuation. With ``--fail-after N`` the
+serving host fails after N engine steps: the engine is snapshotted, a
+fresh engine with the same weights restores the blob (the substitute host,
+paper §III-D), and generation resumes deterministically. Runs on ``cuda``
+unless ``--device cpu`` is given.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
-        [--full] [--device cpu] [--requests 8 --max-new 12]
+        [--full] [--device cpu] [--requests 8 --max-new 12] [--fail-after 5]
 
 ``--arch`` takes every arch the port carries: ``qwen3-8b``,
 ``smollm-360m`` (dense), ``falcon-mamba-7b`` (SSM) and ``zamba2-1.2b``
@@ -27,6 +30,8 @@ def main(argv: list[str] | None = None) -> list:
     ap.add_argument("--max-seq", type=int, default=256)
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--fail-after", type=int, default=None,
+                    help="kill the serving host after N engine steps")
     ap.add_argument("--full", action="store_true",
                     help="published widths and depth (else the reduced twin)")
     ap.add_argument("--seed", type=int, default=0)
@@ -50,7 +55,18 @@ def main(argv: list[str] | None = None) -> list:
         engine.submit(prompt, max_new_tokens=args.max_new)
     print(f"serving {args.requests} requests on {args.arch} "
           f"({args.slots} slots, {engine.device})")
-    done = engine.run()
+    if args.fail_after is None:
+        done = engine.run()
+    else:
+        for _ in range(args.fail_after):
+            engine.step()
+        print(f"-- host failure after {args.fail_after} steps: snapshotting, "
+              f"restoring on substitute host --")
+        blob = engine.snapshot()          # P2P replica (paper §III-D)
+        engine2 = ServeEngine(model, params, n_slots=args.slots,
+                              max_seq=args.max_seq, device=args.device)
+        engine2.restore(blob)             # restore on the receiver
+        done = engine2.run()
     for r in sorted(done, key=lambda r: r.req_id)[:6]:
         print(f"  req {r.req_id}: prompt {r.prompt[:4]}... -> {r.generated}")
     print(f"{len(done)}/{args.requests} requests completed")

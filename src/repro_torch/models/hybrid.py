@@ -1,15 +1,15 @@
-"""Zamba2-style hybrid (zamba2-1.2b): the paged serving path.
+"""Zamba2-style hybrid (zamba2-1.2b): the dense and the paged serving paths.
 
 Ported from ``repro/models/hybrid.py``: a Mamba2 (SSD) backbone, and one
 weight-SHARED attention + MLP block applied before every ``attn_every``-th
 layer, each application with its own input projection over
 ``[hidden ‖ original embedding]`` (``app_proj``, the Zamba wiring).
 
-The paged cache: the shared block's K/V pages like any attention cache,
-one pool per application (``att_k_pages``/``att_v_pages``, (n_apps,
-n_pages, P, K, dh)); the Mamba2 ``conv`` (L, n_slots, W-1, Di+2N) bf16 and
-``ssm`` (L, n_slots, Hs, P, N) f32 states stay dense per slot and are
-updated in place.
+The caches: the shared block's K/V like any attention cache, one per
+application — dense ``att_k``/``att_v`` (n_apps, n_slots, max_seq, K, dh),
+or page pools ``att_k_pages``/``att_v_pages`` (n_apps, n_pages, P, K, dh);
+the Mamba2 ``conv`` (L, n_slots, W-1, Di+2N) bf16 and ``ssm`` (L, n_slots,
+Hs, P, N) f32 states stay dense per slot in both and are updated in place.
 """
 
 from __future__ import annotations
@@ -24,7 +24,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as ll
 from repro_torch.models.mamba import new_conv_state, silu, slot_state
-from repro_torch.models.model_api import ModelFns, Params, PSpec, Tree
+from repro_torch.models.model_api import (ModelFns, Params, PSpec, Tree,
+                                          zeros_from_specs)
 
 
 def mamba2_block_specs(cfg: ModelConfig, layers: int) -> dict:
@@ -159,6 +160,18 @@ def _block_decode(lp: nn.Module, x: torch.Tensor, cfg: ModelConfig,
     return out, new_conv.to(torch.bfloat16), h_new
 
 
+def _decode_layers(params: HybridLM, cache: Tree, x: torch.Tensor, a: int,
+                   b: int, cfg: ModelConfig) -> torch.Tensor:
+    """One token per lane through the Mamba2 layers ``[a, b)``, their
+    ``conv``/``ssm`` state rows of every lane updated in place."""
+    for i in range(a, b):
+        x, cs, ss = _block_decode(params.layers[i], x, cfg, cache["conv"][i],
+                                  cache["ssm"][i])
+        cache["conv"][i] = cs
+        cache["ssm"][i] = ss
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Shared attention block
 # ---------------------------------------------------------------------------
@@ -167,9 +180,9 @@ def _block_decode(lp: nn.Module, x: torch.Tensor, cfg: ModelConfig,
 def _shared_block(params: HybridLM, app: int, x: torch.Tensor,
                   x0: torch.Tensor, cfg: ModelConfig, attend) -> torch.Tensor:
     """Application ``app`` of the weight-shared attention + MLP block
-    (``hybrid.py:158-196``): ``attend(p, h)`` is the paged attention of
-    this call (a prefill chunk or a decode step) on the application's
-    pools."""
+    (``hybrid.py:158-196``): ``attend(p, h)`` is the attention of this
+    call (a whole-prompt prefill, a prefill chunk or a decode step) on the
+    application's cache."""
     sp = params.shared
     inp = torch.cat([x, x0], dim=-1) @ params.app_proj[app]
     h = ops.rmsnorm(inp, sp.attn.ln, cfg.norm_eps)
@@ -180,23 +193,97 @@ def _shared_block(params: HybridLM, app: int, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Dense serving entry points
+# ---------------------------------------------------------------------------
+
+
+def _state_specs(cfg: ModelConfig, batch: int) -> dict:
+    """The Mamba2 states of ``batch`` slots, alike in both caches."""
+    L, N, W, di = cfg.n_layers, cfg.ssm_state, cfg.d_conv, cfg.d_inner
+    nh, P = cfg.n_ssm_heads, cfg.ssm_head_dim
+    return {
+        "conv": PSpec((L, batch, W - 1, di + 2 * N),
+                      ("layers", "batch", "conv", "inner"), init="zeros"),
+        "ssm": PSpec((L, batch, nh, P, N),
+                     ("layers", "batch", "ssm_heads", None, "state"),
+                     init="zeros"),
+    }
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    n_apps = len(cfg.hybrid_attention_layers())
+    K, dh = cfg.n_kv_heads, cfg.d_head
+    seq_axes = ("layers", "batch", "seq_fallback", "kv_heads", "head_dim")
+    return {
+        **_state_specs(cfg, batch),
+        "att_k": PSpec((n_apps, batch, max_seq, K, dh), seq_axes,
+                       init="zeros"),
+        "att_v": PSpec((n_apps, batch, max_seq, K, dh), seq_axes,
+                       init="zeros"),
+    }
+
+
+def prefill_fn(params: HybridLM, batch: dict, cfg: ModelConfig):
+    """The whole prompt from a zero state (``hybrid.py:257-280``): each
+    application of the shared block attends causally over every position,
+    each Mamba2 layer runs one SSD over them. Returns the logits of the
+    last position (1, V) f32 and the batch-1 cache."""
+    x = ll.embed_lookup(params, batch["tokens"])          # (1, S, d)
+    x0 = x
+    S = x.shape[1]
+    rows = ll.dense_rows(cfg, torch.arange(S, device=x.device))
+    state = zeros_from_specs(_state_specs(cfg, 1), device=x.device)
+    att_k, att_v = [], []
+
+    def attend(p, h):
+        out, k, v = ll.attn_forward(p, h, cfg, rows)
+        att_k.append(k)
+        att_v.append(v)
+        return out
+
+    for app, a, b in segments(cfg):
+        x = _shared_block(params, app, x, x0, cfg, attend)
+        for i in range(a, b):
+            x, cs, ss = _block(params.layers[i], x, cfg, state["conv"][i],
+                               state["ssm"][i], S)
+            state["conv"][i] = cs
+            state["ssm"][i] = ss
+    x = ops.rmsnorm(x, params.final_ln, cfg.norm_eps)
+    cache = {**state, "att_k": torch.stack(att_k),
+             "att_v": torch.stack(att_v)}
+    return ll.logits_last(params, x[:, -1], cfg), cache
+
+
+def decode_fn(params: HybridLM, cache: Tree, batch: dict,
+              cfg: ModelConfig) -> torch.Tensor:
+    """One batched token step over every lane of the dense cache
+    (``hybrid.py:283-315``). Returns (B, V) f32."""
+    positions = batch["positions"]
+    rows = ll.dense_decode_rows(cfg, positions, cache["att_k"].shape[2])
+    lengths = (positions + 1).to(torch.int32)
+    x = ll.embed_lookup(params, batch["tokens"])          # (B, 1, d)
+    x0 = x
+    for app, a, b in segments(cfg):
+        x = _shared_block(params, app, x, x0, cfg, lambda p, h: (
+            ll.attn_decode(p, h, cfg, rows, lengths, cache["att_k"][app],
+                           cache["att_v"][app])))
+        x = _decode_layers(params, cache, x, a, b, cfg)
+    x = ops.rmsnorm(x, params.final_ln, cfg.norm_eps)
+    return ll.logits_last(params, x[:, 0], cfg)
+
+
+# ---------------------------------------------------------------------------
 # Paged serving entry points
 # ---------------------------------------------------------------------------
 
 
 def paged_cache_specs(cfg: ModelConfig, n_slots: int, n_pages: int,
                       page_size: int) -> dict:
-    L, N, W, di = cfg.n_layers, cfg.ssm_state, cfg.d_conv, cfg.d_inner
-    nh, P = cfg.n_ssm_heads, cfg.ssm_head_dim
     n_apps = len(cfg.hybrid_attention_layers())
     K, dh = cfg.n_kv_heads, cfg.d_head
     page_axes = ("layers", "pages", "page", "kv_heads", "head_dim")
     return {
-        "conv": PSpec((L, n_slots, W - 1, di + 2 * N),
-                      ("layers", "batch", "conv", "inner"), init="zeros"),
-        "ssm": PSpec((L, n_slots, nh, P, N),
-                     ("layers", "batch", "ssm_heads", None, "state"),
-                     init="zeros"),
+        **_state_specs(cfg, n_slots),
         "att_k_pages": PSpec((n_apps, n_pages, page_size, K, dh), page_axes,
                              init="zeros"),
         "att_v_pages": PSpec((n_apps, n_pages, page_size, K, dh), page_axes,
@@ -248,11 +335,7 @@ def decode_paged_fn(params: HybridLM, cache: Tree, batch: dict,
         x = _shared_block(params, app, x, x0, cfg, lambda p, h: (
             ll.attn_decode_paged(p, h, cfg, rows, lengths, kp[app], vp[app],
                                  table)))
-        for i in range(a, b):
-            x, cs, ss = _block_decode(params.layers[i], x, cfg,
-                                      cache["conv"][i], cache["ssm"][i])
-            cache["conv"][i] = cs
-            cache["ssm"][i] = ss
+        x = _decode_layers(params, cache, x, a, b, cfg)
     x = ops.rmsnorm(x, params.final_ln, cfg.norm_eps)
     return ll.logits_last(params, x[:, 0], cfg)
 
@@ -262,6 +345,9 @@ def make_model(cfg: ModelConfig) -> ModelFns:
         cfg=cfg,
         param_specs=build_specs(cfg),
         build=functools.partial(HybridLM, cfg),
+        cache_specs=functools.partial(cache_specs, cfg),
+        prefill=functools.partial(prefill_fn, cfg=cfg),
+        decode_step=functools.partial(decode_fn, cfg=cfg),
         paged_cache_specs=functools.partial(paged_cache_specs, cfg),
         prefill_chunk=functools.partial(prefill_chunk_fn, cfg=cfg),
         decode_paged=functools.partial(decode_paged_fn, cfg=cfg),

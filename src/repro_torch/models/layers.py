@@ -1,5 +1,5 @@
-"""Layer primitives shared by the families: RoPE, GQA projections, paged
-attention, the MLP, embeddings and logits.
+"""Layer primitives shared by the families: RoPE, GQA projections,
+attention over a dense or a paged cache, the MLP, embeddings and logits.
 
 Ported from ``repro/models/layers.py``. Results are rounded to bf16 at
 exactly the reference's points, so the two packages compute the same
@@ -8,10 +8,10 @@ gives a bf16 result, RoPE and the SiLU run in f32 and
 cast back, and the logits are a bf16 product cast to f32
 (``layers.py:379``). Weights arrive already in bf16 (see ``model_api``).
 
-Page pools are updated in place (``index_put_``): the JAX engine donates
-its cache to the jitted step for the same reason (``engine.py:612-613``),
-so that a step rewrites the few rows it touches instead of materializing a
-second copy of every pool.
+Page pools and dense caches are updated in place (``index_put_``): the JAX
+engine donates its cache to the jitted step for the same reason
+(``engine.py:612-613``), so that a step rewrites the few rows it touches
+instead of materializing a second copy of every pool.
 """
 
 from __future__ import annotations
@@ -43,13 +43,17 @@ class Rows:
     """Computed once per model call and read by every layer: the RoPE
     tables of the positions being written (``cos``/``sin``, each half
     repeated, broadcast over heads) and where those positions' K/V rows
-    land in the page pools (``pid``, ``off``). The reference recomputes
-    these in each layer; the values are the same."""
+    land: ``(pid, off)`` is (page, row within the page) in a page pool, or
+    (lane, position) in a dense cache. The reference recomputes these in
+    each layer; the values are the same."""
 
     cos: torch.Tensor | None
     sin: torch.Tensor | None
-    pid: torch.Tensor   # page of each written position
-    off: torch.Tensor   # row of that position within its page
+    pid: torch.Tensor | None = None  # page (paged) or lane (dense)
+    off: torch.Tensor | None = None  # row in the page, or position
+    # dense decode only: (B, 1, 1), True where the position falls past the
+    # cache and the write is dropped; None when no lane's does
+    drop: torch.Tensor | None = None
 
 
 def rope_tables(positions: torch.Tensor, d: int, theta: float):
@@ -74,6 +78,33 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     xf = x.float()
     rot = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
     return (xf * cos + rot * sin).to(x.dtype)
+
+
+def dense_rows(cfg: ModelConfig, positions: torch.Tensor) -> Rows:
+    """The RoPE tables of a whole-sequence prefill's ``positions`` (S,);
+    its K/V come back from the call instead of landing in a cache."""
+    cos = sin = None
+    if cfg.rope_theta > 0 and not cfg.learned_positions:
+        cos, sin = rope_tables(positions, cfg.d_head, cfg.rope_theta)
+    return Rows(cos, sin)
+
+
+def dense_decode_rows(cfg: ModelConfig, positions: torch.Tensor,
+                      max_seq: int) -> Rows:
+    """One token per lane at ``positions`` (B,) of a dense ``max_seq``
+    cache. A position at or past ``max_seq`` — a lane admitted at a bucket
+    of ``max_seq`` decodes once past its cache before the engine retires
+    it — has its write dropped, as JAX's scatter drops an out-of-bounds
+    update. Whether any lane's is, is read on the host once per step,
+    before the step queues any kernel, so the read waits for nothing."""
+    pos = positions.long()
+    drop = pos >= max_seq
+    cos = sin = None
+    if cfg.rope_theta > 0 and not cfg.learned_positions:
+        cos, sin = rope_tables(pos[:, None], cfg.d_head, cfg.rope_theta)
+    return Rows(cos, sin, torch.arange(pos.shape[0], device=pos.device),
+                pos.clamp(max=max_seq - 1),
+                drop[:, None, None] if bool(drop.any()) else None)
 
 
 def decode_rows(cfg: ModelConfig, positions: torch.Tensor,
@@ -146,6 +177,45 @@ def _project_qkv(p: nn.Module, x: torch.Tensor, cfg: ModelConfig, rows: Rows):
         q = apply_rope(q, rows.cos, rows.sin)
         k = apply_rope(k, rows.cos, rows.sin)
     return q, k, v
+
+
+def attn_forward(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
+                 rows: Rows):
+    """Full-sequence causal attention (prefill, ``layers.py:88-110``); x
+    (B, S, d) already normalized, ``rows = dense_rows(arange(S))``.
+    Returns (out (B, S, d), k, v (B, S, K, dh))."""
+    q, k, v = _project_qkv(p, x, cfg, rows)
+    out = ops.attention(q, k, v, causal=True)
+    return _mm(out.flatten(2), p.wo.flatten(0, 1)), k, v
+
+
+def kv_append(cache: torch.Tensor, new: torch.Tensor, rows: Rows) -> None:
+    """Scatter one token per lane into the layer's dense cache (B, S, K,
+    dh) in place, at ``rows``' (lane, position) (``layers.py:133-140``);
+    new (B, K, dh). A dropped lane's row keeps what it held."""
+    new = new.to(cache.dtype)
+    if rows.drop is not None:
+        new = torch.where(rows.drop, cache[rows.pid, rows.off], new)
+    cache.index_put_((rows.pid, rows.off), new)
+
+
+def attn_decode(
+    p: nn.Module,
+    x: torch.Tensor,            # (B, 1, d)
+    cfg: ModelConfig,
+    rows: Rows,                 # dense_decode_rows() of this step
+    lengths: torch.Tensor,      # (B,) int32 — positions + 1
+    cache_k: torch.Tensor,      # (B, S, K, dh) — updated in place
+    cache_v: torch.Tensor,
+) -> torch.Tensor:
+    """Single-token attention against a dense cache (``layers.py:113-130``):
+    the token's K/V land at its position, then it attends over ``lengths``
+    keys. Returns (B, 1, d)."""
+    q, k, v = _project_qkv(p, x, cfg, rows)
+    kv_append(cache_k, k[:, 0], rows)
+    kv_append(cache_v, v[:, 0], rows)
+    out = ops.decode_attention(q[:, 0], cache_k, cache_v, lengths)
+    return _mm(out.flatten(1), p.wo.flatten(0, 1))[:, None]
 
 
 def paged_kv_append(pages: torch.Tensor, new: torch.Tensor,

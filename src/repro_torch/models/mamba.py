@@ -1,11 +1,14 @@
-"""Mamba1 selective-SSM LM (falcon-mamba-7b): the paged serving path.
+"""Mamba1 selective-SSM LM (falcon-mamba-7b): the dense and the paged
+serving paths.
 
 Ported from ``repro/models/mamba.py``: Mamba1 blocks with falcon-mamba's
 parameter-free RMS normalization of the SSM inputs (dt, B, C). The state of
-a slot is O(1) in sequence length, so the paged cache holds no page pool
-at all: ``conv`` (L, n_slots, W-1, Di) bf16 and ``ssm`` (L, n_slots, Di, N)
-f32, both dense per slot. Chunked prefill writes the slot's rows in place;
-decode is the ordinary batched step over every slot. Layer ``l`` updates
+a slot is O(1) in sequence length, so both caches are the same: ``conv``
+(L, n_slots, W-1, Di) bf16 and ``ssm`` (L, n_slots, Di, N) f32, dense per
+slot, and no page pool at all. The dense prefill runs the whole prompt
+through one scan per layer from a zero state; chunked prefill writes the
+slot's rows in place; decode is the ordinary batched step over every slot,
+for both engines (``mamba.py:257,261``). Layer ``l`` updates
 ``cache[...][l]`` in place, as the dense family updates its page pools.
 """
 
@@ -20,7 +23,8 @@ from torch import nn
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as ll
-from repro_torch.models.model_api import ModelFns, Params, PSpec, Tree
+from repro_torch.models.model_api import (ModelFns, Params, PSpec, Tree,
+                                          zeros_from_specs)
 
 
 def mamba_block_specs(cfg: ModelConfig, layers: int) -> dict:
@@ -142,19 +146,38 @@ def _block_decode(lp: nn.Module, x: torch.Tensor, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
-# Paged serving entry points
+# Serving entry points
 # ---------------------------------------------------------------------------
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    L, di, N, W = cfg.n_layers, cfg.d_inner, cfg.ssm_state, cfg.d_conv
+    return {
+        "conv": PSpec((L, batch, W - 1, di),
+                      ("layers", "batch", "conv", "inner"), init="zeros"),
+        "ssm": PSpec((L, batch, di, N),
+                     ("layers", "batch", "inner", "state"), init="zeros"),
+    }
 
 
 def paged_cache_specs(cfg: ModelConfig, n_slots: int, n_pages: int,
                       page_size: int) -> dict:
-    L, di, N, W = cfg.n_layers, cfg.d_inner, cfg.ssm_state, cfg.d_conv
-    return {
-        "conv": PSpec((L, n_slots, W - 1, di),
-                      ("layers", "batch", "conv", "inner"), init="zeros"),
-        "ssm": PSpec((L, n_slots, di, N),
-                     ("layers", "batch", "inner", "state"), init="zeros"),
-    }
+    return cache_specs(cfg, n_slots, 0)
+
+
+def prefill_fn(params: MambaLM, batch: dict, cfg: ModelConfig):
+    """The whole prompt from a zero state (``mamba.py:163-174``): one
+    selective scan per layer over every position. Returns the logits of the
+    last position (1, V) f32 and the batch-1 cache ``conv``/``ssm``."""
+    x = ll.embed_lookup(params, batch["tokens"])          # (1, S, d)
+    S = x.shape[1]
+    state = zeros_from_specs(cache_specs(cfg, 1, 0), device=x.device)
+    for i, lp in enumerate(params.layers):
+        x, cs, ss = _block(lp, x, cfg, state["conv"][i], state["ssm"][i], S)
+        state["conv"][i] = cs
+        state["ssm"][i] = ss
+    x = ops.rmsnorm(x, params.final_ln, cfg.norm_eps)
+    return ll.logits_last(params, x[:, -1], cfg), state
 
 
 def slot_state(cache: Tree, name: str, layer: int, slot: int,
@@ -183,8 +206,8 @@ def prefill_chunk_fn(params: MambaLM, cache: Tree, batch: dict,
 
 def decode_fn(params: MambaLM, cache: Tree, batch: dict,
               cfg: ModelConfig) -> torch.Tensor:
-    """One batched token step over every slot (``mamba.py:158-173``).
-    Returns (B, V) f32."""
+    """One batched token step over every slot (``mamba.py:177-191``), the
+    dense and the paged engine's alike. Returns (B, V) f32."""
     x = ll.embed_lookup(params, batch["tokens"])          # (B, 1, d)
     for i, lp in enumerate(params.layers):
         x, cs, ss = _block_decode(lp, x, cfg, cache["conv"][i],
@@ -200,6 +223,9 @@ def make_model(cfg: ModelConfig) -> ModelFns:
         cfg=cfg,
         param_specs=build_specs(cfg),
         build=functools.partial(MambaLM, cfg),
+        cache_specs=functools.partial(cache_specs, cfg),
+        prefill=functools.partial(prefill_fn, cfg=cfg),
+        decode_step=functools.partial(decode_fn, cfg=cfg),
         paged_cache_specs=functools.partial(paged_cache_specs, cfg),
         prefill_chunk=functools.partial(prefill_chunk_fn, cfg=cfg),
         decode_paged=functools.partial(decode_fn, cfg=cfg),

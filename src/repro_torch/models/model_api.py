@@ -115,6 +115,19 @@ class Params(nn.Module):
 class ModelFns:
     """One architecture: its specs and its serving entry points.
 
+    The dense entry points (the engine's ``paged=False`` path,
+    ``repro/models/model_api.py:97-110``):
+
+    - ``cache_specs(batch, max_seq)`` -> dict of PSpec, every leaf laid
+      out ``(layers, batch, ...)``: attention K/V ``(L, B, max_seq, K,
+      dh)``, recurrent state ``(L, B, ...)``;
+    - ``prefill(params, batch)`` — the whole prompt ``tokens (1, S)`` from
+      position 0; returns ``(logits of the last position (1, V), a batch-1
+      cache)`` whose sequence leaves are S long;
+    - ``decode_step(params, cache, batch)`` — one batched token step over
+      every lane; batch carries ``tokens (B, 1)`` and ``positions (B,)``;
+      updates ``cache`` in place and returns ``(B, V)`` logits.
+
     The paged entry points update ``cache`` in place and return only the
     logits:
 
@@ -141,17 +154,28 @@ class ModelFns:
     cfg: ModelConfig
     param_specs: Tree
     build: Callable[[Tree], nn.Module]
-    paged_cache_specs: Callable[..., Tree]
-    prefill_chunk: Callable[..., torch.Tensor]
-    decode_paged: Callable[..., torch.Tensor]
+    cache_specs: Callable[..., Tree]
+    prefill: Callable[..., tuple[torch.Tensor, Tree]]
+    decode_step: Callable[..., torch.Tensor]
+    paged_cache_specs: Callable[..., Tree] | None = None
+    prefill_chunk: Callable[..., torch.Tensor] | None = None
+    decode_paged: Callable[..., torch.Tensor] | None = None
     paged_state: bool = False
+
+    @property
+    def supports_paged(self) -> bool:
+        """True when the family has the paged entry points
+        (``repro/models/model_api.py:191-197``)."""
+        return (self.paged_cache_specs is not None
+                and self.prefill_chunk is not None
+                and self.decode_paged is not None)
 
     @property
     def supports_prefix_sharing(self) -> bool:
         """True when the whole per-token cache lives in shared page pools,
         so a cached prompt prefix can be installed into another slot with
         zero recompute (``repro/models/model_api.py:200-207``)."""
-        return not self.paged_state
+        return self.supports_paged and not self.paged_state
 
     def init(self, generator: torch.Generator | int = 0,
              device: str | torch.device = "cuda") -> nn.Module:
@@ -164,13 +188,28 @@ class ModelFns:
         tree = tree_map(lambda s: _materialize(s, gen, dev), self.param_specs)
         return self.build(tree)
 
+    def init_cache(self, n_slots: int, max_seq: int,
+                   dtype: torch.dtype = torch.bfloat16,
+                   device: str | torch.device = "cuda") -> Tree:
+        """The zeroed dense cache of ``n_slots`` lanes of ``max_seq``
+        positions, with the reference's cache-dtype rule."""
+        return zeros_from_specs(self.cache_specs(n_slots, max_seq), dtype,
+                                resolve_device(device))
+
     def init_paged_cache(self, n_slots: int, n_pages: int, page_size: int,
                          dtype: torch.dtype = torch.bfloat16,
                          device: str | torch.device = "cuda") -> Tree:
-        dev = resolve_device(device)
-        specs = self.paged_cache_specs(n_slots, n_pages, page_size)
-        return {k: torch.zeros(s.shape, dtype=_cache_dtype(s, dtype),
-                               device=dev) for k, s in specs.items()}
+        return zeros_from_specs(
+            self.paged_cache_specs(n_slots, n_pages, page_size), dtype,
+            resolve_device(device))
+
+
+def zeros_from_specs(specs: dict, dtype: torch.dtype = torch.bfloat16,
+                     device: torch.device | None = None) -> Tree:
+    """Zeroed tensors for a flat dict of cache specs, in the reference's
+    cache dtypes (:func:`_cache_dtype`)."""
+    return {k: torch.zeros(s.shape, dtype=_cache_dtype(s, dtype),
+                           device=device) for k, s in specs.items()}
 
 
 def _cache_dtype(spec: PSpec, dtype: torch.dtype) -> torch.dtype:

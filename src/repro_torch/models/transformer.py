@@ -1,9 +1,11 @@
-"""Dense decoder-only transformer (qwen3, smollm): the paged serving path.
+"""Dense decoder-only transformer (qwen3, smollm): the dense and the paged
+serving paths.
 
 Ported from ``repro/models/transformer.py``. The reference's ``lax.scan``
 over layer-stacked parameters becomes a loop over per-layer modules; the
-page pools stay layer-stacked ``(L, n_pages, P, K, dh)`` tensors, and layer
-``l`` updates its slice ``pools[l]`` in place.
+caches stay layer-stacked — page pools ``(L, n_pages, P, K, dh)``, the
+dense cache ``(L, B, max_seq, K, dh)`` — and layer ``l`` updates its slice
+``cache[...][l]`` in place.
 """
 
 from __future__ import annotations
@@ -55,6 +57,70 @@ class DenseLM(nn.Module):
         )
 
 
+def _block(lp: Block, x: torch.Tensor, cfg: ModelConfig, attend):
+    """Pre-norm attention (``attend(p, h)``, the call's attention) + MLP."""
+    h = ops.rmsnorm(x, lp.attn.ln, cfg.norm_eps)
+    y = x + attend(lp.attn, h)
+    h = ops.rmsnorm(y, lp.mlp.ln, cfg.norm_eps)
+    return y + ll.mlp_forward(lp.mlp, h, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Dense serving entry points
+# ---------------------------------------------------------------------------
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    L, K, dh = cfg.n_layers, cfg.n_kv_heads, cfg.d_head
+    axes = ("layers", "batch", "seq_fallback", "kv_heads", "head_dim")
+    return {
+        "k": PSpec((L, batch, max_seq, K, dh), axes, init="zeros"),
+        "v": PSpec((L, batch, max_seq, K, dh), axes, init="zeros"),
+    }
+
+
+def prefill_fn(params: DenseLM, batch: dict, cfg: ModelConfig):
+    """The whole prompt from position 0 (``transformer.py:131-143``): causal
+    attention over every position, pads included. Returns the logits of the
+    last position (1, V) f32 and the batch-1 cache ``k``/``v`` (L, 1, S, K,
+    dh)."""
+    x = ll.embed_lookup(params, batch["tokens"])          # (1, S, d)
+    rows = ll.dense_rows(cfg, torch.arange(x.shape[1], device=x.device))
+    ks, vs = [], []
+
+    def attend(p, h):
+        out, k, v = ll.attn_forward(p, h, cfg, rows)
+        ks.append(k)
+        vs.append(v)
+        return out
+
+    for lp in params.layers:
+        x = _block(lp, x, cfg, attend)
+    x = ops.rmsnorm(x, params.final_ln, cfg.norm_eps)
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return ll.logits_last(params, x[:, -1], cfg), cache
+
+
+def decode_fn(params: DenseLM, cache: Tree, batch: dict,
+              cfg: ModelConfig) -> torch.Tensor:
+    """One batched token step over every lane of the dense cache
+    (``transformer.py:146-159``). Returns (B, V) f32."""
+    positions = batch["positions"]
+    rows = ll.dense_decode_rows(cfg, positions, cache["k"].shape[2])
+    lengths = (positions + 1).to(torch.int32)
+    x = ll.embed_lookup(params, batch["tokens"])          # (B, 1, d)
+    for lp, ck, cv in zip(params.layers, cache["k"], cache["v"]):
+        x = _block(lp, x, cfg, lambda p, h: ll.attn_decode(
+            p, h, cfg, rows, lengths, ck, cv))
+    x = ops.rmsnorm(x, params.final_ln, cfg.norm_eps)
+    return ll.logits_last(params, x[:, 0], cfg)
+
+
+# ---------------------------------------------------------------------------
+# Paged serving entry points
+# ---------------------------------------------------------------------------
+
+
 def paged_cache_specs(cfg: ModelConfig, n_slots: int, n_pages: int,
                       page_size: int) -> dict:
     L, K, dh = cfg.n_layers, cfg.n_kv_heads, cfg.d_head
@@ -77,11 +143,8 @@ def prefill_chunk_fn(params: DenseLM, cache: Tree, batch: dict,
     n_ctx = min((offset + x.shape[1] + P - 1) // P, table.shape[0])
     ctx = table[:n_ctx].long()
     for lp, kp, vp in zip(params.layers, cache["k_pages"], cache["v_pages"]):
-        h = ops.rmsnorm(x, lp.attn.ln, cfg.norm_eps)
-        y = x + ll.attn_prefill_chunk(lp.attn, h, cfg, offset, rows, ctx,
-                                      kp, vp)
-        h = ops.rmsnorm(y, lp.mlp.ln, cfg.norm_eps)
-        x = y + ll.mlp_forward(lp.mlp, h, cfg)
+        x = _block(lp, x, cfg, lambda p, h: ll.attn_prefill_chunk(
+            p, h, cfg, offset, rows, ctx, kp, vp))
     x = ops.rmsnorm(x, params.final_ln, cfg.norm_eps)
     valid = int(batch["valid"])
     return ll.logits_last(params, x[:, valid - 1], cfg)
@@ -96,11 +159,8 @@ def decode_paged_fn(params: DenseLM, cache: Tree, batch: dict,
     rows = ll.decode_rows(cfg, positions, table, cache["k_pages"].shape[2])
     lengths = (positions + 1).to(torch.int32)
     for lp, kp, vp in zip(params.layers, cache["k_pages"], cache["v_pages"]):
-        h = ops.rmsnorm(x, lp.attn.ln, cfg.norm_eps)
-        y = x + ll.attn_decode_paged(lp.attn, h, cfg, rows, lengths, kp, vp,
-                                     table)
-        h = ops.rmsnorm(y, lp.mlp.ln, cfg.norm_eps)
-        x = y + ll.mlp_forward(lp.mlp, h, cfg)
+        x = _block(lp, x, cfg, lambda p, h: ll.attn_decode_paged(
+            p, h, cfg, rows, lengths, kp, vp, table))
     x = ops.rmsnorm(x, params.final_ln, cfg.norm_eps)
     return ll.logits_last(params, x[:, 0], cfg)
 
@@ -110,6 +170,9 @@ def make_model(cfg: ModelConfig) -> ModelFns:
         cfg=cfg,
         param_specs=build_specs(cfg),
         build=functools.partial(DenseLM, cfg),
+        cache_specs=functools.partial(cache_specs, cfg),
+        prefill=functools.partial(prefill_fn, cfg=cfg),
+        decode_step=functools.partial(decode_fn, cfg=cfg),
         paged_cache_specs=functools.partial(paged_cache_specs, cfg),
         prefill_chunk=functools.partial(prefill_chunk_fn, cfg=cfg),
         decode_paged=functools.partial(decode_paged_fn, cfg=cfg),

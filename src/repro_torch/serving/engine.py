@@ -1,13 +1,22 @@
-"""Batched serving engine: continuous batching over a paged KV cache.
+"""Batched serving engine: continuous batching over a paged KV cache, and
+the legacy dense cache that is its oracle.
 
-Ported from ``repro/serving/engine.py``, paged engine only. The engine owns
-``n_slots`` decode lanes over a shared pool of fixed-size pages with
-per-slot page tables (:mod:`repro_torch.serving.kvcache`). It serves the
-dense (qwen3-8b, smollm-360m), SSM (falcon-mamba-7b) and hybrid
-(zamba2-1.2b) families. Admission runs chunked prefill at true prompt
-length, writing each chunk's K/V straight into the slot's pages and its
-recurrent state into the slot's rows; decode advances every active slot
-through one batched ``decode_paged`` step.
+Ported from ``repro/serving/engine.py``. The engine owns ``n_slots`` decode
+lanes. It serves the dense (qwen3-8b, smollm-360m), SSM (falcon-mamba-7b)
+and hybrid (zamba2-1.2b) families, in one of two modes:
+
+- paged (the default): a shared pool of fixed-size pages with per-slot
+  page tables (:mod:`repro_torch.serving.kvcache`). Admission runs chunked
+  prefill at true prompt length, writing each chunk's K/V straight into
+  the slot's pages and its recurrent state into the slot's rows; decode
+  advances every active slot through one batched ``decode_paged`` step;
+- dense (``paged=False``): one ``(n_slots, max_seq)`` cache. Admission is
+  synchronous: the prompt is right-aligned in a power-of-two bucket of at
+  least 32, left-padded with token 0 (the pads are attended), prefilled in
+  one ``prefill`` call, and the zero-padded result is written over the
+  whole slot row; the first token comes from the last position and the
+  admitted length is the bucket. Decode runs ``decode_step`` over every
+  slot (``decode_attention`` on the dense cache).
 
 What carries over from the reference, with the same semantics and the same
 ``stats`` counters:
@@ -30,7 +39,14 @@ What carries over from the reference, with the same semantics and the same
   overflowing requests, ``cancel`` and teacher forcing (``step(
   force_tokens=...)``);
 - host-side sampling from numpy Gumbel noise keyed by (seed, position)
-  (``_choose``), so sampled streams match the reference's exactly.
+  (``_choose``), so sampled streams match the reference's exactly;
+- ``snapshot``/``restore`` in both modes, in the reference's blob format
+  and meta fields (paper §III-D continuity): a snapshot of either package
+  restores in the other. The port has no spill tier, so a snapshot
+  carries no spilled pages, and a restore takes the reference's path for
+  an engine without a remote pool: spilled trie stubs are evicted (their
+  prefixes are recomputed) and spilled slot chains fall back to
+  re-prefill.
 
 One deliberate difference: a lane whose chunked prefill is still in flight
 keeps its recurrent state through the batched decode steps that run
@@ -39,9 +55,8 @@ the conv/SSM state of every lane, that one included (ROADMAP Queue 3, R3).
 
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
 item where the constructor takes it): speculative decoding and ``fork``,
-the spill tier (``remote_pool``, ``write_behind``), snapshot/restore,
-multimodal and cross-attention families, and the dense ``paged=False``
-path.
+the spill tier (``remote_pool``, ``write_behind``), and the multimodal and
+cross-attention families.
 
 The model's entry points update the page pools in place; the JAX engine
 donates its cache to the jitted step for the same reason
@@ -50,6 +65,8 @@ donates its cache to the jitted step for the same reason
 
 from __future__ import annotations
 
+import base64
+import json
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -57,12 +74,16 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint.serializer import deserialize_tree, serialize_tree
 from repro_torch.models.model_api import ModelFns
 from repro_torch.serving.kvcache import (
     PagePool,
     PrefixIndex,
+    expand_prefill_cache,
+    init_cache,
     init_paged_cache,
     pages_needed,
+    scatter_slot,
 )
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 
@@ -86,11 +107,45 @@ class Request:
     # noise from ``seed`` (a sampled stream is a function of prompt + seed)
     temperature: float = 0.0
     seed: int = 0
+    # modality inputs of the reference's multimodal families: none of the
+    # port's families takes one, but a snapshot carries them through
+    extra: dict = field(default_factory=dict)
     generated: list[int] = field(default_factory=list)
     slot: int | None = None
     done: bool = False
     # memo for derived trie keys (pure functions of the immutable prompt)
     key_cache: dict = field(default_factory=dict, repr=False)
+
+
+def _bucket(n: int, minimum: int = 32) -> int:
+    """The dense prefill's length: the least power-of-two multiple of
+    ``minimum`` that holds ``n``."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def _encode_extra(extra: dict) -> dict:
+    """JSON-encode modality arrays for the snapshot meta."""
+    out = {}
+    for k, v in extra.items():
+        a = np.asarray(v)
+        out[k] = {
+            "dtype": str(a.dtype),
+            "shape": list(a.shape),
+            "data": base64.b64encode(np.ascontiguousarray(a).tobytes()).decode(),
+        }
+    return out
+
+
+def _decode_extra(enc: dict) -> dict:
+    out = {}
+    for k, ent in enc.items():
+        dt = np.dtype(ent["dtype"])
+        out[k] = np.frombuffer(
+            base64.b64decode(ent["data"]), dt).reshape(ent["shape"])
+    return out
 
 
 def _copy_pages(cache: dict, src: int, dst: int) -> None:
@@ -184,10 +239,17 @@ class ServeEngine:
         draft: ModelFns | None = None,
         device: str | torch.device = "cuda",
     ):
-        if paged is False:
-            raise NotImplementedError(
-                "paged=False (the dense cache and decode_attention) is not "
-                "ported yet: ROADMAP Queue 1, item 5 follow-on")
+        if paged is None:
+            paged = model.supports_paged
+        elif paged and not model.supports_paged:
+            raise ValueError(
+                f"{model.cfg.arch_id}: family has no paged serving path; "
+                "use paged=False")
+        if draft is not None and not paged:
+            raise ValueError("speculative decoding needs the paged cache")
+        if remote_pool is not None and not paged:
+            raise ValueError(
+                "the spill tier needs the paged cache; use paged=True")
         if draft is not None:
             raise NotImplementedError(
                 "speculative decoding is not ported yet: ROADMAP Queue 1, "
@@ -201,6 +263,7 @@ class ServeEngine:
             raise ValueError(f"params are not all on {self.device}")
         self.model = model
         self.params = params
+        self.paged = paged
         self.n_slots = n_slots
         self.sched = Scheduler(scheduler)
         # slot -> in-flight chunked prefill (continuous batching only; the
@@ -235,6 +298,13 @@ class ServeEngine:
             "spec_rounds", "spec_proposed", "spec_accepted",
             "forks", "fork_shared_pages",
         )}
+        self._admit_ready = True  # new submits / freed pages to try
+        if not paged:
+            # the trie and the page pool belong to the paged cache
+            self.prefix_cache = self.prefix_share = False
+            self.cache = init_cache(model, n_slots, max_seq,
+                                    device=self.device)
+            return
 
         self.page_size = page_size
         self.max_pages = -(-max_seq // page_size)
@@ -252,9 +322,11 @@ class ServeEngine:
         self.prefix_share = enabled and model.supports_prefix_sharing
         self.prefix_index = PrefixIndex(page_size)
         self._phantom_next = self.n_pages  # bookkeeping-only node ids
+        # decode steps a slot sits out after its admission (the reference's
+        # recall wait); only a restored snapshot sets it here
+        self.slot_hold = np.zeros((n_slots,), np.int32)
         self.cache = init_paged_cache(model, n_slots, self.n_pages,
                                       page_size, device=self.device)
-        self._admit_ready = True  # new submits / freed pages to try
 
     # ------------------------------------------------------------- helpers
     def _tensor(self, arr) -> torch.Tensor:
@@ -275,12 +347,14 @@ class ServeEngine:
         if not 1 <= len(prompt) < self.max_seq:
             raise ValueError(
                 f"prompt length {len(prompt)} outside [1, {self.max_seq})")
-        need = pages_needed(min(len(prompt) + max_new_tokens, self.max_seq),
-                            self.page_size)
-        if need > self.n_pages - 1:
-            raise ValueError(
-                f"request needs {need} pages but the pool only has "
-                f"{self.n_pages - 1} allocatable pages")
+        if self.paged:
+            need = pages_needed(
+                min(len(prompt) + max_new_tokens, self.max_seq),
+                self.page_size)
+            if need > self.n_pages - 1:
+                raise ValueError(
+                    f"request needs {need} pages but the pool only has "
+                    f"{self.n_pages - 1} allocatable pages")
         req = Request(self._req_counter, list(prompt), max_new_tokens, eos_id,
                       priority=priority, deadline_ms=deadline_ms,
                       arrival_step=self.steps,
@@ -321,29 +395,42 @@ class ServeEngine:
         step: the slot's K/V is still written from its real last token and
         the model's choice is still computed (a difference counts as a
         ``forced_mismatch``), but the committed token is the forced one."""
-        if not self.sched.cfg.synchronous:
+        if self.paged and not self.sched.cfg.synchronous:
             self._shed_pass()
             self._admission_scan()
             lanes = [i for i, r in enumerate(self.slot_req)
-                     if r is not None and i not in self.prefilling]
+                     if r is not None and i not in self.prefilling
+                     and not self.slot_hold[i]]
             prefill_used = self._pump_prefill(
                 self.sched.prefill_budget(len(lanes), bool(self.prefilling)))
             self._preempt_pass()
         else:
             prefill_used = self._admit()
-        active = [i for i, r in enumerate(self.slot_req)
-                  if r is not None and i not in self.prefilling]
-        if not active:
-            if self.prefilling:   # chunks ran: time passes
-                self.steps += 1
-            self.last_step_tokens = prefill_used
-            return 0
+        if self.paged:
+            held = self.slot_hold > 0
+            active = [i for i, r in enumerate(self.slot_req)
+                      if r is not None and not held[i]
+                      and i not in self.prefilling]
+            self.slot_hold[held] -= 1
+            if not active:
+                if held.any() or self.prefilling:   # time passes
+                    self.steps += 1
+                self.last_step_tokens = prefill_used
+                return 0
+        else:
+            active = [i for i, r in enumerate(self.slot_req) if r is not None]
+            if not active:
+                self.last_step_tokens = prefill_used
+                return 0
         batch = {
             "tokens": self._tensor(self.last_token[:, None]),
             "positions": self._tensor(self.lengths),
-            "page_table": self._tensor(self.page_table),
         }
-        logits = self._decode_step(batch)
+        if self.paged:
+            batch["page_table"] = self._tensor(self.page_table)
+            logits = self._decode_step(batch)
+        else:
+            logits = self.model.decode_step(self.params, self.cache, batch)
         next_tokens = logits.argmax(dim=-1).cpu().numpy()
         rows = (logits.float().cpu().numpy()
                 if self._any_sampled(active) else None)
@@ -423,7 +510,7 @@ class ServeEngine:
         """Completion: register the slot's fully committed pages — prompt
         and generated — in the prefix trie before release, so a later
         prompt extending this transcript shares them."""
-        if self.prefix_share:
+        if self.paged and self.prefix_share:
             covered = int(self.lengths[i])
             gen = req.generated[: covered - len(req.prompt)]
             self._register_prefix(req.prompt + list(gen),
@@ -440,7 +527,7 @@ class ServeEngine:
         self._step_prefill_tokens = 0
         self._shed_pass()
         self._admission_scan()
-        if self.prefilling:
+        if self.paged and self.prefilling:
             self._pump_prefill(None)
         return self._step_prefill_tokens
 
@@ -451,6 +538,12 @@ class ServeEngine:
         higher-ranked one, only while the blocked request's aged lead stays
         below ``bypass_margin``."""
         free = [i for i, r in enumerate(self.slot_req) if r is None]
+        if not self.paged:
+            while free and self.queue:
+                req = self.sched.order(self.queue, self.steps)[0]
+                self.queue.remove(req)
+                self._prefill_into(free.pop(0), req)
+            return
         while free and self.queue:
             if not self._admit_ready:
                 return  # nothing changed since the last failed scan
@@ -530,6 +623,7 @@ class ServeEngine:
         re-derived and verified then."""
         req = self.requests[req_id]
         slot = req.slot
+        assert self.paged, "preemption needs the paged cache"
         if slot is None or slot in self.prefilling:
             raise ValueError("only active decode slots can be preempted")
         if self.prefix_cache:
@@ -614,11 +708,13 @@ class ServeEngine:
     def _release_slot(self, slot: int) -> None:
         self.slot_req[slot] = None
         self.lengths[slot] = 0
-        self.pool.free(self.slot_pages[slot])
-        self.slot_pages[slot] = []
-        self.page_table[slot, :] = 0  # scratch page: inert lane writes
-        self.prefilling.pop(slot, None)
-        self._admit_ready = True      # freed capacity: rescan the queue
+        if self.paged:
+            self.pool.free(self.slot_pages[slot])
+            self.slot_pages[slot] = []
+            self.page_table[slot, :] = 0  # scratch page: inert lane writes
+            self.slot_hold[slot] = 0
+            self.prefilling.pop(slot, None)
+            self._admit_ready = True      # freed capacity: rescan the queue
 
     def _prefill_paged(self, slot: int, req: Request, shared: list[int],
                        private: list[int], matched: int,
@@ -768,3 +864,176 @@ class ServeEngine:
         phantoms = list(range(self._phantom_next, self._phantom_next + n))
         self._phantom_next += n
         self.prefix_index.insert(tokens, phantoms)
+
+    # ----------------------------------------------------------- dense admit
+    def _prefill_into(self, slot: int, req: Request) -> None:
+        """Dense admission (``engine.py:2033-2062``): the prompt,
+        right-aligned in its bucket and left-padded with token 0, runs
+        through one ``prefill``; the zero-padded batch-1 cache is written
+        over the whole slot row. The pad rows are attended (bucketed
+        serving; exact comparisons use prompts of bucket length). The first
+        token is the argmax of the last position, and the admitted length
+        is the bucket."""
+        plen = len(req.prompt)
+        assert 1 <= plen < self.max_seq, plen
+        bucket = min(_bucket(plen), self.max_seq)
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, bucket - plen:] = req.prompt
+        logits, pcache = self.model.prefill(self.params,
+                                            {"tokens": self._tensor(toks)})
+        pcache = expand_prefill_cache(
+            pcache, {k: v[:, :1] for k, v in self.cache.items()})
+        scatter_slot(self.cache, pcache, slot)
+        # (B, V) logits, or (B, S, V) where a family returns every position
+        row = logits[0, -1] if logits.ndim == 3 else logits[0]
+        self.lifecycle.activate(slot, req, int(row.argmax()), bucket)
+
+    # -------------------------------------------------------------- snapshot
+    def snapshot(self) -> bytes:
+        """The engine's whole state as one blob, in the reference's format
+        (``engine.py:2064-2149``): a ``<u4`` meta length, the meta JSON
+        (requests, queue, slots, the pool and the prefix trie, stats), then
+        the serialized tensors (cache, lengths, last tokens, steps, page
+        table). In-flight chunked prefills are drained first: the blob
+        cannot carry their device-side logits, and the tokens do not
+        change."""
+        if self.paged and self.prefilling:
+            self._pump_prefill(None)
+        state = {
+            "cache": self.cache,
+            "lengths": self.lengths,
+            "last_token": self.last_token,
+            "steps": np.asarray(self.steps, np.int64),
+        }
+        if self.paged:
+            state["page_table"] = self.page_table
+        blob = serialize_tree(state)
+        meta = {
+            "paged": self.paged,
+            "slot_req": self.slot_req,
+            "queue": [r.req_id for r in self.queue],
+            "requests": {
+                str(r.req_id): {
+                    "prompt": r.prompt,
+                    "max_new_tokens": r.max_new_tokens,
+                    "eos_id": r.eos_id,
+                    "generated": r.generated,
+                    "slot": r.slot,
+                    "done": r.done,
+                    "extra": _encode_extra(r.extra),
+                    "priority": r.priority,
+                    "deadline_ms": r.deadline_ms,
+                    "arrival_step": r.arrival_step,
+                    "resume": r.resume,
+                    "spill_len": 0,   # no spill tier: nothing is spilled
+                    "temperature": r.temperature,
+                    "seed": r.seed,
+                }
+                for r in self.requests.values()
+            },
+        }
+        if self.paged:
+            pool_free, pool_ref, pool_touch = self.pool.serialize()
+            meta["page_size"] = self.page_size
+            meta["n_pages"] = self.n_pages
+            meta["free_pages"] = pool_free
+            meta["slot_pages"] = [[int(p) for p in ps]
+                                  for ps in self.slot_pages]
+            # refcounts and the trie must survive a restore on a substitute
+            # host, or shared pages would double-free
+            meta["page_ref"] = {str(p): r for p, r in pool_ref.items()}
+            meta["page_touch"] = {str(p): g for p, g in pool_touch.items()}
+            meta["prefix_trie"] = (self.prefix_index.serialize()
+                                   if self.prefix_cache else [])
+            meta["spilled"] = {}
+            meta["slot_hold"] = [int(h) for h in self.slot_hold]
+        meta["stats"] = {k: int(v) for k, v in self.stats.items()}
+        mb = json.dumps(meta).encode()
+        return len(mb).to_bytes(4, "little") + mb + blob
+
+    def restore(self, blob: bytes) -> None:
+        """Resume from a :meth:`snapshot` blob of either package
+        (``engine.py:2151-2287``). The engine must be built as the
+        snapshotted one was (mode, slots, ``max_seq``, page size and pool
+        size). Spilled state takes the reference's path for an engine
+        without a remote pool: trie stubs of spilled pages are evicted, so
+        their prefixes are recomputed, and a request whose chain was
+        spilled falls back to re-prefill (``resume_fallbacks``)."""
+        mlen = int.from_bytes(blob[:4], "little")
+        meta = json.loads(blob[4:4 + mlen].decode())
+        assert meta.get("paged", False) == self.paged, (
+            "snapshot/engine paged-mode mismatch")
+        like = {
+            "cache": self.cache,
+            "lengths": self.lengths,
+            "last_token": self.last_token,
+            "steps": np.asarray(self.steps, np.int64),
+        }
+        if self.paged:
+            assert meta["page_size"] == self.page_size
+            assert meta["n_pages"] == self.n_pages
+            like["page_table"] = self.page_table
+        state = deserialize_tree(blob[4 + mlen:], like)
+        self.cache = state["cache"]
+        self.lengths = state["lengths"].copy()
+        self.last_token = state["last_token"].copy()
+        self.steps = int(state["steps"])
+        if self.paged:
+            self.page_table = state["page_table"].copy()
+            self.pool.restore(meta["free_pages"], meta.get("page_ref"),
+                              meta.get("page_touch"))
+            self.slot_pages = [[int(p) for p in ps]
+                               for ps in meta["slot_pages"]]
+            spilled = [int(sid) for sid in meta.get("spilled", {})]
+            self.slot_hold = np.asarray(
+                meta.get("slot_hold", [0] * self.n_slots), np.int32).copy()
+            if self.prefix_cache:
+                self.prefix_index = PrefixIndex.load(
+                    self.page_size, meta.get("prefix_trie", []),
+                    # sharing engines install trie ids into page tables, so
+                    # they must be pool pages or known spill stubs;
+                    # bookkeeping-only engines hold phantom ids >= n_pages
+                    max_page=self.n_pages if self.prefix_share else None,
+                    extra_ids=set(spilled))
+                phantoms = [p for p in self.prefix_index._nodes
+                            if p >= self.n_pages]
+                self._phantom_next = max(phantoms,
+                                         default=self.n_pages - 1) + 1
+                # no remote pool to recall from: a spilled page's content
+                # is gone, so its stub (and subtree) goes, never to stale
+                # pages
+                for sid in spilled:
+                    if sid in self.prefix_index._nodes:
+                        dropped = self.prefix_index.evict_pages([sid])
+                        self.stats["prefix_evictions"] += len(dropped)
+            self.prefilling = {}      # snapshots drain in-flight prefills
+            self._admit_ready = True  # restored queue must be rescanned
+        self.stats = {**self.stats,
+                      **{k: int(v) for k, v in meta.get("stats", {}).items()}}
+        self.requests = {}
+        for rid, kv in meta["requests"].items():
+            req = Request(int(rid), kv["prompt"], kv["max_new_tokens"],
+                          kv["eos_id"],
+                          extra=_decode_extra(kv.get("extra", {})))
+            req.generated = kv["generated"]
+            req.slot = kv["slot"]
+            req.done = kv["done"]
+            req.priority = int(kv.get("priority", 0))
+            req.deadline_ms = kv.get("deadline_ms")
+            req.arrival_step = int(kv.get("arrival_step", 0))
+            req.resume = list(kv.get("resume", []))
+            req.temperature = float(kv.get("temperature", 0.0))
+            req.seed = int(kv.get("seed", 0))
+            if req.deadline_ms is not None:
+                self._has_deadlines = True
+            self.requests[req.req_id] = req
+        self.slot_req = meta["slot_req"]
+        self.queue = [self.requests[rid] for rid in meta["queue"]]
+        self._req_counter = max(self.requests) + 1 if self.requests else 0
+        if self.paged:
+            # a spilled slot chain cannot be recalled without a remote
+            # pool: its request re-prefills from its resume suffix
+            for rid in meta.get("slot_spills", {}):
+                kv = meta["requests"].get(rid)
+                if kv is not None and int(kv.get("spill_len", 0)):
+                    self.stats["resume_fallbacks"] += 1

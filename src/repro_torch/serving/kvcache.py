@@ -1,10 +1,13 @@
-"""Host-side state of the paged KV cache: the page allocator and the
-prefix trie, plus the pool allocation.
+"""Serving caches: the dense per-slot cache and its slot scatter, and the
+host-side state of the paged KV cache — the page allocator and the prefix
+trie — plus the pool allocation.
 
-Ported from ``repro/serving/kvcache.py`` (``pages_needed``, ``PagePool``,
+Ported from ``repro/serving/kvcache.py`` (``init_cache``, ``scatter_slot``,
+``expand_prefill_cache``: lines 87-134; ``pages_needed``, ``PagePool``,
 ``PrefixIndex``: lines 137-487; ``init_paged_cache``: line 809). The
-allocator and the trie are plain Python, copied as they are; the pools
-themselves are torch tensors made by the model's ``init_paged_cache``.
+allocator and the trie are plain Python, copied as they are; the caches
+themselves are torch tensors made by the model's ``init_cache`` and
+``init_paged_cache``.
 
 The multi-host spill tier (``RemotePagePool``, ``SpilledPage``, the page
 payload helpers) and the copies of ``core/cloudlet.py`` and
@@ -16,6 +19,44 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.model_api import ModelFns, Tree
+
+def init_cache(model: ModelFns, n_slots: int, max_seq: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: str | torch.device = "cuda") -> Tree:
+    """The model's zeroed dense cache: every leaf ``(layers, n_slots,
+    ...)``, attention K/V ``max_seq`` long."""
+    return model.init_cache(n_slots, max_seq, dtype, device)
+
+
+def scatter_slot(cache: Tree, slot_cache: Tree, slot: int) -> None:
+    """Write a batch-1 ``slot_cache`` into slot ``slot`` of ``cache``, in
+    place. Leaves are ``(layers, batch, ...)``; a ``slot_cache`` leaf may be
+    shorter along trailing dims (prompt-length K/V against ``max_seq``) and
+    lands at offset 0 of each, as in the reference."""
+    for name, c in cache.items():
+        s = slot_cache[name]
+        if c.ndim != s.ndim:
+            raise ValueError(f"{name}: {tuple(c.shape)} vs {tuple(s.shape)}")
+        c[(slice(None), slot) + tuple(slice(0, n) for n in s.shape[2:])] = \
+            s[:, 0].to(c.dtype)
+
+
+def expand_prefill_cache(prefill_cache: Tree, like: Tree) -> Tree:
+    """Zero-pad a prefill cache's trailing dims up to the ``like`` leaves'
+    shapes (batch dim already equal), so that scattering it rewrites the
+    whole slot row: positions past the prompt's bucket become zeros, not
+    what the slot held before."""
+    out = {}
+    for name, p in prefill_cache.items():
+        want = like[name].shape
+        if p.ndim != len(want) or any(a > b for a, b in zip(p.shape, want)):
+            raise ValueError(f"{name}: {tuple(p.shape)} does not fit "
+                             f"{tuple(want)}")
+        pad = [x for a, b in zip(reversed(p.shape), reversed(want))
+               for x in (0, b - a)]
+        out[name] = torch.nn.functional.pad(p, pad).to(like[name].dtype)
+    return out
+
 
 SCRATCH_PAGE = 0  # physical page 0 is never allocated
 

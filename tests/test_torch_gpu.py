@@ -85,3 +85,29 @@ def test_ssm_kernels_match_plain_versions_on_the_card(S, h0_scale):
     y, hT = ops.ssd(*ins, chunk=256)
     torch.testing.assert_close(y.float(), yw.float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(hT, hw, atol=5e-3, rtol=5e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,K,D", [(8, 2, 128), (32, 32, 64), (16, 2, 64)])
+def test_decode_attention_matches_plain_version_on_the_card(H, K, D):
+    """On the H100: the dense-cache decode kernel against its plain
+    version, bf16 at atol = rtol = 2e-2, lengths 0 (zeros), 1, ragged and
+    S; a lane's result does not change with its batch, bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(H + D)
+    B, S = 5, 300
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, k, v = rnd(B, H, D), rnd(B, S, K, D), rnd(B, S, K, D)
+    lens = torch.tensor([0, 1, 77, S, 256], device=dev, dtype=torch.int32)
+    with ops.use_backend("plain"):
+        want = ops.decode_attention(q, k, v, lens)
+    got = ops.decode_attention(q, k, v, lens)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert not got[0].any()
+    alone = ops.decode_attention(q[2:3], k[2:3], v[2:3], lens[2:3])
+    assert torch.equal(alone[0], got[2])

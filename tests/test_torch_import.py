@@ -47,7 +47,9 @@ def test_every_module_imports_without_jax():
     assert {"repro_torch.serving.engine", "repro_torch.models.mamba",
             "repro_torch.models.hybrid", "repro_torch.kernels.selective_scan",
             "repro_torch.kernels.ssd", "repro_torch.configs.falcon_mamba_7b",
-            "repro_torch.configs.zamba2_1_2b"} <= set(mods)
+            "repro_torch.configs.zamba2_1_2b",
+            "repro_torch.kernels.decode_attention",
+            "repro_torch.checkpoint.serializer"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -90,11 +92,15 @@ def test_cuda_entry_points_raise_without_a_card():
         model.init(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model.init_paged_cache(2, 9, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(2, 16)
     params = model.init(0, device="cpu")
     from repro_torch.serving.engine import ServeEngine
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(model, params, n_slots=2, max_seq=64, page_size=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(model, params, n_slots=2, max_seq=64, paged=False)
     from repro_torch.bridge import params_from_reference
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -112,8 +118,8 @@ def test_engine_rejects_what_the_slice_leaves_out():
     from repro_torch.serving.engine import ServeEngine
 
     kw = dict(n_slots=2, max_seq=64, page_size=16, device="cpu")
-    for extra in ({"paged": False}, {"draft": model},
-                  {"remote_pool": object()}, {"write_behind": True}):
+    for extra in ({"draft": model}, {"remote_pool": object()},
+                  {"write_behind": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServeEngine(model, params, **kw, **extra)
 

@@ -167,10 +167,14 @@ def test_cpu_tensors_dispatch_to_the_plain_versions():
     lens = torch.tensor([3, 8], dtype=torch.int32)
     ops.paged_decode_attention(q[:, :2, :, :].reshape(2, 4, 16), pages, pages,
                                table, lens)
+    cache = pages[:2]
+    torch.testing.assert_close(
+        ops.decode_attention(q[0, :2], cache, cache, lens),
+        ref.decode_attention(q[0, :2], cache, cache, lens))
     counts = ops.counts()
     assert {n: c["plain"] for n, c in counts.items()} == {
         "rmsnorm": 1, "flash_attention": 1, "paged_decode_attention": 1,
-        "selective_scan": 0, "ssd": 0}
+        "decode_attention": 1, "selective_scan": 0, "ssd": 0}
     assert all(c["launches"] == 0 for c in counts.values())
     ops.reset_counts()
     assert all(c == {"launches": 0, "plain": 0} for c in ops.counts().values())
@@ -179,6 +183,7 @@ def test_cpu_tensors_dispatch_to_the_plain_versions():
 def test_kernel_wrappers_refuse_cpu_tensors():
     """A wrapper launches its kernel on a CUDA tensor or raises: it never
     computes on the CPU itself (that is the dispatch's plain route)."""
+    from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import paged_decode_attention as pk
     from repro_torch.kernels import rmsnorm as rk
@@ -192,6 +197,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         pk.paged_decode_attention(q[0], q, q, torch.zeros(1, 1, dtype=torch.int32),
                                   torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        dk.decode_attention(q[0], q, q, torch.ones(1, dtype=torch.int32))
     with pytest.raises(ValueError):
         with ops.use_backend("pallas"):
             pass
