@@ -14,12 +14,16 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    version at the main paths' shapes (bf16 outputs atol = rtol = 2e-2, f32
    SSM states 5e-3, as ``tests/test_kernels.py:28-30,106,128``) and times
    kernel, plain version and, where one PyTorch call computes the same
-   function, that call (``library_ms``, a yardstick only); the attention
-   kernels also at zamba2's shapes (D = 64, H = K = 32), the SSM kernels
-   also at a ragged length and from a nonzero state; the dense decode at
-   a 2048-position cache with lengths 0 (zeros), 1 and 2048; flash
-   attention, the scan and the SSD also over a whole 2048-token dense
-   prefill;
+   function, that call (``library_ms``, a yardstick only), with the
+   factors ``x_library`` (ms / library_ms) and ``x_bound`` (ms /
+   bound_ms); the attention kernels also at zamba2's shapes (D = 64,
+   H = K = 32), the SSM kernels also at a ragged length and from a nonzero
+   state; the dense decode at a 2048-position cache with lengths 0
+   (zeros), 1 and 2048; both decode kernels bitwise: two runs equal, and a
+   lane equal alone, in a batch of other lanes, among lanes all longer
+   than it, and over a cache of another capacity (S, or the page table's
+   width); flash attention, the scan and the SSD also over a whole
+   2048-token dense prefill;
 4. per model — full-width, full-depth ``qwen3-8b``, then ``falcon-mamba-7b``
    (Mamba1), then ``zamba2-1.2b`` (Mamba2 + shared attention), each with
    seeded random weights, freed before the next:
@@ -166,6 +170,9 @@ def phase_build() -> None:
     logs = _build.build_all()
     t_nvcc = time.perf_counter() - t0
     for name, text in logs.items():
+        saved = _build.BUILD / f"{name}.log"
+        if not text and saved.exists():  # built earlier in this checkout
+            text = saved.read_text()
         usage = [ln.strip() for ln in text.splitlines()
                  if "registers" in ln or "spill" in ln]
         log({"build": name, "ptxas": usage})
@@ -258,6 +265,16 @@ def check_paged_decode(gen, *, n_heads=32, n_kv=8, d=128) -> dict:
     alone = pk.paged_decode_attention(q[5:6], kp, vp, table[5:6], lens[5:6])
     if not (torch.equal(other[5], got[5]) and torch.equal(alone[0], got[5])):
         raise AssertionError("paged decode: lane 5 changed with its batch")
+    # lane 6 (700 keys, three segments) among lanes all longer than it, and
+    # alone over a wider page table (another capacity, so another grid)
+    lens3 = torch.full_like(lens, MAX_SEQ)
+    lens3[6] = lens[6]
+    longer = pk.paged_decode_attention(q, kp, vp, table, lens3)
+    wide = torch.cat([table[6:7], table[7:8, :8]], dim=1)
+    wider = pk.paged_decode_attention(q[6:7], kp, vp, wide, lens[6:7])
+    if not (torch.equal(longer[6], got[6]) and torch.equal(wider[0], got[6])):
+        raise AssertionError("paged decode: lane 6 changed among longer "
+                             "lanes or with the table's width")
     K, D = kp.shape[2], kp.shape[3]
     n_keys = int(lens.sum())
     nbytes = (n_keys * K * D * 2 * 2 + 2 * q.numel() * 2
@@ -300,6 +317,18 @@ def check_decode(gen, *, n_heads=32, n_kv=8, d=128) -> dict:
     alone = dk.decode_attention(q[5:6], k[5:6], v[5:6], lens[5:6])
     if not torch.equal(alone[0], got[5]):
         raise AssertionError("decode: lane 5 changed with its batch")
+    # lane 5 (1300 keys, six segments) among lanes all longer than it, and
+    # alone in a cache of another S (more segments, so another grid)
+    lens3 = torch.full_like(lens, S)
+    lens3[5] = lens[5]
+    longer = dk.decode_attention(q, k, v, lens3)
+    k2 = torch.zeros(1, S + 1024, n_kv, d, device="cuda", dtype=k.dtype)
+    v2 = torch.zeros_like(k2)
+    k2[0, :S], v2[0, :S] = k[5], v[5]
+    other_s = dk.decode_attention(q[5:6], k2, v2, lens[5:6])
+    if not (torch.equal(longer[5], got[5]) and torch.equal(other_s[0], got[5])):
+        raise AssertionError("decode: lane 5 changed among longer lanes or "
+                             "with the cache's S")
     n_keys = int(lens.sum())
     nbytes = (n_keys * n_kv * d * 2 * 2 + 2 * q.numel() * 2
               + lens.numel() * 4)
@@ -477,8 +506,16 @@ def phase_kernels(seed: int = 0) -> dict:
            "flash_attention@zamba2": check_flash(gen, H=32, K=32, D=64)}
     for name, rows in out.items():
         for r in rows:
+            r.update(_factors(r))
             log({"kernel_check": name, **r})
     return out
+
+
+def _factors(row: dict) -> dict:
+    """The kernel's time over its library call's and over its bound."""
+    lib = row["library_ms"]
+    return {"x_library": row["ms"] / lib if lib else None,
+            "x_bound": row["ms"] / row["bound_ms"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1167,6 +1204,7 @@ def main() -> int:
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "x_library": row["x_library"], "x_bound": row["x_bound"],
                 "shape": row["shape"],
             })
     log({"kernels": kernels})

@@ -7,8 +7,9 @@
 //
 // The kernel is flash_decode.cuh's (which carries the design note and the
 // bound); here key t of lane b lives in page page_table[b][t / P] at row
-// t % P, and each block reads its lane's page ids itself. Keys past a
-// partly filled page's last valid row are never read.
+// t % P, and each block reads the page ids of its segment of the lane into
+// shared memory once, before its loads. Keys past a partly filled page's
+// last valid row are never read.
 
 #include "flash_decode.cuh"
 
@@ -17,26 +18,37 @@ struct PagedLayout {
     int P;                      // rows per page
     int max_pages;
     int cap;                    // max_pages * P
+    static constexpr int IDS = SEG;  // page ids of a segment (P >= 1)
 
-    struct Lane {
-        const int32_t* table;
+    struct Rows {
+        const int* ids;  // the segment's page ids, from page `first` on
         int P;
+        int first;
         __device__ __forceinline__ size_t row(int t) const {
-            return (size_t)table[t / P] * P + t % P;
+            const int p = t / P;
+            return (size_t)ids[p - first] * P + (t - p * P);
         }
     };
-    __device__ __forceinline__ Lane lane(int b) const {
-        return {page_table + (size_t)b * max_pages, P};
+    // keys [s0, s1) lie in pages s0 / P .. (s1 - 1) / P: at most SEG of them
+    __device__ __forceinline__ Rows rows(int b, int s0, int s1,
+                                         int* ids) const {
+        const int first = s0 / P;
+        const int n = (s1 - 1) / P - first + 1;
+        const int32_t* table = page_table + (size_t)b * max_pages + first;
+        for (int i = threadIdx.x; i < n; i += blockDim.x) ids[i] = table[i];
+        return {ids, P, first};
     }
 };
 
+// partial: B * K * ceil(max_pages * P / 256) * ((H/K) * D + 16) floats of
+// scratch; counters: B * K unsigned ints, zero (the kernel leaves them zero).
 extern "C" int paged_decode_attention_bf16(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* page_table, const void* lengths, void* out,
-    int B, int H, int K, int D, int P, int max_pages, float scale,
-    void* stream) {
+    const void* page_table, const void* lengths, void* out, void* partial,
+    void* counters, int B, int H, int K, int D, int P, int max_pages,
+    float scale, void* stream) {
     const PagedLayout layout{(const int32_t*)page_table, P, max_pages,
                              max_pages * P};
-    return flash_decode(q, k_pages, v_pages, lengths, out, layout, B, H, K, D,
-                        scale, (cudaStream_t)stream);
+    return flash_decode(q, k_pages, v_pages, lengths, out, partial, counters,
+                        layout, B, H, K, D, scale, (cudaStream_t)stream);
 }

@@ -14,10 +14,10 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _flash_decode
 from repro_torch.kernels.ref import decode_attention as plain  # noqa: F401  (beside the kernel)
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float,
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float,
                                                           ctypes.c_void_p]
 
 
@@ -65,8 +65,10 @@ def decode_attention(
     _check(lengths, "lengths", torch.int32, dev)
     out = torch.empty_like(q)
     if B:
+        part, cnt = _flash_decode.scratch(B, K, H // K, D, S, dev)
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     lengths.data_ptr(), out.data_ptr(), B, S, H, K, D,
+                     lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
+                     cnt.data_ptr(), B, S, H, K, D,
                      D ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "decode_attention")
         decode_attention.launches += 1

@@ -44,10 +44,10 @@ def flash_attention(
     B, Sq, H, D = q.shape
     _, Sk, K, _ = k.shape
     if (k.shape[0] != B or k.shape[3] != D or v.shape != k.shape or H % K
-            or D % 16 or D > 128):
+            or D not in (64, 128)):
         raise ValueError(
             f"flash_attention kernel: q {tuple(q.shape)}, k {tuple(k.shape)},"
-            f" v {tuple(v.shape)} (need H % K == 0, D % 16 == 0, D <= 128)")
+            f" v {tuple(v.shape)} (need H % K == 0 and D in (64, 128))")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if t.device != dev or t.dtype != torch.bfloat16:
             raise ValueError(f"flash_attention kernel: {name} must be bf16 on "

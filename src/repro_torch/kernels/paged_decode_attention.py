@@ -15,10 +15,10 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _flash_decode
 from repro_torch.kernels.ref import paged_decode_attention as plain  # noqa: F401
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float,
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                           ctypes.c_void_p]
 
 
@@ -68,8 +68,11 @@ def paged_decode_attention(
         _check(t, name, torch.int32, dev)
     out = torch.empty_like(q)
     if B:
+        part, cnt = _flash_decode.scratch(B, K, H // K, D,
+                                          page_table.shape[1] * P, dev)
         err = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                      page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                     part.data_ptr(), cnt.data_ptr(),
                      B, H, K, D, P, page_table.shape[1], D ** -0.5,
                      torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "paged_decode_attention")
