@@ -8,9 +8,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 
 1. device: prints the card's name and power limit (``nvidia-smi``);
 2. build: compiles every kernel of the serving path from ``src/repro_torch``
-   (one ``nvcc`` per CUDA source, all started together, plus the Triton
-   kernel's first compile) and prints the seconds;
-3. kernels: holds each hand-written kernel against its plain PyTorch
+   (one ``nvcc`` per CUDA source, all started together) and prints the
+   seconds;
+3. kernels: prints the launch floor (an empty kernel timed as every kernel
+   is, and its host cost) and the host microseconds per launch of the
+   ``rmsnorm`` and ``ssd`` wrappers; holds each hand-written kernel against its plain PyTorch
    version at the main paths' shapes (bf16 outputs atol = rtol = 2e-2, f32
    SSM states 5e-3, as ``tests/test_kernels.py:28-30,106,128``) and times
    kernel, plain version and, where one PyTorch call computes the same
@@ -23,7 +25,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    lane equal alone, in a batch of other lanes, among lanes all longer
    than it, and over a cache of another capacity (S, or the page table's
    width); flash attention, the scan and the SSD also over a whole
-   2048-token dense prefill;
+   2048-token dense prefill; the SSD's whole calls bitwise equal to chained
+   256-step calls carrying the state, and its final state within 1e-4 of
+   the plain f32 state's largest value (the SSD's f32 contract); RMSNorm
+   also at the decode step's qk-norm shapes, each row bitwise the same
+   alone as in its batch;
 4. per model — full-width, full-depth ``qwen3-8b``, then ``falcon-mamba-7b``
    (Mamba1), then ``zamba2-1.2b`` (Mamba2 + shared attention), each with
    seeded random weights, freed before the next:
@@ -82,6 +88,10 @@ F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
 TOL = dict(atol=2e-2, rtol=2e-2)  # bf16, as tests/test_kernels.py:28-30
 STATE_TOL = dict(atol=5e-3, rtol=5e-3)  # f32 SSM state, test_kernels.py:106
+# the SSD's f32 contract (every f32 operand of a bf16 product split into
+# hi + lo, ~16 bits kept): its final state within this share of the plain
+# f32 state's largest value; operands left in plain bf16 miss it
+SSD_STATE_REL = 1e-4
 L2_BYTES = 50 * 2 ** 20
 
 # serving configuration of the smoke run
@@ -103,6 +113,30 @@ def _close(got, want, what: str, tol: dict = TOL) -> float:
         raise AssertionError(f"{what}: max abs err {err.max().item():.4g} "
                              f"over atol=rtol={tol['atol']}")
     return float(err.max())
+
+
+def _rel_err(got, want) -> float:
+    """Largest difference over the largest magnitude of ``want``."""
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def _kernels_us(fn, n: int = 20) -> dict:
+    """Per kernel that ``fn`` launches: device microseconds per launch and
+    launches per call (``torch.profiler`` over ``n`` calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0]: {"us": e.self_device_time_total / e.count,
+                                  "per_call": e.count / n}
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def _bound(nbytes: float, flops: float, flop_rate: float,
@@ -162,9 +196,7 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
-    import torch
-
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -176,16 +208,79 @@ def phase_build() -> None:
         usage = [ln.strip() for ln in text.splitlines()
                  if "registers" in ln or "spill" in ln]
         log({"build": name, "ptxas": usage})
-    x = torch.ones(2, 128, dtype=torch.bfloat16, device="cuda")
-    ops.rmsnorm(x, torch.ones(128, device="cuda"))  # Triton's first compile
-    torch.cuda.synchronize()
-    log({"phase": "build", "nvcc_s": round(t_nvcc, 3),
-         "total_s": round(time.perf_counter() - t0, 3)})
+    log({"phase": "build", "nvcc_s": round(t_nvcc, 3)})
 
 
 # ---------------------------------------------------------------------------
 # 3. kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+
+def _host_us(fn, n: int = 1000) -> dict:
+    """Host cost of one launch through ``fn``: a host clock over ``n``
+    enqueues (after a warm-up), then one synchronise. ``host_us`` is the
+    clock before the synchronise over ``n``; ``wall_us`` includes it (equal
+    when the device kept up with the host)."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"host_us": (t1 - t0) / n * 1e6, "wall_us": (t2 - t0) / n * 1e6,
+            "n": n}
+
+
+def phase_floor(gen) -> dict:
+    """The launch floor of ``_time_ms`` (an empty kernel timed the same
+    way, and its host cost through ``ctypes``), and the host cost per launch
+    of the ``rmsnorm`` wrapper (the decode step's (8, 4096) block norm) and
+    of the ``ssd`` wrapper (zamba2's prefill chunk)."""
+    import torch
+
+    from repro_torch.kernels import rmsnorm as rk
+
+    dev = torch.device("cuda")
+    x, w = _rmsnorm_case(gen, (N_SLOTS, 4096))
+    args = _ssd_case(gen, CHUNK, 0.1)
+    out = {"phase": "floor",
+           "empty_kernel_ms": _time_ms(lambda: rk.empty_launch(dev)),
+           "host_per_launch": {
+               "empty_kernel": _host_us(lambda: rk.empty_launch(dev)),
+               **_wrapper_host_us(x, w, args)}}
+    log(out)
+    return out
+
+
+def _wrapper_host_us(x, w, ssd_args) -> dict:
+    """Host cost per call of the ``rmsnorm`` and ``ssd`` wrappers (300 SSD
+    calls: two launches each stay within the device's launch queue)."""
+    from repro_torch.kernels import rmsnorm as rk, ssd as dk
+
+    return {"rmsnorm": _host_us(lambda: rk.rmsnorm(x, w, 1e-6)),
+            "ssd": _host_us(lambda: dk.ssd(*ssd_args, chunk=CHUNK), n=300)}
+
+
+def _rmsnorm_case(gen, shape):
+    import torch
+
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    w = 1 + 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")
+    return x, w
+
+
+# RMSNorm's check shapes: the block norms of qwen3-8b / falcon-mamba (d 4096)
+# and of zamba2 (d 2048; its gate norm is d_inner 4096) at the decode step
+# (8 rows) and a prefill chunk (256); qwen3's qk-norm rows (q: 32 heads,
+# k: 8 kv heads of 128) over a chunk, then at the decode step
+RMSNORM_SHAPES = [(N_SLOTS, 4096), (CHUNK, 4096), (CHUNK * 32, 128),
+                  (CHUNK * 8, 128), (N_SLOTS, 2048), (CHUNK, 2048),
+                  (N_SLOTS * 32, 128), (N_SLOTS * 8, 128)]
 
 
 def check_rmsnorm(gen) -> list[dict]:
@@ -195,16 +290,18 @@ def check_rmsnorm(gen) -> list[dict]:
     from repro_torch.kernels import ops, ref, rmsnorm as rk
 
     rows = []
-    # the block norms of qwen3-8b / falcon-mamba (d 4096) and of zamba2
-    # (d 2048; its gate norm is d_inner 4096), qwen3's qk-norm rows
-    for shape in [(N_SLOTS, 4096), (CHUNK, 4096), (CHUNK * 32, 128),
-                  (CHUNK * 8, 128), (N_SLOTS, 2048), (CHUNK, 2048)]:
-        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-        w = 1 + 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")
+    for shape in RMSNORM_SHAPES:
+        x, w = _rmsnorm_case(gen, shape)
         got = rk.rmsnorm(x, w, 1e-6)
         with ops.use_backend("plain"):
             want = ops.rmsnorm(x, w, 1e-6)
         err = _close(got, want, f"rmsnorm {shape}")
+        # a row's bits do not depend on the rows beside it: the first row
+        # alone, the first 8 alone, the last row alone
+        for sl in (slice(0, 1), slice(0, 8), slice(shape[0] - 1, None)):
+            if not torch.equal(rk.rmsnorm(x[sl].clone(), w, 1e-6), got[sl]):
+                raise AssertionError(f"rmsnorm {shape}: rows {sl} differ "
+                                     f"from the same rows in the batch")
         nbytes = 2 * x.numel() * x.element_size() + w.numel() * 4
         wl = w.to(x.dtype)
         rows.append({
@@ -438,11 +535,44 @@ def check_selective_scan(gen) -> list[dict]:
     return rows
 
 
+def _ssd_case(gen, S: int, h0_scale: float, *, B=1, Hs=64, P=64, N=64):
+    """zamba2's SSD inputs over S steps: x, dt, A, Bm, C, D, h0."""
+    import torch
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device="cuda")
+
+    return ((rnd(B, S, Hs, P, scale=0.5)).bfloat16(),
+            (0.1 * rnd(B, S, Hs).abs()).bfloat16(),
+            -(rnd(Hs).abs() + 0.1),
+            rnd(B, S, N, scale=0.5).bfloat16(),
+            rnd(B, S, N, scale=0.5).bfloat16(),
+            rnd(Hs), rnd(B, Hs, P, N, scale=h0_scale))
+
+
+def _ssd_chained(args, chunk: int = CHUNK):
+    """The SSD over ``chunk``-step calls, each carrying hT into the next
+    h0, as the paged engine's chunked prefill runs it."""
+    import torch
+
+    from repro_torch.kernels import ssd as dk
+
+    x, dt, A, Bm, C, D, h = args
+    ys = []
+    for t0 in range(0, x.shape[1], chunk):
+        t1 = t0 + chunk
+        y, h = dk.ssd(x[:, t0:t1], dt[:, t0:t1], A, Bm[:, t0:t1],
+                      C[:, t0:t1], D, h, chunk=chunk)
+        ys.append(y)
+    return torch.cat(ys, 1), h
+
+
 def check_ssd(gen) -> list[dict]:
     """zamba2's prefill chunk (S = c = 256, Hs = 64, P = 64, N = 64) from a
     zero and from a nonzero state, a ragged S = 200, S = 600 over three
     chunks, and a whole dense prefill (S = 2048, eight chunks, from a zero
-    state); y (bf16) and hT (f32)."""
+    state); y (bf16) and hT (f32). S = 600 and 2048 are also run as chained
+    256-step calls, which must give the same bits."""
     import torch
 
     from repro_torch.kernels import ops, ssd as dk
@@ -450,21 +580,26 @@ def check_ssd(gen) -> list[dict]:
     rows = []
     for S, h0_scale in ((CHUNK, 0.0), (CHUNK, 0.1), (200, 0.1), (600, 0.1),
                         (MAX_SEQ, 0.0)):
-        B, Hs, P, N = 1, 64, 64, 64
-        x = (0.5 * torch.randn(B, S, Hs, P, generator=gen, device="cuda")
-             ).bfloat16()
-        dt = (0.1 * torch.randn(B, S, Hs, generator=gen, device="cuda").abs()
-              ).bfloat16()
-        A = -(torch.randn(Hs, generator=gen, device="cuda").abs() + 0.1)
-        Bm = (0.5 * torch.randn(B, S, N, generator=gen, device="cuda")).bfloat16()
-        C = (0.5 * torch.randn(B, S, N, generator=gen, device="cuda")).bfloat16()
-        D = torch.randn(Hs, generator=gen, device="cuda")
-        h0 = h0_scale * torch.randn(B, Hs, P, N, generator=gen, device="cuda")
-        y, hT = dk.ssd(x, dt, A, Bm, C, D, h0, chunk=CHUNK)
+        args = _ssd_case(gen, S, h0_scale)
+        B, _, Hs, P = args[0].shape
+        N = args[3].shape[-1]
+        y, hT = dk.ssd(*args, chunk=CHUNK)
         with ops.use_backend("plain"):
-            yw, hw = ops.ssd(x, dt, A, Bm, C, D, h0, chunk=CHUNK)
+            yw, hw = ops.ssd(*args, chunk=CHUNK)
         what = f"ssd S={S} h0*{h0_scale}"
         err = max(_close(y, yw, what), _close(hT, hw, what + " hT", STATE_TOL))
+        rel = _rel_err(hT, hw)
+        if not rel <= SSD_STATE_REL:
+            raise AssertionError(f"{what}: hT off the f32 plain state by "
+                                 f"{rel:.3g} of its largest value, over "
+                                 f"{SSD_STATE_REL}")
+        chained = None
+        if S > CHUNK:
+            yc, hc = _ssd_chained(args)
+            chained = torch.equal(yc, y) and torch.equal(hc, hT)
+            if not chained:
+                raise AssertionError(f"{what}: one call and chained "
+                                     f"{CHUNK}-step calls differ bitwise")
         nbytes = (2 * B * S * Hs * P * 2 + B * S * Hs * 2 + 2 * B * S * N * 2
                   + 2 * Hs * 4 + 2 * B * Hs * P * N * 4)
         # per chunk of n steps: C B^T once for all heads (n(n+1)/2 pairs x
@@ -474,16 +609,21 @@ def check_ssd(gen) -> list[dict]:
         pairs = sum(n * (n + 1) // 2 for n in chunks)
         flops = B * (2 * pairs * N + Hs * (2 * pairs * P + 3 * pairs
                                            + 4 * S * P * N))
+        exps = B * Hs * (pairs + 2 * S)
+        # the least time on the tensor cores (bf16 peak), and the same work
+        # on the f32 units outside them (``bound_f32_ms``)
+        f32 = _bound(nbytes, flops, F32_FLOPS, exps=exps)
         rows.append({
             "shape": {"B": B, "S": S, "Hs": Hs, "P": P, "N": N,
                       "chunk": CHUNK, "h0": h0_scale},
-            "max_abs_err": err,
-            "ms": _time_ms(lambda: dk.ssd(x, dt, A, Bm, C, D, h0, chunk=CHUNK),
-                           flush=True),
-            "plain_ms": _time_ms(lambda: dk.plain(x, dt, A, Bm, C, D, h0,
-                                                  chunk=CHUNK), flush=True),
+            "max_abs_err": err, "hT_rel_err": rel, "chained_equal": chained,
+            "ms": _time_ms(lambda: dk.ssd(*args, chunk=CHUNK), flush=True),
+            "kernels_us": _kernels_us(lambda: dk.ssd(*args, chunk=CHUNK)),
+            "plain_ms": _time_ms(lambda: dk.plain(*args, chunk=CHUNK),
+                                 flush=True),
             "library_ms": None,
-            **_bound(nbytes, flops, F32_FLOPS, exps=B * Hs * (pairs + 2 * S)),
+            **_bound(nbytes, flops, BF16_TC_FLOPS, exps=exps),
+            "bound_f32_ms": f32["bound_ms"], "bound_f32_by": f32["bound_by"],
         })
     return rows
 
@@ -492,6 +632,7 @@ def phase_kernels(seed: int = 0) -> dict:
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    phase_floor(gen)
     out = {"rmsnorm": check_rmsnorm(gen),
            "paged_decode_attention": [check_paged_decode(gen)],
            "decode_attention": [check_decode(gen)],
@@ -1103,7 +1244,7 @@ def phase_continuity(model, params, *, paged: bool, seed: int = 3) -> dict:
 # ---------------------------------------------------------------------------
 
 ROUTES = {
-    "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
+    "rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:48"),
     "paged_decode_attention": (
         "cuda", "src/repro_torch/csrc/paged_decode_attention.cu",
@@ -1206,6 +1347,8 @@ def main() -> int:
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "x_library": row["x_library"], "x_bound": row["x_bound"],
                 "shape": row["shape"],
+                **({"bound_f32_ms": row["bound_f32_ms"]}
+                   if "bound_f32_ms" in row else {}),
             })
     log({"kernels": kernels})
     log(device["smi"])

@@ -60,53 +60,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"  // smem_u32, cp.async, mma16816, ldmatrix, pack_bf16
+
 #define NEG_INF (-1e30f)
 #define SEG 256    // keys per segment: a multiple of the page size 64
 #define WARPS 2
 #define THREADS (WARPS * 32)
 #define TILE 32    // keys per warp tile: four 8-key mma columns
 #define STAGES 2   // a warp's cp.async ring
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>  // wait until at most the newest N groups are in flight
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// d += a * b on the tensor cores: m16n8k16, bf16 in, f32 accumulate; a is
-// (16 x 16) row-major in 4 registers (rows r, r+8 / r, r+8 at columns c,
-// c+8), b (16 x 8) in 2
-__device__ __forceinline__ void mma16816(float* d, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices, transposed, from the rows that lanes 8i..8i+7
-// address (matrix i)
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 v) {
-    return *reinterpret_cast<uint32_t*>(&v);
-}
 
 __device__ __forceinline__ float quad_max(float v) {
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));

@@ -19,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG.parents[1] / "build" / "repro_torch"
@@ -26,8 +28,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("paged_decode_attention", "decode_attention", "flash_attention",
-           "selective_scan", "ssd")
+SOURCES = ("rmsnorm", "paged_decode_attention", "decode_attention",
+           "flash_attention", "selective_scan", "ssd")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -90,6 +92,14 @@ def load(name: str) -> ctypes.CDLL:
         build_all((name,))
         _libs[name] = ctypes.CDLL(str(lib_path(name)))
     return _libs[name]
+
+
+def stream(device) -> int:
+    """The handle of ``device``'s current CUDA stream, as the C entries
+    take it (PyTorch's raw query: the cheapest on the host)."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(err: int, what: str) -> None:

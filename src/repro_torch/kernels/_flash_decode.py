@@ -31,14 +31,22 @@ def partial_shape(B: int, K: int, G: int, D: int, cap: int) -> tuple:
     return (B, K, n_segments(cap), G * D + 16)
 
 
+def counters(n: int, device: torch.device) -> torch.Tensor:
+    """The device's counters (at least ``n``, zero). Every kernel that
+    counts arrivals in them (the decode kernels, the SSD's state pass)
+    leaves them at zero, and their launches run in stream order, so they
+    share one buffer."""
+    cnt = _counters.get(device)
+    if cnt is None or cnt.numel() < n:
+        cnt = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _counters[device] = cnt
+    return cnt
+
+
 def scratch(B: int, K: int, G: int, D: int, cap: int,
             device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """The launch's partials (uninitialised) and the device's counters
     (at least ``B * K``, zero)."""
     part = torch.empty(partial_shape(B, K, G, D, cap), dtype=torch.float32,
                        device=device)
-    cnt = _counters.get(device)
-    if cnt is None or cnt.numel() < B * K:
-        cnt = torch.zeros(max(B * K, 256), dtype=torch.int32, device=device)
-        _counters[device] = cnt
-    return part, cnt
+    return part, counters(B * K, device)

@@ -69,7 +69,7 @@ def decode_attention(
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
                      cnt.data_ptr(), B, S, H, K, D,
-                     D ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+                     D ** -0.5, _build.stream(dev))
         _build.check(err, "decode_attention")
         decode_attention.launches += 1
     return out

@@ -60,7 +60,7 @@ def flash_attention(
     if B and Sq:
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      B, Sq, Sk, H, K, D, int(causal), int(q_offset),
-                     D ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+                     D ** -0.5, _build.stream(dev))
         _build.check(err, "flash_attention")
         flash_attention.launches += 1
     return out

@@ -74,7 +74,7 @@ def paged_decode_attention(
                      page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                      part.data_ptr(), cnt.data_ptr(),
                      B, H, K, D, P, page_table.shape[1], D ** -0.5,
-                     torch.cuda.current_stream(dev).cuda_stream)
+                     _build.stream(dev))
         _build.check(err, "paged_decode_attention")
         paged_decode_attention.launches += 1
     return out

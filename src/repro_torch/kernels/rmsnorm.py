@@ -1,47 +1,43 @@
-"""RMSNorm: a Triton kernel for Hopper, its plain version, its launch count.
+"""RMSNorm: a CUDA C++ kernel for Hopper, its plain version, its launch
+count.
 
-Replaces ``repro/kernels/rmsnorm.py::rmsnorm`` (``_rmsnorm_kernel``, the TPU
-kernel that normalizes ``(256, d)`` row tiles held in VMEM).
-
-What bounds it on this card: bytes. The work is one read and one write of
-``x`` with a per-row f32 reduction, a few FLOP per byte: the bound is
-``2 * rows * d * itemsize`` bytes over 3.35 TB/s.
-
-Design: one program per row, ``BLOCK_D = next_power_of_2(d)`` (4096 for the
-block norms, 128 for qk-norm), a masked block load, f32 ``tl.sum`` and
-``tl.rsqrt``, the scale by ``w`` in f32 and a cast back to ``x.dtype`` on the
-store — the reference's arithmetic in one pass over the row. No tensor cores
-and no shared-memory layout to control, which is why this kernel is Triton.
-``triton`` is imported when the kernel is first launched, never at import.
+The kernel (``csrc/rmsnorm.cu``, which carries the design note) replaces
+``repro/kernels/rmsnorm.py::rmsnorm`` (``_rmsnorm_kernel``, the TPU kernel
+that normalizes ``(256, d)`` row tiles held in VMEM): the mean of squares in
+f32, ``rsqrt(mean + eps)``, the scale by ``w`` in f32, the cast back to
+``x.dtype``, over any leading shape. A warp per row up to ``d = 256`` (the
+qk-norm rows), a block per row above, chosen by ``d`` alone so that a row's
+bits never depend on how many rows share the call. It is launched through
+``ctypes`` like the other kernels: the serving path is host-bound, and this
+kernel runs 145 times per qwen3-8b decode step.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.ref import rmsnorm as plain  # noqa: F401  (beside the kernel)
+
+_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the widest row: 1024 threads, 2 runs of 16 bytes each (csrc MAX_RUNS)
+MAX_BYTES = 1024 * 2 * 16
 
 
 @functools.cache
-def _kernel():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def rmsnorm_kernel(x_ptr, w_ptr, o_ptr, d, eps, BLOCK_D: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK_D)
-        mask = cols < d
-        x = tl.load(x_ptr + row * d + cols, mask=mask, other=0.0).to(tl.float32)
-        var = tl.sum(x * x, axis=0) / d
-        y = x * tl.rsqrt(var + eps)
-        w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-        tl.store(o_ptr + row * d + cols, (y * w).to(o_ptr.dtype.element_ty),
-                 mask=mask)
-
-    return triton, rmsnorm_kernel
+def _lib():
+    lib = _build.load("rmsnorm")
+    fn = lib.rmsnorm_fwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    empty = lib.empty_launch
+    empty.argtypes = [ctypes.c_void_p]
+    empty.restype = ctypes.c_int
+    return fn, empty
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -50,21 +46,34 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"rmsnorm kernel needs CUDA tensors on one device, "
                          f"got {x.device} and {w.device}")
-    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
-        raise TypeError(f"rmsnorm kernel: unsupported dtype {x.dtype}")
+    xtype, wtype = _TYPES.get(x.dtype), _TYPES.get(w.dtype)
+    if xtype is None or wtype is None:
+        raise TypeError(f"rmsnorm kernel: unsupported dtypes {x.dtype}, "
+                        f"{w.dtype}")
     d = x.shape[-1]
     if w.shape != (d,):
         raise ValueError(f"rmsnorm kernel: w {tuple(w.shape)} for d={d}")
-    triton, kernel = _kernel()
+    if d * x.element_size() > MAX_BYTES:
+        raise ValueError(f"rmsnorm kernel: d={d} over {MAX_BYTES} bytes a row")
     x2 = x.reshape(-1, d).contiguous()
     out = torch.empty_like(x2)
     rows = x2.shape[0]
-    if rows:
-        block = triton.next_power_of_2(d)
-        kernel[(rows,)](x2, w.contiguous(), out, d, eps, BLOCK_D=block,
-                        num_warps=max(1, min(8, block // 256)))
+    if rows and d:
+        fn, _ = _lib()
+        err = fn(x2.data_ptr(), w.contiguous().data_ptr(), out.data_ptr(),
+                 rows, d, xtype, wtype, eps,
+                 _build.stream(x.device))
+        _build.check(err, "rmsnorm")
         rmsnorm.launches += 1
     return out.reshape(x.shape)
 
 
 rmsnorm.launches = 0
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch an empty kernel (``csrc/rmsnorm.cu``) on the current stream:
+    the floor under any launch, for timing. Not counted."""
+    _, empty = _lib()
+    _build.check(empty(_build.stream(device)),
+                 "empty kernel")

@@ -75,7 +75,7 @@ def selective_scan(
         err = _lib()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                      C.data_ptr(), D.data_ptr(), h0.data_ptr(), y.data_ptr(),
                      hT.data_ptr(), B, S, Di, N,
-                     torch.cuda.current_stream(dev).cuda_stream)
+                     _build.stream(dev))
         _build.check(err, "selective_scan")
         selective_scan.launches += 1
     return y, hT

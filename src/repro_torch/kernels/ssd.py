@@ -7,23 +7,36 @@ masked ``c x c`` product ``(C B^T * exp(l_i - l_j)) dt x`` plus the carried
 ``(P, N)`` state's contribution, then the state's update; ``B`` and ``C``
 are shared by all heads (one group). Returns ``(y, hT)``. The plain version
 (``ref.ssd``) follows the same chunking.
+
+One call is two launches: the chunks' local states in parallel, with the
+state passed in chunk order by the last block of each head, then y for
+every (query tile, chunk, head) from the state entering its chunk. The
+wrapper allocates the scratch between them (l, the per-chunk states and
+decays) as one f32 buffer per call; the per-head arrival counters are the
+device's shared zeroed buffer (``_flash_decode.counters``), which the
+kernel leaves at zero.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _flash_decode
 from repro_torch.kernels.ref import ssd as plain  # noqa: F401  (beside the kernel)
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+MAX_P = 64      # P: a multiple of 8 up to 64
+MAX_N = 64      # N: a multiple of 8 up to 64
+MAX_CHUNK = 256
+
+_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
+@functools.cache
 def _lib():
-    lib = _build.load("ssd")
-    fn = lib.ssd_bf16
+    fn = _build.load("ssd").ssd_bf16
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
@@ -36,6 +49,16 @@ def _check(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype,
                          f"{dev}, got {t.dtype} {tuple(t.shape)} on "
                          f"{t.device}")
     return t.contiguous()
+
+
+def scratch_sizes(B: int, S: int, Hs: int, P: int, N: int,
+                  c: int) -> tuple[int, int, int]:
+    """Floats of the scratch regions: l (B, Hs, chunks * c), the states
+    (B, Hs, chunks, P, N) and the decays (B, Hs, chunks); the first rounded
+    up to 4 floats so that the states start 16-byte aligned."""
+    chunks = -(-S // c)
+    n_l = B * Hs * chunks * c
+    return -(-n_l // 4) * 4, B * Hs * chunks * P * N, B * Hs * chunks
 
 
 def ssd(
@@ -56,6 +79,12 @@ def ssd(
         raise ValueError(f"ssd kernel needs CUDA, got {dev}")
     B, S, Hs, P = x.shape
     N = Bm.shape[-1]
+    if P % 8 or P > MAX_P or N % 8 or N > MAX_N:
+        raise ValueError(f"ssd kernel: P = {P} and N = {N} must be multiples "
+                         f"of 8 up to {MAX_P} and {MAX_N}")
+    c = max(1, min(chunk, S))
+    if c > MAX_CHUNK:
+        raise ValueError(f"ssd kernel: chunk {c} over {MAX_CHUNK}")
     bf, f32 = torch.bfloat16, torch.float32
     x = _check(x, "x", (B, S, Hs, P), bf, dev)
     dt = _check(dt, "dt", (B, S, Hs), bf, dev)
@@ -66,16 +95,21 @@ def ssd(
     if h0 is None:
         h0 = torch.zeros(B, Hs, P, N, dtype=f32, device=dev)
     h0 = _check(h0, "h0", (B, Hs, P, N), f32, dev)
-    c = max(1, min(chunk, S))
     y = torch.empty_like(x)
+    if not S:  # no step: the state passes through
+        return y, h0.clone()
     hT = torch.empty_like(h0)
-    if B and Hs and P:
-        # a chunk whose tiles do not fit in shared memory (c = 256 takes up
-        # to N = 86) is refused by the launch, and raises here
+    if B and Hs:
+        n_l, n_s, n_d = scratch_sizes(B, S, Hs, P, N, c)
+        buf = torch.empty(n_l + n_s + n_d, dtype=f32, device=dev)
+        base = buf.data_ptr()
         err = _lib()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                 C.data_ptr(), D.data_ptr(), h0.data_ptr(), y.data_ptr(),
-                 hT.data_ptr(), B, S, Hs, P, N, c,
-                 torch.cuda.current_stream(dev).cuda_stream)
+                     C.data_ptr(), D.data_ptr(), h0.data_ptr(), y.data_ptr(),
+                     hT.data_ptr(), base, base + 4 * n_l,
+                     base + 4 * (n_l + n_s),
+                     _flash_decode.counters(B * Hs, dev).data_ptr(),
+                     B, S, Hs, P, N, c,
+                     _build.stream(dev))
         _build.check(err, "ssd")
         ssd.launches += 1
     return y, hT

@@ -203,3 +203,142 @@ def test_split_decode_matches_plain_version_on_the_card(H, K, D, layout):
         assert torch.equal(run(q, longer)[lane], got[lane])
         assert torch.equal(run(q[one], lens[one], one, extra=3 * P)[0],
                            got[lane])
+
+
+def _ssd_inputs(g, B, S, Hs, P, N, h0_scale):
+    dev = "cuda"
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=dev)
+
+    return [rnd(B, S, Hs, P, scale=0.5).bfloat16(),
+            (rnd(B, S, Hs).abs() * 0.1).bfloat16(),
+            -(rnd(Hs).abs() + 0.1),
+            rnd(B, S, N, scale=0.5).bfloat16(),
+            rnd(B, S, N, scale=0.5).bfloat16(),
+            rnd(Hs), rnd(B, Hs, P, N, scale=h0_scale)]
+
+
+# the SSD's f32 contract: its final state within this share of the plain
+# f32 state's largest value (``chip_smoke.py``'s ``SSD_STATE_REL``)
+SSD_STATE_REL = 1e-4
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h0_scale", [0.0, 0.1])
+@pytest.mark.parametrize("S", [37, 256, 300, 600])
+@pytest.mark.parametrize("P,N", [(48, 64), (64, 64), (16, 8)])
+def test_ssd_matches_plain_version_on_the_card(P, N, S, h0_scale):
+    """On the H100: the tensor-core SSD (chunk-local states in parallel, the
+    state passed in chunk order, y per query tile) against its plain
+    version at P 48 and 64 with N 64 (zamba2-1.2b's widths) and P 16 with
+    N 8 (its REDUCED config's), chunk 256, ragged S over one to three
+    chunks, from a zero and a nonzero state; y in bf16 at atol = rtol =
+    2e-2, the f32 final state at 5e-3 (``tests/test_kernels.py:106,128``)
+    and within 1e-4 of the plain state's largest value (the f32
+    contract)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(P + N + S)
+    ins = _ssd_inputs(g, 2, S, 5, P, N, h0_scale)
+    with ops.use_backend("plain"):
+        yw, hw = ops.ssd(*ins, chunk=256)
+    y, hT = ops.ssd(*ins, chunk=256)
+    torch.testing.assert_close(y.float(), yw.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(hT, hw, atol=5e-3, rtol=5e-3)
+    assert _rel_err(hT, hw) <= SSD_STATE_REL
+
+
+@pytest.mark.gpu
+def test_ssd_state_limit_rejects_plain_bf16_operands(tmp_path, monkeypatch):
+    """On the H100: the 1e-4 limit on the SSD's final state tells the f32
+    contract from plain bf16. The same source, built from a copy of
+    ``csrc/`` whose hi + lo split keeps the hi half only (every f32 operand
+    rounded to bf16, ~2^-9 a product), misses the limit on inputs where the
+    kernel meets it. Prints both readings."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import shutil
+
+    from repro_torch.kernels import _build, ssd as dk
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    ins = _ssd_inputs(g, 1, 600, 8, 64, 64, 0.1)
+    with ops.use_backend("plain"):
+        _, hw = ops.ssd(*ins, chunk=256)
+    split = _rel_err(dk.ssd(*ins, chunk=256)[1], hw)
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    mma = csrc / "mma.cuh"
+    text = mma.read_text()
+    lo = "lo = pack_bf16(__floats2bfloat162_rn(a - f.x, b - f.y));"
+    assert text.count(lo) == 1
+    mma.write_text(text.replace(lo, "lo = 0u;"))
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    dk._lib.cache_clear()
+    try:
+        hi_only = _rel_err(dk.ssd(*ins, chunk=256)[1], hw)
+    finally:
+        dk._lib.cache_clear()
+    print(f"ssd hT relative error: hi + lo {split:.4g}, hi only {hi_only:.4g}")
+    assert split <= SSD_STATE_REL < hi_only
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [600, 2048])
+def test_ssd_whole_call_equals_chained_chunk_calls_on_the_card(S):
+    """On the H100: one SSD call over S steps and successive calls of 256
+    steps, each carrying hT into the next h0 (the paged engine's chunked
+    prefill), give the same y and hT bit for bit (the dense engine is the
+    paged one's oracle)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ssd as dk
+
+    g = torch.Generator(device="cuda").manual_seed(S)
+    x, dt, A, Bm, C, D, h0 = _ssd_inputs(g, 1, S, 8, 64, 64, 0.1)
+    y, hT = dk.ssd(x, dt, A, Bm, C, D, h0, chunk=256)
+    h, parts = h0, []
+    for t0 in range(0, S, 256):
+        t1 = min(S, t0 + 256)
+        yc, h = dk.ssd(x[:, t0:t1], dt[:, t0:t1], A, Bm[:, t0:t1],
+                       C[:, t0:t1], D, h, chunk=256)
+        parts.append(yc)
+    assert torch.equal(torch.cat(parts, 1), y)
+    assert torch.equal(h, hT)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("d", [33, 64, 128, 960, 2048, 4096, 8192])
+def test_rmsnorm_matches_plain_version_on_the_card(d, dtype):
+    """On the H100: the CUDA RMSNorm against its plain version at atol =
+    rtol = 2e-2, on the warp path (d <= 256) and the block path, with
+    d not a multiple of the vector width (33, and 960's runs at f32), and
+    w in f32 and in x's type; and a row's bits do not depend on how many
+    rows share the call (8 or 8,192)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import rmsnorm as rk
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(d)
+    x = torch.randn(8192, d, generator=g, device="cuda").to(dt)
+    w = 1 + 0.1 * torch.randn(d, generator=g, device="cuda")
+    for wt in (w, w.to(dt)):
+        with ops.use_backend("plain"):
+            want = ops.rmsnorm(x, wt, 1e-6)
+        got = ops.rmsnorm(x, wt, 1e-6)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+    few = rk.rmsnorm(x[:8].clone(), w, 1e-6)
+    many = rk.rmsnorm(x, w, 1e-6)
+    assert torch.equal(few, many[:8])
+    odd = rk.rmsnorm(x[1:4], w, 1e-6)  # rows off the 16-byte alignment
+    assert torch.equal(odd, many[1:4])

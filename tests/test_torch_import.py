@@ -84,6 +84,18 @@ def test_no_source_imports_jax_or_the_reference_package():
             assert top not in ("jax", "jaxlib", "repro"), (f, name)
 
 
+def test_no_source_imports_triton():
+    """Every kernel is CUDA C++ built by ``kernels/_build.py``: no module of
+    the port, nor ``chip_smoke.py``, imports ``triton``."""
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for f in files:
+        for name in _imports(f):
+            assert name.split(".")[0] != "triton", (f, name)
+    from repro_torch.kernels import _build
+
+    assert set(_build.SOURCES) == {p.stem for p in (PORT / "csrc").glob("*.cu")}
+
+
 def test_cuda_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
