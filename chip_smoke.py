@@ -25,11 +25,19 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    lane equal alone, in a batch of other lanes, among lanes all longer
    than it, and over a cache of another capacity (S, or the page table's
    width); flash attention, the scan and the SSD also over a whole
-   2048-token dense prefill; the SSD's whole calls bitwise equal to chained
-   256-step calls carrying the state, and its final state within 1e-4 of
-   the plain f32 state's largest value (the SSD's f32 contract); RMSNorm
-   also at the decode step's qk-norm shapes, each row bitwise the same
-   alone as in its batch;
+   2048-token dense prefill; the SSD's and the scan's whole calls bitwise
+   equal to chained 256-step calls carrying the state, and their final
+   states within 1e-4 of the plain f32 state's largest value; the scan also
+   at N = 4 (falcon-mamba's REDUCED state size); RMSNorm also at the
+   decode step's qk-norm shapes, each row bitwise the same alone as in its
+   batch;
+3b. cli: ``repro_torch.launch.serve.main`` at its defaults (REDUCED
+   configs, whose heads of 16 and 24 the attention wrappers pad to 64) for
+   ``qwen3-8b``, ``zamba2-1.2b`` and ``falcon-mamba-7b``, without and with
+   ``--fail-after 4``: every request completes, every kernel of the path
+   is launched, the restored run gives the same tokens; qwen3-8b's card
+   tokens are held against the CPU plain path teacher-forced on them
+   (each within 0.05 of the CPU's top logit);
 4. per model — full-width, full-depth ``qwen3-8b``, then ``falcon-mamba-7b``
    (Mamba1), then ``zamba2-1.2b`` (Mamba2 + shared attention), each with
    seeded random weights, freed before the next:
@@ -92,6 +100,9 @@ STATE_TOL = dict(atol=5e-3, rtol=5e-3)  # f32 SSM state, test_kernels.py:106
 # hi + lo, ~16 bits kept): its final state within this share of the plain
 # f32 state's largest value; operands left in plain bf16 miss it
 SSD_STATE_REL = 1e-4
+# the selective scan's final state: within this share of the plain f32
+# state's largest value (the exponentials' ~2 ulp and the f32 sums' order)
+SCAN_STATE_REL = 1e-4
 L2_BYTES = 50 * 2 ** 20
 
 # serving configuration of the smoke run
@@ -492,31 +503,57 @@ def check_flash(gen, *, H=32, K=8, D=128) -> list[dict]:
     return rows
 
 
+def _scan_case(gen, S: int, h0_scale: float, *, B=1, Di=8192, N=16):
+    """falcon-mamba's scan inputs over S steps: x, dt, A, Bm, C, D, h0."""
+    import torch
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device="cuda")
+
+    return ((rnd(B, S, Di, scale=0.5)).bfloat16(),
+            (0.1 * rnd(B, S, Di).abs()).bfloat16(),
+            -(rnd(Di, N).abs() + 0.1),
+            rnd(B, S, N, scale=0.5).bfloat16(),
+            rnd(B, S, N, scale=0.5).bfloat16(),
+            rnd(Di), rnd(B, Di, N, scale=h0_scale))
+
+
 def check_selective_scan(gen) -> list[dict]:
     """falcon-mamba's prefill chunk (S = 256, Di = 8192, N = 16) from a zero
-    and from a nonzero state, a ragged S = 200, and a whole dense prefill
-    (S = 2048 from a zero state); y (bf16) and hT (f32)."""
+    and from a nonzero state, a ragged S = 200, a whole dense prefill
+    (S = 2048 from a zero state), S = 600 over three tiles, and the chunk
+    at N = 4 (the REDUCED config's state size); y (bf16) and hT (f32), hT
+    also within 1e-4 of the plain f32 state's largest value. S = 600 and
+    2048 are also run as chained 256-step calls, which must give the same
+    bits."""
     import torch
 
     from repro_torch.kernels import ops, selective_scan as sk
 
     rows = []
-    for S, h0_scale in ((CHUNK, 0.0), (CHUNK, 0.1), (200, 0.1),
-                        (MAX_SEQ, 0.0)):
-        B, Di, N = 1, 8192, 16
-        x = (0.5 * torch.randn(B, S, Di, generator=gen, device="cuda")).bfloat16()
-        dt = (0.1 * torch.randn(B, S, Di, generator=gen, device="cuda").abs()
-              ).bfloat16()
-        A = -(torch.randn(Di, N, generator=gen, device="cuda").abs() + 0.1)
-        Bm = (0.5 * torch.randn(B, S, N, generator=gen, device="cuda")).bfloat16()
-        C = (0.5 * torch.randn(B, S, N, generator=gen, device="cuda")).bfloat16()
-        D = torch.randn(Di, generator=gen, device="cuda")
-        h0 = h0_scale * torch.randn(B, Di, N, generator=gen, device="cuda")
-        y, hT = sk.selective_scan(x, dt, A, Bm, C, D, h0)
+    for S, h0_scale, N in ((CHUNK, 0.0, 16), (CHUNK, 0.1, 16), (200, 0.1, 16),
+                           (MAX_SEQ, 0.0, 16), (600, 0.1, 16),
+                           (CHUNK, 0.1, 4)):
+        args = _scan_case(gen, S, h0_scale, N=N)
+        x, dt, A, Bm, C, D, h0 = args
+        B, _, Di = x.shape
+        y, hT = sk.selective_scan(*args)
         with ops.use_backend("plain"):
-            yw, hw = ops.selective_scan(x, dt, A, Bm, C, D, h0)
-        what = f"selective_scan S={S} h0*{h0_scale}"
+            yw, hw = ops.selective_scan(*args)
+        what = f"selective_scan S={S} N={N} h0*{h0_scale}"
         err = max(_close(y, yw, what), _close(hT, hw, what + " hT", STATE_TOL))
+        rel = _rel_err(hT, hw)
+        if not rel <= SCAN_STATE_REL:
+            raise AssertionError(f"{what}: hT off the f32 plain state by "
+                                 f"{rel:.3g} of its largest value, over "
+                                 f"{SCAN_STATE_REL}")
+        chained = None
+        if S > CHUNK:
+            yc, hc = _chained(sk.selective_scan, args)
+            chained = torch.equal(yc, y) and torch.equal(hc, hT)
+            if not chained:
+                raise AssertionError(f"{what}: one call and chained "
+                                     f"{CHUNK}-step calls differ bitwise")
         nbytes = (3 * B * S * Di * 2 + 2 * B * S * N * 2 + Di * N * 4 + Di * 4
                   + 2 * B * Di * N * 4)
         # per (t, d, n): dt*A, exp, two products and an add for h, an FMA
@@ -524,11 +561,10 @@ def check_selective_scan(gen) -> list[dict]:
         n_sn = B * S * Di * N
         rows.append({
             "shape": {"B": B, "S": S, "Di": Di, "N": N, "h0": h0_scale},
-            "max_abs_err": err,
-            "ms": _time_ms(lambda: sk.selective_scan(x, dt, A, Bm, C, D, h0),
-                           flush=True),
-            "plain_ms": _time_ms(lambda: sk.plain(x, dt, A, Bm, C, D, h0),
-                                 iters=3, flush=True),
+            "max_abs_err": err, "hT_rel_err": rel, "chained_equal": chained,
+            "ms": _time_ms(lambda: sk.selective_scan(*args), flush=True),
+            "plain_ms": _time_ms(lambda: sk.plain(*args), iters=3,
+                                 flush=True),
             "library_ms": None,
             **_bound(nbytes, 6 * n_sn + 3 * B * S * Di, F32_FLOPS, exps=n_sn),
         })
@@ -550,19 +586,18 @@ def _ssd_case(gen, S: int, h0_scale: float, *, B=1, Hs=64, P=64, N=64):
             rnd(Hs), rnd(B, Hs, P, N, scale=h0_scale))
 
 
-def _ssd_chained(args, chunk: int = CHUNK):
-    """The SSD over ``chunk``-step calls, each carrying hT into the next
-    h0, as the paged engine's chunked prefill runs it."""
+def _chained(fn, args, chunk: int = CHUNK):
+    """An SSM kernel ``fn`` (``x, dt, A, Bm, C, D, h0 -> y, hT``) over
+    ``chunk``-step calls, each carrying hT into the next h0, as the paged
+    engine's chunked prefill runs it."""
     import torch
-
-    from repro_torch.kernels import ssd as dk
 
     x, dt, A, Bm, C, D, h = args
     ys = []
     for t0 in range(0, x.shape[1], chunk):
         t1 = t0 + chunk
-        y, h = dk.ssd(x[:, t0:t1], dt[:, t0:t1], A, Bm[:, t0:t1],
-                      C[:, t0:t1], D, h, chunk=chunk)
+        y, h = fn(x[:, t0:t1], dt[:, t0:t1], A, Bm[:, t0:t1], C[:, t0:t1], D,
+                  h)
         ys.append(y)
     return torch.cat(ys, 1), h
 
@@ -595,7 +630,7 @@ def check_ssd(gen) -> list[dict]:
                                  f"{SSD_STATE_REL}")
         chained = None
         if S > CHUNK:
-            yc, hc = _ssd_chained(args)
+            yc, hc = _chained(lambda *a: dk.ssd(*a, chunk=CHUNK), args)
             chained = torch.equal(yc, y) and torch.equal(hc, hT)
             if not chained:
                 raise AssertionError(f"{what}: one call and chained "
@@ -898,7 +933,8 @@ def phase_profile(model, params, seed: int = 2) -> dict:
 LOGIT_ATOL = {"qwen3-8b": 0.5, "falcon-mamba-7b": None, "zamba2-1.2b": None}
 
 
-def _teacher_forced(model, params, prompts, forced, n_steps: int):
+def _teacher_forced(model, params, prompts, forced, n_steps: int, *,
+                    device: str = "cuda"):
     """Prefill each prompt (one slot each), then ``n_steps`` batched decode
     steps feeding ``forced`` tokens; returns the logits of every step
     (prefill's first-token logits first) and the launches per call."""
@@ -908,8 +944,8 @@ def _teacher_forced(model, params, prompts, forced, n_steps: int):
 
     B = len(prompts)
     max_pages = MAX_SEQ // PAGE
-    cache = model.init_paged_cache(B, B * max_pages + 1, PAGE, device="cuda")
-    table = torch.zeros(B, max_pages, dtype=torch.int32, device="cuda")
+    cache = model.init_paged_cache(B, B * max_pages + 1, PAGE, device=device)
+    table = torch.zeros(B, max_pages, dtype=torch.int32, device=device)
     for b in range(B):
         table[b] = torch.arange(1 + b * max_pages, 1 + (b + 1) * max_pages)
     rows, per_call = [], {}
@@ -917,7 +953,7 @@ def _teacher_forced(model, params, prompts, forced, n_steps: int):
     for b, p in enumerate(prompts):
         for off in range(0, len(p), CHUNK):
             n = min(CHUNK, len(p) - off)
-            toks = torch.zeros(1, CHUNK, dtype=torch.int32, device="cuda")
+            toks = torch.zeros(1, CHUNK, dtype=torch.int32, device=device)
             toks[0, :n] = torch.tensor(p[off:off + n])
             before = ops.counts()
             lg = model.prefill_chunk(params, cache, {
@@ -929,10 +965,10 @@ def _teacher_forced(model, params, prompts, forced, n_steps: int):
         first.append(lg[0])
     rows.append(torch.stack(first))
     pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
-                       device="cuda")
+                       device=device)
     for s in range(n_steps):
         toks = torch.tensor([[forced[b][s]] for b in range(B)],
-                            dtype=torch.int32, device="cuda")
+                            dtype=torch.int32, device=device)
         before = ops.counts()
         lg = model.decode_paged(params, cache, {
             "tokens": toks, "positions": pos, "page_table": table})
@@ -1240,6 +1276,83 @@ def phase_continuity(model, params, *, paged: bool, seed: int = 3) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 8. the CLI at its defaults: REDUCED configs on the card
+# ---------------------------------------------------------------------------
+
+CLI_ARCHS = ("qwen3-8b", "zamba2-1.2b", "falcon-mamba-7b")
+# qwen3-8b's card tokens against the CPU plain path's logits at the same
+# positions: each within this of the CPU's top logit (a bf16 near-tie)
+CLI_TIE_GAP = 0.05
+
+
+def phase_cli(arch: str) -> dict:
+    """``python -m repro_torch.launch.serve --arch ARCH`` at its defaults
+    (REDUCED config, cuda, 8 requests of 8 tokens, 12 new tokens each),
+    then again with ``--fail-after 4``. Every request must complete, every
+    kernel of the path must be launched in each run (counted from 0 just
+    before it) and no plain version called, and the restored run's tokens
+    must equal the uninterrupted run's. For qwen3-8b the port's plain path
+    on the CPU, with the same weights, is teacher-forced on the card's
+    tokens: each card token within ``CLI_TIE_GAP`` of the CPU's top logit
+    at its position; the exact argmax matches are counted."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+
+    runs, out = {}, {"phase": "cli", "arch": arch}
+    for name, extra in (("whole", []), ("fail_after_4", ["--fail-after", "4"])):
+        ops.reset_counts()
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            done = serve.main(["--arch", arch, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.counts()
+        if len(done) != 8 or not all(r.done for r in done):
+            raise AssertionError(f"cli {arch} {name}: {len(done)}/8 requests "
+                                 f"completed")
+        _check_counts(counts, PATH_KERNELS[arch], f"cli {arch} {name}")
+        runs[name] = sorted(done, key=lambda r: r.req_id)
+        out[name] = {"wall_s": wall, "last_line": printed.getvalue(
+            ).strip().splitlines()[-1],
+            "launches": {n: c["launches"] for n, c in counts.items()}}
+    whole = [r.generated for r in runs["whole"]]
+    out["restored_equal"] = whole == [r.generated for r in runs["fail_after_4"]]
+    if not out["restored_equal"]:
+        raise AssertionError(f"cli {arch}: --fail-after 4 changed the tokens")
+    if arch == "qwen3-8b":
+        model = get_model(get(arch, reduced=True))
+        params = model.init(0, device="cuda").to("cpu")   # the CLI's weights
+        prompts = [r.prompt for r in runs["whole"]]
+        n_new = {len(g) for g in whole}
+        if len(n_new) != 1:
+            raise AssertionError(f"cli {arch}: ragged generations {n_new}")
+        n = n_new.pop()
+        logits, _ = _teacher_forced(model, params, prompts,
+                                    [g[:-1] for g in whole], n - 1,
+                                    device="cpu")       # (n, 8, vocab)
+        card = torch.tensor(whole).T                    # (n, 8)
+        picked = logits.gather(-1, card[..., None])[..., 0]
+        gap = logits.amax(-1) - picked
+        out.update({"cpu_tokens": int(card.numel()),
+                    "argmax_matches": int((logits.argmax(-1) == card).sum()),
+                    "max_tie_gap": float(gap.max()), "bound": CLI_TIE_GAP})
+        if not float(gap.max()) <= CLI_TIE_GAP:
+            raise AssertionError(f"cli {arch}: a card token sits "
+                                 f"{float(gap.max()):.4g} below the CPU's top "
+                                 f"logit (bound {CLI_TIE_GAP})")
+    log(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1327,6 +1440,8 @@ def main() -> int:
     device = phase_device()
     phase_build()
     checks = phase_kernels()
+    for arch in CLI_ARCHS:
+        phase_cli(arch)
 
     kernels = []
     for arch, rows in SUMMARY_ROW.items():

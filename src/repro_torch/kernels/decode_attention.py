@@ -5,7 +5,10 @@ The kernel (``csrc/decode_attention.cu`` over ``csrc/flash_decode.cuh``,
 which carries the design note) replaces ``repro/kernels/decode_attention.py
 ::decode_attention``: one query token per lane against that lane's
 ``(S, K, D)`` cache, keys masked at ``lengths[b]``, f32 online softmax, GQA
-as ``(K, G)`` groups, and zeros for a lane of length 0.
+as ``(K, G)`` groups, and zeros for a lane of length 0. The kernel is built
+for head widths 64 and 128; at a narrower width (the REDUCED configs' 16, 24
+and 32) ``_pad.run_padded`` zero-pads q and a copy of the cache to 64 for the
+call and runs at the true width's scale.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, _flash_decode
+from repro_torch.kernels import _build, _flash_decode, _pad
 from repro_torch.kernels.ref import decode_attention as plain  # noqa: F401  (beside the kernel)
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float,
@@ -45,31 +48,40 @@ def decode_attention(
     v: torch.Tensor,        # (B, S, K, D) bf16
     lengths: torch.Tensor,  # (B,) int32
 ) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors; returns ``(B, H, D)`` bf16."""
+    """Launch the kernel on CUDA tensors; returns ``(B, H, D)`` bf16.
+    D 64 and 128 run on the tensors as they are; a narrower D on padded
+    copies of q, k and v (one per call)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"decode_attention kernel needs CUDA, got {dev}")
     B, H, D = q.shape
     Bk, S, K, Dk = k.shape
     if (Bk != B or Dk != D or v.shape != k.shape or H % K or H // K > 8
-            or D not in (64, 128)):
+            or D > _pad.WIDTHS[-1]):
         raise ValueError(
             f"decode_attention kernel: q {tuple(q.shape)}, k/v "
             f"{tuple(k.shape)}/{tuple(v.shape)} (need H % K == 0, "
-            f"H/K <= 8 and D in (64, 128))")
+            f"H/K <= 8 and D <= {_pad.WIDTHS[-1]})")
     if lengths.shape != (B,):
         raise ValueError("decode_attention kernel: lengths do not match the "
                          "batch")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _check(t, name, torch.bfloat16, dev)
     _check(lengths, "lengths", torch.int32, dev)
+    return _pad.run_padded(_launch, q, k, v, lengths)
+
+
+def _launch(q, k, v, lengths, *, scale: float):
+    """The launch at a built width (64 or 128), softmax scale given."""
+    B, H, D = q.shape
+    _, S, K, _ = k.shape
     out = torch.empty_like(q)
     if B:
-        part, cnt = _flash_decode.scratch(B, K, H // K, D, S, dev)
+        part, cnt = _flash_decode.scratch(B, K, H // K, D, S, q.device)
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
                      cnt.data_ptr(), B, S, H, K, D,
-                     D ** -0.5, _build.stream(dev))
+                     scale, _build.stream(q.device))
         _build.check(err, "decode_attention")
         decode_attention.launches += 1
     return out

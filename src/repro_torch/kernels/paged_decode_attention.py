@@ -7,6 +7,14 @@ paged_decode_attention``: one query token per lane against that lane's
 pages of the shared pool, reached through ``page_table[b, :]``, keys masked
 at ``lengths[b]``, f32 online softmax, GQA as ``(K, G)`` groups, and zeros
 for a lane of length 0.
+
+The kernel is built for head widths 64 and 128, and at those widths the
+wrapper hands it the page pool as it is: no copy, no extra launch. At a
+narrower width (the REDUCED configs' 16, 24 and 32) ``_pad.run_padded``
+zero-pads q and a copy of the whole pool to 64 for each call and runs at the
+true width's scale. That copy is acceptable only because such pools are
+small; the pool's own layout (which snapshots carry across packages) never
+changes.
 """
 
 from __future__ import annotations
@@ -15,7 +23,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, _flash_decode
+from repro_torch.kernels import _build, _flash_decode, _pad
 from repro_torch.kernels.ref import paged_decode_attention as plain  # noqa: F401
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float,
@@ -54,11 +62,11 @@ def paged_decode_attention(
     B, H, D = q.shape
     n_pages, P, K, Dk = k_pages.shape
     if (Dk != D or v_pages.shape != k_pages.shape or H % K or H // K > 8
-            or D not in (64, 128)):
+            or D > _pad.WIDTHS[-1]):
         raise ValueError(
             f"paged_decode_attention kernel: q {tuple(q.shape)}, pages "
             f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)} (need H % K == 0, "
-            f"H/K <= 8 and D in (64, 128))")
+            f"H/K <= 8 and D <= {_pad.WIDTHS[-1]})")
     if page_table.shape[0] != B or lengths.shape != (B,):
         raise ValueError("paged_decode_attention kernel: page_table/lengths "
                          "do not match the batch")
@@ -66,15 +74,22 @@ def paged_decode_attention(
         _check(t, name, torch.bfloat16, dev)
     for t, name in ((page_table, "page_table"), (lengths, "lengths")):
         _check(t, name, torch.int32, dev)
+    return _pad.run_padded(_launch, q, k_pages, v_pages, page_table, lengths)
+
+
+def _launch(q, k_pages, v_pages, page_table, lengths, *, scale: float):
+    """The launch at a built width (64 or 128), softmax scale given."""
+    B, H, D = q.shape
+    _, P, K, _ = k_pages.shape
     out = torch.empty_like(q)
     if B:
         part, cnt = _flash_decode.scratch(B, K, H // K, D,
-                                          page_table.shape[1] * P, dev)
+                                          page_table.shape[1] * P, q.device)
         err = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                      page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                      part.data_ptr(), cnt.data_ptr(),
-                     B, H, K, D, P, page_table.shape[1], D ** -0.5,
-                     _build.stream(dev))
+                     B, H, K, D, P, page_table.shape[1], scale,
+                     _build.stream(q.device))
         _build.check(err, "paged_decode_attention")
         paged_decode_attention.launches += 1
     return out

@@ -342,3 +342,146 @@ def test_rmsnorm_matches_plain_version_on_the_card(d, dtype):
     assert torch.equal(few, many[:8])
     odd = rk.rmsnorm(x[1:4], w, 1e-6)  # rows off the 16-byte alignment
     assert torch.equal(odd, many[1:4])
+
+
+# the scan's final state: within this share of the plain f32 state's
+# largest value (``chip_smoke.py``'s ``SCAN_STATE_REL``)
+SCAN_STATE_REL = 1e-4
+
+
+def _scan_inputs(g, B, S, Di, N, h0_scale):
+    dev = "cuda"
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=dev)
+
+    return [rnd(B, S, Di, scale=0.5).bfloat16(),
+            (rnd(B, S, Di).abs() * 0.1).bfloat16(),
+            -(rnd(Di, N).abs() + 0.1),
+            rnd(B, S, N, scale=0.5).bfloat16(),
+            rnd(B, S, N, scale=0.5).bfloat16(),
+            rnd(Di), rnd(B, Di, N, scale=h0_scale)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [37, 300, 600])
+@pytest.mark.parametrize("Di", [200, 37])
+@pytest.mark.parametrize("N", [4, 16, 64])
+def test_selective_scan_matches_plain_version_on_the_card(N, Di, S):
+    """On the H100: the time-parallel scan against its plain version at N
+    4 (falcon-mamba-7b's REDUCED config), 16 (its published one) and 64,
+    Di 200 (a ragged 32-channel block, 16-byte staging) and 37 (the scalar
+    path), ragged S over one to three 256-step tiles, from a nonzero state;
+    y in bf16 at atol = rtol = 2e-2, the f32 state at 5e-3
+    (``tests/test_kernels.py:106``) and within 1e-4 of the plain state's
+    largest value."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(N + Di + S)
+    ins = _scan_inputs(g, 2, S, Di, N, 0.1)
+    with ops.use_backend("plain"):
+        yw, hw = ops.selective_scan(*ins)
+    y, hT = ops.selective_scan(*ins)
+    torch.testing.assert_close(y.float(), yw.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(hT, hw, atol=5e-3, rtol=5e-3)
+    assert _rel_err(hT, hw) <= SCAN_STATE_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [600, 2048])
+def test_selective_scan_whole_call_equals_chained_tile_calls_on_the_card(S):
+    """On the H100: one scan call over S steps and successive calls cut at
+    multiples of 256 (every 256, and once at 512), each carrying hT into the
+    next h0, give the same y and hT bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import selective_scan as sk
+
+    g = torch.Generator(device="cuda").manual_seed(S)
+    x, dt, A, Bm, C, D, h0 = _scan_inputs(g, 1, S, 8192, 16, 0.1)
+    y, hT = sk.selective_scan(x, dt, A, Bm, C, D, h0)
+    for edges in (list(range(0, S, 256)) + [S], [0, 512, S]):
+        h, parts = h0, []
+        for t0, t1 in zip(edges[:-1], edges[1:]):
+            yc, h = sk.selective_scan(x[:, t0:t1], dt[:, t0:t1], A,
+                                      Bm[:, t0:t1], C[:, t0:t1], D, h)
+            parts.append(yc)
+        assert torch.equal(torch.cat(parts, 1), y)
+        assert torch.equal(h, hT)
+
+
+@pytest.mark.gpu
+def test_selective_scan_rows_and_identity_steps_on_the_card():
+    """On the H100: each batch row of the scan gives the same bits alone
+    as in a batch of 3; and steps with dt = 0 (how the model pads a short
+    chunk) leave the state bitwise as it was."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import selective_scan as sk
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    ins = _scan_inputs(g, 3, 300, 256, 16, 0.1)
+    y, hT = sk.selective_scan(*ins)
+    x, dt, A, Bm, C, D, h0 = ins
+    for r in range(3):
+        one = slice(r, r + 1)
+        y1, h1 = sk.selective_scan(x[one], dt[one], A, Bm[one], C[one], D,
+                                   h0[one])
+        assert torch.equal(y1, y[one]) and torch.equal(h1, hT[one])
+    dt = dt.clone()
+    dt[:, 200:] = 0
+    _, h_pad = sk.selective_scan(x, dt, A, Bm, C, D, h0)
+    _, h200 = sk.selective_scan(x[:, :200], dt[:, :200], A, Bm[:, :200],
+                                C[:, :200], D, h0)
+    assert torch.equal(h_pad, h200)
+
+
+# (H, K, D) of the REDUCED configs: qwen3-8b, smollm-360m, zamba2-1.2b; and
+# D 32 at qwen3-8b's head counts
+REDUCED_HEADS = [(4, 2, 24), (6, 2, 16), (4, 4, 16), (4, 2, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,K,D", REDUCED_HEADS)
+def test_attention_kernels_take_reduced_head_widths_on_the_card(H, K, D):
+    """On the H100: flash (causal at two offsets, and full), the dense
+    decode and the paged decode at the REDUCED configs' head widths, which
+    the wrappers zero-pad to 64 and run at the true width's scale, against
+    their plain versions at atol = rtol = 2e-2, with a lane of length 0
+    (zeros, ROADMAP Queue 3, P2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(H * 100 + D)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, k, v = rnd(2, 50, H, D), rnd(2, 150, K, D), rnd(2, 150, K, D)
+    for causal, off in ((True, 0), (True, 100), (False, 0)):
+        with ops.use_backend("plain"):
+            want = ops.attention(q, k, v, causal=causal, q_offset=off)
+        got = ops.attention(q, k, v, causal=causal, q_offset=off)
+        assert got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+    P, max_pages, B = 16, 16, 4
+    lens = torch.tensor([0, 1, 100, P * max_pages], device=dev,
+                        dtype=torch.int32)
+    qd = rnd(B, H, D)
+    kp, vp = rnd(B * max_pages + 1, P, K, D), rnd(B * max_pages + 1, P, K, D)
+    table = (torch.randperm(B * max_pages, device=dev) + 1).to(
+        torch.int32).reshape(B, max_pages)
+    kd = kp[table.long()].reshape(B, P * max_pages, K, D)
+    vd = vp[table.long()].reshape(B, P * max_pages, K, D)
+    for name, args in (("paged", (qd, kp, vp, table, lens)),
+                       ("dense", (qd, kd, vd, lens))):
+        fn = ops.paged_decode_attention if name == "paged" \
+            else ops.decode_attention
+        with ops.use_backend("plain"):
+            want = fn(*args)
+        got = fn(*args)
+        assert got.shape == (B, H, D)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+        assert not got[0].any()
