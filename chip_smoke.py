@@ -67,7 +67,18 @@ Phases, each of which raises on failure (the exit code is then non-zero):
       steps, restored into a fresh engine and finished; every request's
       tokens must equal an uninterrupted run's exactly (same card,
       greedy); the blob's bytes and the snapshot and restore seconds are
-      printed.
+      printed;
+   f. spill (qwen3-8b only, ``phase_spill``): the spill tier — cold prefix
+      pages lent to two peers and recalled bit for bit, the spill engine's
+      tokens equal to an engine's that retires nothing; both peers leave
+      and the next round misses and recomputes; a lane preempted mid-decode
+      with write-behind on resumes through the recall of its chain with
+      the un-preempted tokens; every kernel of the paged path launched and
+      no plain version called; ms per spilled and recalled page, per chain
+      (whole and by part, on the engine's own path) and per decode step
+      with write-behind on and off (median, and the window's time over its
+      steps, off/on/on/off in turns) printed beside the card's name and
+      power limit.
 
 The line two before the last is the kernels summary as JSON (one row per
 kernel and model whose path runs it), the line before the last the card's
@@ -1353,6 +1364,469 @@ def phase_cli(arch: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 9. spill: lend cold pages to peers, recall them, resume a preempted slot
+# ---------------------------------------------------------------------------
+
+# scenario A: 4 prefixes of 512 tokens (8 pages), each followed by 2
+# requests with a random 64-token suffix and 16 new tokens, over 2 rounds
+SPILL_PREFIXES, SPILL_PREFIX, SPILL_SUFFIX, SPILL_NEW = 4, 512, 64, 16
+# a request holds ceil((512 + 64 + 16) / 64) = 10 pages; two of one prefix
+# at once hold 8 shared + 2 + 2 = 12, and a finished prefix leaves 10 pages
+# in the trie (its 8 pages and each request's full suffix page): a pool of
+# 12 + 10 usable pages keeps at most two prefixes resident
+SPILL_POOL = 1 + 12 + 10
+# scenario C: 4 requests of 300-700 prompt tokens, 200 new tokens each, one
+# lane preempted after 100 decode steps
+RESUME_LENS, RESUME_NEW, RESUME_AFTER = (300, 701), 200, 100
+
+
+def _cloudlet_pool():
+    """``h0``'s remote pool over peers ``h1`` and ``h2`` of one cloudlet,
+    ranked by a reliability registry."""
+    from repro_torch.core import CloudletRegistry, ReliabilityRegistry
+    from repro_torch.serving.kvcache import RemotePagePool
+
+    reg = CloudletRegistry()
+    reg.create("serve", "qwen3-8b")
+    reg.join("serve", "h0")
+    rel = ReliabilityRegistry()
+    for h in ("h1", "h2"):
+        reg.join("serve", h)
+        rel.add_host(h)
+    return reg, RemotePagePool(reg, "serve", "h0", reliability=rel)
+
+
+def _spill_round(engines: dict, prompts: list) -> dict:
+    """Serve ``prompts`` (pairs sharing a prefix, pair by pair) on every
+    engine; returns each engine's tokens."""
+    out = {}
+    for name, eng in engines.items():
+        toks = []
+        for i in range(0, len(prompts), 2):
+            reqs = [eng.submit(p, max_new_tokens=SPILL_NEW)
+                    for p in prompts[i:i + 2]]
+            eng.run()
+            toks += [r.generated for r in reqs]
+        out[name] = toks
+    return out
+
+
+def _tie_check(model, params, prompts, a: list, b: list) -> int:
+    """Where two engines' greedy streams differ, each stream is
+    teacher-forced through the model and each of its tokens must lie within
+    ``CLI_TIE_GAP`` of the top logit at its position (``phase_cli``'s
+    rule). Returns the number of requests that differ."""
+    import torch
+
+    differ = 0
+    for p, x, y in zip(prompts, a, b):
+        if x == y:
+            continue
+        differ += 1
+        for toks in (x, y):
+            logits, _ = _teacher_forced(model, params, [p], [toks[:-1]],
+                                        len(toks) - 1)
+            picked = logits[:, 0].gather(-1, torch.tensor(
+                toks, device=logits.device)[:, None])[:, 0]
+            gap = float((logits[:, 0].amax(-1) - picked).max())
+            if not gap <= CLI_TIE_GAP:
+                raise AssertionError(f"spill: a token sits {gap:.4g} below "
+                                     f"the top logit (bound {CLI_TIE_GAP})")
+    return differ
+
+
+def _watch_spilled_pages(engine) -> dict:
+    """Follow the pages the engine lends: a device copy of a page's bits
+    when its trie node becomes a stub, and, when the stub is recalled,
+    whether the page it lands in holds the same bits (counted)."""
+    import torch
+
+    idx = engine.prefix_index
+    seen = {"stubs": {}, "recalled": 0, "equal": 0}
+    remap = idx.remap
+
+    def spy(old: int, new: int) -> None:
+        if old < engine.n_pages <= new:            # lent
+            seen["stubs"][new] = {k: v[:, old].clone()
+                                  for k, v in engine.cache.items()
+                                  if k.endswith("_pages")}
+        elif new < engine.n_pages <= old:          # recalled, installed
+            bits = seen["stubs"].pop(old)
+            seen["recalled"] += 1
+            seen["equal"] += all(
+                torch.equal(engine.cache[k][:, new].view(torch.int16),
+                            b.view(torch.int16)) for k, b in bits.items())
+        remap(old, new)
+
+    idx.remap = spy
+    return seen
+
+
+def _page_costs(engine, pages: list[int]) -> dict:
+    """Milliseconds per page to spill (extract + lend) and to recall
+    (recall + deserialize + install) the chain ``pages`` of ``engine``'s
+    cache, one page per call and all pages in one call, against a remote
+    pool of its own; the lent payloads are held until the chain is
+    recalled, as a preempted chain's are. Each page's own payload is
+    written back, so the cache is unchanged. Medians of 5 passes, the two
+    ways in turns."""
+    import torch
+
+    from repro_torch.serving.kvcache import (
+        extract_page_payload,
+        extract_page_payloads,
+        install_page_payloads,
+    )
+
+    _, remote = _cloudlet_pool()
+    cache, n = engine.cache, len(pages)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n, out
+
+    def spill(batched: bool) -> list[int]:
+        blobs = (extract_page_payloads(cache, pages) if batched
+                 else [extract_page_payload(cache, p) for p in pages])
+        return [remote.lend(b).lease_id for b in blobs]
+
+    def recall(lids: list[int], batched: bool) -> None:
+        if batched:
+            got, _ = remote.recall(lids)
+            install_page_payloads(cache, pages, [got[i] for i in lids])
+            return
+        for p, lid in zip(pages, lids):
+            got, _ = remote.recall([lid])
+            install_page_payloads(cache, [p], [got[lid]])
+
+    ms = {(w, b): [] for w in ("spill", "recall") for b in (False, True)}
+    for _ in range(5):
+        for batched in (False, True):
+            t, lids = timed(lambda: spill(batched))
+            ms["spill", batched].append(t)
+            t, _ = timed(lambda: recall(lids, batched))
+            ms["recall", batched].append(t)
+    assert remote.lent == 0
+    return {"pages": n} | {
+        f"{w}_ms_per_page_{'batched' if b else 'single'}":
+            statistics.median(v) for (w, b), v in ms.items()}
+
+
+class _SpillParts:
+    """Host ms of the spill path's parts, timed on the engine's own path:
+    the device gather of the pages (``gather``), their copy into
+    page-locked host memory (``to_host``), each blob's serialization
+    (``serialize``) and the lend (``lend``); on a recall the pool's recall
+    (``recall``), stacking the payloads in page-locked memory (``stack``)
+    and the host-to-device copy with its ``index_copy_`` (``scatter``).
+    Each wrapped call runs between two device syncs and adds its time and
+    its page count to the part under the current window (:meth:`window`);
+    outside a window a call is not timed. :meth:`close` unwraps."""
+
+    def __init__(self, remote) -> None:
+        from repro_torch.serving import kvcache
+
+        self.label = None
+        self.ms: dict = {}
+        self.pages: dict = {}
+        # part: (owner, attribute, pages handled by one call)
+        targets = {"gather": (kvcache, "_gather_pages", lambda a: len(a[1])),
+                   "to_host": (kvcache, "_copy_to_host",
+                               lambda a: a[0].shape[0]),
+                   "serialize": (kvcache, "serialize_tree", lambda a: 1),
+                   "lend": (remote, "lend", lambda a: 1),
+                   "recall": (remote, "recall", lambda a: len(a[0])),
+                   "stack": (kvcache, "_stack_payloads", lambda a: len(a[1])),
+                   "scatter": (kvcache, "_scatter_pages",
+                               lambda a: len(a[1]))}
+        self._undo = []
+        for part, (owner, name, count) in targets.items():
+            fn = getattr(owner, name)
+            self._undo.append((owner, name, fn))
+            setattr(owner, name, self._timed(part, fn, count))
+
+    def _timed(self, part: str, fn, count):
+        import torch
+
+        def timed(*args, **kw):
+            if self.label is None:
+                return fn(*args, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            key = (self.label, part)
+            self.ms[key] = self.ms.get(key, 0.0) + (
+                time.perf_counter() - t0) * 1e3
+            self.pages[key] = self.pages.get(key, 0) + count(args)
+            return out
+        return timed
+
+    def window(self, label: str):
+        """A context in which the parts' times add up under ``label``."""
+        import contextlib
+
+        @contextlib.contextmanager
+        def ctx():
+            prev, self.label = self.label, label
+            try:
+                yield
+            finally:
+                self.label = prev
+        return ctx()
+
+    def close(self) -> None:
+        for owner, name, fn in self._undo:
+            setattr(owner, name, fn)
+
+    def report(self) -> dict:
+        """Per window: each part's total ms and the pages it handled."""
+        out: dict = {}
+        for (label, part), ms in self.ms.items():
+            out.setdefault(label, {})[part] = {
+                "ms": ms, "pages": self.pages[label, part]}
+        return out
+
+
+def _resume_run(model, params, prompts, *, write_behind: bool,
+                preempt: bool) -> dict:
+    """Scenario C's serve: decode-step times (median, and the decode
+    steps' whole time over their count), tokens and counters; with
+    ``preempt`` one lane is preempted after ``RESUME_AFTER`` decode steps,
+    and the times of that preemption and of its recall are taken, whole
+    and by part (:class:`_SpillParts`)."""
+    import torch
+
+    from repro_torch.serving.engine import ServeEngine
+
+    reg, remote = _cloudlet_pool()
+    engine = ServeEngine(model, params, n_slots=4, max_seq=MAX_SEQ,
+                         page_size=PAGE, prefill_chunk=CHUNK,
+                         remote_pool=remote, recall_budget=16,
+                         write_behind=write_behind, device="cuda")
+    reqs = [engine.submit(p, max_new_tokens=RESUME_NEW) for p in prompts]
+    timing: dict = {}
+    admit = engine._try_admit_recall
+    parts = _SpillParts(remote) if preempt else None
+    if parts is not None:
+        # outside the chain's spill and recall: write-behind staging and
+        # lends of retired prefix pages, inside decode steps
+        parts.label = "in_steps"
+
+    def timed_recall(slot, req):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with parts.window("chain_recall"):
+            got = admit(slot, req)
+        torch.cuda.synchronize()
+        timing["chain_recall_ms"] = (time.perf_counter() - t0) * 1e3
+        timing["chain_recall_pages"] = engine.stats["pages_recalled"]
+        return got
+
+    if preempt:
+        engine._try_admit_recall = timed_recall
+    steps, staged_ms, plain_ms = 0, [], []
+    while engine.pending():
+        staged = engine.stats["pages_staged"]
+        s0 = time.perf_counter()
+        n_active = engine.step()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - s0) * 1e3
+        if n_active and engine.last_step_tokens == n_active:  # decode only
+            steps += 1
+            (staged_ms if engine.stats["pages_staged"] > staged
+             else plain_ms).append(dt)
+        if preempt and steps == RESUME_AFTER and "victim" not in timing:
+            victim = max((r for r in reqs if r.slot is not None
+                          and r.slot not in engine.prefilling),
+                         key=lambda r: len(r.prompt))
+            timing["victim"] = victim.req_id
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with parts.window("chain_spill"):
+                engine.preempt(victim.req_id)
+            torch.cuda.synchronize()
+            timing["chain_spill_ms"] = (time.perf_counter() - t0) * 1e3
+            timing["chain_spill_len"] = victim.spill_len
+    if parts is not None:
+        parts.close()
+        timing["parts"] = parts.report()
+    if not all(r.done for r in reqs):
+        raise AssertionError("spill C: a request did not complete")
+    out = {"tokens": [r.generated for r in reqs], "stats": engine.stats,
+           "decode_step_ms_median": statistics.median(staged_ms + plain_ms),
+           "decode_step_ms_mean": (sum(staged_ms) + sum(plain_ms))
+                                  / (len(staged_ms) + len(plain_ms)),
+           "decode_steps": len(staged_ms) + len(plain_ms),
+           "staging_steps": len(staged_ms),
+           "staging_step_ms_median": (statistics.median(staged_ms)
+                                      if staged_ms else None),
+           "other_step_ms_median": statistics.median(plain_ms),
+           "lent_after": remote.lent, **timing}
+    del engine
+    return out
+
+
+def phase_spill(model, params, card: str, seed: int = 4) -> dict:
+    """The spill tier at full width (qwen3-8b): scenario A, prefix spill
+    (``benchmarks/serving_bench.py``'s spill scenario) on three engines of
+    2 slots: ``evict`` (a pool of ``SPILL_POOL`` pages), ``spill`` (the
+    same pool and a remote pool) and ``retain`` (a pool that retires
+    nothing); B, churn (both peers leave, the next round misses and
+    recomputes); C, preemption through recall with write-behind (4 slots,
+    ``recall_budget`` 16). Held: A spills, recalls and never misses, a
+    recalled page holds the bits it was lent with, and ``spill``'s tokens
+    equal ``retain``'s; B misses, recalls nothing and keeps no stub; C
+    spills the preempted chain, stages pages, resumes through recall with
+    no prompt token recomputed, and its tokens equal an un-preempted run
+    with write-behind off; ``evict``'s tokens where they differ from
+    ``spill``'s are near ties (``_tie_check``). Every kernel of the paged
+    path is launched (counted from 0 at the phase's start) and no plain
+    version runs. The spill and recall costs are also broken down by part
+    on the engine's own path (:class:`_SpillParts`): A's lends and recalls,
+    and C's chain spill, chain recall and staging."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.kvcache import extract_page_payload
+
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(seed)
+    prefixes = [rng.integers(1, vocab, SPILL_PREFIX).tolist()
+                for _ in range(SPILL_PREFIXES)]
+
+    def round_prompts():
+        return [pre + rng.integers(1, vocab, SPILL_SUFFIX).tolist()
+                for pre in prefixes for _ in range(2)]
+
+    ops.reset_counts()
+    reg, remote = _cloudlet_pool()
+    kw = dict(n_slots=2, max_seq=MAX_SEQ, page_size=PAGE,
+              prefill_chunk=CHUNK, device="cuda")
+    engines = {"evict": ServeEngine(model, params, n_pages=SPILL_POOL, **kw),
+               "spill": ServeEngine(model, params, n_pages=SPILL_POOL,
+                                    remote_pool=remote, **kw),
+               "retain": ServeEngine(model, params,
+                                     n_pages=4 * MAX_SEQ // PAGE + 1, **kw)}
+    spill = engines["spill"]
+    watched = _watch_spilled_pages(spill)
+    prompts, tokens = [], {k: [] for k in engines}
+    a_parts = _SpillParts(remote)
+    with a_parts.window("A"):       # lends on retire, recalls on admission
+        for _ in range(2):
+            ps = round_prompts()
+            prompts += ps
+            for k, v in _spill_round(engines, ps).items():
+                tokens[k] += v
+    a_parts.close()
+    a = {k: {c: e.stats[c] for c in ("pages_spilled", "pages_recalled",
+                                     "recall_misses", "prefix_evictions",
+                                     "prefill_tokens", "recall_hold_steps")}
+         for k, e in engines.items()}
+    if not (a["spill"]["pages_spilled"] > 0 and a["spill"]["pages_recalled"]
+            > 0 and a["spill"]["recall_misses"] == 0):
+        raise AssertionError(f"spill A: {a['spill']}")
+    if a["retain"]["prefix_evictions"] or a["retain"]["pages_spilled"]:
+        raise AssertionError(f"spill A: the retain engine retired pages: "
+                             f"{a['retain']}")
+    watched.pop("stubs")
+    if not 0 < watched["recalled"] == watched["equal"]:
+        raise AssertionError(f"spill A: recalled pages not bit for bit the "
+                             f"lent ones: {watched}")
+    if tokens["spill"] != tokens["retain"]:
+        raise AssertionError("spill A: spill tokens differ from retain's")
+    a_differ = _tie_check(model, params, prompts, tokens["evict"],
+                          tokens["spill"])
+    payload_bytes = len(extract_page_payload(spill.cache, 1))
+    costs = _page_costs(spill, list(range(1, min(17, SPILL_POOL))))
+    del engines["retain"]
+    # B: both peers churn away with the pages they hold
+    for h in ("h1", "h2"):
+        reg.leave_all(h)
+    recalled = spill.stats["pages_recalled"]
+    ps = round_prompts()
+    b_tokens = _spill_round(engines, ps)
+    b = {c: spill.stats[c] for c in ("recall_misses", "pages_recalled",
+                                     "pages_spilled", "prefix_evictions")}
+    if not (b["recall_misses"] > 0 and b["pages_recalled"] == recalled
+            and not spill.spilled):
+        raise AssertionError(f"spill B: {b}, {len(spill.spilled)} stubs")
+    b_differ = _tie_check(model, params, ps, b_tokens["evict"],
+                          b_tokens["spill"])
+    del engines, spill
+    gc.collect()
+    torch.cuda.empty_cache()
+    # C: preemption through recall, with write-behind
+    c_prompts = [rng.integers(1, vocab, int(n)).tolist()
+                 for n in rng.integers(*RESUME_LENS, 4)]
+    # the preempted run, then un-preempted runs in turns: off, on, on, off
+    c_on = _resume_run(model, params, c_prompts, write_behind=True,
+                       preempt=True)
+    turns = [_resume_run(model, params, c_prompts, write_behind=wb,
+                         preempt=False) for wb in (False, True, True, False)]
+    runs = [c_on] + turns
+    c_off = turns[0]
+    # write-behind's cost: the decode steps' whole time over their count,
+    # on against off; unresolved where the two off runs differ by more
+    means = [r["decode_step_ms_mean"] for r in turns]
+    wb_ms = (means[1] + means[2] - means[0] - means[3]) / 2
+    off_spread = abs(means[0] - means[3])
+    st = c_on["stats"]
+    c = {k: st[k] for k in ("preemptions", "preempt_spills", "pages_staged",
+                            "recall_resumes", "resume_fallbacks",
+                            "recall_resume_prefill_tokens", "pages_recalled",
+                            "recall_hold_steps")}
+    if not (c["preempt_spills"] >= 1 and c["pages_staged"] >= 1
+            and c["recall_resumes"] >= 1
+            and c["recall_resume_prefill_tokens"] == 0):
+        raise AssertionError(f"spill C: {c}")
+    if any(r["tokens"] != c_off["tokens"] for r in runs):
+        raise AssertionError("spill C: a run's tokens differ from the "
+                             "un-preempted run's with write-behind off")
+    if any(r["lent_after"] for r in runs):
+        raise AssertionError("spill C: leases outlived their requests")
+    counts = ops.counts()
+    _check_counts(counts, PATH_KERNELS["qwen3-8b"], "spill")
+    out = {"phase": "spill", "arch": model.cfg.arch_id, "card": card,
+           "payload_bytes": payload_bytes, **costs,
+           "chain_spill_ms": c_on["chain_spill_ms"],
+           "chain_spill_positions": c_on["chain_spill_len"],
+           "chain_recall_ms": c_on["chain_recall_ms"],
+           "chain_recall_pages": c_on["chain_recall_pages"],
+           "chain_parts": c_on["parts"],
+           "A_parts": a_parts.report(),
+           # un-preempted runs in turns: off, on, on, off
+           "decode_step_ms_median_in_turns": [
+               r["decode_step_ms_median"] for r in turns],
+           "decode_step_ms_mean_in_turns": means,
+           "decode_steps_in_turns": [r["decode_steps"] for r in turns],
+           "write_behind_ms_per_step": wb_ms,
+           "off_runs_spread_ms": off_spread,
+           "write_behind_verdict": ("unresolved" if off_spread >= abs(wb_ms)
+                                    else "resolved"),
+           # write-behind runs in turns: steps that staged a page against
+           # the rest
+           "staging_steps": [r["staging_steps"] for r in turns[1:3]],
+           "staging_step_ms_median": [r["staging_step_ms_median"]
+                                      for r in turns[1:3]],
+           "other_step_ms_median": [r["other_step_ms_median"]
+                                    for r in turns[1:3]],
+           "preempted_run_decode_step_ms_median":
+               c_on["decode_step_ms_median"],
+           "A": a, "A_recalled_pages_bits_equal": watched,
+           "A_evict_requests_differing": a_differ,
+           "B": b, "B_evict_requests_differing": b_differ, "C": c,
+           "launches": {n: v["launches"] for n, v in counts.items()}}
+    log(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1391,9 +1865,11 @@ SUMMARY_ROW = {
 }
 
 
-def run_model(arch: str) -> dict:
+def run_model(arch: str, card: str) -> dict:
     """Serve, profile, logits, dense and continuity phases of one model at
-    full width; its weights and caches are freed before returning."""
+    full width, and for qwen3-8b the spill phase (its numbers printed
+    beside ``card``, the card's name and power limit); its weights and
+    caches are freed before returning."""
     import torch
 
     from repro_torch.configs import get
@@ -1412,6 +1888,8 @@ def run_model(arch: str) -> dict:
     dense = phase_dense(model, params, serve["tokens"])
     for paged in (True, False):
         phase_continuity(model, params, paged=paged)
+    if arch == "qwen3-8b":
+        phase_spill(model, params, card)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1445,7 +1923,7 @@ def main() -> int:
 
     kernels = []
     for arch, rows in SUMMARY_ROW.items():
-        ran = run_model(arch)
+        ran = run_model(arch, device["smi"])
         for name, (check, i) in rows.items():
             route, source, replaces = ROUTES[name]
             row = checks[check][i]

@@ -69,10 +69,10 @@ def _raw_dtype(name: str) -> np.dtype:
     return np.dtype(np.uint16) if name == "bfloat16" else np.dtype(name)
 
 
-def deserialize_tree(blob: bytes, like: Tree) -> Tree:
-    """Rebuild a tree with the structure of ``like`` from ``blob``. Each
-    leaf comes back as ``like``'s leaf is: a torch tensor of its dtype on
-    its device, or a numpy array of its dtype; shapes must agree."""
+def read_leaves(blob: bytes) -> dict[str, tuple[str, np.ndarray]]:
+    """The blob's leaves by key: each leaf's dtype name and a read-only
+    array over the blob's own bytes (no copy; a bf16 leaf as its raw
+    16-bit pattern, ``np.uint16``)."""
     hlen = int(np.frombuffer(blob[:4], _HDR)[0])
     header = json.loads(blob[4:4 + hlen].decode())
     off = 4 + hlen
@@ -83,6 +83,14 @@ def deserialize_tree(blob: bytes, like: Tree) -> Tree:
         arrays[ent["key"]] = (ent["dtype"], np.frombuffer(
             blob, dt, count=n, offset=off).reshape(ent["shape"]))
         off += n * dt.itemsize
+    return arrays
+
+
+def deserialize_tree(blob: bytes, like: Tree) -> Tree:
+    """Rebuild a tree with the structure of ``like`` from ``blob``. Each
+    leaf comes back as ``like``'s leaf is: a torch tensor of its dtype on
+    its device, or a numpy array of its dtype; shapes must agree."""
+    arrays = read_leaves(blob)
 
     def leaf(key: str, want):
         name, arr = arrays[key]

@@ -40,11 +40,23 @@ What carries over from the reference, with the same semantics and the same
   force_tokens=...)``);
 - host-side sampling from numpy Gumbel noise keyed by (seed, position)
   (``_choose``), so sampled streams match the reference's exactly;
+- the spill tier (``remote_pool``, a
+  :class:`~repro_torch.serving.kvcache.RemotePagePool`): cached prefix
+  pages that reallocation would destroy are lent to peer hosts and leave
+  trie stubs (``_retire_cached``); a prefix hit recalls them within
+  ``recall_budget`` pages, re-planning after a miss (``_try_admit_paged``);
+  a preemption lends the slot's whole chain and re-admission recalls it
+  with no token recomputed (``_try_admit_recall``); ``write_behind``
+  stages each decode page on a peer as it fills. A recalled lane sits out ``slot_hold`` decode steps,
+  the simulated transfer time at ``decode_step_s`` per step. Pages move
+  through the batched ``extract_page_payloads``/``install_page_payloads``,
+  in the reference's payload bytes. Families with per-slot recurrent state
+  accept a pool and never spill, as in the reference;
 - ``snapshot``/``restore`` in both modes, in the reference's blob format
   and meta fields (paper §III-D continuity): a snapshot of either package
-  restores in the other. The port has no spill tier, so a snapshot
-  carries no spilled pages, and a restore takes the reference's path for
-  an engine without a remote pool: spilled trie stubs are evicted (their
+  restores in the other, spilled trie stubs and slot-spill groups
+  included. A restore revalidates each lease against the cloudlet's live
+  membership; without a remote pool, spilled stubs are evicted (their
   prefixes are recomputed) and spilled slot chains fall back to
   re-prefill.
 
@@ -53,10 +65,9 @@ keeps its recurrent state through the batched decode steps that run
 meanwhile, bit for bit (``_decode_step``). The reference's decode advances
 the conv/SSM state of every lane, that one included (ROADMAP Queue 3, R3).
 
-Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item where the constructor takes it): speculative decoding and ``fork``,
-the spill tier (``remote_pool``, ``write_behind``), and the multimodal and
-cross-attention families.
+Not in this slice: speculative decoding and ``fork`` (``draft`` raises
+``NotImplementedError`` naming its ROADMAP item), and the multimodal and
+cross-attention families, with their branches of the spill tier.
 
 The model's entry points update the page pools in place; the JAX engine
 donates its cache to the jitted step for the same reason
@@ -79,9 +90,13 @@ from repro_torch.models.model_api import ModelFns
 from repro_torch.serving.kvcache import (
     PagePool,
     PrefixIndex,
+    RemotePagePool,
+    SpilledPage,
     expand_prefill_cache,
+    extract_page_payloads,
     init_cache,
     init_paged_cache,
+    install_page_payloads,
     pages_needed,
     scatter_slot,
 )
@@ -102,6 +117,10 @@ class Request:
     # preemption: committed tokens (all but the last) re-prefilled after the
     # prompt on re-admission, so a preempted stream resumes token-exactly
     resume: list[int] = field(default_factory=list)
+    # spill-backed preemption: cache positions held by the slot-spill group
+    # lease-tracked under this request's id in the RemotePagePool (0 = no
+    # spilled chain; ``resume`` stays set as the recall-miss fallback)
+    spill_len: int = 0
     shed: bool = False     # dropped by the scheduler, not completed
     # sampling: temperature 0 is greedy; > 0 draws per-position Gumbel
     # noise from ``seed`` (a sampled stream is a function of prompt + seed)
@@ -160,9 +179,9 @@ def _copy_pages(cache: dict, src: int, dst: int) -> None:
 
 class SlotLifecycle:
     """The slot-binding state machine shared by the admission flavors
-    (fresh prefill and resume re-prefill): the page-table row mirrors the
-    chain, ``lengths`` counts cache-resident positions, ``last_token`` is
-    the last committed token."""
+    (fresh prefill, resume re-prefill and recall resume): the page-table
+    row mirrors the chain, ``lengths`` counts cache-resident positions,
+    ``last_token`` is the last committed token."""
 
     def __init__(self, engine: "ServeEngine"):
         self.eng = engine
@@ -203,6 +222,16 @@ class SlotLifecycle:
             req.slot = None
             eng._release_slot(slot)
 
+    def resume_recalled(self, slot: int, req: Request, length: int) -> None:
+        """Recall hit: the slot's cache already holds every committed
+        position (installed verbatim from the spilled chain), so the stream
+        picks up at its last committed token, with nothing recomputed."""
+        eng = self.eng
+        req.resume = []
+        req.key_cache.pop("admit_keys", None)
+        eng.lengths[slot] = length
+        eng.last_token[slot] = req.generated[-1]
+
 
 @dataclass
 class _PrefillTask:
@@ -233,8 +262,10 @@ class ServeEngine:
         n_pages: int | None = None,
         prefill_chunk: int = 256,
         prefix_share: bool | None = None,
-        remote_pool=None,
+        remote_pool: RemotePagePool | None = None,
+        recall_budget: int = 8,
         write_behind: bool = False,
+        decode_step_s: float = 5e-3,
         scheduler: SchedulerConfig | None = None,
         draft: ModelFns | None = None,
         device: str | torch.device = "cuda",
@@ -254,10 +285,6 @@ class ServeEngine:
             raise NotImplementedError(
                 "speculative decoding is not ported yet: ROADMAP Queue 1, "
                 "item 6")
-        if remote_pool is not None or write_behind:
-            raise NotImplementedError(
-                "the spill tier (remote_pool, write_behind) is not ported "
-                "yet: ROADMAP Queue 1, item 7")
         self.device = resolve_device(device)
         if any(p.device != self.device for p in params.parameters()):
             raise ValueError(f"params are not all on {self.device}")
@@ -265,7 +292,7 @@ class ServeEngine:
         self.params = params
         self.paged = paged
         self.n_slots = n_slots
-        self.sched = Scheduler(scheduler)
+        self.sched = Scheduler(scheduler, decode_step_s=decode_step_s)
         # slot -> in-flight chunked prefill (continuous batching only; the
         # synchronous mode drains each task within its admission call)
         self.prefilling: dict[int, _PrefillTask] = {}
@@ -281,8 +308,8 @@ class ServeEngine:
         self.requests: dict[int, Request] = {}
         self._req_counter = 0
         self.steps = 0
-        # every key of the reference engine (engine.py:444-489); the spill,
-        # cross, speculative and fork counters stay 0 in this slice
+        # every key of the reference engine (engine.py:444-489); the cross,
+        # speculative and fork counters stay 0 in this slice
         self.stats = {k: 0 for k in (
             "prefill_tokens", "prefill_tokens_shared", "prefix_hit_tokens",
             "prefix_hits", "cow_copies", "peak_pages",
@@ -299,9 +326,12 @@ class ServeEngine:
             "forks", "fork_shared_pages",
         )}
         self._admit_ready = True  # new submits / freed pages to try
+        self.remote_pool = remote_pool
         if not paged:
-            # the trie and the page pool belong to the paged cache
+            # the trie, the page pool and the spill tier belong to the
+            # paged cache
             self.prefix_cache = self.prefix_share = False
+            self.spill = self.write_behind = False
             self.cache = init_cache(model, n_slots, max_seq,
                                     device=self.device)
             return
@@ -322,8 +352,19 @@ class ServeEngine:
         self.prefix_share = enabled and model.supports_prefix_sharing
         self.prefix_index = PrefixIndex(page_size)
         self._phantom_next = self.n_pages  # bookkeeping-only node ids
-        # decode steps a slot sits out after its admission (the reference's
-        # recall wait); only a restored snapshot sets it here
+        # spill tier: lend cold cached pages to peer hosts instead of
+        # evicting them (only with page-addressable prefix sharing:
+        # recurrent state cannot be lent page-wise)
+        self.recall_budget = recall_budget
+        self.decode_step_s = decode_step_s
+        self.spill = remote_pool is not None and self.prefix_share
+        # write-behind: stage each decode page on a peer as it fills, so a
+        # later preemption ships only the unstaged remainder
+        self.write_behind = bool(write_behind) and self.spill
+        self.spilled: dict[int, SpilledPage] = {}
+        self._spill_next = self.n_pages  # stub ids, never page-table ids
+        # decode steps a slot sits out after a recall (the simulated
+        # transfer time)
         self.slot_hold = np.zeros((n_slots,), np.int32)
         self.cache = init_paged_cache(model, n_slots, self.n_pages,
                                       page_size, device=self.device)
@@ -380,6 +421,11 @@ class ServeEngine:
         if req.slot is not None:
             self._release_slot(req.slot)
             req.slot = None
+        if self.paged and self.remote_pool is not None:
+            # drop the slot-spill group (a preempted chain or write-behind
+            # staged pages): nobody will recall it
+            self.remote_pool.release_slot(req_id)
+            req.spill_len = 0
         return req
 
     def reset_stats(self) -> None:
@@ -504,6 +550,16 @@ class ServeEngine:
                 or self.lengths[i] >= self.max_seq - 1):
             self._finish_request(i, req)
             return True
+        if self.write_behind and self.lengths[i] % self.page_size == 0:
+            # a chain page just filled; a full page is immutable (every
+            # position below ``lengths`` is committed), so its bytes can be
+            # staged on a peer now, and a later preemption ships only the
+            # unstaged remainder. Fail-soft when no peer has room.
+            idx = int(self.lengths[i]) // self.page_size - 1
+            page = self.slot_pages[i][idx]
+            blob = extract_page_payloads(self.cache, [page])[0]
+            if self.remote_pool.stage_page(req.req_id, idx, blob):
+                self.stats["pages_staged"] += 1
         return False
 
     def _finish_request(self, i: int, req: Request) -> None:
@@ -515,6 +571,9 @@ class ServeEngine:
             gen = req.generated[: covered - len(req.prompt)]
             self._register_prefix(req.prompt + list(gen),
                                   self.slot_pages[i])
+        if self.paged and self.remote_pool is not None:
+            # write-behind staged pages die with the request
+            self.remote_pool.release_slot(req.req_id)
         req.done = True
         req.slot = None
         self._release_slot(i)
@@ -620,7 +679,14 @@ class ServeEngine:
         prompt + generated keys (the free list keeps their content until
         reallocation), ``generated[:-1]`` becomes the ``resume`` suffix
         re-prefilled on re-admission, and the final committed token is
-        re-derived and verified then."""
+        re-derived and verified then.
+
+        With the spill tier the slot's used chain (prompt and generated
+        positions, the partly filled last page included) is also lent as a
+        slot-spill group keyed by the request id, skipping pages already
+        staged by write-behind; re-admission recalls it whole and resumes
+        with no token recomputed. The ``resume`` fallback stays armed for a
+        lost or over-budget chain."""
         req = self.requests[req_id]
         slot = req.slot
         assert self.paged, "preemption needs the paged cache"
@@ -631,6 +697,18 @@ class ServeEngine:
             gen = req.generated[: covered - len(req.prompt)]
             self._register_prefix(req.prompt + list(gen),
                                   self.slot_pages[slot])
+        if self.spill:
+            # only the pages holding real positions travel; staged indices
+            # are already on a peer
+            length = int(self.lengths[slot])
+            chain = self.slot_pages[slot]
+            staged = self.remote_pool.staged_pages(req.req_id)
+            idxs = [i for i in range(pages_needed(length, self.page_size))
+                    if i not in staged]
+            blobs = extract_page_payloads(self.cache, [chain[i] for i in idxs])
+            if self.remote_pool.spill_slot(req.req_id, dict(zip(idxs, blobs))):
+                req.spill_len = length
+                self.stats["preempt_spills"] += 1
         req.resume = list(req.generated[:-1])
         req.key_cache.pop("admit_keys", None)
         # aging restarts from the preemption, or the victim would bypass
@@ -645,47 +723,201 @@ class ServeEngine:
     def _preempt_pass(self) -> None:
         """If the best waiting request outranks the weakest active decode
         slot by ``preempt_margin`` (base priorities), preempt that slot;
-        one victim per step."""
+        one victim per step. Among equal-priority victims the one whose
+        chain is cheapest to move (most pages already staged) goes
+        first."""
         if self.sched.cfg.preempt_margin is None or not self.queue:
             return
         cand = min(self.queue,
                    key=lambda r: (-r.priority, r.arrival_step, r.req_id))
         active = [self.requests[r] for i, r in enumerate(self.slot_req)
-                  if r is not None and i not in self.prefilling]
-        victim = self.sched.pick_victim(cand, active)
+                  if r is not None and i not in self.prefilling
+                  and not self.slot_hold[i]]
+        victim = self.sched.pick_victim(cand, active,
+                                        spill_cost=self._spill_cost)
         if victim is not None:
             self.preempt(victim.req_id)
 
+    def _spill_cost(self, req: Request) -> int:
+        """Pages a preemption of ``req`` would still have to move: its used
+        chain less the pages already staged. Zero without the spill
+        tier."""
+        if not self.spill or req.slot is None:
+            return 0
+        n_chain = pages_needed(int(self.lengths[req.slot]), self.page_size)
+        staged = sum(1 for idx in self.remote_pool.staged_pages(req.req_id)
+                     if idx < n_chain)
+        return n_chain - staged
+
     def _try_admit(self, slot: int, req: Request, *,
                    require_shared: bool = False) -> bool:
-        """Plan + execute one paged admission: trie lookup, refcount bumps
-        on the shared pages, private allocation for the rest. Returns False
-        with no side effects if the pool cannot satisfy it, or if
-        ``require_shared`` and no resident cached page shrinks the
-        request."""
+        """One admission attempt, recall-first: a request whose preempted
+        chain is spilled tries to recall it whole; everything else, and
+        every fallback, goes through the prefix-aware plan. Under bypass
+        (``require_shared``) a spilled candidate waits: its recall restores
+        its full page need, so it cannot shrink past a blocked head."""
+        if req.spill_len and not require_shared:
+            got = self._try_admit_recall(slot, req)
+            if got is not None:
+                return got
+            # chain lost (holder churn or over budget): re-prefill below
+        elif req.spill_len:
+            return False
+        return self._try_admit_paged(slot, req,
+                                     require_shared=require_shared)
+
+    def _try_admit_recall(self, slot: int, req: Request) -> bool | None:
+        """Admit a preempted request by recalling its spilled chain. True
+        when the slot resumed from the recalled pages; False (no side
+        effects) when the pool cannot hold the chain yet, the group kept;
+        None when the chain is lost (a recall miss, or a chain longer than
+        ``recall_budget``): the group is dropped, ``resume_fallbacks``
+        counts it and the caller re-prefills."""
+        P = self.page_size
+        if pages_needed(req.spill_len, P) > self.recall_budget:
+            self.remote_pool.release_slot(req.req_id)
+            req.spill_len = 0
+            self.stats["resume_fallbacks"] += 1
+            return None
+        need = pages_needed(
+            min(len(req.prompt) + req.max_new_tokens, self.max_seq), P)
+        if need > self.pool.available:
+            return False
+        payloads, wait_s = self.remote_pool.recall_slot(req.req_id)
+        length, req.spill_len = req.spill_len, 0
+        if payloads is None:
+            self.stats["recall_misses"] += 1
+            self.stats["resume_fallbacks"] += 1
+            return None
+        chain = self.pool.alloc(need)
+        assert chain is not None  # guaranteed by the pre-check
+        self._retire_cached(chain)
+        install_page_payloads(self.cache, [chain[i] for i in payloads],
+                              list(payloads.values()))
+        self.stats["pages_recalled"] += len(payloads)
+        self.lifecycle.bind(slot, req, chain)
+        self.lifecycle.resume_recalled(slot, req, length)
+        self.stats["recall_resumes"] += 1
+        self.stats["peak_pages"] = max(self.stats["peak_pages"],
+                                       self.pool.outstanding)
+        self._hold(slot, wait_s)
+        return True
+
+    def _hold(self, slot: int, wait_s: float) -> None:
+        """Recall in flight: the lane sits out the decode steps the
+        simulated transfer takes (see ``step``)."""
+        hold = int(np.ceil(wait_s / self.decode_step_s)) if wait_s > 0 else 0
+        if hold:
+            self.slot_hold[slot] = hold
+            self.stats["recall_hold_steps"] += hold
+
+    def _try_admit_paged(self, slot: int, req: Request, *,
+                         require_shared: bool = False) -> bool:
+        """Plan + execute one paged admission: trie lookup, batched recall
+        of spilled prefix pages, refcount bumps on the shared pages,
+        private allocation for the rest. Returns False with no local side
+        effects if the pool cannot satisfy it, or if ``require_shared`` and
+        no resident cached page shrinks the request.
+
+        The usable prefix is the resident pages plus spilled stubs within
+        the per-request ``recall_budget``. The plan re-plans after a recall
+        miss (the stub's subtree dropped, those tokens recomputed), and
+        retries with resident pages only when the recalls will not fit;
+        payloads recalled by an attempt that then fails are lent again (or
+        evicted), so no cached page is lost silently."""
         tlen = len(req.prompt) + len(req.resume)
         P = self.page_size
         need = pages_needed(
             min(len(req.prompt) + req.max_new_tokens, self.max_seq), P)
         key_tokens = self._admit_keys(req)
-        matched, shared, would_be = 0, [], 0
-        if self.prefix_cache:
-            chain = self.prefix_index.lookup(key_tokens)
-            # cap at tlen-1: at least one suffix token must run through the
-            # model to produce the first-token logits
-            matched = min(len(chain) * P, tlen - 1)
-            if not self.prefix_share:
-                # recurrent state is not page-addressable: the trie tracks
-                # would-be hits only, prefill is never skipped
-                would_be, matched = matched, 0
-            shared = chain[: pages_needed(matched, P)] if matched else []
-        if require_shared and not shared:
-            return False
-        revive = sum(1 for p in shared if self.pool.refcount(p) == 0)
-        if (need - matched // P) + revive > self.pool.available:
-            return False
+        payloads: dict[int, bytes] = {}   # stub id -> recalled page bytes
+        wait_s = 0.0
+        allow_spill = self.spill
+        while True:
+            matched, shared, recalls, would_be = 0, [], [], 0
+            budget = self.recall_budget - len(payloads)
+            if self.prefix_cache:
+                chain = self.prefix_index.lookup(key_tokens)
+                # truncated at the first stub the budget (or a disabled
+                # spill tier) cannot cover
+                usable: list[int] = []
+                for sid in chain:
+                    if sid < self.n_pages:
+                        usable.append(sid)
+                    elif (allow_spill and sid in self.spilled
+                          and (sid in payloads or budget > 0)):
+                        usable.append(sid)
+                        if sid not in payloads:
+                            budget -= 1
+                    else:
+                        break
+                # cap at tlen-1: at least one suffix token must run through
+                # the model to produce the first-token logits
+                matched = min(len(usable) * P, tlen - 1)
+                if not self.prefix_share:
+                    # recurrent state is not page-addressable: the trie
+                    # tracks would-be hits only, prefill is never skipped
+                    would_be = min(len(chain) * P, tlen - 1)
+                    matched = 0
+                elif matched:
+                    shared = usable[: pages_needed(matched, P)]
+                    recalls = [s for s in shared if s >= self.n_pages]
+            resident = [s for s in shared if s < self.n_pages]
+            if require_shared and not resident:
+                self._abort_recalls(payloads)
+                return False
+            # feasibility pre-check, so that failure has no local side
+            # effects: revived pages leave the free list, and every recall
+            # needs a fresh local page on top of the private ones
+            revive = sum(1 for p in resident if self.pool.refcount(p) == 0)
+            if ((need - matched // P) + len(recalls) + revive
+                    > self.pool.available):
+                if recalls:
+                    # the recalls will not fit: retry with resident pages
+                    # only (the stubs stay spilled for a later hit)
+                    allow_spill = False
+                    continue
+                self._abort_recalls(payloads)
+                return False
+            missing = [s for s in recalls if s not in payloads]
+            if missing:
+                got, w = self.remote_pool.recall(
+                    [self.spilled[s].lease_id for s in missing])
+                wait_s += w
+                missed = False
+                for s in missing:
+                    if s not in self.spilled:
+                        continue  # dropped with a missed ancestor's subtree
+                    blob = got.get(self.spilled[s].lease_id)
+                    if blob is None:
+                        # the holder left: drop the stub's subtree and
+                        # recompute those tokens
+                        self._evict_node(s)
+                        self.stats["recall_misses"] += 1
+                        missed = True
+                    else:
+                        payloads[s] = blob
+                if missed:
+                    continue  # re-plan against the pruned trie
+            break
+        # payloads the final plan cannot use: lend them again
+        unused = {s: payloads.pop(s) for s in list(payloads)
+                  if s not in recalls}
+        if unused:
+            self._abort_recalls(unused)
         # ---- execute: guaranteed to succeed from here ----
-        self.pool.share(shared)       # revive cached pages before alloc
+        self.pool.share(resident)       # revive cached pages before alloc
+        if recalls:
+            local = self.pool.alloc(len(recalls))
+            assert local is not None  # guaranteed by the pre-check
+            self._retire_cached(local)
+            install_page_payloads(self.cache, local,
+                                  [payloads.pop(s) for s in recalls])
+            for sid, page in zip(recalls, local):
+                self.prefix_index.remap(sid, page)
+                del self.spilled[sid]
+                shared[shared.index(sid)] = page
+            self.stats["pages_recalled"] += len(recalls)
         private = self.pool.alloc(need - matched // P)
         assert private is not None  # guaranteed by the pre-check
         self._retire_cached(private)
@@ -693,17 +925,59 @@ class ServeEngine:
             self.stats["prefix_hits"] += 1
             self.stats["prefix_hit_tokens"] += would_be
         self._prefill_paged(slot, req, shared, private, matched, key_tokens)
+        if self.slot_req[slot] == req.req_id:
+            self._hold(slot, wait_s)
         return True
 
     def _retire_cached(self, pages: list[int]) -> None:
-        """Freshly reallocated pages lose their cached contents: evict them
-        (and their subtrees) from the prefix trie."""
+        """Freshly reallocated pages lose their cached contents: lend the
+        still-cached ones to a peer (the pool's LRU order makes them the
+        coldest retained prefixes), leaving a trie stub, or evict them (and
+        their subtrees) when no peer takes them. The payloads are read in
+        one batched copy before any of these pages is written."""
         if not self.prefix_cache:
             return
-        for p in pages:
-            if p in self.prefix_index._nodes:
-                dropped = self.prefix_index.evict_pages([p])
-                self.stats["prefix_evictions"] += len(dropped)
+        cached = [p for p in pages if p in self.prefix_index._nodes]
+        blobs = (dict(zip(cached, extract_page_payloads(self.cache, cached)))
+                 if self.spill else {})
+        for p in cached:
+            if p not in self.prefix_index._nodes:
+                continue  # dropped with an evicted ancestor's subtree
+            if self.spill:
+                lease = self.remote_pool.lend(blobs[p])
+                if lease is not None:
+                    sid = self._spill_next
+                    self._spill_next += 1
+                    self.prefix_index.remap(p, sid)
+                    self.spilled[sid] = SpilledPage(lease.lease_id,
+                                                    lease.holder)
+                    self.stats["pages_spilled"] += 1
+                    continue
+            self._evict_node(p)
+
+    def _evict_node(self, node: int) -> None:
+        """Drop a trie node (content lost) and its subtree, releasing the
+        leases of spilled descendants: their pages are unreachable."""
+        dropped = self.prefix_index.evict_pages([node])
+        for d in dropped:
+            sp = self.spilled.pop(d, None)
+            if sp is not None and self.remote_pool is not None:
+                self.remote_pool.release(sp.lease_id)
+        self.stats["prefix_evictions"] += len(dropped)
+
+    def _abort_recalls(self, payloads: dict[int, bytes]) -> None:
+        """An admission attempt recalled payloads it cannot use: lend them
+        again so the cached pages stay recallable (the recall released
+        their leases), and evict the ones no peer takes."""
+        for sid, blob in list(payloads.items()):
+            if sid not in self.prefix_index._nodes:
+                continue  # stub already evicted (a missed ancestor)
+            lease = self.remote_pool.lend(blob) if self.remote_pool else None
+            if lease is None:
+                self._evict_node(sid)
+            else:
+                self.spilled[sid] = SpilledPage(lease.lease_id, lease.holder)
+        payloads.clear()
 
     def _release_slot(self, slot: int) -> None:
         self.slot_req[slot] = None
@@ -925,7 +1199,7 @@ class ServeEngine:
                     "deadline_ms": r.deadline_ms,
                     "arrival_step": r.arrival_step,
                     "resume": r.resume,
-                    "spill_len": 0,   # no spill tier: nothing is spilled
+                    "spill_len": r.spill_len,
                     "temperature": r.temperature,
                     "seed": r.seed,
                 }
@@ -945,7 +1219,18 @@ class ServeEngine:
             meta["page_touch"] = {str(p): g for p, g in pool_touch.items()}
             meta["prefix_trie"] = (self.prefix_index.serialize()
                                    if self.prefix_cache else [])
-            meta["spilled"] = {}
+            # spill tier: only the stubs and lease ids travel, never the
+            # lent payloads; a restore revalidates each lease
+            meta["spilled"] = {str(sid): [sp.lease_id, sp.peer]
+                               for sid, sp in self.spilled.items()}
+            if self.remote_pool is not None:
+                meta["slot_spills"] = {}
+                for r in self.requests.values():
+                    leases = self.remote_pool.slot_leases(r.req_id)
+                    if leases:
+                        meta["slot_spills"][str(r.req_id)] = {
+                            str(i): [lid, peer]
+                            for i, (lid, peer) in leases.items()}
             meta["slot_hold"] = [int(h) for h in self.slot_hold]
         meta["stats"] = {k: int(v) for k, v in self.stats.items()}
         mb = json.dumps(meta).encode()
@@ -955,10 +1240,12 @@ class ServeEngine:
         """Resume from a :meth:`snapshot` blob of either package
         (``engine.py:2151-2287``). The engine must be built as the
         snapshotted one was (mode, slots, ``max_seq``, page size and pool
-        size). Spilled state takes the reference's path for an engine
-        without a remote pool: trie stubs of spilled pages are evicted, so
-        their prefixes are recomputed, and a request whose chain was
-        spilled falls back to re-prefill (``resume_fallbacks``)."""
+        size). Spilled trie stubs are revalidated against the remote pool's
+        live cloudlet membership: a stub whose lease is gone (or any stub,
+        on an engine without a remote pool) is evicted with its subtree, so
+        its prefix is recomputed, never served stale. Slot-spill groups are
+        re-adopted whole (``adopt_slot``); a group that cannot be falls back
+        to re-prefill (``resume_fallbacks``)."""
         mlen = int.from_bytes(blob[:4], "little")
         meta = json.loads(blob[4:4 + mlen].decode())
         assert meta.get("paged", False) == self.paged, (
@@ -984,7 +1271,9 @@ class ServeEngine:
                               meta.get("page_touch"))
             self.slot_pages = [[int(p) for p in ps]
                                for ps in meta["slot_pages"]]
-            spilled = [int(sid) for sid in meta.get("spilled", {})]
+            snap_spilled = {
+                int(sid): SpilledPage(int(ent[0]), ent[1])
+                for sid, ent in meta.get("spilled", {}).items()}
             self.slot_hold = np.asarray(
                 meta.get("slot_hold", [0] * self.n_slots), np.int32).copy()
             if self.prefix_cache:
@@ -994,18 +1283,32 @@ class ServeEngine:
                     # they must be pool pages or known spill stubs;
                     # bookkeeping-only engines hold phantom ids >= n_pages
                     max_page=self.n_pages if self.prefix_share else None,
-                    extra_ids=set(spilled))
+                    extra_ids=set(snap_spilled))
                 phantoms = [p for p in self.prefix_index._nodes
                             if p >= self.n_pages]
                 self._phantom_next = max(phantoms,
                                          default=self.n_pages - 1) + 1
-                # no remote pool to recall from: a spilled page's content
-                # is gone, so its stub (and subtree) goes, never to stale
-                # pages
-                for sid in spilled:
-                    if sid in self.prefix_index._nodes:
-                        dropped = self.prefix_index.evict_pages([sid])
-                        self.stats["prefix_evictions"] += len(dropped)
+                self._spill_next = max(max(snap_spilled, default=0) + 1,
+                                       self.n_pages)
+                # revalidate leases. Every stub is loaded before any
+                # eviction, so that dropping an invalid ancestor releases
+                # the still-valid leases of its spilled descendants
+                # (_evict_node) instead of leaking them
+                self.spilled = {sid: sp for sid, sp in snap_spilled.items()
+                                if sid in self.prefix_index._nodes}
+                if self.remote_pool is not None:
+                    for sid, sp in snap_spilled.items():
+                        if sid not in self.spilled:  # orphaned stub entry
+                            self.remote_pool.release(sp.lease_id)
+                for sid in list(self.spilled):
+                    sp = self.spilled.get(sid)
+                    if sp is None:
+                        continue  # dropped with an evicted ancestor
+                    if (self.remote_pool is None
+                            or not self.remote_pool.lease_valid(sp.lease_id)):
+                        if self.remote_pool is not None:
+                            self.remote_pool.release(sp.lease_id)
+                        self._evict_node(sid)
             self.prefilling = {}      # snapshots drain in-flight prefills
             self._admit_ready = True  # restored queue must be rescanned
         self.stats = {**self.stats,
@@ -1022,6 +1325,7 @@ class ServeEngine:
             req.deadline_ms = kv.get("deadline_ms")
             req.arrival_step = int(kv.get("arrival_step", 0))
             req.resume = list(kv.get("resume", []))
+            req.spill_len = int(kv.get("spill_len", 0))
             req.temperature = float(kv.get("temperature", 0.0))
             req.seed = int(kv.get("seed", 0))
             if req.deadline_ms is not None:
@@ -1031,9 +1335,22 @@ class ServeEngine:
         self.queue = [self.requests[rid] for rid in meta["queue"]]
         self._req_counter = max(self.requests) + 1 if self.requests else 0
         if self.paged:
-            # a spilled slot chain cannot be recalled without a remote
-            # pool: its request re-prefills from its resume suffix
-            for rid in meta.get("slot_spills", {}):
-                kv = meta["requests"].get(rid)
-                if kv is not None and int(kv.get("spill_len", 0)):
+            # re-adopt slot-spill groups: every lease must still be valid
+            # or the whole chain falls back to re-prefill, never to a
+            # partial recall
+            for rid_s, leases in meta.get("slot_spills", {}).items():
+                rid = int(rid_s)
+                mapping = {int(i): int(ent[0]) for i, ent in leases.items()}
+                req = self.requests.get(rid)
+                ok = (self.remote_pool is not None
+                      and self.remote_pool.adopt_slot(rid, mapping))
+                if req is None:
+                    if ok:  # finished or cancelled while the snapshot sat
+                        self.remote_pool.release_slot(rid)
+                    continue
+                if not ok and req.spill_len:
+                    req.spill_len = 0
                     self.stats["resume_fallbacks"] += 1
+            if self.remote_pool is None:
+                for req in self.requests.values():
+                    req.spill_len = 0

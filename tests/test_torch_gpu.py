@@ -485,3 +485,82 @@ def test_attention_kernels_take_reduced_head_widths_on_the_card(H, K, D):
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                    rtol=2e-2)
         assert not got[0].any()
+
+
+@pytest.mark.gpu
+def test_page_payloads_round_trip_bit_for_bit_on_the_card():
+    """On the H100, at qwen3-8b's full-width page (36 layers, 64 positions,
+    8 kv heads of 128, bf16): the batched extraction gives each page's
+    single-page blob byte for byte, and the batched install writes those
+    bits into other pages of a blank cache, touching nothing else."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.serving.kvcache import (
+        extract_page_payload,
+        extract_page_payloads,
+        install_page_payloads,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    shape = (36, 12, 64, 8, 128)
+    cache = {k: torch.randn(*shape, generator=g, device="cuda").to(
+        torch.bfloat16) for k in ("k_pages", "v_pages")}
+    pages, dst = [3, 7, 1, 10], [5, 2, 11, 8]
+    blobs = extract_page_payloads(cache, pages)
+    assert blobs == [extract_page_payload(cache, p) for p in pages]
+    blank = {k: torch.zeros_like(v) for k, v in cache.items()}
+    install_page_payloads(blank, dst, blobs)
+    for k, v in cache.items():
+        assert torch.equal(blank[k][:, dst].view(torch.int16),
+                           v[:, pages].view(torch.int16))
+        rest = [p for p in range(shape[1]) if p not in dst]
+        assert not blank[k][:, rest].any()
+    assert extract_page_payloads(blank, dst) == blobs
+
+
+@pytest.mark.gpu
+def test_spill_engine_gives_the_retain_engines_tokens_on_the_card():
+    """On the H100, REDUCED qwen3-8b (heads padded to 64): under page
+    pressure the spill engine lends cold prefix pages and recalls them, and
+    its greedy tokens equal those of an engine whose pool retires nothing
+    (``tests/test_spill.py``'s round trip)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.core import CloudletRegistry, ReliabilityRegistry
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.kvcache import RemotePagePool
+
+    model = get_model(get("qwen3-8b", reduced=True))
+    params = model.init(0, device="cuda")
+    reg = CloudletRegistry()
+    reg.create("serve", "qwen3-8b")
+    rel = ReliabilityRegistry()
+    for h in ("h0", "h1", "h2"):
+        reg.join("serve", h)
+        rel.add_host(h)
+    remote = RemotePagePool(reg, "serve", "h0", reliability=rel)
+    kw = dict(n_slots=1, max_seq=96, page_size=16, prefill_chunk=32,
+              device="cuda")
+    spill = ServeEngine(model, params, n_pages=6, remote_pool=remote, **kw)
+    retain = ServeEngine(model, params, n_pages=64, **kw)
+    rng = np.random.default_rng(1)
+    vocab = model.cfg.vocab_size
+    prefixes = [rng.integers(1, vocab, 32).tolist() for _ in range(2)]
+    outs = {id(spill): [], id(retain): []}
+    for r in range(2):
+        for i, pre in enumerate(prefixes):
+            tails = np.random.default_rng(100 * r + i).integers(1, vocab,
+                                                                (2, 6))
+            for eng in (spill, retain):
+                reqs = [eng.submit(pre + t.tolist(), max_new_tokens=4)
+                        for t in tails]
+                eng.run(400)
+                outs[id(eng)] += [r_.generated for r_ in reqs]
+    assert spill.stats["pages_spilled"] > 0
+    assert spill.stats["pages_recalled"] > 0
+    assert retain.stats["prefix_evictions"] == 0
+    assert outs[id(spill)] == outs[id(retain)]

@@ -188,8 +188,8 @@ def test_port_blob_restores_into_the_reference(crossing, qwen):
 
 
 def test_reference_blob_with_spilled_state_falls_back(crossing, qwen):
-    """The port has no spill tier. Paged: a reference blob's spilled trie
-    stub is evicted with its subtree (its prefix is recomputed), and a
+    """An engine without a remote pool. Paged: a reference blob's spilled
+    trie stub is evicted with its subtree (its prefix is recomputed), and a
     request whose chain was spilled falls back to re-prefill, as the
     reference's restore does without a remote pool
     (``engine.py:2219-2227,2272-2287``) — the same trie and the same
