@@ -30,7 +30,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    states within 1e-4 of the plain f32 state's largest value; the scan also
    at N = 4 (falcon-mamba's REDUCED state size); RMSNorm also at the
    decode step's qk-norm shapes, each row bitwise the same alone as in its
-   batch;
+   batch; the speculative verify (8 lanes, a window of 5, folded into the
+   paged decode kernel), each query bitwise a single-token decode at its
+   length; the paged decode step's row-invariant product (``gemm_rows``,
+   no TPU counterpart) at each product of qwen3-8b's decode step, 8 and 40
+   rows, beside cuBLAS, and one step's products in all;
 3b. cli: ``repro_torch.launch.serve.main`` at its defaults (REDUCED
    configs, whose heads of 16 and 24 the attention wrappers pad to 64) for
    ``qwen3-8b``, ``zamba2-1.2b`` and ``falcon-mamba-7b``, without and with
@@ -78,10 +82,21 @@ Phases, each of which raises on failure (the exit code is then non-zero):
       (whole and by part, on the engine's own path) and per decode step
       with write-behind on and off (median, and the window's time over its
       steps, off/on/on/off in turns) printed beside the card's name and
-      power limit.
+      power limit;
+   g. spec (qwen3-8b only, ``phase_spec``): speculative decoding and
+      ``fork`` — a, each decode product's rows bitwise the same at 8 and
+      40 rows through ``gemm_rows`` (cuBLAS's verdicts printed); b, a
+      self-draft engine (``spec_k`` 4) gives plain decode's tokens with
+      every proposal accepted, every kernel of the path launched and no
+      plain version, with the medians of a decode step, a draft step and a
+      verify; c, the REDUCED pair (smollm-360m drafting) greedy and
+      sampled, tokens equal plain's; d, a live slot forked into 3 sampled
+      children; e, a speculating engine's snapshot restored with the
+      uninterrupted tokens.
 
 The line two before the last is the kernels summary as JSON (one row per
-kernel and model whose path runs it), the line before the last the card's
+kernel and model whose path runs it, and rows with ``"path": "spec"`` for
+the speculative path), the line before the last the card's
 name and power limit, the last ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of ``repro``.
 """
@@ -262,19 +277,26 @@ def phase_floor(gen) -> dict:
     """The launch floor of ``_time_ms`` (an empty kernel timed the same
     way, and its host cost through ``ctypes``), and the host cost per launch
     of the ``rmsnorm`` wrapper (the decode step's (8, 4096) block norm) and
-    of the ``ssd`` wrapper (zamba2's prefill chunk)."""
+    of the ``ssd`` wrapper (zamba2's prefill chunk), and of the
+    ``gemm_rows`` wrapper beside ``torch.matmul`` (a decode product)."""
     import torch
 
-    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import gemm_rows as gk, rmsnorm as rk
 
     dev = torch.device("cuda")
     x, w = _rmsnorm_case(gen, (N_SLOTS, 4096))
     args = _ssd_case(gen, CHUNK, 0.1)
+    # the decode step's k product (8 rows, 4096 -> 1024): the row-invariant
+    # product's wrapper against cuBLAS's torch.matmul, host side
+    xk = torch.randn(N_SLOTS, 4096, generator=gen, device="cuda").bfloat16()
+    wk = torch.randn(4096, 1024, generator=gen, device="cuda").bfloat16()
     out = {"phase": "floor",
            "empty_kernel_ms": _time_ms(lambda: rk.empty_launch(dev)),
            "host_per_launch": {
                "empty_kernel": _host_us(lambda: rk.empty_launch(dev)),
-               **_wrapper_host_us(x, w, args)}}
+               **_wrapper_host_us(x, w, args),
+               "gemm_rows": _host_us(lambda: gk.gemm_rows(xk, wk)),
+               "torch.matmul": _host_us(lambda: torch.matmul(xk, wk))}}
     log(out)
     return out
 
@@ -409,6 +431,99 @@ def check_paged_decode(gen, *, n_heads=32, n_kv=8, d=128) -> dict:
                              flush=True),
         "library_ms": None, **_bound(nbytes, flops, F32_FLOPS),
     }
+
+
+def check_paged_verify(gen, k: int = 4) -> dict:
+    """The speculative verify at qwen3-8b's shape: 8 lanes, a window of
+    k + 1, folded into the paged decode kernel (``ops.paged_verify_attention``
+    on the card): against the plain version, and each window query bitwise
+    equal to a single-token paged decode at its own length."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    W = k + 1
+    lengths = [1, 63, 64, 65, 2047 - W, 700, 1300, 0]
+    _, kp, vp, table, lens = _paged_case(gen, lengths)
+    B, H, D, K = len(lengths), 32, kp.shape[3], kp.shape[2]
+    q = torch.randn(B, W, H, D, generator=gen, device="cuda").bfloat16()
+    got = ops.paged_verify_attention(q, kp, vp, table, lens)
+    want = ref.paged_verify_attention(q, kp, vp, table, lens)
+    err = _close(got, want, "paged verify")
+    for j in range(W):
+        step = ops.paged_decode_attention(q[:, j].contiguous(), kp, vp,
+                                          table, lens + j + 1)
+        if not torch.equal(step, got[:, j]):
+            raise AssertionError(f"paged verify: query {j} differs from a "
+                                 f"decode at its length")
+    # each lane's pages once (its window reads the same keys), q and out
+    n_keys = int(lens.sum()) + B * W
+    nbytes = (n_keys * K * D * 2 * 2 + 2 * q.numel() * 2
+              + table.numel() * 4 + B * 4)
+    flops = 4 * H * D * sum(int(n) * W + W * (W + 1) // 2 for n in lengths)
+    return {
+        "shape": {"B": B, "W": W, "H": H, "K": K, "D": D, "P": PAGE,
+                  "positions": lengths},
+        "max_abs_err": err,
+        "ms": _time_ms(lambda: ops.paged_verify_attention(
+            q, kp, vp, table, lens), flush=True),
+        "plain_ms": _time_ms(lambda: ref.paged_verify_attention(
+            q, kp, vp, table, lens), flush=True),
+        "library_ms": None, **_bound(nbytes, flops, F32_FLOPS),
+    }
+
+
+def check_gemm_rows(gen, arch: str = "qwen3-8b") -> list[dict]:
+    """The paged decode step's row-invariant product at each of its shapes
+    (full-width ``arch``), at the decode step's 8 rows and a k = 4 verify's
+    40: against the plain version (``x @ w``), each timed with L2 flushed
+    (a step finds its weights cold) beside cuBLAS's ``torch.matmul``; then
+    one decode step's and one verify's products in all (36 layers of seven
+    and the unembedding), with their bounds."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import gemm_rows as gk, ops
+
+    cfg = get(arch)
+    rows, steps = [], {}
+    for M in (N_SLOTS, N_SLOTS * 5):
+        step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+                "flops": 0, "max_abs_err": 0.0}
+        for name, K, N, nk in gk.decode_products(cfg):
+            w = (torch.randn(N, K, generator=gen, device="cuda")
+                 * K ** -0.5).bfloat16()
+            w = w.t() if nk else w.reshape(K, N)
+            x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+            got = gk.gemm_rows(x, w)
+            with ops.use_backend("plain"):
+                want = ops.gemm_rows(x, w)
+            err = _close(got, want, f"gemm_rows {name} M={M}")
+            nbytes = 2 * (K * N + M * K + M * N)
+            row = {"shape": {"M": M, "K": K, "N": N, "product": name},
+                   "max_abs_err": err,
+                   "ms": _time_ms(lambda: gk.gemm_rows(x, w), flush=True),
+                   "plain_ms": _time_ms(lambda: gk.plain(x, w), flush=True),
+                   "library_ms": _time_ms(lambda: torch.matmul(x, w),
+                                          flush=True),
+                   **_bound(nbytes, 2 * M * K * N, BF16_TC_FLOPS)}
+            rows.append(row)
+            times = 1 if name == "unembed" else cfg.n_layers
+            for key in ("ms", "plain_ms", "library_ms"):
+                step[key] += times * row[key]
+            step["bytes"] += times * nbytes
+            step["flops"] += times * 2 * M * K * N
+            step["max_abs_err"] = max(step["max_abs_err"], err)
+            del w, x
+        steps[M] = step
+    for M, step in steps.items():
+        rows.append({"shape": {"M": M, "products": "one step", "arch": arch,
+                               "layers": cfg.n_layers},
+                     "max_abs_err": step["max_abs_err"], "ms": step["ms"],
+                     "plain_ms": step["plain_ms"],
+                     "library_ms": step["library_ms"],
+                     **_bound(step["bytes"], step["flops"], BF16_TC_FLOPS)})
+    return rows
 
 
 def check_decode(gen, *, n_heads=32, n_kv=8, d=128) -> dict:
@@ -683,6 +798,8 @@ def phase_kernels(seed: int = 0) -> dict:
            "paged_decode_attention": [check_paged_decode(gen)],
            "decode_attention": [check_decode(gen)],
            "flash_attention": check_flash(gen),
+           "paged_verify": [check_paged_verify(gen)],
+           "gemm_rows": check_gemm_rows(gen),
            "selective_scan": check_selective_scan(gen),
            "ssd": check_ssd(gen),
            # zamba2's shared attention block: D = 64, H = K = 32 (G = 1)
@@ -730,7 +847,8 @@ def _traffic(seed: int, vocab: int) -> list[list[int]]:
 # kernels each model's path launches (every one of them must run in its
 # serve phase; no plain version may)
 PATH_KERNELS = {
-    "qwen3-8b": ("rmsnorm", "paged_decode_attention", "flash_attention"),
+    "qwen3-8b": ("rmsnorm", "paged_decode_attention", "flash_attention",
+                 "gemm_rows"),
     "falcon-mamba-7b": ("rmsnorm", "selective_scan"),
     "zamba2-1.2b": ("rmsnorm", "paged_decode_attention", "flash_attention",
                     "ssd"),
@@ -1005,7 +1123,8 @@ def _kernel_forced(run) -> dict:
     dispatch = {"rmsnorm": "rmsnorm", "attention": "flash_attention",
                 "paged_decode_attention": "paged_decode_attention",
                 "decode_attention": "decode_attention",
-                "selective_scan": "selective_scan", "ssd": "ssd"}
+                "selective_scan": "selective_scan", "ssd": "ssd",
+                "gemm_rows": "gemm_rows"}
     saved = {n: getattr(ops, n) for n in dispatch}
     worst: dict[str, float] = {}
 
@@ -1827,6 +1946,305 @@ def phase_spill(model, params, card: str, seed: int = 4) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 10. spec: speculative decoding and fork on the paged engine
+# ---------------------------------------------------------------------------
+
+SPEC_K, SPEC_NEW = 4, 32
+# the spec path's kernels: the draft's and the target's decode, the verify
+# fold, the prefill chunks, and the row-invariant product of every decode
+SPEC_PATH_KERNELS = PATH_KERNELS["qwen3-8b"]
+
+
+def _product_verdicts(cfg) -> dict:
+    """Phase a: at each product of ``cfg``'s decode step, whether a row's
+    bits are the same at 8 rows (the decode step) as at 40 (a k = 4
+    verify), at 64 and alone, and for row 37 of 40 alone: for cuBLAS
+    (``torch.matmul``) and for ``ops.gemm_rows``. The latter must hold at
+    every shape."""
+    import torch
+
+    from repro_torch.kernels import gemm_rows as gk
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for name, K, N, nk in gk.decode_products(cfg):
+        w = (torch.randn(N, K, generator=gen, device="cuda")
+             * K ** -0.5).bfloat16()
+        w = w.t() if nk else w.reshape(K, N)
+        x = torch.randn(64, K, generator=gen, device="cuda").bfloat16()
+        verdict = {}
+        for lib, mm in (("cublas", torch.matmul), ("gemm_rows", gk.gemm_rows)):
+            y = {M: mm(x[:M], w) for M in (1, 8, 40, 64)}
+            verdict[lib] = {
+                "M40": torch.equal(y[40][:8], y[8]),
+                "M64": torch.equal(y[64][:8], y[8]),
+                "M1": torch.equal(y[1], y[8][:1]),
+                "row37": torch.equal(mm(x[37:38], w), y[40][37:38]),
+                "max_abs_diff_40_8": float(
+                    (y[40][:8].float() - y[8].float()).abs().max())}
+        out[f"{name} {K}x{N}"] = verdict
+        if not all(v for k, v in verdict["gemm_rows"].items()
+                   if k != "max_abs_diff_40_8"):
+            raise AssertionError(f"spec a: gemm_rows rows change with the "
+                                 f"row count at {name}: {verdict}")
+        del w, x
+    return out
+
+
+def _timed(fn, times: list):
+    """``fn`` with each call's wall time between two device syncs appended
+    to ``times`` (ms)."""
+    import torch
+
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return run
+
+
+def _spec_engine(model, params, **kw):
+    import dataclasses
+
+    from repro_torch.serving.engine import ServeEngine
+
+    eng = ServeEngine(model, params, **kw)
+    # time the model calls: the target's decode step and its verify
+    eng.decode_ms, eng.verify_ms, eng.draft_ms = [], [], []
+    eng.model = dataclasses.replace(
+        model, decode_paged=_timed(model.decode_paged, eng.decode_ms),
+        verify_paged=_timed(model.verify_paged, eng.verify_ms))
+    if kw.get("draft") is not None:
+        eng._draft_decode = _timed(eng._draft_decode, eng.draft_ms)
+    return eng
+
+
+def _drain_tokens(eng, prompts, *, max_new, temps=None, seeds=None) -> dict:
+    import torch
+
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=max_new,
+                       temperature=temps[j] if temps else 0.0,
+                       seed=seeds[j] if seeds else 0)
+            for j, p in enumerate(prompts)]
+    eng.run(100_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(r.done for r in reqs):
+        raise AssertionError("spec: a request did not complete")
+    n_gen = sum(len(r.generated) for r in reqs)
+    return {"tokens": [r.generated for r in reqs], "wall_s": wall,
+            "generated_tokens": n_gen, "tokens_per_s": n_gen / wall}
+
+
+def phase_spec(model, params, card: str, seed: int = 5) -> dict:
+    """Speculative decoding and ``fork`` on full-width qwen3-8b (the smoke
+    settings: ``N_SLOTS`` slots, pages of ``PAGE``, chunks of ``CHUNK``):
+    a, each decode product's rows bitwise the same at 8 and 40 rows for
+    ``ops.gemm_rows`` (cuBLAS's verdicts printed beside); b, 8 requests of
+    96-1024 tokens, ``SPEC_NEW`` new each, through a plain engine and a
+    self-draft engine (``spec_k`` 4): equal tokens and every proposal
+    accepted (the 8-row draft decode and the 40-row verify give the same
+    argmax), every kernel of the path launched, no plain version; the
+    medians of a plain decode step, a draft step and a verify pass; c, the
+    REDUCED pair (qwen3-8b drafted by smollm-360m, heads of 24 and 16
+    padded to 64), k = 3, greedy and sampled, spec tokens equal plain's;
+    d, a live self-draft slot forked into 3 sampled children; e, a
+    speculating engine (4 slots, ``max_seq`` 1024, both caches in its
+    blob) snapshotted after 2 steps and restored into a fresh one, with the
+    uninterrupted run's tokens."""
+    import gc as _gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import draft_for, get
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+
+    out = {"phase": "spec", "arch": model.cfg.arch_id, "card": card,
+           "spec_k": SPEC_K}
+    out["products"] = _product_verdicts(model.cfg)
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, vocab, int(n)).tolist()
+               for n in rng.integers(96, 1025, 8)]
+    kw = dict(n_slots=N_SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
+              prefill_chunk=CHUNK, device="cuda")
+    # b. self-draft against plain decode
+    plain = _spec_engine(model, params, **kw)
+    base = _drain_tokens(plain, prompts, max_new=SPEC_NEW)
+    plain_ms = list(plain.decode_ms)
+    del plain
+    _gc.collect()
+    torch.cuda.empty_cache()
+    spec = _spec_engine(model, params, draft=model, draft_params=params,
+                        spec_k=SPEC_K, **kw)
+    per_round: dict = {}
+    per_verify: dict = {}
+    step, verify = spec._spec_step, spec.model.verify_paged
+
+    def counted(fn, into):
+        def run(*args, **kwargs):
+            before = ops.counts()
+            got = fn(*args, **kwargs)
+            if not into:
+                into.update({k: ops.counts()[k]["launches"] - v["launches"]
+                             for k, v in before.items()})
+            return got
+        return run
+
+    spec._spec_step = counted(step, per_round)
+    spec.model.verify_paged = counted(verify, per_verify)
+    ops.reset_counts()
+    got = _drain_tokens(spec, prompts, max_new=SPEC_NEW)
+    counts = ops.counts()
+    st = spec.stats
+    if got["tokens"] != base["tokens"]:
+        raise AssertionError("spec b: self-draft tokens differ from plain "
+                             "decode's")
+    if not 0 < st["spec_accepted"] == st["spec_proposed"]:
+        raise AssertionError(f"spec b: accepted {st['spec_accepted']} of "
+                             f"{st['spec_proposed']} self-draft proposals")
+    _check_counts(counts, SPEC_PATH_KERNELS, "spec self-draft")
+    decode_med = statistics.median(plain_ms)
+    verify_med = statistics.median(spec.verify_ms)
+    out["self_draft"] = {
+        "requests": len(prompts), "new_tokens": SPEC_NEW,
+        "spec_rounds": st["spec_rounds"],
+        "spec_proposed": st["spec_proposed"],
+        "spec_accepted": st["spec_accepted"],
+        "decode_step_ms_median": decode_med,
+        "draft_step_ms_median": statistics.median(spec.draft_ms),
+        "verify_ms_median": verify_med,
+        "verify_over_decode_step": verify_med / decode_med,
+        "decode_steps": len(plain_ms), "draft_steps": len(spec.draft_ms),
+        "verifies": len(spec.verify_ms),
+        "plain_tokens_per_s": base["tokens_per_s"],
+        "spec_tokens_per_s": got["tokens_per_s"],
+        "plain_wall_s": base["wall_s"], "spec_wall_s": got["wall_s"],
+        "launches": {n: c["launches"] for n, c in counts.items()},
+        "launches_per_spec_round": per_round,
+        "launches_per_verify": per_verify}
+    del spec
+    _gc.collect()
+    torch.cuda.empty_cache()
+    # d. fork: a live self-draft slot into 3 sampled children
+    fork = _spec_engine(model, params, draft=model, draft_params=params,
+                        spec_k=SPEC_K, **kw)
+    parents = [fork.submit(p, max_new_tokens=SPEC_NEW) for p in prompts[:2]]
+    while not (parents[0].generated and parents[0].slot is not None
+               and parents[0].slot not in fork.prefilling
+               and len(parents[0].generated) > SPEC_K):
+        fork.step()
+    n_before = len(parents[0].generated)
+    kids = fork.fork(parents[0].req_id, 3, temperature=1.0, seeds=[1, 2, 3])
+    fork.run(100_000)
+    fst = fork.stats
+    if not (fst["fork_shared_pages"] > 0 and fst["forks"] == 3
+            and all(k.done for k in kids)):
+        raise AssertionError(f"spec d: {fst}")
+    if any(k.generated[:n_before] != parents[0].generated[:n_before]
+           for k in kids):
+        raise AssertionError("spec d: a child differs from its parent "
+                             "before the fork")
+    if len({tuple(k.generated) for k in kids}) < 2:
+        raise AssertionError("spec d: the children did not diverge")
+    if fork.pool.outstanding:
+        raise AssertionError(f"spec d: {fork.pool.outstanding} pages "
+                             f"outstanding after the run")
+    if fst["spec_accepted"] != fst["spec_proposed"]:
+        raise AssertionError("spec d: a sampled self-draft proposal was "
+                             "rejected")
+    out["fork"] = {"tokens_before_fork": n_before,
+                   "forks": fst["forks"],
+                   "fork_shared_pages": fst["fork_shared_pages"],
+                   "cow_copies": fst["cow_copies"],
+                   "children_distinct": len({tuple(k.generated)
+                                             for k in kids}),
+                   "spec_rounds": fst["spec_rounds"],
+                   "spec_accepted": fst["spec_accepted"]}
+    del fork
+    _gc.collect()
+    torch.cuda.empty_cache()
+    # e. continuity of a speculating engine: both caches in the blob
+    ckw = dict(kw, n_slots=4, max_seq=1024)
+    c_prompts = [rng.integers(1, vocab, int(n)).tolist()
+                 for n in rng.integers(100, 601, 6)]
+
+    def cont_engine():
+        return _spec_engine(model, params, draft=model, draft_params=params,
+                            spec_k=SPEC_K, **ckw)
+
+    whole = cont_engine()
+    want = _drain_tokens(whole, c_prompts, max_new=16)["tokens"]
+    del whole
+    cut = cont_engine()
+    reqs = [cut.submit(p, max_new_tokens=16) for p in c_prompts]
+    for _ in range(2):
+        cut.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = cut.snapshot()
+    snap_s = time.perf_counter() - t0
+    del cut, reqs
+    _gc.collect()
+    torch.cuda.empty_cache()
+    fresh = cont_engine()
+    t0 = time.perf_counter()
+    fresh.restore(blob)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    fresh.run(100_000)
+    tokens = [r.generated for r in sorted(fresh.requests.values(),
+                                          key=lambda r: r.req_id)]
+    if tokens != want:
+        raise AssertionError("spec e: the restored speculating engine's "
+                             "tokens differ from the uninterrupted run's")
+    out["continuity"] = {"blob_bytes": len(blob), "snapshot_s": snap_s,
+                         "restore_s": restore_s,
+                         "spec_rounds": fresh.stats["spec_rounds"]}
+    del fresh, blob
+    _gc.collect()
+    torch.cuda.empty_cache()
+    # c. the REDUCED pair on the card, greedy and sampled
+    tm = get_model(get("qwen3-8b", reduced=True))
+    tp = tm.init(0, device="cuda")
+    dm = get_model(draft_for("qwen3-8b", reduced=True))
+    dp = dm.init(1, device="cuda")
+    rkw = dict(max_seq=96, page_size=16, prefill_chunk=32, device="cuda")
+    rvocab = tm.cfg.vocab_size
+    pair = {}
+    for name, lens, temps, seeds, slots in (
+            ("greedy", [32, 17, 40, 5], None, None, 2),
+            ("sampled", [32, 17, 23, 40], [0.8, 0.0, 1.3, 0.8],
+             [11, 0, 42, 7], 3)):
+        prng = np.random.default_rng(3)
+        ps = [prng.integers(1, rvocab, n).tolist() for n in lens]
+        base_r = _drain_tokens(_spec_engine(tm, tp, n_slots=slots, **rkw),
+                               ps, max_new=8, temps=temps, seeds=seeds)
+        ops.reset_counts()
+        eng = _spec_engine(tm, tp, n_slots=slots, draft=dm, draft_params=dp,
+                           spec_k=3, **rkw)
+        got_r = _drain_tokens(eng, ps, max_new=8, temps=temps, seeds=seeds)
+        _check_counts(ops.counts(), SPEC_PATH_KERNELS, f"spec c {name}")
+        if got_r["tokens"] != base_r["tokens"]:
+            raise AssertionError(f"spec c: {name} REDUCED pair tokens differ "
+                                 f"from plain decode's")
+        if not eng.stats["spec_rounds"]:
+            raise AssertionError(f"spec c: {name} never speculated")
+        pair[name] = {k: eng.stats[k] for k in ("spec_rounds",
+                                                "spec_proposed",
+                                                "spec_accepted")}
+    out["reduced_pair"] = pair
+    log(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1844,6 +2262,10 @@ ROUTES = {
                        "src/repro/kernels/selective_scan.py:111"),
     "ssd": ("cuda", "src/repro_torch/csrc/ssd.cu",
             "src/repro/kernels/ssd.py:112"),
+    # no TPU kernel: the paged decode step's products, row-invariant so that
+    # the speculative verify equals plain decode
+    "gemm_rows": ("cuda", "src/repro_torch/csrc/gemm_rows.cu",
+                  "torch.matmul (cuBLAS)"),
 }
 # the check row that stands for each (kernel, model) in the summary line:
 # the decode step's block norm (d 4096, or zamba2's d 2048), the paged and
@@ -1853,7 +2275,8 @@ SUMMARY_ROW = {
     "qwen3-8b": {"rmsnorm": ("rmsnorm", 0),
                  "paged_decode_attention": ("paged_decode_attention", 0),
                  "decode_attention": ("decode_attention", 0),
-                 "flash_attention": ("flash_attention", 2)},
+                 "flash_attention": ("flash_attention", 2),
+                 "gemm_rows": ("gemm_rows", -2)},
     "falcon-mamba-7b": {"rmsnorm": ("rmsnorm", 0),
                         "selective_scan": ("selective_scan", 1)},
     "zamba2-1.2b": {"rmsnorm": ("rmsnorm", 4),
@@ -1863,6 +2286,12 @@ SUMMARY_ROW = {
                     "flash_attention": ("flash_attention@zamba2", 2),
                     "ssd": ("ssd", 1)},
 }
+# the spec path's rows (qwen3-8b): the block norm, the verify fold, the
+# longest prefill chunk, and one verify's products (M = 40)
+SPEC_SUMMARY_ROW = {"rmsnorm": ("rmsnorm", 0),
+                    "paged_decode_attention": ("paged_verify", 0),
+                    "flash_attention": ("flash_attention", 2),
+                    "gemm_rows": ("gemm_rows", -1)}
 
 
 def run_model(arch: str, card: str) -> dict:
@@ -1888,8 +2317,10 @@ def run_model(arch: str, card: str) -> dict:
     dense = phase_dense(model, params, serve["tokens"])
     for paged in (True, False):
         phase_continuity(model, params, paged=paged)
+    spec = None
     if arch == "qwen3-8b":
         phase_spill(model, params, card)
+        spec = phase_spec(model, params, card)["self_draft"]
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1899,7 +2330,8 @@ def run_model(arch: str, card: str) -> dict:
                       per_call["prefill_chunk"]),
             "dense": (dense["launches"],
                       dense["launches_per_call"]["decode_step"],
-                      dense["launches_per_call"]["prefill"])}
+                      dense["launches_per_call"]["prefill"]),
+            "spec": spec}
 
 
 def main() -> int:
@@ -1943,6 +2375,22 @@ def main() -> int:
                 **({"bound_f32_ms": row["bound_f32_ms"]}
                    if "bound_f32_ms" in row else {}),
             })
+        spec = ran["spec"]
+        for name, (check, i) in (SPEC_SUMMARY_ROW.items() if spec else ()):
+            route, source, replaces = ROUTES[name]
+            row = checks[check][i]
+            kernels.append({
+                "name": name, "route": route, "source": source,
+                "replaces": replaces, "model": arch, "path": "spec",
+                "launches": spec["launches"][name],
+                "launches_per_spec_round":
+                    spec["launches_per_spec_round"][name],
+                "launches_per_verify": spec["launches_per_verify"][name],
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "x_library": row["x_library"], "x_bound": row["x_bound"],
+                "shape": row["shape"]})
     log({"kernels": kernels})
     log(device["smi"])
     log({"ok": True, "device": {"platform": device["platform"],

@@ -4,7 +4,8 @@ Each module defines ``CONFIG`` (the published figures) and ``reduced()``
 (a tiny same-family twin for CPU tests), exactly as the JAX package's
 ``repro/configs``. The dense, SSM and hybrid families are ported; the
 other archs of the JAX package raise ``KeyError`` naming the ROADMAP item
-that ports their family.
+that ports their family. ``DRAFT_PAIRS`` and ``draft_for`` are copies of
+the reference's speculative-decoding pairings.
 """
 
 from __future__ import annotations
@@ -32,6 +33,18 @@ _NOT_PORTED: dict[str, str] = {
     "whisper-medium": "multimodal families (ROADMAP Queue 1, item 13)",
 }
 
+# Natural draft/target pairings for speculative decoding: a small same-vocab
+# family member drafts for the big target. Keyed by target arch id. At
+# published widths every pair differs in vocab, so an engine refuses it
+# there (ROADMAP Queue 3, R4); they run at REDUCED sizes, where every
+# vocab is 512.
+DRAFT_PAIRS: dict[str, str] = {
+    "qwen3-8b": "smollm-360m",
+    "phi4-mini-3.8b": "smollm-360m",
+    "minitron-4b": "smollm-360m",
+    "deepseek-moe-16b": "granite-moe-1b-a400m",
+}
+
 
 def get(arch_id: str, reduced: bool = False) -> ModelConfig:
     table = REDUCED if reduced else ARCHS
@@ -42,3 +55,10 @@ def get(arch_id: str, reduced: bool = False) -> ModelConfig:
     if arch_id not in table:
         raise KeyError(f"unknown arch {arch_id!r}; available: {sorted(table)}")
     return table[arch_id]
+
+
+def draft_for(arch_id: str, reduced: bool = False) -> ModelConfig | None:
+    """The paired draft config for a target arch (None when unpaired); a
+    pair whose family is not ported raises :func:`get`'s ``KeyError``."""
+    pair = DRAFT_PAIRS.get(arch_id)
+    return get(pair, reduced=reduced) if pair else None

@@ -1,5 +1,5 @@
 // Warp-level tensor-core and copy helpers shared by the kernels that tile
-// with mma.sync (flash_decode.cuh, ssd.cu): shared-memory addresses,
+// with mma.sync (flash_decode.cuh, ssd.cu, gemm_rows.cu): shared-memory addresses,
 // cp.async, the m16n8k16 bf16 product with f32 accumulation, ldmatrix,
 // and the bf16 hi + lo split of an f32 operand.
 //
@@ -25,6 +25,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                  :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+// 16 bytes, or 16 zero bytes where !valid (src is then not read)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -64,6 +71,24 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
     asm volatile(
         "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
         : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+// two of them, from the rows that lanes 0..15 address
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const void* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+        : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)));
+}
+// four 8x8 bf16 matrices as they are: thread (g, t) receives row g,
+// columns 2t, 2t+1 of each
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+        : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 v) {

@@ -29,7 +29,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 SOURCES = ("rmsnorm", "paged_decode_attention", "decode_attention",
-           "flash_attention", "selective_scan", "ssd")
+           "flash_attention", "selective_scan", "ssd", "gemm_rows")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -10,7 +10,11 @@ CLI.
 
 Each kernel wrapper counts its own launches (``<wrapper>.launches``); this
 module counts the calls that went to a plain version, so a run can show
-which path it took. ``causal_conv1d``, ``selective_scan_step`` and
+which path it took. ``paged_verify_attention`` is no kernel of its own: on
+the card it folds its window into the paged decode kernel, as the TPU path
+does (``repro/kernels/ops.py:285-301``), and counts there. ``gemm_rows`` has
+no TPU kernel: it is the paged decode step's row-invariant product
+(``kernels/gemm_rows.py``). ``causal_conv1d``, ``selective_scan_step`` and
 ``ssd_step`` have no TPU kernel (the JAX package runs them through XLA on
 every backend): they are plain code on every device, and not counted.
 """
@@ -24,6 +28,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import gemm_rows as _gemm
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rmsnorm
@@ -42,6 +47,7 @@ KERNELS = {
     "flash_attention": _flash.flash_attention,
     "selective_scan": _scan.selective_scan,
     "ssd": _ssd.ssd,
+    "gemm_rows": _gemm.gemm_rows,
 }
 plain_calls = {name: 0 for name in KERNELS}
 
@@ -121,6 +127,40 @@ def paged_decode_attention(
                                           lengths)
     return _paged.paged_decode_attention(q, k_pages, v_pages, page_table,
                                          lengths)
+
+
+def paged_verify_attention(
+    q: torch.Tensor,           # (B, W, H, D) — a window of W queries a lane
+    k_pages: torch.Tensor,     # (n_pages, P, K, D)
+    v_pages: torch.Tensor,     # (n_pages, P, K, D)
+    page_table: torch.Tensor,  # (B, max_pages) int32
+    positions: torch.Tensor,   # (B,) int32 — cache position of query 0
+) -> torch.Tensor:
+    """Causal multi-query paged decode for speculative verification: query
+    ``j`` of lane ``b`` attends over ``positions[b] + j + 1`` entries. On the
+    card the window folds into the batch of the paged decode kernel, lengths
+    ``positions[:, None] + arange(W) + 1`` and the table repeated W times
+    (``repro/kernels/ops.py:285-301``)."""
+    if _plain(q, "paged_decode_attention"):
+        return ref.paged_verify_attention(q, k_pages, v_pages, page_table,
+                                          positions)
+    B, W, H, D = q.shape
+    lengths = (positions[:, None]
+               + torch.arange(W, device=q.device)[None, :] + 1)
+    out = _paged.paged_decode_attention(
+        q.reshape(B * W, H, D), k_pages, v_pages,
+        page_table.repeat_interleave(W, dim=0).contiguous(),
+        lengths.reshape(-1).to(torch.int32))
+    return out.reshape(B, W, H, D)
+
+
+def gemm_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x (..., K) @ w (K, N)``, bf16 with f32 sums, each row's bits
+    independent of the other rows of the call (the paged decode step's
+    product)."""
+    if _plain(x, "gemm_rows"):
+        return ref.gemm_rows(x, w)
+    return _gemm.gemm_rows(x, w)
 
 
 def selective_scan(

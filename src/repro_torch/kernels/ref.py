@@ -115,6 +115,49 @@ def paged_decode_attention(
     return decode_attention(q, k, v, lengths, scale=scale)
 
 
+def paged_verify_attention(
+    q: torch.Tensor,           # (B, W, H, D) — a window of W queries a lane
+    k_pages: torch.Tensor,     # (n_pages, P, K, D) — shared page pool
+    v_pages: torch.Tensor,     # (n_pages, P, K, D)
+    page_table: torch.Tensor,  # (B, max_pages) int — physical page ids
+    positions: torch.Tensor,   # (B,) int — cache position of query 0
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Causal multi-query paged decode (``repro/kernels/ref.py:139-169``):
+    query ``j`` of lane ``b`` attends over the first ``positions[b] + j +
+    1`` cache entries, its own K/V included."""
+    b, w, h, d = q.shape
+    kh = k_pages.shape[2]
+    idx = page_table.long()
+    k = _expand_kv(k_pages[idx].reshape(b, -1, kh, d), h)
+    v = _expand_kv(v_pages[idx].reshape(b, -1, kh, d), h)
+    s = k.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    kpos = torch.arange(s, device=q.device)[None, None, :]
+    qend = (positions.long()[:, None, None]
+            + torch.arange(w, device=q.device)[None, :, None] + 1)
+    mask = kpos < qend                                        # (B, W, S)
+    logits = logits.masked_fill(~mask[:, None], NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Row-invariant matrix product (no TPU kernel: it keeps the verify fold's
+# lanes equal to plain decode's on the card, see kernels/gemm_rows.py)
+# ---------------------------------------------------------------------------
+
+
+def gemm_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x (..., K) @ w (K, N)`` with bf16 operands, f32 sums and a bf16
+    result: the plain product the paged decode step took before it had a
+    kernel of its own."""
+    return x @ w
+
+
 # ---------------------------------------------------------------------------
 # Mamba: causal depthwise conv, selective scan (Mamba1), SSD (Mamba2)
 # ---------------------------------------------------------------------------

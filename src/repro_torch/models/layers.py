@@ -12,11 +12,18 @@ Page pools and dense caches are updated in place (``index_put_``): the JAX
 engine donates its cache to the jitted step for the same reason
 (``engine.py:612-613``), so that a step rewrites the few rows it touches
 instead of materializing a second copy of every pool.
+
+The functions that a paged decode step runs take the step's matrix product
+as ``mm`` (``x (..., a)``, ``w (a, n)`` -> ``(..., n)``): ``torch.matmul``
+by default, and ``ops.gemm_rows`` on the paged decode entry point, whose
+rows do not depend on how many rows share the call (see
+``models/transformer.py``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -26,10 +33,14 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.model_api import PSpec
 
-def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+Matmul = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor,
+        mm: Matmul = torch.matmul) -> torch.Tensor:
     """``x (..., a) @ w (a, ...)``: the einsums of the reference with the
     contracted axis first in ``w`` and the rest of ``w`` kept."""
-    out = x @ w.reshape(w.shape[0], -1)
+    out = mm(x, w.reshape(w.shape[0], -1))
     return out.reshape(*x.shape[:-1], *w.shape[1:])
 
 
@@ -165,11 +176,12 @@ def attn_specs(cfg: ModelConfig, layers: int | None = None) -> dict:
     return specs
 
 
-def _project_qkv(p: nn.Module, x: torch.Tensor, cfg: ModelConfig, rows: Rows):
+def _project_qkv(p: nn.Module, x: torch.Tensor, cfg: ModelConfig, rows: Rows,
+                 mm: Matmul = torch.matmul):
     """x (B,S,d) -> q (B,S,H,dh), k/v (B,S,K,dh), with qk-norm + RoPE."""
-    q = _mm(x, p.wq)
-    k = _mm(x, p.wk)
-    v = _mm(x, p.wv)
+    q = _mm(x, p.wq, mm)
+    k = _mm(x, p.wk, mm)
+    v = _mm(x, p.wv, mm)
     if cfg.qk_norm:
         q = ops.rmsnorm(q, p.q_norm, cfg.norm_eps)
         k = ops.rmsnorm(k, p.k_norm, cfg.norm_eps)
@@ -238,15 +250,65 @@ def attn_decode_paged(
     k_pages: torch.Tensor,      # (n_pages, P, K, dh) — updated in place
     v_pages: torch.Tensor,
     page_table: torch.Tensor,   # (B, max_pages) int32
+    mm: Matmul = torch.matmul,
 ) -> torch.Tensor:
     """Single-token attention against a paged cache (``layers.py:170-187``);
     returns (B, 1, d)."""
-    q, k, v = _project_qkv(p, x, cfg, rows)
+    q, k, v = _project_qkv(p, x, cfg, rows, mm)
     paged_kv_append(k_pages, k[:, 0], rows)
     paged_kv_append(v_pages, v[:, 0], rows)
     out = ops.paged_decode_attention(q[:, 0], k_pages, v_pages, page_table,
                                      lengths)
-    return _mm(out.flatten(1), p.wo.flatten(0, 1))[:, None]
+    return _mm(out.flatten(1), p.wo.flatten(0, 1), mm)[:, None]
+
+
+def paged_kv_append_multi(
+    pages: torch.Tensor,        # (n_pages, P, K, dh) — updated in place
+    new: torch.Tensor,          # (B, W, K, dh)
+    page_table: torch.Tensor,   # (B, max_pages) int32
+    positions: torch.Tensor,    # (B,) — position of new[:, 0]
+) -> None:
+    """Scatter a W-token window per sequence into its pages
+    (``layers.py:189-214``), the multi-token sibling of
+    :func:`paged_kv_append`. Window positions past the table's capacity
+    land on the scratch page 0 instead of a clamped-index real page."""
+    P = pages.shape[1]
+    max_pages = page_table.shape[1]
+    W = new.shape[1]
+    pos = positions.long()[:, None] + torch.arange(W, device=pages.device)
+    logical = pos // P
+    pid = torch.where(
+        logical < max_pages,
+        page_table.long().gather(1, logical.clamp(max=max_pages - 1)),
+        torch.zeros_like(logical))
+    pages.index_put_((pid, pos % P), new.to(pages.dtype))
+
+
+def attn_verify_paged(
+    p: nn.Module,
+    x: torch.Tensor,            # (B, W, d) — the verify window, normalized
+    cfg: ModelConfig,
+    positions: torch.Tensor,    # (B,) — cache position of x[:, 0]
+    k_pages: torch.Tensor,      # (n_pages, P, K, dh) — updated in place
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,   # (B, max_pages) int32
+) -> torch.Tensor:
+    """Multi-query attention of a verify window against a paged cache
+    (``layers.py:217-242``): the window's K/V is scattered first, then query
+    ``j`` attends causally up to its own position. The engine does not call
+    it: its verify folds the window into the decode path
+    (``transformer.verify_paged_fn``). Returns (B, W, d)."""
+    W = x.shape[1]
+    pos = positions.long()[:, None] + torch.arange(W, device=x.device)
+    cos = sin = None
+    if cfg.rope_theta > 0 and not cfg.learned_positions:
+        cos, sin = rope_tables(pos, cfg.d_head, cfg.rope_theta)
+    q, k, v = _project_qkv(p, x, cfg, Rows(cos, sin))
+    paged_kv_append_multi(k_pages, k, page_table, positions)
+    paged_kv_append_multi(v_pages, v, page_table, positions)
+    out = ops.paged_verify_attention(q, k_pages, v_pages, page_table,
+                                     positions)
+    return _mm(out.flatten(2), p.wo.flatten(0, 1))
 
 
 def attn_prefill_chunk(
@@ -294,12 +356,13 @@ def mlp_specs(cfg: ModelConfig, width: int, layers: int | None = None) -> dict:
     }
 
 
-def mlp_forward(p: nn.Module, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_forward(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
+                mm: Matmul = torch.matmul) -> torch.Tensor:
     """SwiGLU; x (..., d) already normalized."""
-    g = x @ p.wg
-    u = x @ p.wu
+    g = mm(x, p.wg)
+    u = mm(x, p.wu)
     h = F.silu(g.float()).to(g.dtype) * u
-    return h @ p.wd
+    return mm(h, p.wd)
 
 
 # ---------------------------------------------------------------------------
@@ -323,8 +386,9 @@ def embed_lookup(p: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
     return p.embedding[tokens.long()]
 
 
-def logits_last(p: nn.Module, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def logits_last(p: nn.Module, h: torch.Tensor, cfg: ModelConfig,
+                mm: Matmul = torch.matmul) -> torch.Tensor:
     """h (B, d) -> logits (B, V) in f32, from a bf16 product."""
     if cfg.tie_embeddings:
-        return (h @ p.embedding.t()).float()
-    return (h @ p.unembed).float()
+        return mm(h, p.embedding.t()).float()
+    return mm(h, p.unembed).float()

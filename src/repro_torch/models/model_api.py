@@ -142,7 +142,13 @@ class ModelFns:
       returns the logits of the last valid token ``(1, V)``;
     - ``decode_paged(params, cache, batch)`` — one batched token step over
       every slot; batch carries ``tokens (B, 1)``, ``positions (B,)`` and
-      ``page_table (B, max_pages)``; returns ``(B, V)`` logits.
+      ``page_table (B, max_pages)``; returns ``(B, V)`` logits;
+    - ``verify_paged(params, cache, batch)`` (optional, speculative
+      decoding, ``repro/models/model_api.py:133-139``) — one pass over a
+      W-token draft window; batch carries ``tokens (B, W)``, ``positions
+      (B,)`` (the cache position of ``tokens[:, 0]``) and ``page_table (B,
+      max_pages)``; writes the window's K/V as W sequential
+      ``decode_paged`` steps would and returns ``(B, W, V)`` logits.
 
     ``paged_state`` is True when the cache carries per-slot recurrent state
     (``repro/models/model_api.py:121-130``): that state is not
@@ -161,6 +167,7 @@ class ModelFns:
     prefill_chunk: Callable[..., torch.Tensor] | None = None
     decode_paged: Callable[..., torch.Tensor] | None = None
     paged_state: bool = False
+    verify_paged: Callable[..., torch.Tensor] | None = None
 
     @property
     def supports_paged(self) -> bool:
@@ -176,6 +183,15 @@ class ModelFns:
         so a cached prompt prefix can be installed into another slot with
         zero recompute (``repro/models/model_api.py:200-207``)."""
         return self.supports_paged and not self.paged_state
+
+    @property
+    def supports_spec_decode(self) -> bool:
+        """True when the family can be a speculative-decoding target or
+        draft (``repro/models/model_api.py:209-216``): it has
+        ``verify_paged`` and its whole cache lives in pages, so a rejected
+        window rolls back by resetting a length. ``paged_state`` families
+        are excluded: their recurrent state cannot be rewound."""
+        return self.verify_paged is not None and self.supports_prefix_sharing
 
     def init(self, generator: torch.Generator | int = 0,
              device: str | torch.device = "cuda") -> nn.Module:

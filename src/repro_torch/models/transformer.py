@@ -6,6 +6,12 @@ over layer-stacked parameters becomes a loop over per-layer modules; the
 caches stay layer-stacked — page pools ``(L, n_pages, P, K, dh)``, the
 dense cache ``(L, B, max_seq, K, dh)`` — and layer ``l`` updates its slice
 ``cache[...][l]`` in place.
+
+The paged decode step takes its matrix products through ``ops.gemm_rows``,
+whose rows do not depend on the row count, and the speculative verify
+folds its ``B·W`` window lanes into that step (``verify_paged_fn``): so a
+verified token's logits are a plain decode step's, bit for bit, on the card
+too. Prefill and the dense path keep ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -57,12 +63,13 @@ class DenseLM(nn.Module):
         )
 
 
-def _block(lp: Block, x: torch.Tensor, cfg: ModelConfig, attend):
+def _block(lp: Block, x: torch.Tensor, cfg: ModelConfig, attend,
+           mm: ll.Matmul = torch.matmul):
     """Pre-norm attention (``attend(p, h)``, the call's attention) + MLP."""
     h = ops.rmsnorm(x, lp.attn.ln, cfg.norm_eps)
     y = x + attend(lp.attn, h)
     h = ops.rmsnorm(y, lp.mlp.ln, cfg.norm_eps)
-    return y + ll.mlp_forward(lp.mlp, h, cfg)
+    return y + ll.mlp_forward(lp.mlp, h, cfg, mm)
 
 
 # ---------------------------------------------------------------------------
@@ -152,17 +159,40 @@ def prefill_chunk_fn(params: DenseLM, cache: Tree, batch: dict,
 
 def decode_paged_fn(params: DenseLM, cache: Tree, batch: dict,
                     cfg: ModelConfig) -> torch.Tensor:
-    """One batched token step (``transformer.py:226-246``). Returns (B, V)."""
+    """One batched token step (``transformer.py:226-246``), its products
+    through ``ops.gemm_rows``. Returns (B, V)."""
     positions = batch["positions"]
     table = batch["page_table"]
+    mm = ops.gemm_rows
     x = ll.embed_lookup(params, batch["tokens"])          # (B, 1, d)
     rows = ll.decode_rows(cfg, positions, table, cache["k_pages"].shape[2])
     lengths = (positions + 1).to(torch.int32)
     for lp, kp, vp in zip(params.layers, cache["k_pages"], cache["v_pages"]):
         x = _block(lp, x, cfg, lambda p, h: ll.attn_decode_paged(
-            p, h, cfg, rows, lengths, kp, vp, table))
+            p, h, cfg, rows, lengths, kp, vp, table, mm), mm)
     x = ops.rmsnorm(x, params.final_ln, cfg.norm_eps)
-    return ll.logits_last(params, x[:, 0], cfg)
+    return ll.logits_last(params, x[:, 0], cfg, mm)
+
+
+def verify_paged_fn(params: DenseLM, cache: Tree, batch: dict,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Speculative verification (``transformer.py:249-272``): one pass over
+    a W-token window, logits for every window position. The window folds
+    into the batch of :func:`decode_paged_fn`: lane ``(b, j)`` decodes
+    ``tokens[b, j]`` at position ``positions[b] + j`` through lane b's table
+    row. Every folded lane writes its K/V in a layer before any attends, and
+    lane j's length stops at its own position, so causality is exact; and
+    each lane's arithmetic is plain decode's, so greedy speculation gives
+    plain decode's tokens. Returns (B, W, V)."""
+    tokens = batch["tokens"]                              # (B, W)
+    B, W = tokens.shape
+    fold = {
+        "tokens": tokens.reshape(B * W, 1),
+        "positions": (batch["positions"][:, None]
+                      + torch.arange(W, device=tokens.device)).reshape(-1),
+        "page_table": batch["page_table"].repeat_interleave(W, dim=0),
+    }
+    return decode_paged_fn(params, cache, fold, cfg).reshape(B, W, -1)
 
 
 def make_model(cfg: ModelConfig) -> ModelFns:
@@ -176,4 +206,5 @@ def make_model(cfg: ModelConfig) -> ModelFns:
         paged_cache_specs=functools.partial(paged_cache_specs, cfg),
         prefill_chunk=functools.partial(prefill_chunk_fn, cfg=cfg),
         decode_paged=functools.partial(decode_paged_fn, cfg=cfg),
+        verify_paged=functools.partial(verify_paged_fn, cfg=cfg),
     )

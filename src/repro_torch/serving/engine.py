@@ -58,16 +58,26 @@ What carries over from the reference, with the same semantics and the same
   included. A restore revalidates each lease against the cloudlet's live
   membership; without a remote pool, spilled stubs are evicted (their
   prefixes are recomputed) and spilled slot chains fall back to
-  re-prefill.
+  re-prefill;
+- speculative decoding (``draft``, ``draft_params``, ``spec_k``): a draft
+  model proposes ``spec_k`` tokens a lane by as many paged decode steps,
+  and the target verifies the window ``[last, d1..dk]`` in one
+  ``verify_paged`` pass, which folds the window into its decode step, so
+  the committed tokens are plain decode's (``_spec_step``). The draft's
+  page pools ride in ``self.cache`` under ``draft_``, addressed by the
+  target's page tables, so COW, prefix sharing, spill, preemption and
+  snapshots carry them with no bookkeeping of their own. The draft rides
+  every prefill chunk and every decode step that does not speculate;
+- ``fork``: sampling children split off a live slot, sharing its full
+  committed pages copy-on-write.
 
 One deliberate difference: a lane whose chunked prefill is still in flight
 keeps its recurrent state through the batched decode steps that run
 meanwhile, bit for bit (``_decode_step``). The reference's decode advances
 the conv/SSM state of every lane, that one included (ROADMAP Queue 3, R3).
 
-Not in this slice: speculative decoding and ``fork`` (``draft`` raises
-``NotImplementedError`` naming its ROADMAP item), and the multimodal and
-cross-attention families, with their branches of the spill tier.
+Not ported: the multimodal and cross-attention families, with their
+branches of the spill tier.
 
 The model's entry points update the page pools in place; the JAX engine
 donates its cache to the jitted step for the same reason
@@ -165,6 +175,12 @@ def _decode_extra(enc: dict) -> dict:
         out[k] = np.frombuffer(
             base64.b64decode(ent["data"]), dt).reshape(ent["shape"])
     return out
+
+
+def _draft_view(cache: dict) -> dict:
+    """The draft model's leaves of an engine cache, under their own names
+    (the same tensors: the draft's entry points update them in place)."""
+    return {k[6:]: v for k, v in cache.items() if k.startswith("draft_")}
 
 
 def _copy_pages(cache: dict, src: int, dst: int) -> None:
@@ -268,6 +284,8 @@ class ServeEngine:
         decode_step_s: float = 5e-3,
         scheduler: SchedulerConfig | None = None,
         draft: ModelFns | None = None,
+        draft_params: nn.Module | None = None,
+        spec_k: int = 4,
         device: str | torch.device = "cuda",
     ):
         if paged is None:
@@ -276,20 +294,38 @@ class ServeEngine:
             raise ValueError(
                 f"{model.cfg.arch_id}: family has no paged serving path; "
                 "use paged=False")
-        if draft is not None and not paged:
-            raise ValueError("speculative decoding needs the paged cache")
         if remote_pool is not None and not paged:
             raise ValueError(
                 "the spill tier needs the paged cache; use paged=True")
         if draft is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet: ROADMAP Queue 1, "
-                "item 6")
+            # the reference's checks and messages (engine.py:411-433); every
+            # family of the port is text-only
+            if not paged:
+                raise ValueError("speculative decoding needs the paged cache")
+            if not model.supports_spec_decode:
+                raise ValueError(
+                    f"{model.cfg.arch_id}: family has no paged verify path")
+            if not draft.supports_spec_decode:
+                raise ValueError(
+                    f"{draft.cfg.arch_id}: draft family cannot share paged "
+                    "decode state")
+            if draft.cfg.vocab_size != model.cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft.cfg.vocab_size} != target vocab "
+                    f"{model.cfg.vocab_size}: accepted draft tokens must be "
+                    "target tokens")
+            if spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
         self.device = resolve_device(device)
-        if any(p.device != self.device for p in params.parameters()):
-            raise ValueError(f"params are not all on {self.device}")
+        for what, ps in (("params", params), ("draft_params", draft_params)):
+            if ps is not None and any(p.device != self.device
+                                      for p in ps.parameters()):
+                raise ValueError(f"{what} are not all on {self.device}")
         self.model = model
         self.params = params
+        self._draft = draft
+        self.draft_params = draft_params
+        self.spec_k = spec_k
         self.paged = paged
         self.n_slots = n_slots
         self.sched = Scheduler(scheduler, decode_step_s=decode_step_s)
@@ -308,8 +344,8 @@ class ServeEngine:
         self.requests: dict[int, Request] = {}
         self._req_counter = 0
         self.steps = 0
-        # every key of the reference engine (engine.py:444-489); the cross,
-        # speculative and fork counters stay 0 in this slice
+        # every key of the reference engine (engine.py:444-489); the cross
+        # counters stay 0 (no family of the port has a cross region)
         self.stats = {k: 0 for k in (
             "prefill_tokens", "prefill_tokens_shared", "prefix_hit_tokens",
             "prefix_hits", "cow_copies", "peak_pages",
@@ -368,10 +404,37 @@ class ServeEngine:
         self.slot_hold = np.zeros((n_slots,), np.int32)
         self.cache = init_paged_cache(model, n_slots, self.n_pages,
                                       page_size, device=self.device)
+        if draft is not None:
+            # the same n_slots / n_pages / page_size: the target's page
+            # tables address the draft's pools too (engine.py:545-598)
+            for k, v in init_paged_cache(draft, n_slots, self.n_pages,
+                                         page_size,
+                                         device=self.device).items():
+                self.cache["draft_" + k] = v
+
+            def draft_decode(dparams, cache, batch) -> torch.Tensor:
+                return draft.decode_paged(dparams, _draft_view(cache), batch)
+
+            def draft_prefill(dparams, cache, batch, *, offset) -> None:
+                draft.prefill_chunk(dparams, _draft_view(cache), batch,
+                                    offset=offset)
+
+            # one attribute each, as the reference's jitted hooks: a test
+            # may wrap ``_draft_decode``
+            self._draft_decode = draft_decode
+            self._draft_prefill = draft_prefill
 
     # ------------------------------------------------------------- helpers
     def _tensor(self, arr) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr)).to(self.device)
+
+    def _target(self) -> dict:
+        """The target model's leaves of the cache (the draft's ride under
+        ``draft_``)."""
+        if self._draft is None:
+            return self.cache
+        return {k: v for k, v in self.cache.items()
+                if not k.startswith("draft_")}
 
     def _admit_keys(self, req: Request) -> list[int]:
         """Trie key sequence for admission: the prompt plus one key per
@@ -447,8 +510,14 @@ class ServeEngine:
             lanes = [i for i, r in enumerate(self.slot_req)
                      if r is not None and i not in self.prefilling
                      and not self.slot_hold[i]]
+            # a speculating lane takes its whole draft + verify window of
+            # the step's token budget; prefill gets what is left
+            per_lane = (self._spec_tokens_per_lane()
+                        if force_tokens is None
+                        and self._spec_feasible(lanes) else 1)
             prefill_used = self._pump_prefill(
-                self.sched.prefill_budget(len(lanes), bool(self.prefilling)))
+                self.sched.prefill_budget(len(lanes), bool(self.prefilling),
+                                          tokens_per_lane=per_lane))
             self._preempt_pass()
         else:
             prefill_used = self._admit()
@@ -468,6 +537,14 @@ class ServeEngine:
             if not active:
                 self.last_step_tokens = prefill_used
                 return 0
+        if force_tokens is None and self._spec_feasible(active):
+            # a speculative round completes within the step: no half-verified
+            # window is left for snapshot, preemption or cancel to see
+            self._spec_step(active)
+            self.steps += 1
+            self.last_step_tokens = (
+                prefill_used + len(active) * self._spec_tokens_per_lane())
+            return len(active)
         batch = {
             "tokens": self._tensor(self.last_token[:, None]),
             "positions": self._tensor(self.lengths),
@@ -475,6 +552,10 @@ class ServeEngine:
         if self.paged:
             batch["page_table"] = self._tensor(self.page_table)
             logits = self._decode_step(batch)
+            if self._draft is not None:
+                # keep the draft's cache complete at every position through
+                # the steps that do not speculate (forcing, budget fallback)
+                self._draft_decode(self.draft_params, self.cache, batch)
         else:
             logits = self.model.decode_step(self.params, self.cache, batch)
         next_tokens = logits.argmax(dim=-1).cpu().numpy()
@@ -516,10 +597,184 @@ class ServeEngine:
             idx = torch.tensor(hold, device=self.device)
             saved = {k: v[:, idx] for k, v in self.cache.items()
                      if not k.endswith("_pages")}
-        logits = self.model.decode_paged(self.params, self.cache, batch)
+        logits = self.model.decode_paged(self.params, self._target(), batch)
         for k, rows in saved.items():
             self.cache[k][:, idx] = rows
         return logits
+
+    # ------------------------------------------------- speculation / fork
+    def _spec_tokens_per_lane(self) -> int:
+        """Step-budget cost of one speculating lane: k draft proposals, one
+        draft cache-fill step (position n+k) and a k+1-token verify."""
+        return 2 * self.spec_k + 2
+
+    def _spec_feasible(self, lanes: list[int]) -> bool:
+        """Speculate this step? It needs a draft, every lane at least
+        ``spec_k + 1`` positions from the sequence cap (the window never
+        writes past ``max_seq``), and under a continuous scheduler a token
+        budget that covers every lane's window (else plain decode); the
+        synchronous mode always speculates."""
+        if self._draft is None or not lanes:
+            return False
+        k = self.spec_k
+        if any(self.lengths[i] + k + 1 >= self.max_seq for i in lanes):
+            return False
+        if self.sched.cfg.synchronous:
+            return True
+        return (len(lanes) * self._spec_tokens_per_lane()
+                <= self.sched.cfg.token_budget)
+
+    def _spec_step(self, active: list[int]) -> None:
+        """One speculative round for every active lane, batched
+        (``engine.py:1009-1105``).
+
+        With ``lengths[i] = n``: the draft proposes ``d1..dk`` by k paged
+        decode steps fed ``[last, d1..d_{k-1}]`` at positions ``n..n+k-1``
+        (and one more for ``d_k`` at ``n+k``, so that a fully accepted
+        window leaves no hole in the draft's cache); a sampled lane's guess
+        takes its own ``(seed, position)`` noise. The target verifies
+        ``[last, d1..dk]`` in one ``verify_paged`` pass, whose logits
+        ``L_0..L_k`` are k+1 plain decode steps' (``g_{j+1}`` chosen from
+        ``L_j``). The longest prefix with ``d_j == g_j`` is accepted and
+        ``g_1..g_{a+1}`` commit through ``_commit_token``. A rejection rolls
+        back by page offset alone: ``lengths`` stops at ``n+a+1``, and K/V
+        written past it sits beyond every length mask until it is written
+        again in order. Every speculative write lands at or beyond
+        ``lengths``, so write-behind's full pages stay immutable.
+
+        Lanes that do not speculate (idle, prefilling, recall-held) ride
+        through the batched calls as inert lanes: position 0 on the
+        scratch page. The reference rides a held lane at its own
+        positions, where JAX drops a write past the page table; here a
+        window past the table would index beyond it. Nothing is lost: a
+        held lane's first real step writes its K/V at ``lengths``."""
+        k = self.spec_k
+        inert = np.ones((self.n_slots,), bool)
+        inert[active] = False
+        n0 = np.where(inert, 0, self.lengths).astype(np.int32)
+        rows = self.page_table.copy()
+        rows[inert] = 0
+        table = self._tensor(rows)
+        sampled = self._any_sampled(active)
+        toks = self.last_token.copy()
+        pos = n0.copy()
+        draft_toks = np.zeros((self.n_slots, k), np.int32)
+        for j in range(k + 1):
+            batch = {"tokens": self._tensor(toks[:, None]),
+                     "positions": self._tensor(pos), "page_table": table}
+            dlogits = self._draft_decode(self.draft_params, self.cache, batch)
+            if j < k:
+                nxt = dlogits.argmax(dim=-1).cpu().numpy().astype(np.int32)
+                if sampled:
+                    drows = dlogits.float().cpu().numpy()
+                    for i in active:
+                        req = self.requests[self.slot_req[i]]
+                        if req.temperature > 0:
+                            nxt[i] = self._choose(drows[i], req, int(pos[i]))
+                draft_toks[:, j] = nxt
+                toks = nxt
+            pos = pos + 1
+        window = np.concatenate([self.last_token[:, None], draft_toks], axis=1)
+        vbatch = {"tokens": self._tensor(window),
+                  "positions": self._tensor(n0), "page_table": table}
+        vlogits = self.model.verify_paged(self.params, self._target(), vbatch)
+        greedy = vlogits.argmax(dim=-1).cpu().numpy()
+        vrows = vlogits.float().cpu().numpy() if sampled else None
+        for i in active:
+            req = self.requests[self.slot_req[i]]
+            base = int(n0[i])
+            if vrows is not None and req.temperature > 0:
+                target = [self._choose(vrows[i, j], req, base + j)
+                          for j in range(k + 1)]
+            else:
+                target = [int(greedy[i, j]) for j in range(k + 1)]
+            a = 0
+            while a < k and int(draft_toks[i, a]) == target[a]:
+                a += 1
+            self.stats["spec_rounds"] += 1
+            self.stats["spec_proposed"] += k
+            self.stats["spec_accepted"] += a
+            for tok in target[: a + 1]:
+                if self._commit_token(i, req, tok):
+                    break
+
+    def fork(self, req_id: int, n: int, *, temperature: float = 1.0,
+             seeds: list[int] | None = None) -> list[Request]:
+        """Fork ``n`` sampling children off a live decode slot
+        (``engine.py:1107-1193``). Each child continues the parent's stream
+        from its current position: every full committed page is shared
+        copy-on-write (a refcount, no copy), the partly filled last page is
+        copied into the child's first private page, and the rest of its
+        capacity is allocated privately. Children diverge through their own
+        ``(temperature, seed)``; the shared pages stay read-only, since
+        every lane writes only past its fork length. The parent's
+        write-behind staging carries over to each child for the shared
+        pages. Needs ``n`` free slots and the pages; raises ``ValueError``
+        before any side effect otherwise."""
+        assert self.paged, "fork needs the paged cache"
+        req = self.requests[req_id]
+        slot = req.slot
+        if slot is None or slot in self.prefilling:
+            raise ValueError("fork needs an active decode slot")
+        free = [i for i, r in enumerate(self.slot_req) if r is None]
+        if len(free) < n:
+            raise ValueError(f"fork of {n} needs {n} free slots, "
+                             f"have {len(free)}")
+        P = self.page_size
+        chain = self.slot_pages[slot]
+        length = int(self.lengths[slot])
+        full = length // P
+        partial = length % P != 0
+        need = pages_needed(
+            min(len(req.prompt) + req.max_new_tokens, self.max_seq), P)
+        priv_n = need - full
+        if n * priv_n > self.pool.available:
+            raise ValueError(f"fork of {n} needs {n * priv_n} pages, "
+                             f"have {self.pool.available}")
+        seeds = list(seeds) if seeds is not None else list(range(n))
+        if len(seeds) != n:
+            raise ValueError(f"need {n} seeds, got {len(seeds)}")
+        children: list[Request] = []
+        for c, seed in zip(free[:n], seeds):
+            child = Request(self._req_counter, list(req.prompt),
+                            req.max_new_tokens, req.eos_id,
+                            priority=req.priority, arrival_step=self.steps,
+                            temperature=temperature, seed=seed,
+                            extra=dict(req.extra))
+            self._req_counter += 1
+            child.generated = list(req.generated)
+            self.requests[child.req_id] = child
+            self.pool.share(chain[:full])
+            priv = self.pool.alloc(priv_n)
+            assert priv is not None  # guaranteed by the pre-check
+            self._retire_cached(priv)
+            if partial:
+                _copy_pages(self.cache, chain[full], priv[0])
+                self.stats["cow_copies"] += 1
+            cchain = chain[:full] + priv
+            self.slot_pages[c] = cchain
+            self.page_table[c, :] = 0
+            self.page_table[c, : len(cchain)] = cchain
+            self.lengths[c] = length
+            self.last_token[c] = self.last_token[slot]
+            self.slot_req[c] = child.req_id
+            child.slot = c
+            # the parent's staged pages are immutable and now shared: the
+            # child's spill group stages them too (a lease has one
+            # borrower), so its preemption ships only pages past the fork
+            if self.write_behind:
+                for idx in self.remote_pool.staged_pages(req.req_id):
+                    if idx < full and self.remote_pool.stage_page(
+                            child.req_id, idx,
+                            extract_page_payloads(self.cache,
+                                                  [cchain[idx]])[0]):
+                        self.stats["pages_staged"] += 1
+            self.stats["forks"] += 1
+            self.stats["fork_shared_pages"] += full
+            children.append(child)
+        self.stats["peak_pages"] = max(self.stats["peak_pages"],
+                                       self.pool.outstanding)
+        return children
 
     # -------------------------------------------------------------- sampling
     def _any_sampled(self, lanes: list[int]) -> bool:
@@ -1047,6 +1302,9 @@ class ServeEngine:
                 "page_table": self._tensor(self.page_table),
             }
             logits = self._decode_step(batch)
+            if self._draft is not None:
+                # the recomputed last prompt token needs its draft K/V too
+                self._draft_decode(self.draft_params, self.cache, batch)
             first = int(logits[slot].argmax())
             self._finish_prefill(slot, req, key_tokens, chain, first, tlen)
             return
@@ -1079,8 +1337,14 @@ class ServeEngine:
             toks[0, :n] = task.ptoks[off:off + n]
             batch = {"tokens": self._tensor(toks), "valid": n, "slot": slot,
                      "page_table": table_row}
-            task.logits = self.model.prefill_chunk(self.params, self.cache,
-                                                   batch, offset=off)
+            task.logits = self.model.prefill_chunk(self.params,
+                                                   self._target(), batch,
+                                                   offset=off)
+            if self._draft is not None:
+                # the draft rides every chunk: its prompt K/V lands in the
+                # same pages, so shared and COW'd prefixes are complete
+                self._draft_prefill(self.draft_params, self.cache, batch,
+                                    offset=off)
             task.offset += n
             used += n
         if task.offset >= task.tlen:

@@ -564,3 +564,138 @@ def test_spill_engine_gives_the_retain_engines_tokens_on_the_card():
     assert spill.stats["pages_recalled"] > 0
     assert retain.stats["prefix_evictions"] == 0
     assert outs[id(spill)] == outs[id(retain)]
+
+
+def _rows_invariant(mm, w, x) -> dict:
+    """Bitwise verdicts of ``mm`` at the decode step's rows: the first 8
+    rows of a 40- and a 64-row product against an 8-row product, one row
+    alone against its place in the 8-row product, and row 37 of the 40-row
+    product alone."""
+    out = {M: mm(x[:M], w) for M in (1, 8, 40, 64)}
+    return {"M40": torch.equal(out[40][:8], out[8]),
+            "M64": torch.equal(out[64][:8], out[8]),
+            "M1": torch.equal(out[1], out[8][:1]),
+            "row37": torch.equal(mm(x[37:38], w), out[40][37:38])}
+
+
+@pytest.mark.gpu
+def test_decode_products_are_row_invariant_on_the_card():
+    """On the H100, at each product of full-width qwen3-8b's decode step:
+    the product the paged decode step takes (``ops.gemm_rows``) gives a row
+    the same bits whatever the row count and wherever the row sits, so the
+    40-row verify of a k = 4 window equals the 8-row decode step. cuBLAS's
+    verdicts are printed beside it (``-s``): it picks its kernel from the
+    row count, and differs at 4096 -> 1024."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get
+    from repro_torch.kernels.gemm_rows import decode_products
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for name, K, N, nk in decode_products(get("qwen3-8b")):
+        w = (torch.randn(K, N, generator=g, device="cuda")
+             * K ** -0.5).bfloat16()
+        x = torch.randn(64, K, generator=g, device="cuda").bfloat16()
+        ours = _rows_invariant(ops.gemm_rows, w, x)
+        print(name, K, N, "gemm_rows", ours, "cuBLAS",
+              _rows_invariant(torch.matmul, w, x))
+        assert all(ours.values()), (name, ours)
+        del w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-8b", "smollm-360m"])
+def test_gemm_rows_matches_plain_version_on_the_card(arch):
+    """On the H100: the row-invariant product against its plain version
+    (``x @ w``, cuBLAS) at each decode product of the full-width config,
+    8 and 40 rows, bf16 atol = rtol = 2e-2; smollm-360m's unembedding is
+    its tied embedding's transpose (w as (N, K)). And at the REDUCED
+    widths, whose K (96) is no multiple of the 64-wide K tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get
+    from repro_torch.kernels.gemm_rows import decode_products
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for reduced in (False, True):
+        for name, K, N, nk in decode_products(get(arch, reduced=reduced)):
+            w = (torch.randn(N, K, generator=g, device="cuda")
+                 * K ** -0.5).bfloat16()
+            w = w.t() if nk else w.reshape(K, N)
+            for M in (8, 40):
+                x = torch.randn(M, K, generator=g, device="cuda").bfloat16()
+                with ops.use_backend("plain"):
+                    want = ops.gemm_rows(x, w)
+                got = ops.gemm_rows(x, w)
+                assert got.shape == (M, N) and got.dtype == torch.bfloat16
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=2e-2, rtol=2e-2,
+                                           msg=f"{arch} {name} {M}")
+            assert all(_rows_invariant(ops.gemm_rows, w, torch.randn(
+                64, K, generator=g, device="cuda").bfloat16()).values())
+
+
+@pytest.mark.gpu
+def test_verify_fold_equals_sequential_paged_decodes_on_the_card():
+    """On the H100, at qwen3-8b's shape (8 lanes, a k = 4 window of 5, 32
+    heads over 8 of 128, pages of 64): the verify window folded into the
+    paged decode kernel equals 5 sequential single-token paged decodes
+    bit for bit (the kernel-level face of greedy spec == plain decode)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    B, W, H, K, D, P, max_pages = 8, 5, 32, 8, 128, 64, 32
+    kp = torch.randn(B * max_pages + 1, P, K, D, generator=g,
+                     device="cuda").bfloat16()
+    vp = torch.randn(kp.shape, generator=g, device="cuda").bfloat16()
+    table = (torch.randperm(B * max_pages, generator=g, device="cuda")
+             + 1).to(torch.int32).reshape(B, max_pages)
+    positions = torch.tensor([0, 1, 63, 64, 255, 256, 1000, 2042],
+                             device="cuda", dtype=torch.int32)
+    q = torch.randn(B, W, H, D, generator=g, device="cuda").bfloat16()
+    window = ops.paged_verify_attention(q, kp, vp, table, positions)
+    for j in range(W):
+        step = ops.paged_decode_attention(q[:, j].contiguous(), kp, vp, table,
+                                          positions + j + 1)
+        assert torch.equal(window[:, j], step), j
+    with ops.use_backend("plain"):
+        want = ops.paged_verify_attention(q, kp, vp, table, positions)
+    torch.testing.assert_close(window.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_verify_paged_equals_decode_steps_on_the_card():
+    """On the H100, REDUCED qwen3-8b (heads padded to 64): the model's
+    ``verify_paged`` over a window of 4 gives the logits and the pages of 4
+    sequential ``decode_paged`` steps, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get
+    from repro_torch.models import get_model
+
+    model = get_model(get("qwen3-8b", reduced=True))
+    params = model.init(0, device="cuda")
+    B, W, P = 3, 4, 16
+    table = torch.arange(1, 1 + B * 6, device="cuda",
+                         dtype=torch.int32).reshape(B, 6)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(1, 512, (B, 40), generator=g, device="cuda",
+                         dtype=torch.int32)
+    cache = model.init_paged_cache(B, 1 + B * 6, P, device="cuda")
+    for t in range(30):
+        model.decode_paged(params, cache, {
+            "tokens": toks[:, t:t + 1], "page_table": table,
+            "positions": torch.full((B,), t, device="cuda",
+                                    dtype=torch.int32)})
+    seq_cache = {k: v.clone() for k, v in cache.items()}
+    pos = torch.full((B,), 30, device="cuda", dtype=torch.int32)
+    steps = torch.stack([model.decode_paged(params, seq_cache, {
+        "tokens": toks[:, 30 + j:31 + j], "positions": pos + j,
+        "page_table": table}) for j in range(W)], 1)
+    got = model.verify_paged(params, cache, {
+        "tokens": toks[:, 30:30 + W], "positions": pos, "page_table": table})
+    assert torch.equal(got, steps)
+    for k in cache:
+        assert torch.equal(cache[k].view(torch.int16),
+                           seq_cache[k].view(torch.int16)), k

@@ -127,13 +127,25 @@ def test_cuda_entry_points_raise_without_a_card():
 
 
 def test_engine_rejects_what_the_slice_leaves_out():
-    model = get_model(get("qwen3-8b", reduced=True))
-    params = model.init(0, device="cpu")
+    """Speculative decoding is ported: a draft builds its pools beside the
+    target's. What the port still leaves out is the MoE pair's draft
+    (ROADMAP item 11), whose config raises; and a recurrent-state target is
+    refused as the reference refuses it."""
+    from repro_torch.configs import draft_for
     from repro_torch.serving.engine import ServeEngine
 
+    model = get_model(get("qwen3-8b", reduced=True))
+    params = model.init(0, device="cpu")
     kw = dict(n_slots=2, max_seq=64, page_size=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(model, params, **kw, draft=model)
+    eng = ServeEngine(model, params, **kw, draft=model, draft_params=params)
+    assert sorted(eng.cache) == ["draft_k_pages", "draft_v_pages",
+                                 "k_pages", "v_pages"]
+    with pytest.raises(KeyError, match="ROADMAP"):
+        draft_for("deepseek-moe-16b")
+    ssm = get_model(get("falcon-mamba-7b", reduced=True))
+    with pytest.raises(ValueError, match="verify"):
+        ServeEngine(ssm, ssm.init(0, device="cpu"), **kw, draft=model,
+                    draft_params=params)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "smollm-360m",

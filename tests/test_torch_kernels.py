@@ -171,10 +171,17 @@ def test_cpu_tensors_dispatch_to_the_plain_versions():
     torch.testing.assert_close(
         ops.decode_attention(q[0, :2], cache, cache, lens),
         ref.decode_attention(q[0, :2], cache, cache, lens))
+    # the verify window counts where the card folds it: the paged decode
+    ops.paged_verify_attention(torch.randn(2, 3, 4, 16), pages, pages,
+                               table, lens - 3)
+    w = torch.randn(16, 8).bfloat16()
+    torch.testing.assert_close(ops.gemm_rows(x.bfloat16(), w),
+                               x.bfloat16() @ w)
     counts = ops.counts()
     assert {n: c["plain"] for n, c in counts.items()} == {
-        "rmsnorm": 1, "flash_attention": 1, "paged_decode_attention": 1,
-        "decode_attention": 1, "selective_scan": 0, "ssd": 0}
+        "rmsnorm": 1, "flash_attention": 1, "paged_decode_attention": 2,
+        "decode_attention": 1, "selective_scan": 0, "ssd": 0,
+        "gemm_rows": 1}
     assert all(c["launches"] == 0 for c in counts.values())
     ops.reset_counts()
     assert all(c == {"launches": 0, "plain": 0} for c in ops.counts().values())
