@@ -34,7 +34,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    paged decode kernel), each query bitwise a single-token decode at its
    length; the paged decode step's row-invariant product (``gemm_rows``,
    no TPU counterpart) at each product of qwen3-8b's decode step, 8 and 40
-   rows, beside cuBLAS, and one step's products in all;
+   rows, beside cuBLAS and with the kernel's plan for it, and one step's
+   products in all;
 3b. cli: ``repro_torch.launch.serve.main`` at its defaults (REDUCED
    configs, whose heads of 16 and 24 the attention wrappers pad to 64) for
    ``qwen3-8b``, ``zamba2-1.2b`` and ``falcon-mamba-7b``, without and with
@@ -84,8 +85,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
       steps, off/on/on/off in turns) printed beside the card's name and
       power limit;
    g. spec (qwen3-8b only, ``phase_spec``): speculative decoding and
-      ``fork`` — a, each decode product's rows bitwise the same at 8 and
-      40 rows through ``gemm_rows`` (cuBLAS's verdicts printed); b, a
+      ``fork`` — a, each decode product's rows bitwise the same at 1, 8,
+      40, 64 and 80 rows through ``gemm_rows``, its counters left at zero
+      (cuBLAS's verdicts printed); b, a
       self-draft engine (``spec_k`` 4) gives plain decode's tokens with
       every proposal accepted, every kernel of the path launched and no
       plain version, with the medians of a decode step, a draft step and a
@@ -243,8 +245,13 @@ def phase_build() -> None:
         if not text and saved.exists():  # built earlier in this checkout
             text = saved.read_text()
         usage = [ln.strip() for ln in text.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln or "smem" in ln]
         log({"build": name, "ptxas": usage})
+    # gemm_rows' ring is dynamic shared memory, which ptxas does not see
+    from repro_torch.kernels import gemm_rows as gk
+    log({"build": "gemm_rows", "dynamic_smem_bytes": {
+        f"bk {bk}, tile {64 * wg}": gk._lib().gemm_rows_smem(bk, wg)
+        for bk in (32, 64) for wg in (1, 2)}})
     log({"phase": "build", "nvcc_s": round(t_nvcc, 3)})
 
 
@@ -297,6 +304,9 @@ def phase_floor(gen) -> dict:
                **_wrapper_host_us(x, w, args),
                "gemm_rows": _host_us(lambda: gk.gemm_rows(xk, wk)),
                "torch.matmul": _host_us(lambda: torch.matmul(xk, wk))}}
+    host = out["host_per_launch"]
+    out["gemm_rows_host_le_matmul"] = \
+        host["gemm_rows"]["host_us"] <= host["torch.matmul"]["host_us"]
     log(out)
     return out
 
@@ -477,9 +487,10 @@ def check_gemm_rows(gen, arch: str = "qwen3-8b") -> list[dict]:
     """The paged decode step's row-invariant product at each of its shapes
     (full-width ``arch``), at the decode step's 8 rows and a k = 4 verify's
     40: against the plain version (``x @ w``), each timed with L2 flushed
-    (a step finds its weights cold) beside cuBLAS's ``torch.matmul``; then
-    one decode step's and one verify's products in all (36 layers of seven
-    and the unembedding), with their bounds."""
+    (a step finds its weights cold) beside cuBLAS's ``torch.matmul``, with
+    the kernel's plan for it (tile width, k step, work items, K segments,
+    ring depth); then one decode step's and one verify's products in all
+    (36 layers of seven and the unembedding), with their bounds."""
     import torch
 
     from repro_torch.configs import get
@@ -500,7 +511,12 @@ def check_gemm_rows(gen, arch: str = "qwen3-8b") -> list[dict]:
                 want = ops.gemm_rows(x, w)
             err = _close(got, want, f"gemm_rows {name} M={M}")
             nbytes = 2 * (K * N + M * K + M * N)
+            p = gk.plan(K, N, nk, gk._n_sm(torch.cuda.current_device()))
             row = {"shape": {"M": M, "K": K, "N": N, "product": name},
+                   "plan": {"tile_n": p.bn, "bk": p.bk, "items": p.items,
+                            "grid": p.grid, "segments": p.s_base,
+                            "tiles_with_one_more": p.extra,
+                            "stages": p.stages},
                    "max_abs_err": err,
                    "ms": _time_ms(lambda: gk.gemm_rows(x, w), flush=True),
                    "plain_ms": _time_ms(lambda: gk.plain(x, w), flush=True),
@@ -1958,12 +1974,13 @@ SPEC_PATH_KERNELS = PATH_KERNELS["qwen3-8b"]
 def _product_verdicts(cfg) -> dict:
     """Phase a: at each product of ``cfg``'s decode step, whether a row's
     bits are the same at 8 rows (the decode step) as at 40 (a k = 4
-    verify), at 64 and alone, and for row 37 of 40 alone: for cuBLAS
-    (``torch.matmul``) and for ``ops.gemm_rows``. The latter must hold at
-    every shape."""
+    verify), at 64, at 80 (a 16-slot verify: two 64-row passes) and alone,
+    and for row 37 of 40 alone: for cuBLAS (``torch.matmul``) and for
+    ``ops.gemm_rows``, which must hold at every shape and leave the shared
+    counters at zero."""
     import torch
 
-    from repro_torch.kernels import gemm_rows as gk
+    from repro_torch.kernels import _flash_decode, gemm_rows as gk
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     out = {}
@@ -1971,17 +1988,20 @@ def _product_verdicts(cfg) -> dict:
         w = (torch.randn(N, K, generator=gen, device="cuda")
              * K ** -0.5).bfloat16()
         w = w.t() if nk else w.reshape(K, N)
-        x = torch.randn(64, K, generator=gen, device="cuda").bfloat16()
+        x = torch.randn(80, K, generator=gen, device="cuda").bfloat16()
         verdict = {}
         for lib, mm in (("cublas", torch.matmul), ("gemm_rows", gk.gemm_rows)):
-            y = {M: mm(x[:M], w) for M in (1, 8, 40, 64)}
+            y = {M: mm(x[:M], w) for M in (1, 8, 40, 64, 80)}
             verdict[lib] = {
                 "M40": torch.equal(y[40][:8], y[8]),
                 "M64": torch.equal(y[64][:8], y[8]),
+                "M80": torch.equal(y[80][:64], y[64]),
                 "M1": torch.equal(y[1], y[8][:1]),
                 "row37": torch.equal(mm(x[37:38], w), y[40][37:38]),
                 "max_abs_diff_40_8": float(
                     (y[40][:8].float() - y[8].float()).abs().max())}
+        verdict["gemm_rows"]["counters_zero"] = bool(
+            (_flash_decode.counters(1, w.device) == 0).all())
         out[f"{name} {K}x{N}"] = verdict
         if not all(v for k, v in verdict["gemm_rows"].items()
                    if k != "max_abs_diff_40_8"):
@@ -2043,8 +2063,8 @@ def _drain_tokens(eng, prompts, *, max_new, temps=None, seeds=None) -> dict:
 def phase_spec(model, params, card: str, seed: int = 5) -> dict:
     """Speculative decoding and ``fork`` on full-width qwen3-8b (the smoke
     settings: ``N_SLOTS`` slots, pages of ``PAGE``, chunks of ``CHUNK``):
-    a, each decode product's rows bitwise the same at 8 and 40 rows for
-    ``ops.gemm_rows`` (cuBLAS's verdicts printed beside); b, 8 requests of
+    a, each decode product's rows bitwise the same at 1, 8, 40, 64 and 80
+    rows for ``ops.gemm_rows`` (cuBLAS's verdicts printed beside); b, 8 requests of
     96-1024 tokens, ``SPEC_NEW`` new each, through a plain engine and a
     self-draft engine (``spec_k`` 4): equal tokens and every proposal
     accepted (the 8-row draft decode and the 40-row verify give the same

@@ -54,10 +54,9 @@
 // - Not done: the producer keeps its registers (no setmaxnreg), and one
 //   warpgroup does not overlap its softmax with its own next Q K^T.
 
-#include <cuda.h>  // CUtensorMap; the encoder is looked up at run time
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "tma.cuh"  // mbarriers, TMA, the wgmma descriptor and fences
 
 #define NEG_INF (-1e30f)
 #define BQ 64              // query rows of a block: one consumer warpgroup
@@ -68,91 +67,8 @@
 static_assert(BQ == 64 && BK == 64, "tiles are 64 rows: one wgmma M, 8 swizzle atoms");
 
 // ---------------------------------------------------------------------------
-// PTX helpers: shared-memory addresses, mbarriers, TMA, wgmma
+// PTX helpers: the wgmma shapes of this kernel (the rest in tma.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-                 :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-                 :: "r"(smem_u32(bar)) : "memory");
-}
-
-// wait for the completion of the barrier's phase of parity `parity`; a
-// wait of more than ~10 s (a broken protocol, not a slow load) traps, so
-// the launch fails instead of holding the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-    uint32_t done = 0;
-    long long start = 0;
-    while (true) {
-        asm volatile(
-            "{\n.reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-        if (done) return;
-        if (!start) start = clock64();
-        else if (clock64() - start > 20000000000LL) __trap();
-    }
-}
-
-// one box of a 4-D tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-           "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-        : "memory");
-}
-
-// a wgmma shared-memory descriptor for a tile in the 128-byte swizzle
-// (1024-byte aligned atoms of 8 rows x 128 bytes); offsets in bytes
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
-                                               uint32_t sbo) {
-    uint64_t d = (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
-    d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
-    d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
-    d |= 1ull << 62;  // layout: 128-byte swizzle
-    return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving register reads or writes across a wgmma
-// boundary (the products run asynchronously on these registers)
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
 
 // D(64 x 64) (+)= A(64 x 16, shared) * B(64 x 16, shared, K-major)^T
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b,
@@ -411,27 +327,6 @@ __global__ void __launch_bounds__(THREADS, 2) flash_attention_kernel(
 // ---------------------------------------------------------------------------
 // host side: TMA maps and the launch
 // ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA
-// runtime's entry-point query, so nothing links -lcuda
-static EncodeTiled encoder() {
-    static EncodeTiled fn = nullptr;
-    if (!fn) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found;
-        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                    cudaEnableDefault, &found) == cudaSuccess
-            && found == cudaDriverEntryPointSuccess)
-            fn = reinterpret_cast<EncodeTiled>(p);
-    }
-    return fn;
-}
 
 // (B, S, heads, D) bf16 as a 4-D map (D, heads, S, B): a box is 64 columns
 // (128 bytes, 128-byte swizzle) of one head at `rows` positions of one

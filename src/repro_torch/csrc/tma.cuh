@@ -1,0 +1,162 @@
+// Hopper helpers shared by the kernels that stream tiles with TMA into a
+// shared-memory ring and multiply them with wgmma (flash_attention.cu,
+// gemm_rows.cu): mbarriers, 2-D and 4-D tensor-map loads, the
+// cp.async-to-mbarrier arrival, the async-proxy fence, the wgmma
+// descriptor of a 128-byte-swizzled tile and wgmma's fences, and the
+// tensor-map encoder.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap; the encoder is looked up at run time
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma.cuh"  // smem_u32, cp.async
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(smem_u32(bar)) : "memory");
+}
+
+// one arrival on `bar` once every cp.async this thread issued before has
+// landed (counted among the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                 :: "r"(smem_u32(bar)) : "memory");
+}
+
+// wait for the completion of the barrier's phase of parity `parity`; a
+// wait of more than ~10 s (a broken protocol, not a slow load) traps, so
+// the launch fails instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    uint32_t done = 0;
+    long long start = 0;
+    while (true) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+        if (done) return;
+        if (!start) start = clock64();
+        else if (clock64() - start > 20000000000LL) __trap();
+    }
+}
+
+// one box of a 2-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4}], [%2];\n"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+        : "memory");
+}
+
+// the same with an L2 cache policy (createpolicy), e.g. evict-first for
+// data read once
+__device__ __forceinline__ void tma_load_2d_hint(void* dst,
+                                                 const CUtensorMap* map,
+                                                 uint64_t* bar, int c0, int c1,
+                                                 uint64_t policy) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+        " [%0], [%1, {%3, %4}], [%2], %5;\n"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(smem_u32(bar)), "r"(c0), "r"(c1), "l"(policy)
+        : "memory");
+}
+
+// an L2 policy that evicts the lines it covers first
+__device__ __forceinline__ uint64_t evict_first_policy() {
+    uint64_t policy;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+                 : "=l"(policy));
+    return policy;
+}
+
+// one box of a 4-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+// make this thread's view of shared memory written through the generic
+// proxy (st.shared, cp.async) visible to the async proxy (wgmma's reads)
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a wgmma shared-memory descriptor for a tile in the 128-byte swizzle
+// (1024-byte aligned atoms of 8 rows x 128 bytes); offsets in bytes
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+    uint64_t d = (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
+    d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+    d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+    d |= 1ull << 62;  // layout: 128-byte swizzle
+    return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>  // wait until at most the newest N groups are in flight
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
+
+// keep the compiler from moving register reads or writes across a wgmma
+// boundary (the products run asynchronously on these registers)
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA
+// runtime's entry-point query, so nothing links -lcuda
+static EncodeTiled encoder() {
+    static EncodeTiled fn = nullptr;
+    if (!fn) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                    cudaEnableDefault, &found) == cudaSuccess
+            && found == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(p);
+    }
+    return fn;
+}

@@ -33,9 +33,9 @@ def partial_shape(B: int, K: int, G: int, D: int, cap: int) -> tuple:
 
 def counters(n: int, device: torch.device) -> torch.Tensor:
     """The device's counters (at least ``n``, zero). Every kernel that
-    counts arrivals in them (the decode kernels, the SSD's state pass)
-    leaves them at zero, and their launches run in stream order, so they
-    share one buffer."""
+    counts arrivals in them (the decode kernels, the SSD's state pass,
+    ``gemm_rows``' split tiles) leaves them at zero, and their launches run
+    in stream order, so they share one buffer."""
     cnt = _counters.get(device)
     if cnt is None or cnt.numel() < n:
         cnt = torch.zeros(max(n, 256), dtype=torch.int32, device=device)

@@ -566,41 +566,61 @@ def test_spill_engine_gives_the_retain_engines_tokens_on_the_card():
     assert outs[id(spill)] == outs[id(retain)]
 
 
+ROW_COUNTS = (*range(1, 65), 80, 128)
+
+
 def _rows_invariant(mm, w, x) -> dict:
-    """Bitwise verdicts of ``mm`` at the decode step's rows: the first 8
-    rows of a 40- and a 64-row product against an 8-row product, one row
-    alone against its place in the 8-row product, and row 37 of the 40-row
-    product alone."""
-    out = {M: mm(x[:M], w) for M in (1, 8, 40, 64)}
-    return {"M40": torch.equal(out[40][:8], out[8]),
-            "M64": torch.equal(out[64][:8], out[8]),
-            "M1": torch.equal(out[1], out[8][:1]),
-            "row37": torch.equal(mm(x[37:38], w), out[40][37:38])}
+    """Bitwise verdicts of ``mm`` at every row count of ``ROW_COUNTS`` (``x``
+    has 128 rows): each M-row product's rows against the same rows of the
+    128-row one (so the first 8 against the 8-row decode step's, row for
+    row), row 37 alone against its place in the 40-row product, and two
+    launches in a row on one stream."""
+    out = {M: mm(x[:M], w) for M in ROW_COUNTS}
+    return {"rows": all(torch.equal(out[M], out[128][:M]) for M in out),
+            "M40": torch.equal(out[40][:8], out[8]),
+            "row37": torch.equal(mm(x[37:38], w), out[40][37:38]),
+            "again": torch.equal(mm(x[:40], w), out[40])}
+
+
+def _weight(g, K, N, nk):
+    """A (K, N) weight, or the transpose of a contiguous (N, K) one."""
+    w = (torch.randn(N, K, generator=g, device="cuda") * K ** -0.5).bfloat16()
+    return w.t() if nk else w.reshape(K, N)
 
 
 @pytest.mark.gpu
 def test_decode_products_are_row_invariant_on_the_card():
-    """On the H100, at each product of full-width qwen3-8b's decode step:
-    the product the paged decode step takes (``ops.gemm_rows``) gives a row
-    the same bits whatever the row count and wherever the row sits, so the
-    40-row verify of a k = 4 window equals the 8-row decode step. cuBLAS's
-    verdicts are printed beside it (``-s``): it picks its kernel from the
-    row count, and differs at 4096 -> 1024."""
+    """On the H100, at each product of full-width qwen3-8b's and
+    smollm-360m's decode step, with w in both layouts ((K, N), and the
+    transpose of an (N, K) tensor, as smollm-360m's tied unembedding): the
+    product the paged decode step takes (``ops.gemm_rows``) gives a row the
+    same bits at every row count from 1 to 64, at 80 and at 128 (the
+    16-slot k = 4 verify, and two 64-row passes), wherever the row sits,
+    and in two launches in a row, so the 40-row verify of a k = 4 window
+    equals the 8-row decode step; it leaves the shared counters at zero.
+    cuBLAS's verdicts are printed beside it (``-s``): it picks its kernel
+    from the row count, and differs at 4096 -> 1024."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.configs import get
+    from repro_torch.kernels import _flash_decode
     from repro_torch.kernels.gemm_rows import decode_products
 
     g = torch.Generator(device="cuda").manual_seed(3)
-    for name, K, N, nk in decode_products(get("qwen3-8b")):
-        w = (torch.randn(K, N, generator=g, device="cuda")
-             * K ** -0.5).bfloat16()
-        x = torch.randn(64, K, generator=g, device="cuda").bfloat16()
-        ours = _rows_invariant(ops.gemm_rows, w, x)
-        print(name, K, N, "gemm_rows", ours, "cuBLAS",
-              _rows_invariant(torch.matmul, w, x))
-        assert all(ours.values()), (name, ours)
-        del w
+    for arch in ("qwen3-8b", "smollm-360m"):
+        for name, K, N, tied in decode_products(get(arch)):
+            for nk in (False, True):
+                w = _weight(g, K, N, nk)
+                x = torch.randn(128, K, generator=g, device="cuda").bfloat16()
+                ours = _rows_invariant(ops.gemm_rows, w, x)
+                cnt = _flash_decode.counters(1, w.device)
+                ours["counters_zero"] = bool((cnt == 0).all())
+                print(arch, name, K, N, "nk" if nk else "kn", "gemm_rows",
+                      ours, "cuBLAS" if nk == tied else "",
+                      _rows_invariant(torch.matmul, w, x) if nk == tied
+                      else "")
+                assert all(ours.values()), (arch, name, nk, ours)
+                del w
 
 
 @pytest.mark.gpu
@@ -608,9 +628,11 @@ def test_decode_products_are_row_invariant_on_the_card():
 def test_gemm_rows_matches_plain_version_on_the_card(arch):
     """On the H100: the row-invariant product against its plain version
     (``x @ w``, cuBLAS) at each decode product of the full-width config,
-    8 and 40 rows, bf16 atol = rtol = 2e-2; smollm-360m's unembedding is
-    its tied embedding's transpose (w as (N, K)). And at the REDUCED
-    widths, whose K (96) is no multiple of the 64-wide K tile."""
+    8 and 40 rows, bf16 atol = rtol = 2e-2, with w in both layouts
+    (smollm-360m's unembedding is its tied embedding's transpose, w as
+    (N, K)). And at the REDUCED widths (K 96: three 32-wide k steps;
+    ``test_gemm_rows_every_kernel_instance_on_the_card`` takes a K that is
+    no multiple of the step)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.configs import get
@@ -618,21 +640,58 @@ def test_gemm_rows_matches_plain_version_on_the_card(arch):
 
     g = torch.Generator(device="cuda").manual_seed(4)
     for reduced in (False, True):
-        for name, K, N, nk in decode_products(get(arch, reduced=reduced)):
-            w = (torch.randn(N, K, generator=g, device="cuda")
-                 * K ** -0.5).bfloat16()
-            w = w.t() if nk else w.reshape(K, N)
-            for M in (8, 40):
-                x = torch.randn(M, K, generator=g, device="cuda").bfloat16()
-                with ops.use_backend("plain"):
-                    want = ops.gemm_rows(x, w)
-                got = ops.gemm_rows(x, w)
-                assert got.shape == (M, N) and got.dtype == torch.bfloat16
-                torch.testing.assert_close(got.float(), want.float(),
-                                           atol=2e-2, rtol=2e-2,
-                                           msg=f"{arch} {name} {M}")
-            assert all(_rows_invariant(ops.gemm_rows, w, torch.randn(
-                64, K, generator=g, device="cuda").bfloat16()).values())
+        for name, K, N, _ in decode_products(get(arch, reduced=reduced)):
+            for nk in (False, True):
+                w = _weight(g, K, N, nk)
+                for M in (8, 40):
+                    x = torch.randn(M, K, generator=g,
+                                    device="cuda").bfloat16()
+                    with ops.use_backend("plain"):
+                        want = ops.gemm_rows(x, w)
+                    got = ops.gemm_rows(x, w)
+                    assert got.shape == (M, N) and got.dtype == torch.bfloat16
+                    torch.testing.assert_close(
+                        got.float(), want.float(), atol=2e-2, rtol=2e-2,
+                        msg=f"{arch} {name} {M} nk={nk}")
+                assert all(_rows_invariant(ops.gemm_rows, w, torch.randn(
+                    128, K, generator=g, device="cuda").bfloat16()).values())
+                del w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bk,bn", [(32, 64), (32, 128), (64, 64), (64, 128)])
+def test_gemm_rows_every_kernel_instance_on_the_card(bk, bn, monkeypatch):
+    """On the H100: each instance of the kernel (k step 32 or 64, one or
+    two consumer warpgroups, w as (K, N) and as the transpose of (N, K)),
+    forced through a plan of its own at shapes where no decode product
+    reaches it, against its plain version (bf16 atol = rtol = 2e-2), with
+    split and unsplit tiles, its rows bitwise the same at every row count
+    and its counters left at zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import _flash_decode, gemm_rows as gk
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for K, N, s_base, extra in ((960, 2560, 3, 7), (200, 384, 1, 0),
+                                (1024, 512, 4, 1)):
+        kt = -(-K // bk)
+        n_tiles = -(-N // bn)
+        items = n_tiles * s_base + extra
+        p = gk.Plan(K, N, bn, bk, n_tiles, s_base, extra, min(132, items),
+                    gk.RING_BYTES // (bk * bn * 2 + gk.X_STAGE),
+                    items <= 132)
+        assert s_base + (extra > 0) <= kt
+        monkeypatch.setattr(gk, "plan", lambda *a, p=p: p)
+        gk.forget()
+        for nk in (False, True):
+            w = _weight(g, K, N, nk)
+            x = torch.randn(128, K, generator=g, device="cuda").bfloat16()
+            torch.testing.assert_close(
+                gk.gemm_rows(x, w).float(), (x.float() @ w.float()),
+                atol=2e-2, rtol=2e-2, msg=f"{K} {N} {bk} {bn} nk={nk}")
+            assert all(_rows_invariant(gk.gemm_rows, w, x).values())
+            assert bool((_flash_decode.counters(1, w.device) == 0).all())
+    gk.forget()
 
 
 @pytest.mark.gpu
