@@ -35,7 +35,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    length; the paged decode step's row-invariant product (``gemm_rows``,
    no TPU counterpart) at each product of qwen3-8b's decode step, 8 and 40
    rows, beside cuBLAS and with the kernel's plan for it, and one step's
-   products in all;
+   products in all; at the batch tier's shapes (4 slots, 24-page pools,
+   page tables of 16) RMSNorm, the paged decode (each lane bitwise the
+   same alone) and ``gemm_rows`` at 4 rows;
 3b. cli: ``repro_torch.launch.serve.main`` at its defaults (REDUCED
    configs, whose heads of 16 and 24 the attention wrappers pad to 64) for
    ``qwen3-8b``, ``zamba2-1.2b`` and ``falcon-mamba-7b``, without and with
@@ -94,11 +96,30 @@ Phases, each of which raises on failure (the exit code is then non-zero):
       verify; c, the REDUCED pair (smollm-360m drafting) greedy and
       sampled, tokens equal plain's; d, a live slot forked into 3 sampled
       children; e, a speculating engine's snapshot restored with the
-      uninterrupted tokens.
+      uninterrupted tokens;
+   h. batch (qwen3-8b only, ``phase_batch``): the verified batch tier
+      (``repro_torch.serving.batch``) over the paged engine, the
+      batch-churn scenario of ``benchmarks/batch_bench.py`` at full width:
+      16 prompts of 64-448 tokens, 24 new tokens each, sharded into
+      workunits replicated on 2 of 7 hosts and validated by bitwise hash
+      quorum, each replica a fresh engine of ``make_engine_factory``
+      (4 slots, 24-page pools). a, a clean job: completed with nothing
+      re-issued, rejected or wasted; b, the same prompts under the seeded
+      fault plan (crashes, a host slowed 8x, a corrupter): completed, a
+      re-issue of every cause the plan produces, the corrupter outvoted
+      once, a replica resumed from another replica's snapshot. Both jobs'
+      results equal a trusted engine's of the same factory token for
+      token, every kernel of the paged path launched and no plain version,
+      and with the cyclic collector off the device memory after each job
+      is back within one replica pool (0.25 GB) of before; wall seconds
+      beside simulated ones, replica steps, tokens per wall second,
+      snapshots, blob bytes, snapshot and restore seconds and peak memory
+      printed beside the card's name and power limit.
 
 The line two before the last is the kernels summary as JSON (one row per
 kernel and model whose path runs it, and rows with ``"path": "spec"`` for
-the speculative path), the line before the last the card's
+the speculative path and ``"path": "batch"`` for the batch tier), the line
+before the last the card's
 name and power limit, the last ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of ``repro``.
 """
@@ -135,6 +156,9 @@ L2_BYTES = 50 * 2 ** 20
 
 # serving configuration of the smoke run
 N_SLOTS, MAX_SEQ, PAGE, CHUNK = 8, 2048, 64, 256
+# the batch tier's replica engines (``phase_batch``): 4 slots over a 24-page
+# pool, a workunit's pages and the scratch page
+BATCH_ENGINE = dict(n_slots=4, max_seq=1024, page_size=PAGE, n_pages=24)
 
 
 def log(obj) -> None:
@@ -335,16 +359,18 @@ def _rmsnorm_case(gen, shape):
 RMSNORM_SHAPES = [(N_SLOTS, 4096), (CHUNK, 4096), (CHUNK * 32, 128),
                   (CHUNK * 8, 128), (N_SLOTS, 2048), (CHUNK, 2048),
                   (N_SLOTS * 32, 128), (N_SLOTS * 8, 128)]
+# the batch tier's decode step (4 slots): block norm, q and k norms
+BATCH_RMSNORM_SHAPES = [(4, 4096), (4 * 32, 128), (4 * 8, 128)]
 
 
-def check_rmsnorm(gen) -> list[dict]:
+def check_rmsnorm(gen, shapes=RMSNORM_SHAPES) -> list[dict]:
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref, rmsnorm as rk
 
     rows = []
-    for shape in RMSNORM_SHAPES:
+    for shape in shapes:
         x, w = _rmsnorm_case(gen, shape)
         got = rk.rmsnorm(x, w, 1e-6)
         with ops.use_backend("plain"):
@@ -443,6 +469,61 @@ def check_paged_decode(gen, *, n_heads=32, n_kv=8, d=128) -> dict:
     }
 
 
+def check_paged_decode_batch(gen) -> dict:
+    """The paged decode at the batch tier's shape (``phase_batch``): 4
+    lanes of a workunit (prompt plus generated positions up to 472) in a
+    24-page pool, page tables of 16 (``max_seq`` 1024): against the plain
+    version, two runs bitwise equal, and each lane bitwise the same alone
+    as in its batch — what bitwise hash quorum across replicas rests on."""
+    import torch
+
+    from repro_torch.kernels import ops, paged_decode_attention as pk
+
+    lengths = [88, 300, 472, 150]
+    B, H, K, D = len(lengths), 32, 8, 128
+    n_pages, width = BATCH_ENGINE["n_pages"], BATCH_ENGINE["max_seq"] // PAGE
+    q = torch.randn(B, H, D, generator=gen, device="cuda").bfloat16()
+    kp = torch.randn(n_pages, PAGE, K, D, generator=gen,
+                     device="cuda").bfloat16()
+    vp = torch.randn(n_pages, PAGE, K, D, generator=gen,
+                     device="cuda").bfloat16()
+    pages = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                            .manual_seed(B)) + 1).tolist()
+    table = torch.zeros(B, width, dtype=torch.int32)
+    for i, n in enumerate(lengths):
+        need = -(-n // PAGE)
+        table[i, :need] = torch.tensor(pages[:need])
+        pages = pages[need:]
+    table = table.cuda()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    got = pk.paged_decode_attention(q, kp, vp, table, lens)
+    with ops.use_backend("plain"):
+        want = ops.paged_decode_attention(q, kp, vp, table, lens)
+    err = _close(got, want, "paged_decode_attention (batch)")
+    if not torch.equal(got, pk.paged_decode_attention(q, kp, vp, table,
+                                                      lens)):
+        raise AssertionError("paged decode (batch): two runs differ")
+    for i in range(B):
+        alone = pk.paged_decode_attention(q[i:i + 1], kp, vp, table[i:i + 1],
+                                          lens[i:i + 1])
+        if not torch.equal(alone[0], got[i]):
+            raise AssertionError(f"paged decode (batch): lane {i} changed "
+                                 f"with its batch")
+    n_keys = int(lens.sum())
+    nbytes = (n_keys * K * D * 2 * 2 + 2 * q.numel() * 2
+              + table.numel() * 4 + lens.numel() * 4)
+    return {
+        "shape": {"B": B, "H": H, "K": K, "D": D, "P": PAGE,
+                  "pages": n_pages, "table": width, "lengths": lengths},
+        "max_abs_err": err,
+        "ms": _time_ms(lambda: pk.paged_decode_attention(q, kp, vp, table,
+                                                         lens), flush=True),
+        "plain_ms": _time_ms(lambda: pk.plain(q, kp, vp, table, lens),
+                             flush=True),
+        "library_ms": None, **_bound(nbytes, 4 * n_keys * H * D, F32_FLOPS),
+    }
+
+
 def check_paged_verify(gen, k: int = 4) -> dict:
     """The speculative verify at qwen3-8b's shape: 8 lanes, a window of
     k + 1, folded into the paged decode kernel (``ops.paged_verify_attention``
@@ -487,7 +568,8 @@ def check_gemm_rows(gen, arch: str = "qwen3-8b") -> list[dict]:
     """The paged decode step's row-invariant product at each of its shapes
     (full-width ``arch``), at the decode step's 8 rows and a k = 4 verify's
     40: against the plain version (``x @ w``), each timed with L2 flushed
-    (a step finds its weights cold) beside cuBLAS's ``torch.matmul``, with
+    (a step finds its weights cold) beside cuBLAS's ``torch.matmul``, and
+    at the batch tier's 4 rows (``phase_batch``), with
     the kernel's plan for it (tile width, k step, work items, K segments,
     ring depth); then one decode step's and one verify's products in all
     (36 layers of seven and the unembedding), with their bounds."""
@@ -498,7 +580,7 @@ def check_gemm_rows(gen, arch: str = "qwen3-8b") -> list[dict]:
 
     cfg = get(arch)
     rows, steps = [], {}
-    for M in (N_SLOTS, N_SLOTS * 5):
+    for M in (BATCH_ENGINE["n_slots"], N_SLOTS, N_SLOTS * 5):
         step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
                 "flops": 0, "max_abs_err": 0.0}
         for name, K, N, nk in gk.decode_products(cfg):
@@ -823,7 +905,10 @@ def phase_kernels(seed: int = 0) -> dict:
                check_paged_decode(gen, n_heads=32, n_kv=32, d=64)],
            "decode_attention@zamba2": [
                check_decode(gen, n_heads=32, n_kv=32, d=64)],
-           "flash_attention@zamba2": check_flash(gen, H=32, K=32, D=64)}
+           "flash_attention@zamba2": check_flash(gen, H=32, K=32, D=64),
+           # the batch tier's decode step: 4 slots, 24-page pools
+           "rmsnorm@batch": check_rmsnorm(gen, BATCH_RMSNORM_SHAPES),
+           "paged_decode_attention@batch": [check_paged_decode_batch(gen)]}
     for name, rows in out.items():
         for r in rows:
             r.update(_factors(r))
@@ -2265,6 +2350,257 @@ def phase_spec(model, params, card: str, seed: int = 5) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 11. batch: the verified batch tier over the paged engine
+# ---------------------------------------------------------------------------
+
+# ``benchmarks/batch_bench.py``'s batch-churn scenario (7 hosts, replication
+# 2 / quorum 2, a 45 s deadline, snapshots every 5 s, the 6 s failure
+# timeout, the fault plan of seed 4 over its crash window) widened to the
+# full model: prompts of 64-448 tokens, 24 new tokens each, pages of 64,
+# workunits of up to 16 pages, and the replica engines of ``BATCH_ENGINE``
+# (a snapshot carries the whole pool, so its blob grows with the pool, not
+# with the pages in use)
+BATCH_HOSTS, BATCH_PROMPTS, BATCH_NEW = 7, 16, 24
+BATCH_PROMPT_LENS = (64, 448)
+BATCH_MASTER = dict(replication=2, min_quorum=2, wu_pages=16, page_size=PAGE,
+                    deadline_s=45.0, backoff_base_s=2.0, snapshot_every_s=5.0,
+                    decode_step_s=1.0)
+BATCH_FAILURE_TIMEOUT_S = 6.0
+BATCH_FAULT_SEED, BATCH_CRASH_WINDOW = 4, (6.0, 14.0)
+# device memory after a job against before it: within one replica's pool
+# (qwen3-8b: 24 pages of 36 x 2 x 8 x 128 x 64 x 2 B = 9,437,184 B)
+BATCH_MEM_SLACK_BYTES = 0.25e9
+# the plan's fault kinds and the re-issue cause each must show
+BATCH_CAUSES = {"crash": "reissued_crash", "slow": "reissued_timeout",
+                "corrupt": "reissued_quorum"}
+
+
+def _batch_prompts(vocab: int, seed: int) -> list[list[int]]:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo, hi = BATCH_PROMPT_LENS
+    return [rng.integers(1, vocab, int(n)).tolist()
+            for n in rng.integers(lo, hi + 1, BATCH_PROMPTS)]
+
+
+def _batch_cluster(factory, service: str):
+    """The scenario's cloudlet ``batch``: its hosts, the ad hoc server and
+    the batch master over ``factory``."""
+    from repro_torch.core.server import AdHocServer
+    from repro_torch.serving.batch import BatchMaster
+
+    hosts = [f"h{i}" for i in range(BATCH_HOSTS)]
+    srv = AdHocServer(failure_timeout=BATCH_FAILURE_TIMEOUT_S)
+    srv.create_cloudlet("batch", service)
+    for h in hosts:
+        srv.register_host(h, 0.0, cloudlets=["batch"])
+    return hosts, srv, BatchMaster(srv, "batch", factory, **BATCH_MASTER)
+
+
+class _EngineMeter:
+    """Hooks on ``ServeEngine.step``, ``snapshot`` and ``restore`` while a
+    batch job runs: replica steps and the tokens they generate, each
+    snapshot's and restore's seconds (between device syncs) and each blob's
+    bytes. The hooks sit on the class, never on an engine, so they keep no
+    dropped replica alive."""
+
+    def __init__(self):
+        from repro_torch.serving.engine import ServeEngine
+
+        self.cls = ServeEngine
+        self.orig = {n: getattr(ServeEngine, n)
+                     for n in ("step", "snapshot", "restore")}
+        self.steps = self.tokens = 0
+        self.snapshot_s, self.restore_s, self.blob_bytes = [], [], []
+
+    def __enter__(self):
+        import torch
+
+        step, snapshot, restore = (self.orig[n] for n in
+                                   ("step", "snapshot", "restore"))
+        meter = self
+
+        def made(eng) -> int:
+            return sum(len(r.generated) for r in eng.requests.values())
+
+        def step_(eng, *args, **kw):
+            before = made(eng)
+            n = step(eng, *args, **kw)
+            meter.steps += 1
+            meter.tokens += made(eng) - before
+            return n
+
+        def snapshot_(eng):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blob = snapshot(eng)
+            meter.snapshot_s.append(time.perf_counter() - t0)
+            meter.blob_bytes.append(len(blob))
+            return blob
+
+        def restore_(eng, blob):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restore(eng, blob)
+            torch.cuda.synchronize()
+            meter.restore_s.append(time.perf_counter() - t0)
+
+        self.cls.step, self.cls.snapshot, self.cls.restore = (
+            step_, snapshot_, restore_)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.cls, n, fn)
+
+
+def _batch_job(master, prompts, plan) -> dict:
+    """One job through ``master`` on a fresh simulated clock, with the
+    launch counts zeroed just before and read just after, and the cyclic
+    garbage collector off: a replica's engine (and its device pool) must go
+    by reference counting alone when its workunit retires it."""
+    import torch
+
+    from repro_torch.core.simulation import SimClock
+    from repro_torch.kernels import ops
+
+    clock = SimClock()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    meter = _EngineMeter()
+    gc.disable()
+    try:
+        ops.reset_counts()
+        with meter:
+            t0 = time.perf_counter()
+            job = master.submit(prompts, max_new_tokens=BATCH_NEW,
+                                now=clock.now())
+            summary = master.run(clock, fault_plan=plan, tick_s=1.0,
+                                 max_ticks=2000)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = ops.counts()
+        mem1 = torch.cuda.memory_allocated()
+    finally:
+        gc.enable()
+    med = (lambda xs: statistics.median(xs) if xs else None)
+    return {
+        "job": job, "summary": summary, "results": master.results(job),
+        "counts": counts,
+        "numbers": {
+            "wall_s": wall, "sim_s": summary["elapsed_s"],
+            "replica_steps": meter.steps,
+            "generated_tokens": meter.tokens,
+            "tokens_per_wall_s": meter.tokens / wall,
+            "snapshots_placed": summary["snapshots_placed"],
+            "snapshots_taken": len(meter.snapshot_s),
+            "blob_bytes": max(meter.blob_bytes, default=None),
+            "snapshot_s_median": med(meter.snapshot_s),
+            "restores": len(meter.restore_s),
+            "restore_s_median": med(meter.restore_s),
+            "memory_before_gb": mem0 / 1e9, "memory_after_gb": mem1 / 1e9,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        },
+    }
+
+
+def phase_batch(model, params, card: str, seed: int = 6) -> dict:
+    """The verified batch tier (``repro_torch.serving.batch``) driving the
+    paged engine at full width: a trusted engine of the factory serves the
+    16 prompts in one queue; then a, a clean job (completed, nothing
+    re-issued, rejected or wasted) and b, the same prompts under the seeded
+    fault plan (crashes, a host slowed 8x, a corrupter: completed, re-issues
+    of every cause the plan produces, the corrupter outvoted once, at least
+    one replica resumed from another's snapshot). Both jobs' results must
+    equal the trusted engine's token for token, every kernel of the paged
+    path must run and no plain version, and the device memory after each
+    job must be back within one replica pool of before. Wall seconds beside
+    simulated ones, replica steps, tokens per wall second, snapshots and
+    restores, printed beside ``card``."""
+    import torch
+
+    from repro_torch.serving.batch import FaultPlan, make_engine_factory
+
+    cfg = model.cfg
+    factory = make_engine_factory(model, params, device="cuda", **BATCH_ENGINE)
+    prompts = _batch_prompts(cfg.vocab_size, seed)
+    t0 = time.perf_counter()
+    trusted = factory("__trusted__")
+    reqs = [trusted.submit(p, max_new_tokens=BATCH_NEW) for p in prompts]
+    trusted.run(100_000)
+    torch.cuda.synchronize()
+    want = [list(r.generated) for r in reqs]
+    out = {"phase": "batch", "arch": cfg.arch_id, "layers": cfg.n_layers,
+           "params_b": round(cfg.param_count() / 1e9, 3), "card": card,
+           "prompts": len(prompts),
+           "prompt_tokens": sum(map(len, prompts)), "new_tokens": BATCH_NEW,
+           "hosts": BATCH_HOSTS, "engine": BATCH_ENGINE,
+           "master": BATCH_MASTER,
+           "trusted": {"wall_s": time.perf_counter() - t0,
+                       "steps": trusted.steps}}
+    del trusted, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {}
+    for name in ("clean", "churn"):
+        hosts, srv, master = _batch_cluster(factory, cfg.arch_id)
+        plan = (FaultPlan.seeded(hosts, seed=BATCH_FAULT_SEED,
+                                 crash_window=BATCH_CRASH_WINDOW)
+                if name == "churn" else None)
+        got = _batch_job(master, prompts, plan)
+        s = got["summary"]
+        _check_counts(got["counts"], PATH_KERNELS["qwen3-8b"],
+                      f"batch {name}")
+        job_out = {
+            **got["numbers"], "state": s["jobs"][got["job"]],
+            **{k: s[k] for k in (
+                "workunits", "validated", "results_received", "reissued",
+                "reissued_crash", "reissued_timeout", "reissued_quorum",
+                "quorum_rejections", "timeouts", "crash_cancellations",
+                "resumed_from_snapshot", "useful_tokens", "wasted_tokens")},
+            "results_equal_trusted": got["results"] == want,
+            "launches": {n: c["launches"] for n, c in got["counts"].items()}}
+        if plan is not None:
+            job_out["faults"] = [f"{e.kind}@{e.at:g}s {e.host}"
+                                 for e in plan.events]
+            corrupters = [e.host for e in plan.events if e.kind == "corrupt"]
+            job_out["corrupt_results"] = {
+                h: srv.reliability.get(h).corrupt_results for h in corrupters}
+        out[name] = job_out
+        for n, c in got["counts"].items():
+            launches[n] = launches.get(n, 0) + c["launches"]
+        grew = (job_out["memory_after_gb"] - job_out["memory_before_gb"]) * 1e9
+        problems = []
+        if job_out["state"] != "completed":
+            problems.append(f"job {job_out['state']}")
+        if not job_out["results_equal_trusted"]:
+            problems.append("results differ from the trusted engine's")
+        if grew > BATCH_MEM_SLACK_BYTES:
+            problems.append(f"device memory grew by {grew:.4g} B")
+        if name == "clean" and (s["reissued"] or s["quorum_rejections"]
+                                or s["wasted_tokens"]):
+            problems.append("re-issue, rejection or waste in a clean job")
+        if name == "churn":
+            kinds = {e.kind for e in plan.events}
+            problems += [f"no {cause} for the plan's {kind}"
+                         for kind, cause in BATCH_CAUSES.items()
+                         if kind in kinds and not s[cause]]
+            if not (s["reissued"] and s["quorum_rejections"] >= 1
+                    and s["resumed_from_snapshot"] >= 1):
+                problems.append("no re-issue, rejection or resume")
+            if list(job_out["corrupt_results"].values()) != [1]:
+                problems.append(f"corrupter: {job_out['corrupt_results']}")
+        if problems:
+            log(out)
+            raise AssertionError(f"batch {name}: " + "; ".join(problems))
+    out["launches"] = launches
+    log(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2312,13 +2648,21 @@ SPEC_SUMMARY_ROW = {"rmsnorm": ("rmsnorm", 0),
                     "paged_decode_attention": ("paged_verify", 0),
                     "flash_attention": ("flash_attention", 2),
                     "gemm_rows": ("gemm_rows", -1)}
+# the batch path's rows (qwen3-8b): its decode step's block norm and paged
+# decode (4 slots), a second prefill chunk (256 queries over 512 keys, the
+# longest its prompts need), one decode step's products at 4 rows
+BATCH_SUMMARY_ROW = {"rmsnorm": ("rmsnorm@batch", 0),
+                     "paged_decode_attention": (
+                         "paged_decode_attention@batch", 0),
+                     "flash_attention": ("flash_attention", 1),
+                     "gemm_rows": ("gemm_rows", -3)}
 
 
 def run_model(arch: str, card: str) -> dict:
     """Serve, profile, logits, dense and continuity phases of one model at
-    full width, and for qwen3-8b the spill phase (its numbers printed
-    beside ``card``, the card's name and power limit); its weights and
-    caches are freed before returning."""
+    full width, and for qwen3-8b the spill, spec and batch phases (their
+    numbers printed beside ``card``, the card's name and power limit); its
+    weights and caches are freed before returning."""
     import torch
 
     from repro_torch.configs import get
@@ -2337,10 +2681,11 @@ def run_model(arch: str, card: str) -> dict:
     dense = phase_dense(model, params, serve["tokens"])
     for paged in (True, False):
         phase_continuity(model, params, paged=paged)
-    spec = None
+    spec = batch = None
     if arch == "qwen3-8b":
         phase_spill(model, params, card)
         spec = phase_spec(model, params, card)["self_draft"]
+        batch = phase_batch(model, params, card)["launches"]
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2351,7 +2696,7 @@ def run_model(arch: str, card: str) -> dict:
             "dense": (dense["launches"],
                       dense["launches_per_call"]["decode_step"],
                       dense["launches_per_call"]["prefill"]),
-            "spec": spec}
+            "spec": spec, "batch": batch}
 
 
 def main() -> int:
@@ -2374,43 +2719,37 @@ def main() -> int:
         phase_cli(arch)
 
     kernels = []
+
+    def row_of(name, check, i, arch, path, launches, **extra):
+        route, source, replaces = ROUTES[name]
+        row = checks[check][i]
+        kernels.append({
+            "name": name, "route": route, "source": source,
+            "replaces": replaces, "model": arch, "path": path,
+            "launches": launches, **extra,
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "x_library", "x_bound", "shape")},
+            **({"bound_f32_ms": row["bound_f32_ms"]}
+               if "bound_f32_ms" in row else {})})
+
     for arch, rows in SUMMARY_ROW.items():
         ran = run_model(arch, device["smi"])
         for name, (check, i) in rows.items():
-            route, source, replaces = ROUTES[name]
-            row = checks[check][i]
             path = "dense" if name == "decode_attention" else "paged"
             serve, per_step, per_prefill = ran[path]
-            kernels.append({
-                "name": name, "route": route, "source": source,
-                "replaces": replaces, "model": arch, "path": path,
-                "launches": serve[name],
-                "launches_per_decode_step": per_step[name],
-                "launches_per_prefill": per_prefill[name],
-                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                "x_library": row["x_library"], "x_bound": row["x_bound"],
-                "shape": row["shape"],
-                **({"bound_f32_ms": row["bound_f32_ms"]}
-                   if "bound_f32_ms" in row else {}),
-            })
+            row_of(name, check, i, arch, path, serve[name],
+                   launches_per_decode_step=per_step[name],
+                   launches_per_prefill=per_prefill[name])
         spec = ran["spec"]
         for name, (check, i) in (SPEC_SUMMARY_ROW.items() if spec else ()):
-            route, source, replaces = ROUTES[name]
-            row = checks[check][i]
-            kernels.append({
-                "name": name, "route": route, "source": source,
-                "replaces": replaces, "model": arch, "path": "spec",
-                "launches": spec["launches"][name],
-                "launches_per_spec_round":
-                    spec["launches_per_spec_round"][name],
-                "launches_per_verify": spec["launches_per_verify"][name],
-                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                "x_library": row["x_library"], "x_bound": row["x_bound"],
-                "shape": row["shape"]})
+            row_of(name, check, i, arch, "spec", spec["launches"][name],
+                   launches_per_spec_round=spec["launches_per_spec_round"][
+                       name],
+                   launches_per_verify=spec["launches_per_verify"][name])
+        for name, (check, i) in (BATCH_SUMMARY_ROW.items()
+                                 if ran["batch"] else ()):
+            row_of(name, check, i, arch, "batch", ran["batch"][name])
     log({"kernels": kernels})
     log(device["smi"])
     log({"ok": True, "device": {"platform": device["platform"],

@@ -13,8 +13,12 @@ snapshots cross trust boundaries in an ad hoc cloud (paper §I), so the
 format is data-only by construction.
 
 Leaves are torch tensors (any device) or numpy arrays (0-d included).
-Splitting a tree into byte-balanced shards (``split_into_shards``) is not
-ported yet (ROADMAP Queue 1, item 8).
+
+``split_into_shards`` partitions the leaf set into ``n`` byte-balanced
+self-describing blobs, the unit each host serializes and P2P-replicates at
+scale (``repro/checkpoint/serializer.py:83-141``); ``join_shards`` merges
+them back. The shards of one tree are byte for byte the JAX package's, so
+they cross packages both ways as whole snapshots do.
 """
 
 from __future__ import annotations
@@ -44,24 +48,31 @@ def _flatten(tree: Tree, prefix: str = "") -> list[tuple[str, Any]]:
 def _as_numpy(leaf) -> tuple[str, np.ndarray]:
     """(dtype name, array of the leaf's raw bytes)."""
     if isinstance(leaf, torch.Tensor):
-        name = "bfloat16" if leaf.dtype == torch.bfloat16 else \
-            str(numpy_from_tensor(leaf[:0]).dtype)
-        return name, numpy_from_tensor(leaf)
+        arr = numpy_from_tensor(leaf)
+        return ("bfloat16" if leaf.dtype == torch.bfloat16
+                else str(arr.dtype)), arr
     arr = np.asarray(leaf)
     # a copy only where needed: np.ascontiguousarray would make a 0-d leaf 1-d
     return str(arr.dtype), arr if arr.flags.c_contiguous else arr.copy()
 
 
-def serialize_tree(tree: Tree) -> bytes:
-    """Serialize a (nested dict) tree of arrays to one self-describing
-    blob."""
-    leaves = [(k, *_as_numpy(a)) for k, a in _flatten(tree)]
+def _leaves(tree: Tree) -> list[tuple[str, str, np.ndarray]]:
+    return [(k, *_as_numpy(a)) for k, a in _flatten(tree)]
+
+
+def _blob(leaves: list[tuple[str, str, np.ndarray]]) -> bytes:
     header = [{"key": k, "dtype": dt, "shape": list(a.shape)}
               for k, dt, a in leaves]
     hbytes = json.dumps(header).encode()
     parts = [np.asarray(len(hbytes), _HDR).tobytes(), hbytes]
     parts += [memoryview(a.reshape(-1)).cast("B") for _, _, a in leaves]
     return b"".join(parts)
+
+
+def serialize_tree(tree: Tree) -> bytes:
+    """Serialize a (nested dict) tree of arrays to one self-describing
+    blob."""
+    return _blob(_leaves(tree))
 
 
 def _raw_dtype(name: str) -> np.dtype:
@@ -90,8 +101,10 @@ def deserialize_tree(blob: bytes, like: Tree) -> Tree:
     """Rebuild a tree with the structure of ``like`` from ``blob``. Each
     leaf comes back as ``like``'s leaf is: a torch tensor of its dtype on
     its device, or a numpy array of its dtype; shapes must agree."""
-    arrays = read_leaves(blob)
+    return _rebuild(read_leaves(blob), like)
 
+
+def _rebuild(arrays: dict[str, tuple[str, np.ndarray]], like: Tree) -> Tree:
     def leaf(key: str, want):
         name, arr = arrays[key]
         if tuple(arr.shape) != tuple(want.shape):
@@ -112,3 +125,35 @@ def deserialize_tree(blob: bytes, like: Tree) -> Tree:
         return leaf(prefix[:-1], sub)
 
     return build(like, "")
+
+
+# ---------------------------------------------------------------------------
+# Shard splitting (scale-out: each host owns and replicates one shard)
+# ---------------------------------------------------------------------------
+
+
+def split_into_shards(tree: Tree, n_shards: int) -> list[bytes]:
+    """Greedy byte-balanced partition of the leaves into ``n_shards``
+    blobs, the reference's: leaves largest first (ties in key order), each
+    into the least loaded shard (ties to the lowest index), each shard's
+    leaves in key order. A leaf is never split, so more shards than leaves
+    leaves some empty (a header only)."""
+    leaves = _leaves(tree)
+    sizes = [a.nbytes for _, _, a in leaves]
+    order = sorted(range(len(leaves)), key=lambda i: -sizes[i])
+    bins: list[list[int]] = [[] for _ in range(n_shards)]
+    load = [0] * n_shards
+    for i in order:
+        j = min(range(n_shards), key=lambda b: load[b])
+        bins[j].append(i)
+        load[j] += sizes[i]
+    return [_blob([leaves[i] for i in sorted(idxs)]) for idxs in bins]
+
+
+def join_shards(blobs: list[bytes], like: Tree) -> Tree:
+    """Merge shard blobs (any order, either package's) back into the
+    structure of ``like``, as :func:`deserialize_tree` does one blob."""
+    arrays: dict[str, tuple[str, np.ndarray]] = {}
+    for blob in blobs:
+        arrays.update(read_leaves(blob))
+    return _rebuild(arrays, like)

@@ -88,6 +88,7 @@ from __future__ import annotations
 
 import base64
 import json
+import weakref
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -197,10 +198,13 @@ class SlotLifecycle:
     """The slot-binding state machine shared by the admission flavors
     (fresh prefill, resume re-prefill and recall resume): the page-table
     row mirrors the chain, ``lengths`` counts cache-resident positions,
-    ``last_token`` is the last committed token."""
+    ``last_token`` is the last committed token. It holds its engine
+    through a weak proxy: a strong reference back would make a cycle, and a
+    dropped engine's device pool would then wait for the cyclic collector
+    (the batch tier drops an engine per finished or cancelled replica)."""
 
     def __init__(self, engine: "ServeEngine"):
-        self.eng = engine
+        self.eng = weakref.proxy(engine)
 
     def bind(self, slot: int, req: Request, chain: list[int]) -> None:
         """Install ``chain`` as the slot's page-table row and bind the

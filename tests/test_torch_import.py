@@ -51,7 +51,15 @@ def test_every_module_imports_without_jax():
             "repro_torch.kernels.decode_attention",
             "repro_torch.checkpoint.serializer", "repro_torch.core",
             "repro_torch.core.cloudlet",
-            "repro_torch.core.reliability"} <= set(mods)
+            "repro_torch.core.reliability",
+            "repro_torch.core.simulation", "repro_torch.core.events",
+            "repro_torch.core.backoff", "repro_torch.core.faults",
+            "repro_torch.core.availability", "repro_torch.core.snapshot",
+            "repro_torch.core.server", "repro_torch.core.continuity",
+            "repro_torch.core.client", "repro_torch.core.cloud",
+            "repro_torch.checkpoint.store",
+            "repro_torch.checkpoint.replicated",
+            "repro_torch.serving.batch"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -121,6 +129,14 @@ def test_cuda_entry_points_raise_without_a_card():
         params_from_reference({}, model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         repro_torch.resolve_device("cuda")
+    from repro_torch.serving.batch import make_engine_factory
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_engine_factory(model, params, n_slots=2, max_seq=64,
+                            page_size=16)("h0")
+    factory = make_engine_factory(model, params, n_slots=2, max_seq=64,
+                                  page_size=16, device="cpu")
+    assert factory("h0").cache["k_pages"].device.type == "cpu"
     eng = ServeEngine(model, params, n_slots=2, max_seq=64, page_size=16,
                       device="cpu")
     assert eng.cache["k_pages"].device.type == "cpu"
