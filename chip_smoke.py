@@ -37,17 +37,36 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    rows, beside cuBLAS and with the kernel's plan for it, and one step's
    products in all; at the batch tier's shapes (4 slots, 24-page pools,
    page tables of 16) RMSNorm, the paged decode (each lane bitwise the
-   same alone) and ``gemm_rows`` at 4 rows;
+   same alone) and ``gemm_rows`` at 4 rows; the MoE family's kernels (no
+   TPU counterpart): the router (``moe_route``) at deepseek-moe-16b's d
+   2048, E 64, k 6 over 8, 40 and 256 tokens and granite-moe-1b-a400m's
+   over 8 (ids equal to the plain version's but at near ties, counted;
+   each token's bits the same at 1, 8, 40 and 64 tokens), the routed
+   experts' grouped product (``gemm_rows_grouped``) at both configs'
+   gate, up and down over random routings of 8 and 40 lanes (empty
+   experts skipped), beside ``torch.bmm``, and bitwise per (expert, row)
+   at capacity 8, 40 and 64, at another rank, with the other experts empty
+   or full; every other decode product of deepseek-moe-16b,
+   granite-moe-1b-a400m (its tied 49,155-column unembedding, row-invariant
+   at 1-80 rows in both layouts), phi4-mini-3.8b and minitron-4b through
+   ``gemm_rows``; the attention kernels at deepseek-moe's (16 / 16 of 128)
+   and granite-moe's (16 / 8 of 64) heads;
 3b. cli: ``repro_torch.launch.serve.main`` at its defaults (REDUCED
    configs, whose heads of 16 and 24 the attention wrappers pad to 64) for
-   ``qwen3-8b``, ``zamba2-1.2b`` and ``falcon-mamba-7b``, without and with
+   ``qwen3-8b``, ``zamba2-1.2b``, ``falcon-mamba-7b`` and
+   ``granite-moe-1b-a400m``, without and with
    ``--fail-after 4``: every request completes, every kernel of the path
    is launched, the restored run gives the same tokens; qwen3-8b's card
    tokens are held against the CPU plain path teacher-forced on them
    (each within 0.05 of the CPU's top logit);
 4. per model — full-width, full-depth ``qwen3-8b``, then ``falcon-mamba-7b``
-   (Mamba1), then ``zamba2-1.2b`` (Mamba2 + shared attention), each with
-   seeded random weights, freed before the next:
+   (Mamba1), then ``zamba2-1.2b`` (Mamba2 + shared attention), then
+   ``deepseek-moe-16b`` (MoE: a dense layer, 27 MoE layers of 64 routed
+   experts, top-6, and 2 shared), each with seeded random weights, freed
+   before the next, through phases a-e (and f-h for qwen3-8b, i for
+   deepseek-moe-16b); then ``granite-moe-1b-a400m`` (a short serve: 8
+   requests of 16 new tokens on 4 slots, and phase c), ``phi4-mini-3.8b``
+   and ``minitron-4b`` (a short serve each):
    a. serve: 16 requests (4 share a 512-token prefix) through
       ``repro_torch.serving.engine.ServeEngine``; every kernel of the
       model's path must have been launched and no plain version called;
@@ -114,7 +133,16 @@ Phases, each of which raises on failure (the exit code is then non-zero):
       is back within one replica pool (0.25 GB) of before; wall seconds
       beside simulated ones, replica steps, tokens per wall second,
       snapshots, blob bytes, snapshot and restore seconds and peak memory
-      printed beside the card's name and power limit.
+      printed beside the card's name and power limit;
+   i. spec (deepseek-moe-16b, ``phase_spec_moe``): greedy self-draft
+      speculation (``spec_k`` 4) gives plain decode's tokens with every
+      proposal accepted: the 8-lane decode step and the 40-lane verify
+      route and multiply every lane alike (its granite-moe draft differs
+      in vocab at published widths, R4).
+
+The MoE models' logits have no bound (random-weight routing is chaotic):
+the kernel-forced check holds the router there (ids equal but at a near
+tie) and the grouped product (rows below each expert's count).
 
 The line two before the last is the kernels summary as JSON (one row per
 kernel and model whose path runs it, and rows with ``"path": "spec"`` for
@@ -564,15 +592,18 @@ def check_paged_verify(gen, k: int = 4) -> dict:
     }
 
 
-def check_gemm_rows(gen, arch: str = "qwen3-8b") -> list[dict]:
+def check_gemm_rows(gen, arch: str = "qwen3-8b",
+                    Ms=(BATCH_ENGINE["n_slots"], N_SLOTS, N_SLOTS * 5)
+                    ) -> list[dict]:
     """The paged decode step's row-invariant product at each of its shapes
     (full-width ``arch``), at the decode step's 8 rows and a k = 4 verify's
     40: against the plain version (``x @ w``), each timed with L2 flushed
     (a step finds its weights cold) beside cuBLAS's ``torch.matmul``, and
-    at the batch tier's 4 rows (``phase_batch``), with
+    (by default) at the batch tier's 4 rows (``phase_batch``), with
     the kernel's plan for it (tile width, k step, work items, K segments,
     ring depth); then one decode step's and one verify's products in all
-    (36 layers of seven and the unembedding), with their bounds."""
+    (qwen3-8b: 36 layers of seven and the unembedding), with their bounds
+    (``gemm_rows.step_products``)."""
     import torch
 
     from repro_torch.configs import get
@@ -580,10 +611,10 @@ def check_gemm_rows(gen, arch: str = "qwen3-8b") -> list[dict]:
 
     cfg = get(arch)
     rows, steps = [], {}
-    for M in (BATCH_ENGINE["n_slots"], N_SLOTS, N_SLOTS * 5):
+    for M in Ms:
         step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
                 "flops": 0, "max_abs_err": 0.0}
-        for name, K, N, nk in gk.decode_products(cfg):
+        for name, K, N, nk, times in gk.step_products(cfg):
             w = (torch.randn(N, K, generator=gen, device="cuda")
                  * K ** -0.5).bfloat16()
             w = w.t() if nk else w.reshape(K, N)
@@ -594,7 +625,8 @@ def check_gemm_rows(gen, arch: str = "qwen3-8b") -> list[dict]:
             err = _close(got, want, f"gemm_rows {name} M={M}")
             nbytes = 2 * (K * N + M * K + M * N)
             p = gk.plan(K, N, nk, gk._n_sm(torch.cuda.current_device()))
-            row = {"shape": {"M": M, "K": K, "N": N, "product": name},
+            row = {"shape": {"M": M, "K": K, "N": N, "product": name,
+                             "arch": arch},
                    "plan": {"tile_n": p.bn, "bk": p.bk, "items": p.items,
                             "grid": p.grid, "segments": p.s_base,
                             "tiles_with_one_more": p.extra,
@@ -606,7 +638,6 @@ def check_gemm_rows(gen, arch: str = "qwen3-8b") -> list[dict]:
                                           flush=True),
                    **_bound(nbytes, 2 * M * K * N, BF16_TC_FLOPS)}
             rows.append(row)
-            times = 1 if name == "unembed" else cfg.n_layers
             for key in ("ms", "plain_ms", "library_ms"):
                 step[key] += times * row[key]
             step["bytes"] += times * nbytes
@@ -887,6 +918,260 @@ def check_ssd(gen) -> list[dict]:
     return rows
 
 
+
+# ---------------------------------------------------------------------------
+# 3c. the MoE family's kernels: routing and the grouped expert products
+# ---------------------------------------------------------------------------
+
+# two of the plain version's first k + 1 probabilities (sorted) closer than
+# this are a near tie, which the kernel may rank either way: the two compute
+# a probability near 1/64 to ~2e-9 (f32 sums over d in another order, the
+# exponential's ulp)
+ROUTE_TIE = 1e-7
+ROUTE_TOL = dict(atol=1e-5, rtol=1e-5)   # the renormalised f32 weights
+MOE_ARCHS = ("deepseek-moe-16b", "granite-moe-1b-a400m")
+
+
+def _route_near_ties(x, router, k):
+    """Per token: two of its first k + 1 plain probabilities near-tied."""
+    import torch
+
+    probs = torch.softmax(x.float() @ router.float(), -1).sort(
+        -1, descending=True)[0][:, :k + 1]
+    return ((probs[:, :-1] - probs[:, 1:]) < ROUTE_TIE).any(-1)
+
+
+def _route_agrees(got, want, x, router, k, tally: dict) -> float:
+    """The router kernel's (weights, ids) against the plain version's: ids
+    equal for every token but a near tie (counted into ``tally``), weights
+    within ``ROUTE_TOL`` where the ids are equal; returns the largest weight
+    difference."""
+    (w, ids), (pw, pids) = got, want
+    same = (ids == pids).all(-1)
+    ties = _route_near_ties(x, router, k)
+    tally["moe_route_near_ties"] = tally.get("moe_route_near_ties", 0) + int(
+        ties.sum())
+    tally["moe_route_ids_differ"] = tally.get("moe_route_ids_differ", 0) + \
+        int((~same).sum())
+    if not bool((same | ties).all()):
+        raise AssertionError("moe_route: ids differ from the plain version's "
+                             "away from a near tie")
+    return _close(w[same], pw[same], "moe_route weights", ROUTE_TOL) \
+        if bool(same.any()) else 0.0
+
+
+def _router(gen, cfg, T: int):
+    """Rows like the normalized bf16 h and an f32 router at the init's
+    scale (``small``, 1e-4: probabilities near 1/E)."""
+    import torch
+
+    x = torch.randn(T, cfg.d_model, generator=gen, device="cuda").bfloat16()
+    router = torch.randn(cfg.d_model, cfg.n_experts, generator=gen,
+                         device="cuda") * 1e-4
+    return x, router
+
+
+def check_moe_route(gen, arch: str = "deepseek-moe-16b",
+                    Ts=(8, 40, 256)) -> list[dict]:
+    """The router kernel at ``arch``'s (d, E, k): a decode step's 8 tokens,
+    a k = 4 verify's 40 and a prefill chunk's 256, against its plain
+    version (``_route_agrees``), timed beside the plain composite (an f32
+    product, a softmax, a sort; no single PyTorch call computes the
+    function, so ``library_ms`` is none); then each token's ids and weights
+    bitwise the same at 1, 8, 40 and 64 tokens."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import moe_route as rk, ref
+
+    cfg = get(arch)
+    d, E, k = cfg.d_model, cfg.n_experts, cfg.moe_top_k
+    x, router = _router(gen, cfg, max(Ts))
+    rows = []
+    for T in Ts:
+        xt = x[:T]
+        tally: dict = {}
+        err = _route_agrees(rk.moe_route(xt, router, k),
+                            ref.moe_route(xt, router, k), xt, router, k,
+                            tally)
+        nbytes = T * d * 2 + d * E * 4 + T * k * 8
+        plain_ms = _time_ms(lambda: ref.moe_route(xt, router, k))
+        rows.append({"shape": {"T": T, "d": d, "E": E, "k": k, "arch": arch},
+                     "max_abs_err": err,
+                     "near_ties": tally["moe_route_near_ties"],
+                     "ids_differ": tally["moe_route_ids_differ"],
+                     "ms": _time_ms(lambda: rk.moe_route(xt, router, k)),
+                     "plain_ms": plain_ms, "library_ms": None,
+                     "library": "none", "composite_ms": plain_ms,
+                     **_bound(nbytes, 2 * T * d * E, F32_FLOPS,
+                              exps=T * E)})
+    whole = rk.moe_route(x[:64], router, k)
+    for T in (1, 8, 40, 64):
+        part = rk.moe_route(x[:T], router, k)
+        if not (torch.equal(part[0], whole[0][:T])
+                and torch.equal(part[1], whole[1][:T])):
+            raise AssertionError(f"moe_route: tokens' results change at "
+                                 f"T = {T}")
+    rows[0]["row_invariant_T"] = [1, 8, 40, 64]
+    return rows
+
+
+def _routing_counts(gen, T: int, E: int, k: int):
+    """A routing of ``T`` lanes, each to ``k`` distinct random experts:
+    the per-expert counts (E,) int64."""
+    import torch
+
+    picks = torch.rand(T, E, generator=gen, device="cuda").argsort(-1)[:, :k]
+    return torch.bincount(picks.reshape(-1), minlength=E)
+
+
+def check_gemm_rows_grouped(gen, arch: str = "deepseek-moe-16b",
+                            Cs=(N_SLOTS, N_SLOTS * 5)) -> list[dict]:
+    """The routed experts' grouped product at each of ``arch``'s decode
+    products (gate, up, down) at the decode step's capacity (8 lanes) and a
+    k = 4 verify's (40), over a random routing of that many lanes (experts
+    no lane chose are empty): the rows below each expert's count against
+    the plain version, timed with L2 flushed beside the plain version and
+    ``torch.bmm`` on the same buffer (the library call), the bound counting
+    only the experts this routing reads; then the MoE layers' products of
+    one step in all."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import gemm_rows as gk, ops
+
+    import torch
+
+    cfg = get(arch)
+    E, k = cfg.n_experts, cfg.moe_top_k
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    rows = []
+    for C in Cs:
+        counts = _routing_counts(gen, C, E, k)
+        active = int((counts > 0).sum())
+        n_rows = int(counts.sum())
+        keep = torch.arange(C, device="cuda")[None] < counts[:, None]
+        step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+                "flops": 0, "max_abs_err": 0.0}
+        for name, _, K, N in gk.grouped_products(cfg):
+            w = (torch.randn(E, K, N, generator=gen, device="cuda")
+                 * K ** -0.5).bfloat16()
+            buf = torch.randn(E, C, K, generator=gen, device="cuda").bfloat16()
+            buf[~keep] = 0   # dispatch leaves unfilled slots zero
+            got = gk.gemm_rows_grouped(buf, w, counts)
+            with ops.use_backend("plain"):
+                want = ops.gemm_rows_grouped(buf, w, counts)
+            err = _close(got[keep], want[keep],
+                         f"gemm_rows_grouped {arch} {name} C={C}")
+            nbytes = 2 * (active * K * N + n_rows * (K + N))
+            p = gk.plan_grouped(E, K, N, gk._n_sm(torch.cuda.current_device()))
+            row = {"shape": {"E": E, "C": C, "K": K, "N": N, "product": name,
+                             "arch": arch, "experts_active": active,
+                             "rows": n_rows},
+                   "plan": {"tile_n": p.bn, "items": E * p.n_tiles,
+                            "grid": p.grid, "stages": p.stages},
+                   "max_abs_err": err,
+                   "ms": _time_ms(lambda: gk.gemm_rows_grouped(buf, w, counts),
+                                  flush=True),
+                   "plain_ms": _time_ms(lambda: gk.plain_grouped(buf, w),
+                                        flush=True),
+                   "library_ms": _time_ms(lambda: torch.bmm(buf, w),
+                                          flush=True),
+                   **_bound(nbytes, 2 * n_rows * K * N, BF16_TC_FLOPS)}
+            rows.append(row)
+            for key in ("ms", "plain_ms", "library_ms"):
+                step[key] += n_moe * row[key]
+            step["bytes"] += n_moe * nbytes
+            step["flops"] += n_moe * 2 * n_rows * K * N
+            step["max_abs_err"] = max(step["max_abs_err"], err)
+            del w, buf
+        rows.append({"shape": {"C": C, "products": "one step", "arch": arch,
+                               "moe_layers": n_moe, "experts_active": active},
+                     "max_abs_err": step["max_abs_err"], "ms": step["ms"],
+                     "plain_ms": step["plain_ms"],
+                     "library_ms": step["library_ms"],
+                     **_bound(step["bytes"], step["flops"], BF16_TC_FLOPS)})
+    return rows
+
+
+def check_grouped_invariance(gen, arch: str) -> dict:
+    """Bitwise: an (expert, row) result of the grouped product is the same
+    at capacity 8, 40 and 64, at another rank (its expert's rows moved down
+    by 3), and with the other experts empty (counts 0) or full, at each of
+    ``arch``'s products; the rows past an expert's count are not read."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import gemm_rows as gk
+
+    cfg = get(arch)
+    E = cfg.n_experts
+    out = {}
+    for name, _, K, N in gk.grouped_products(cfg):
+        w = (torch.randn(E, K, N, generator=gen, device="cuda")
+             * K ** -0.5).bfloat16()
+        src = torch.randn(E, 64, K, generator=gen, device="cuda").bfloat16()
+        full = gk.gemm_rows_grouped(src, w)
+        checks = 0
+        for C in (8, 40, 64):
+            sub = src[:, :C].contiguous()
+            for mode in ("random", "others_empty", "others_full"):
+                counts = torch.randint(1, C + 1, (E,), generator=gen,
+                                       device="cuda")
+                if mode != "random":
+                    counts[:] = 0 if mode == "others_empty" else C
+                    counts[E // 2] = C // 2
+                # poison the rows past each count: the kernel must not read
+                # them
+                poisoned = sub.clone()
+                poisoned[torch.arange(C, device="cuda")[None]
+                         >= counts[:, None]] = float("nan")
+                got = gk.gemm_rows_grouped(poisoned, w, counts)
+                keep = torch.arange(C, device="cuda")[None] < counts[:, None]
+                if not torch.equal(got[keep], full[:, :C][keep]):
+                    raise AssertionError(f"gemm_rows_grouped {arch} {name}: "
+                                         f"rows change at C={C} ({mode})")
+                checks += 1
+            moved = torch.zeros_like(sub)
+            moved[:, 3:] = sub[:, :C - 3]
+            if not torch.equal(gk.gemm_rows_grouped(moved, w)[:, 3:],
+                               full[:, :C - 3]):
+                raise AssertionError(f"gemm_rows_grouped {arch} {name}: "
+                                     f"rows change with their rank at C={C}")
+            checks += 1
+        out[f"{name} {E}x{K}x{N}"] = {"bitwise_checks": checks}
+        del w, src, full
+    return out
+
+
+def check_unaligned_gemm_rows(gen) -> dict:
+    """granite-moe's tied unembedding through ``gemm_rows``: N = 49,155 (no
+    multiple of 8), K 1024, w as the (N, K) embedding's transpose and as a
+    (K, N) matrix; each row's bits the same at every row count 1-80."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import gemm_rows as gk
+
+    cfg = get("granite-moe-1b-a400m")
+    K, N = cfg.d_model, cfg.vocab_size
+    out = {}
+    for nk in (True, False):
+        w = (torch.randn(N, K, generator=gen, device="cuda")
+             * K ** -0.5).bfloat16()
+        w = w.t() if nk else w.t().contiguous()
+        x = torch.randn(80, K, generator=gen, device="cuda").bfloat16()
+        y80 = gk.gemm_rows(x, w)
+        bad = [M for M in range(1, 81)
+               if not torch.equal(gk.gemm_rows(x[:M], w), y80[:M])]
+        if bad:
+            raise AssertionError(f"gemm_rows N={N} nk={nk}: rows change at "
+                                 f"M in {bad[:5]}")
+        out["nk" if nk else "kn"] = {"row_counts_1_80_bitwise": True,
+                                     "max_abs_err": _close(
+                                         y80, x @ w, f"gemm_rows N={N}")}
+        del w
+    return out
+
+
 def phase_kernels(seed: int = 0) -> dict:
     import torch
 
@@ -908,11 +1193,39 @@ def phase_kernels(seed: int = 0) -> dict:
            "flash_attention@zamba2": check_flash(gen, H=32, K=32, D=64),
            # the batch tier's decode step: 4 slots, 24-page pools
            "rmsnorm@batch": check_rmsnorm(gen, BATCH_RMSNORM_SHAPES),
-           "paged_decode_attention@batch": [check_paged_decode_batch(gen)]}
+           "paged_decode_attention@batch": [check_paged_decode_batch(gen)],
+           # the MoE family: the router and the routed experts' products,
+           # deepseek-moe's attention (MHA 16 of 128), every other decode
+           # product of each new config (granite-moe's with its tied
+           # 49,155-column unembedding)
+           "moe_route": check_moe_route(gen),
+           "moe_route@granite": check_moe_route(gen, "granite-moe-1b-a400m",
+                                                (N_SLOTS,)),
+           "gemm_rows_grouped": check_gemm_rows_grouped(gen),
+           "gemm_rows_grouped@granite": check_gemm_rows_grouped(
+               gen, "granite-moe-1b-a400m"),
+           "rmsnorm@granite": check_rmsnorm(gen, [(N_SLOTS, 1024)]),
+           "paged_decode_attention@deepseek": [
+               check_paged_decode(gen, n_heads=16, n_kv=16, d=128)],
+           "paged_decode_attention@granite": [
+               check_paged_decode(gen, n_heads=16, n_kv=8, d=64)],
+           "decode_attention@deepseek": [
+               check_decode(gen, n_heads=16, n_kv=16, d=128)],
+           "flash_attention@deepseek": check_flash(gen, H=16, K=16, D=128),
+           "flash_attention@granite": check_flash(gen, H=16, K=8, D=64),
+           **{f"gemm_rows@{arch}": check_gemm_rows(gen, arch, (N_SLOTS,
+                                                               N_SLOTS * 5))
+              for arch in ("deepseek-moe-16b", "granite-moe-1b-a400m",
+                           "phi4-mini-3.8b", "minitron-4b")}}
     for name, rows in out.items():
         for r in rows:
             r.update(_factors(r))
             log({"kernel_check": name, **r})
+    invariance = {arch: check_grouped_invariance(gen, arch)
+                  for arch in MOE_ARCHS}
+    log({"kernel_check": "gemm_rows_grouped bitwise", **invariance})
+    log({"kernel_check": "gemm_rows N 49155 bitwise",
+         **check_unaligned_gemm_rows(gen)})
     return out
 
 
@@ -947,18 +1260,26 @@ def _traffic(seed: int, vocab: int) -> list[list[int]]:
 
 # kernels each model's path launches (every one of them must run in its
 # serve phase; no plain version may)
+_DENSE_PAGED = ("rmsnorm", "paged_decode_attention", "flash_attention",
+                "gemm_rows")
+_MOE_PAGED = _DENSE_PAGED + ("moe_route", "gemm_rows_grouped")
 PATH_KERNELS = {
-    "qwen3-8b": ("rmsnorm", "paged_decode_attention", "flash_attention",
-                 "gemm_rows"),
+    "qwen3-8b": _DENSE_PAGED,
     "falcon-mamba-7b": ("rmsnorm", "selective_scan"),
     "zamba2-1.2b": ("rmsnorm", "paged_decode_attention", "flash_attention",
                     "ssd"),
+    "deepseek-moe-16b": _MOE_PAGED,
+    "granite-moe-1b-a400m": _MOE_PAGED,
+    "phi4-mini-3.8b": _DENSE_PAGED,
+    "minitron-4b": _DENSE_PAGED,
 }
 # the same for the dense engine (``paged=False``)
 DENSE_PATH_KERNELS = {
     "qwen3-8b": ("rmsnorm", "decode_attention", "flash_attention"),
     "falcon-mamba-7b": ("rmsnorm", "selective_scan"),
     "zamba2-1.2b": ("rmsnorm", "decode_attention", "flash_attention", "ssd"),
+    "deepseek-moe-16b": ("rmsnorm", "decode_attention", "flash_attention",
+                         "moe_route"),
 }
 
 
@@ -995,20 +1316,50 @@ def _solo_state(model, params, prompt: list[int]) -> dict:
     return _slot_state(cache, 0)
 
 
-def phase_serve(model, params, seed: int = 0) -> dict:
+def _per_call(fn, into: dict):
+    """``fn`` with the kernel launches of its first call recorded in
+    ``into``."""
+    from repro_torch.kernels import ops
+
+    def run(*args, **kw):
+        before = ops.counts()
+        out = fn(*args, **kw)
+        if not into:
+            into.update({k: ops.counts()[k]["launches"] - v["launches"]
+                         for k, v in before.items()})
+        return out
+    return run
+
+
+def phase_serve(model, params, seed: int = 0, *, short: bool = False) -> dict:
+    """The smoke traffic (16 requests, 32 new tokens each, on ``N_SLOTS``
+    slots; ``short``: its first 8, 16 new tokens each, on half the slots,
+    so that request 5 is admitted after request 1's prefix is cached)
+    through the paged engine."""
+    import dataclasses
+
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import ServeEngine
 
     cfg = model.cfg
-    engine = ServeEngine(model, params, n_slots=N_SLOTS, max_seq=MAX_SEQ,
+    slots = N_SLOTS // 2 if short else N_SLOTS
+    engine = ServeEngine(model, params, n_slots=slots, max_seq=MAX_SEQ,
                          page_size=PAGE, prefill_chunk=CHUNK, device="cuda")
     # warm-up request (cuBLAS handles, allocator), then a clean slate
     engine.submit(list(range(1, 300)), max_new_tokens=2)
     engine.run()
     engine.reset_stats()
+    per_step: dict = {}
+    per_chunk: dict = {}
+    engine.model = dataclasses.replace(
+        model, decode_paged=_per_call(model.decode_paged, per_step),
+        prefill_chunk=_per_call(model.prefill_chunk, per_chunk))
     prompts = _traffic(seed, cfg.vocab_size)
+    n_new = 32
+    if short:
+        prompts, n_new = prompts[:8], 16
     # R3: the longest prompt's state when its last chunk lands
     longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
     at_finish: dict = {}
@@ -1024,7 +1375,7 @@ def phase_serve(model, params, seed: int = 0) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     t0 = time.perf_counter()
-    reqs = [engine.submit(p, max_new_tokens=32) for p in prompts]
+    reqs = [engine.submit(p, max_new_tokens=n_new) for p in prompts]
     ttft: dict[int, float] = {}
     decode_ms, prefill_s, prefill_tok = [], 0.0, 0
     overlapped = 0   # decode steps run while the longest prompt prefilled
@@ -1069,7 +1420,7 @@ def phase_serve(model, params, seed: int = 0) -> dict:
     n_gen = sum(len(r.generated) for r in reqs)
     out = {
         "phase": "serve", "arch": cfg.arch_id, "layers": cfg.n_layers,
-        "params_b": round(cfg.param_count() / 1e9, 3),
+        "params_b": round(cfg.param_count() / 1e9, 3), "slots": slots,
         "requests": len(reqs), "generated_tokens": n_gen, "wall_s": wall,
         "tokens_per_s": n_gen / wall,
         "decode_step_ms_median": statistics.median(decode_ms),
@@ -1083,6 +1434,8 @@ def phase_serve(model, params, seed: int = 0) -> dict:
         "decode_steps_overlapping_prefill": overlapped,
         "r3_max_abs_diff": r3,
         "launches": {n: c["launches"] for n, c in counts.items()},
+        "launches_per_call": {"decode_step": per_step,
+                              "prefill_chunk": per_chunk},
     }
     log(out)
     out["tokens"] = [r.generated for r in reqs]
@@ -1160,7 +1513,13 @@ def phase_profile(model, params, seed: int = 2) -> dict:
 # the kernel-forced check (``_kernel_forced``): every kernel call of the
 # path run both ways on the model's own activations, within the kernels'
 # own tolerances.
-LOGIT_ATOL = {"qwen3-8b": 0.5, "falcon-mamba-7b": None, "zamba2-1.2b": None}
+# deepseek-moe-16b and granite-moe-1b-a400m: no bound either. The router's
+# init is ``small`` (1e-4), so every expert's probability sits near 1/E and
+# a rounding-sized difference in h reorders experts: random-weight routing
+# is chaotic. The kernel-forced check holds the router (ids equal but at a
+# near tie, counted) and the grouped product there.
+LOGIT_ATOL = {"qwen3-8b": 0.5, "falcon-mamba-7b": None, "zamba2-1.2b": None,
+              "deepseek-moe-16b": None, "granite-moe-1b-a400m": None}
 
 
 def _teacher_forced(model, params, prompts, forced, n_steps: int, *,
@@ -1225,7 +1584,8 @@ def _kernel_forced(run) -> dict:
                 "paged_decode_attention": "paged_decode_attention",
                 "decode_attention": "decode_attention",
                 "selective_scan": "selective_scan", "ssd": "ssd",
-                "gemm_rows": "gemm_rows"}
+                "gemm_rows": "gemm_rows", "moe_route": "moe_route",
+                "gemm_rows_grouped": "gemm_rows_grouped"}
     saved = {n: getattr(ops, n) for n in dispatch}
     worst: dict[str, float] = {}
 
@@ -1233,6 +1593,19 @@ def _kernel_forced(run) -> dict:
         def run(*args, **kw):
             want = plain(*args, **kw)
             got = kernel(*args, **kw)
+            if name == "moe_route":   # ids: equal but at a near tie
+                worst[name] = max(worst.get(name, 0.0),
+                                  _route_agrees(got, want, args[0], args[1],
+                                                args[2], worst))
+                return want
+            if name == "gemm_rows_grouped" and len(args) > 2:
+                # the kernel leaves rows past each expert's count unwritten
+                keep = torch.arange(want.shape[1], device=want.device)[
+                    None] < args[2][:, None]
+                got, want_cmp = got[keep], want[keep]
+                err = _close(got, want_cmp, f"kernel-forced {name}")
+                worst[name] = max(worst.get(name, 0.0), err)
+                return want
             pairs = zip(got, want) if isinstance(want, tuple) \
                 else [(got, want)]
             for g, w in pairs:
@@ -1510,7 +1883,8 @@ def phase_continuity(model, params, *, paged: bool, seed: int = 3) -> dict:
 # 8. the CLI at its defaults: REDUCED configs on the card
 # ---------------------------------------------------------------------------
 
-CLI_ARCHS = ("qwen3-8b", "zamba2-1.2b", "falcon-mamba-7b")
+CLI_ARCHS = ("qwen3-8b", "zamba2-1.2b", "falcon-mamba-7b",
+             "granite-moe-1b-a400m")
 # qwen3-8b's card tokens against the CPU plain path's logits at the same
 # positions: each within this of the CPU's top logit (a bf16 near-tie)
 CLI_TIE_GAP = 0.05
@@ -2145,6 +2519,88 @@ def _drain_tokens(eng, prompts, *, max_new, temps=None, seeds=None) -> dict:
             "generated_tokens": n_gen, "tokens_per_s": n_gen / wall}
 
 
+def _self_draft(model, params, prompts, kw, path: tuple) -> dict:
+    """The same prompts through a plain engine and a self-draft engine
+    (``spec_k`` ``SPEC_K``): equal tokens, every proposal accepted, every
+    kernel of ``path`` launched and no plain version; the medians of a
+    plain decode step, a draft step and a verify pass, and the launches of
+    a spec round and of a verify."""
+    import gc as _gc
+
+    import torch
+
+    from repro_torch.kernels import ops
+
+    plain = _spec_engine(model, params, **kw)
+    base = _drain_tokens(plain, prompts, max_new=SPEC_NEW)
+    plain_ms = list(plain.decode_ms)
+    del plain
+    _gc.collect()
+    torch.cuda.empty_cache()
+    spec = _spec_engine(model, params, draft=model, draft_params=params,
+                        spec_k=SPEC_K, **kw)
+    per_round: dict = {}
+    per_verify: dict = {}
+    spec._spec_step = _per_call(spec._spec_step, per_round)
+    spec.model.verify_paged = _per_call(spec.model.verify_paged, per_verify)
+    ops.reset_counts()
+    got = _drain_tokens(spec, prompts, max_new=SPEC_NEW)
+    counts = ops.counts()
+    st = spec.stats
+    if got["tokens"] != base["tokens"]:
+        raise AssertionError("spec b: self-draft tokens differ from plain "
+                             "decode's")
+    if not 0 < st["spec_accepted"] == st["spec_proposed"]:
+        raise AssertionError(f"spec b: accepted {st['spec_accepted']} of "
+                             f"{st['spec_proposed']} self-draft proposals")
+    _check_counts(counts, path, "spec self-draft")
+    decode_med = statistics.median(plain_ms)
+    verify_med = statistics.median(spec.verify_ms)
+    out = {
+        "requests": len(prompts), "new_tokens": SPEC_NEW,
+        "spec_rounds": st["spec_rounds"],
+        "spec_proposed": st["spec_proposed"],
+        "spec_accepted": st["spec_accepted"],
+        "decode_step_ms_median": decode_med,
+        "draft_step_ms_median": statistics.median(spec.draft_ms),
+        "verify_ms_median": verify_med,
+        "verify_over_decode_step": verify_med / decode_med,
+        "decode_steps": len(plain_ms), "draft_steps": len(spec.draft_ms),
+        "verifies": len(spec.verify_ms),
+        "plain_tokens_per_s": base["tokens_per_s"],
+        "spec_tokens_per_s": got["tokens_per_s"],
+        "plain_wall_s": base["wall_s"], "spec_wall_s": got["wall_s"],
+        "launches": {n: c["launches"] for n, c in counts.items()},
+        "launches_per_spec_round": per_round,
+        "launches_per_verify": per_verify}
+    del spec
+    _gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spec_moe(model, params, card: str, seed: int = 5) -> dict:
+    """Greedy self-draft speculation on full-width deepseek-moe-16b (its
+    granite-moe draft differs in vocab at published widths, R4): 8 requests
+    of 96-1024 tokens, ``SPEC_NEW`` new each, through a plain and a
+    self-draft engine (``_self_draft``): plain decode's tokens with every
+    proposal accepted, which needs the 8-lane decode step and the 40-lane
+    verify to route and multiply every lane alike."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, model.cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(96, 1025, 8)]
+    kw = dict(n_slots=N_SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
+              prefill_chunk=CHUNK, device="cuda")
+    out = {"phase": "spec", "arch": model.cfg.arch_id, "card": card,
+           "spec_k": SPEC_K,
+           "self_draft": _self_draft(model, params, prompts, kw,
+                                     PATH_KERNELS[model.cfg.arch_id])}
+    log(out)
+    return out
+
+
 def phase_spec(model, params, card: str, seed: int = 5) -> dict:
     """Speculative decoding and ``fork`` on full-width qwen3-8b (the smoke
     settings: ``N_SLOTS`` slots, pages of ``PAGE``, chunks of ``CHUNK``):
@@ -2180,63 +2636,8 @@ def phase_spec(model, params, card: str, seed: int = 5) -> dict:
     kw = dict(n_slots=N_SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
               prefill_chunk=CHUNK, device="cuda")
     # b. self-draft against plain decode
-    plain = _spec_engine(model, params, **kw)
-    base = _drain_tokens(plain, prompts, max_new=SPEC_NEW)
-    plain_ms = list(plain.decode_ms)
-    del plain
-    _gc.collect()
-    torch.cuda.empty_cache()
-    spec = _spec_engine(model, params, draft=model, draft_params=params,
-                        spec_k=SPEC_K, **kw)
-    per_round: dict = {}
-    per_verify: dict = {}
-    step, verify = spec._spec_step, spec.model.verify_paged
-
-    def counted(fn, into):
-        def run(*args, **kwargs):
-            before = ops.counts()
-            got = fn(*args, **kwargs)
-            if not into:
-                into.update({k: ops.counts()[k]["launches"] - v["launches"]
-                             for k, v in before.items()})
-            return got
-        return run
-
-    spec._spec_step = counted(step, per_round)
-    spec.model.verify_paged = counted(verify, per_verify)
-    ops.reset_counts()
-    got = _drain_tokens(spec, prompts, max_new=SPEC_NEW)
-    counts = ops.counts()
-    st = spec.stats
-    if got["tokens"] != base["tokens"]:
-        raise AssertionError("spec b: self-draft tokens differ from plain "
-                             "decode's")
-    if not 0 < st["spec_accepted"] == st["spec_proposed"]:
-        raise AssertionError(f"spec b: accepted {st['spec_accepted']} of "
-                             f"{st['spec_proposed']} self-draft proposals")
-    _check_counts(counts, SPEC_PATH_KERNELS, "spec self-draft")
-    decode_med = statistics.median(plain_ms)
-    verify_med = statistics.median(spec.verify_ms)
-    out["self_draft"] = {
-        "requests": len(prompts), "new_tokens": SPEC_NEW,
-        "spec_rounds": st["spec_rounds"],
-        "spec_proposed": st["spec_proposed"],
-        "spec_accepted": st["spec_accepted"],
-        "decode_step_ms_median": decode_med,
-        "draft_step_ms_median": statistics.median(spec.draft_ms),
-        "verify_ms_median": verify_med,
-        "verify_over_decode_step": verify_med / decode_med,
-        "decode_steps": len(plain_ms), "draft_steps": len(spec.draft_ms),
-        "verifies": len(spec.verify_ms),
-        "plain_tokens_per_s": base["tokens_per_s"],
-        "spec_tokens_per_s": got["tokens_per_s"],
-        "plain_wall_s": base["wall_s"], "spec_wall_s": got["wall_s"],
-        "launches": {n: c["launches"] for n, c in counts.items()},
-        "launches_per_spec_round": per_round,
-        "launches_per_verify": per_verify}
-    del spec
-    _gc.collect()
-    torch.cuda.empty_cache()
+    out["self_draft"] = _self_draft(model, params, prompts, kw,
+                                    SPEC_PATH_KERNELS)
     # d. fork: a live self-draft slot into 3 sampled children
     fork = _spec_engine(model, params, draft=model, draft_params=params,
                         spec_k=SPEC_K, **kw)
@@ -2622,6 +3023,14 @@ ROUTES = {
     # the speculative verify equals plain decode
     "gemm_rows": ("cuda", "src/repro_torch/csrc/gemm_rows.cu",
                   "torch.matmul (cuBLAS)"),
+    # no TPU kernel either (the JAX package routes and runs its experts in
+    # XLA, repro/models/moe.py:81-87, 209-213): row-invariant too
+    "moe_route": ("cuda", "src/repro_torch/csrc/moe_route.cu",
+                  "src/repro/models/moe.py:209 (no TPU kernel: XLA's f32 "
+                  "einsum, softmax, top_k)"),
+    "gemm_rows_grouped": ("cuda", "src/repro_torch/csrc/gemm_rows.cu",
+                          "src/repro/models/moe.py:83 (no TPU kernel: XLA's "
+                          "expert einsums; torch.bmm on the card)"),
 }
 # the check row that stands for each (kernel, model) in the summary line:
 # the decode step's block norm (d 4096, or zamba2's d 2048), the paged and
@@ -2641,7 +3050,40 @@ SUMMARY_ROW = {
                     "decode_attention": ("decode_attention@zamba2", 0),
                     "flash_attention": ("flash_attention@zamba2", 2),
                     "ssd": ("ssd", 1)},
+    # the MoE family: the decode step's router (8 tokens) and one step's
+    # grouped and other row-invariant products (8 rows)
+    "deepseek-moe-16b": {
+        "rmsnorm": ("rmsnorm", 4),
+        "paged_decode_attention": ("paged_decode_attention@deepseek", 0),
+        "decode_attention": ("decode_attention@deepseek", 0),
+        "flash_attention": ("flash_attention@deepseek", 2),
+        "gemm_rows": ("gemm_rows@deepseek-moe-16b", -2),
+        "moe_route": ("moe_route", 0),
+        "gemm_rows_grouped": ("gemm_rows_grouped", 3)},
+    "granite-moe-1b-a400m": {
+        "rmsnorm": ("rmsnorm@granite", 0),
+        "paged_decode_attention": ("paged_decode_attention@granite", 0),
+        "flash_attention": ("flash_attention@granite", 2),
+        "gemm_rows": ("gemm_rows@granite-moe-1b-a400m", -2),
+        "moe_route": ("moe_route@granite", 0),
+        "gemm_rows_grouped": ("gemm_rows_grouped@granite", 3)},
+    "phi4-mini-3.8b": {"gemm_rows": ("gemm_rows@phi4-mini-3.8b", -2)},
+    "minitron-4b": {"gemm_rows": ("gemm_rows@minitron-4b", -2)},
 }
+# the models whose every phase runs (serve, profile, logits, dense,
+# continuity both ways); the others run a short paged serve, and granite-moe
+# its logits too
+FULL_RUN = ("qwen3-8b", "falcon-mamba-7b", "zamba2-1.2b", "deepseek-moe-16b")
+# deepseek-moe's spec path: its block norm, decode attention and longest
+# prefill chunk, the verify's router (40 tokens) and one verify's grouped and
+# other products (40 rows)
+MOE_SPEC_SUMMARY_ROW = {
+    "rmsnorm": ("rmsnorm", 4),
+    "paged_decode_attention": ("paged_decode_attention@deepseek", 0),
+    "flash_attention": ("flash_attention@deepseek", 2),
+    "moe_route": ("moe_route", 1),
+    "gemm_rows_grouped": ("gemm_rows_grouped", 7),
+    "gemm_rows": ("gemm_rows@deepseek-moe-16b", -1)}
 # the spec path's rows (qwen3-8b): the block norm, the verify fold, the
 # longest prefill chunk, and one verify's products (M = 40)
 SPEC_SUMMARY_ROW = {"rmsnorm": ("rmsnorm", 0),
@@ -2659,10 +3101,12 @@ BATCH_SUMMARY_ROW = {"rmsnorm": ("rmsnorm@batch", 0),
 
 
 def run_model(arch: str, card: str) -> dict:
-    """Serve, profile, logits, dense and continuity phases of one model at
-    full width, and for qwen3-8b the spill, spec and batch phases (their
-    numbers printed beside ``card``, the card's name and power limit); its
-    weights and caches are freed before returning."""
+    """Serve, profile, logits, dense and continuity phases of one model of
+    ``FULL_RUN`` at full width, for qwen3-8b the spill, spec and batch
+    phases, for deepseek-moe-16b the self-draft spec phase (their numbers
+    printed beside ``card``, the card's name and power limit); a short
+    paged serve of any other model, and granite-moe's logits. Its weights
+    and caches are freed before returning."""
     import torch
 
     from repro_torch.configs import get
@@ -2675,17 +3119,37 @@ def run_model(arch: str, card: str) -> dict:
     log({"phase": "init", "arch": arch, "seconds": time.perf_counter() - t0,
          "weights_gb": sum(p.numel() * p.element_size()
                            for p in params.parameters()) / 1e9})
-    serve = phase_serve(model, params)
-    phase_profile(model, params)
-    per_call = phase_logits(model, params)["launches_per_call"]
-    dense = phase_dense(model, params, serve["tokens"])
-    for paged in (True, False):
-        phase_continuity(model, params, paged=paged)
-    spec = batch = None
+    full = arch in FULL_RUN
+    seconds: dict[str, float] = {}
+
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = round(time.perf_counter() - t, 3)
+        return out
+
+    serve = timed("serve", phase_serve, model, params, short=not full)
+    per_call = serve["launches_per_call"]
+    dense = spec = batch = None
+    if full:
+        timed("profile", phase_profile, model, params)
+    if full or arch == "granite-moe-1b-a400m":
+        per_call = timed("logits", phase_logits, model,
+                         params)["launches_per_call"]
+    if full:
+        dense = timed("dense", phase_dense, model, params, serve["tokens"])
+        for paged in (True, False):
+            timed(f"continuity_{'paged' if paged else 'dense'}",
+                  phase_continuity, model, params, paged=paged)
     if arch == "qwen3-8b":
-        phase_spill(model, params, card)
-        spec = phase_spec(model, params, card)["self_draft"]
-        batch = phase_batch(model, params, card)["launches"]
+        timed("spill", phase_spill, model, params, card)
+        spec = timed("spec", phase_spec, model, params, card)["self_draft"]
+        batch = timed("batch", phase_batch, model, params,
+                      card)["launches"]
+    elif arch == "deepseek-moe-16b":
+        spec = timed("spec", phase_spec_moe, model, params,
+                     card)["self_draft"]
+    log({"phase_seconds": seconds, "arch": arch})
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2693,9 +3157,9 @@ def run_model(arch: str, card: str) -> dict:
     # decode from the dense serve, every other kernel from the paged one
     return {"paged": (serve["launches"], per_call["decode_step"],
                       per_call["prefill_chunk"]),
-            "dense": (dense["launches"],
-                      dense["launches_per_call"]["decode_step"],
-                      dense["launches_per_call"]["prefill"]),
+            "dense": dense and (dense["launches"],
+                                dense["launches_per_call"]["decode_step"],
+                                dense["launches_per_call"]["prefill"]),
             "spec": spec, "batch": batch}
 
 
@@ -2714,9 +3178,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = phase_device()
     phase_build()
+    t0 = time.perf_counter()
     checks = phase_kernels()
+    t1 = time.perf_counter()
     for arch in CLI_ARCHS:
         phase_cli(arch)
+    log({"phase_seconds": {"kernels": round(t1 - t0, 3),
+                           "cli": round(time.perf_counter() - t1, 3)}})
 
     kernels = []
 
@@ -2742,7 +3210,9 @@ def main() -> int:
                    launches_per_decode_step=per_step[name],
                    launches_per_prefill=per_prefill[name])
         spec = ran["spec"]
-        for name, (check, i) in (SPEC_SUMMARY_ROW.items() if spec else ()):
+        spec_rows = SPEC_SUMMARY_ROW if arch == "qwen3-8b" \
+            else MOE_SPEC_SUMMARY_ROW
+        for name, (check, i) in (spec_rows.items() if spec else ()):
             row_of(name, check, i, arch, "spec", spec["launches"][name],
                    launches_per_spec_round=spec["launches_per_spec_round"][
                        name],

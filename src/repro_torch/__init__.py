@@ -7,15 +7,19 @@ points run on ``cuda`` unless the caller passes ``device="cpu"``; asked for
 ``cuda`` without a card, they raise.
 
 The continuously batched engine serves the dense decoders (``qwen3-8b``,
-``smollm-360m``), the SSM family (``falcon-mamba-7b``, Mamba1) and the
-hybrid family (``zamba2-1.2b``, Mamba2 with a shared attention block),
+``smollm-360m``, ``phi4-mini-3.8b``, ``minitron-4b``), the MoE family
+(``granite-moe-1b-a400m``, ``deepseek-moe-16b``), the SSM family
+(``falcon-mamba-7b``, Mamba1) and the hybrid family (``zamba2-1.2b``,
+Mamba2 with a shared attention block),
 over a paged KV cache (the default) or a dense one (``paged=False``), with
 snapshot/restore in the JAX package's blob format. The paged engine's
 spill tier lends cold KV pages to peer hosts of a cloudlet and recalls
 them (``serving.kvcache.RemotePagePool``, over ``core.cloudlet`` and
 ``core.reliability``). Every kernel is hand-written CUDA C++ for Hopper:
 RMSNorm, flash attention, paged and dense decode attention, the Mamba1
-selective scan and the Mamba2 SSD. ``ROADMAP.md`` lists what comes next.
+selective scan and the Mamba2 SSD, and the row-invariant products
+(``gemm_rows``, grouped over experts too) and MoE router of the paged
+decode step. ``ROADMAP.md`` lists what comes next.
 """
 
 from __future__ import annotations

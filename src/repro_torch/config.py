@@ -139,6 +139,13 @@ class ModelConfig:
                      + di + di * d)
             apps = len(self.hybrid_attention_layers())
             return emb + L * block + attn + mlp + apps * 2 * d * d
+        if self.family == "moe":      # repro/models/moe.py build_specs
+            nd, f = self.first_k_dense, self.d_expert
+            dense = (3 if self.gated_mlp else 2) * d * (
+                self.d_ff_dense or self.d_ff) + d
+            moe = (d * self.n_experts + 3 * self.n_experts * d * f + d
+                   + 3 * d * self.n_shared_experts * f)
+            return emb + nd * (attn + dense) + (L - nd) * (attn + moe)
         raise NotImplementedError(
             f"param_count: the {self.family} family is not ported")
 

@@ -2,9 +2,9 @@
 
 Each module defines ``CONFIG`` (the published figures) and ``reduced()``
 (a tiny same-family twin for CPU tests), exactly as the JAX package's
-``repro/configs``. The dense, SSM and hybrid families are ported; the
-other archs of the JAX package raise ``KeyError`` naming the ROADMAP item
-that ports their family. ``DRAFT_PAIRS`` and ``draft_for`` are copies of
+``repro/configs``. The dense, MoE, SSM and hybrid families are ported;
+the multimodal archs of the JAX package raise ``KeyError`` naming the
+ROADMAP item that ports their family. ``DRAFT_PAIRS`` and ``draft_for`` are copies of
 the reference's speculative-decoding pairings.
 """
 
@@ -12,23 +12,25 @@ from __future__ import annotations
 
 from repro_torch.config import ModelConfig
 from repro_torch.configs import (
+    deepseek_moe_16b,
     falcon_mamba_7b,
+    granite_moe_1b_a400m,
+    minitron_4b,
+    phi4_mini_3_8b,
     qwen3_8b,
     smollm_360m,
     zamba2_1_2b,
 )
 
-_MODULES = [qwen3_8b, smollm_360m, falcon_mamba_7b, zamba2_1_2b]
+_MODULES = [qwen3_8b, smollm_360m, phi4_mini_3_8b, minitron_4b,
+            granite_moe_1b_a400m, deepseek_moe_16b, falcon_mamba_7b,
+            zamba2_1_2b]
 
 ARCHS: dict[str, ModelConfig] = {m.CONFIG.arch_id: m.CONFIG for m in _MODULES}
 REDUCED: dict[str, ModelConfig] = {m.CONFIG.arch_id: m.reduced() for m in _MODULES}
 
 # archs of the JAX package whose family the port does not carry yet
 _NOT_PORTED: dict[str, str] = {
-    "phi4-mini-3.8b": "dense configs beyond the first slice (ROADMAP Queue 1)",
-    "minitron-4b": "dense configs beyond the first slice (ROADMAP Queue 1)",
-    "granite-moe-1b-a400m": "MoE family (ROADMAP Queue 1, item 11)",
-    "deepseek-moe-16b": "MoE family (ROADMAP Queue 1, item 11)",
     "llava-next-mistral-7b": "multimodal families (ROADMAP Queue 1, item 13)",
     "whisper-medium": "multimodal families (ROADMAP Queue 1, item 13)",
 }

@@ -74,6 +74,21 @@
 //   of a w is encoded once into a launch record (gemm_rows_record) that the
 //   wrapper caches per (pointer, shape, layout); x, out and the partials
 //   need no descriptor, and the launch takes 8 arguments.
+//
+// The grouped product (gemm_rows_grouped_bf16): out (E, C, N) = buf (E, C,
+// K) @ w (E, K, N), one launch for all E experts of an MoE layer's routed
+// products on the paged decode step. It is the same kernel over a 3-D
+// tensor map of w: the items are (expert, 64-row pass, tile), expert by
+// expert, every tile whole (no K split: E tiles already fill the card), so
+// an (expert, row) result depends only on that row and w[e] -- not on C,
+// the row's rank, or which other experts have rows. With counts (E,) it
+// skips every pass that lies wholly at or past counts[e] and reads and
+// writes no row there: an expert no token chose costs no weight read.
+//
+// N need not be a multiple of 8 where w is (N, K) (a tied embedding of
+// 49,155 rows): the map's rows are K long; the merge falls back to single
+// columns where N is no multiple of 4. Where w is (K, N) the wrapper hands
+// a copy padded to ld columns (the map's row pitch must be 16 bytes).
 
 #include <cuda_bf16.h>
 #include <new>
@@ -218,13 +233,16 @@ __device__ __forceinline__ Item item_at(int i, int KT, int s_base,
     return it;
 }
 
-template <int BK, bool TA, int WG>
+// G3: w is E experts' (K, N) matrices under a 3-D map, x and out E blocks
+// of M rows; rows at or past counts[e] (where counts is given) are skipped
+template <int BK, bool TA, int WG, bool G3>
 __global__ void __launch_bounds__(Ring<BK, WG>::THREADS, 1)
 gemm_rows_kernel(const __grid_constant__ CUtensorMap tw,
                  const __nv_bfloat16* __restrict__ x,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ part,
                  unsigned int* __restrict__ counters, int M, int N, int K,
-                 int n_tiles, int s_base, int extra, int evict_first) {
+                 int n_tiles, int s_base, int extra, int evict_first,
+                 int n_exp, const long long* __restrict__ counts) {
     using R = Ring<BK, WG>;
     constexpr int CONSUMERS = R::CONSUMERS, BN = WG * SUB_N;
     extern __shared__ unsigned char smem_raw[];
@@ -245,17 +263,22 @@ gemm_rows_kernel(const __grid_constant__ CUtensorMap tw,
 
     const int KT = (K + BK - 1) / BK;
     const int per_pass = n_tiles * s_base + extra;
-    const int total = (M + XROWS - 1) / XROWS * per_pass;
+    const int per_exp = (M + XROWS - 1) / XROWS * per_pass;
+    const int total = n_exp * per_exp;
 
     if (threadIdx.x >= CONSUMERS) {  // the producer warpgroup
         const int pt = threadIdx.x - CONSUMERS;
         const uint64_t policy = evict_first_policy();
         int it = 0;
         for (int i = blockIdx.x; i < total; i += gridDim.x) {
-            const int p = i / per_pass;
-            const Item item = item_at(i - p * per_pass, KT, s_base, extra);
+            const int ex = i / per_exp, ri = i - ex * per_exp;
+            const int p = ri / per_pass;
+            const int Me = counts ? (int)min((long long)M, counts[ex]) : M;
+            if (p * XROWS >= Me) continue;   // the consumers skip it too
+            const Item item = item_at(ri - p * per_pass, KT, s_base, extra);
             const int m0 = p * XROWS, n0 = item.t * BN;
-            const int rows8 = (min(XROWS, M - m0) + 7) & ~7;
+            const int rows8 = (min(XROWS, Me - m0) + 7) & ~7;
+            const __nv_bfloat16* xe = x + (size_t)ex * M * K;
             for (int kt = item.k0; kt < item.k1; ++kt, ++it) {
                 const int st = it % R::STAGES;
                 // the stage's previous tiles released (passes at once on a
@@ -268,12 +291,20 @@ gemm_rows_kernel(const __grid_constant__ CUtensorMap tw,
                     for (int h = 0; h < WG; ++h) {
                         const int c0 = TA ? n0 + h * SUB_N : kt * BK;
                         const int c1 = TA ? kt * BK : n0 + h * SUB_N;
-                        if (evict_first)
+                        if constexpr (G3) {
+                            if (evict_first)
+                                tma_load_3d_hint(ws + h * R::W_SUB, &tw,
+                                                 &full[st], c0, c1, ex, policy);
+                            else
+                                tma_load_3d(ws + h * R::W_SUB, &tw, &full[st],
+                                            c0, c1, ex);
+                        } else if (evict_first) {
                             tma_load_2d_hint(ws + h * R::W_SUB, &tw, &full[st],
                                              c0, c1, policy);
-                        else
+                        } else {
                             tma_load_2d(ws + h * R::W_SUB, &tw, &full[st], c0,
                                         c1);
+                        }
                     }
                 }
                 // x: rows8 rows x BK / 8 chunks of 16 bytes, chunk j of row
@@ -282,9 +313,9 @@ gemm_rows_kernel(const __grid_constant__ CUtensorMap tw,
                 for (int c = pt; c < rows8 * (BK / 8); c += PRODUCERS) {
                     const int r = c / (BK / 8), j = c % (BK / 8);
                     const int m = m0 + r, k = kt * BK + j * 8;
-                    const bool ok = m < M && k < K;
+                    const bool ok = m < Me && k < K;
                     cp_async16_zfill(xs + r * 128 + ((j ^ (r & 7)) << 4),
-                                     ok ? x + (size_t)m * K + k : x, ok);
+                                     ok ? xe + (size_t)m * K + k : x, ok);
                 }
                 cp_async_mbar_arrive(&full[st]);
             }
@@ -301,11 +332,15 @@ gemm_rows_kernel(const __grid_constant__ CUtensorMap tw,
     const int r0 = 2 * (lane & 3);
     int it = 0;
     for (int i = blockIdx.x; i < total; i += gridDim.x) {
-        const int p = i / per_pass;
-        const Item item = item_at(i - p * per_pass, KT, s_base, extra);
+        const int ex = i / per_exp, ri = i - ex * per_exp;
+        const int p = ri / per_pass;
+        const int Me = counts ? (int)min((long long)M, counts[ex]) : M;
+        if (p * XROWS >= Me) continue;
+        const Item item = item_at(ri - p * per_pass, KT, s_base, extra);
         const int t = item.t, s = item.s, n_seg = item.n_seg;
         const int m0 = p * XROWS, n0 = t * BN;
-        const int G = (min(XROWS, M - m0) + 7) / 8;
+        const int G = (min(XROWS, Me - m0) + 7) / 8;
+        __nv_bfloat16* oute = out + (size_t)ex * M * N;
         const int steps = item.k1 - item.k0;
 
         float acc[8][4];
@@ -324,8 +359,8 @@ gemm_rows_kernel(const __grid_constant__ CUtensorMap tw,
                 for (int e = 0; e < 4; ++e) {
                     const int n = n0 + c0 + 8 * (e >> 1);
                     const int m = m0 + g * 8 + r0 + (e & 1);
-                    if (n < N && m < M)
-                        out[(size_t)m * N + n] = __float2bfloat16_rn(acc[g][e]);
+                    if (n < N && m < Me)
+                        oute[(size_t)m * N + n] = __float2bfloat16_rn(acc[g][e]);
                 }
             }
             continue;
@@ -363,7 +398,19 @@ gemm_rows_kernel(const __grid_constant__ CUtensorMap tw,
         for (int q = s * groups / n_seg + threadIdx.x;
              q < (s + 1) * groups / n_seg; q += CONSUMERS) {
             const int m = m0 + q / (BN / 4), n = n0 + (q % (BN / 4)) * 4;
-            if (n >= N) continue;   // N % 8 == 0: all 4 or none
+            if (n >= N) continue;
+            if (N & 3) {   // rows not 16-byte aligned: column by column
+                for (int u = 0; u < 4 && n + u < N; ++u) {
+                    float sum = 0.f;
+                    for (int s0 = 0; s0 < n_seg; ++s0) {
+                        const float v =
+                            __ldcg(part + ((size_t)s0 * M + m) * N + n + u);
+                        sum = s0 ? sum + v : v;
+                    }
+                    out[(size_t)m * N + n + u] = __float2bfloat16_rn(sum);
+                }
+                continue;
+            }
             const float4* src =
                 reinterpret_cast<const float4*>(part + (size_t)m * N + n);
             float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -403,25 +450,27 @@ gemm_rows_kernel(const __grid_constant__ CUtensorMap tw,
 // what a product's launches share: w's tensor map and the plan
 struct Record {
     CUtensorMap map;
-    int N, K, nk, bk, wg, n_tiles, s_base, extra, evict_first;
+    int N, K, nk, bk, wg, n_tiles, s_base, extra, evict_first, n_exp;
 };
 
-template <int BK, bool TA, int WG>
+template <int BK, bool TA, int WG, bool G3>
 static int launch(const Record* rec, const void* x, void* out, void* part,
-                  void* counters, int M, int grid, cudaStream_t stream) {
+                  void* counters, const void* counts, int M, int grid,
+                  cudaStream_t stream) {
     using R = Ring<BK, WG>;
     static bool attr_set = false;   // once per instance: it costs host time
     if (!attr_set) {
         const cudaError_t err = cudaFuncSetAttribute(
-            gemm_rows_kernel<BK, TA, WG>,
+            gemm_rows_kernel<BK, TA, WG, G3>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
         if (err != cudaSuccess) return (int)err;
         attr_set = true;
     }
-    gemm_rows_kernel<BK, TA, WG><<<grid, R::THREADS, R::SMEM, stream>>>(
+    gemm_rows_kernel<BK, TA, WG, G3><<<grid, R::THREADS, R::SMEM, stream>>>(
         rec->map, (const __nv_bfloat16*)x, (__nv_bfloat16*)out, (float*)part,
         (unsigned int*)counters, M, rec->N, rec->K, rec->n_tiles, rec->s_base,
-        rec->extra, rec->evict_first);
+        rec->extra, rec->evict_first, G3 ? rec->n_exp : 1,
+        (const long long*)counts);
     return (int)cudaGetLastError();
 }
 
@@ -429,25 +478,31 @@ template <int BK, bool TA>
 static int launch_wg(const Record* r, const void* x, void* out, void* part,
                      void* counters, int M, int grid, cudaStream_t st) {
     return r->wg == 2
-        ? launch<BK, TA, 2>(r, x, out, part, counters, M, grid, st)
-        : launch<BK, TA, 1>(r, x, out, part, counters, M, grid, st);
+        ? launch<BK, TA, 2, false>(r, x, out, part, counters, nullptr, M,
+                                   grid, st)
+        : launch<BK, TA, 1, false>(r, x, out, part, counters, nullptr, M,
+                                   grid, st);
 }
 
 // The launch record of a w and its plan (kernels/gemm_rows.py::plan): w
-// contiguous bf16, (K, N) when nk is 0, (N, K) when nk is 1; K and N
-// multiples of 8, w 16-byte aligned (the wrapper checks); bk 64 or 32, wg
-// consumer warpgroups (1 or 2: tiles of 64 wg columns), s_base segments a
-// tile and one more for the first `extra` tiles (at most the k steps), w's
-// loads evict-first in L2 or not. Writes the record's address to *rec;
-// returns 0, or a cudaError_t when the plan or the map is refused.
-extern "C" int gemm_rows_record(const void* w, int K, int N, int nk, int bk,
-                                int wg, int s_base, int extra,
-                                int evict_first, void** rec) {
+// bf16, 16-byte aligned, (K, N) with rows ld >= N apart when nk is 0, (N,
+// K) contiguous when nk is 1; K and ld multiples of 8 (the wrapper checks);
+// bk 64 or 32, wg consumer warpgroups (1 or 2: tiles of 64 wg columns),
+// s_base segments a tile and one more for the first `extra` tiles (at most
+// the k steps), w's loads evict-first in L2 or not. n_exp > 0 makes the
+// record of a grouped product (kernels/gemm_rows.py::plan_grouped): w is
+// n_exp contiguous (K, N) matrices (nk 0, ld N), every tile whole. Writes
+// the record's address to *rec; returns 0, or a cudaError_t when the plan or
+// the map is refused.
+extern "C" int gemm_rows_record(const void* w, int K, int N, int ld, int nk,
+                                int bk, int wg, int s_base, int extra,
+                                int evict_first, int n_exp, void** rec) {
     const int kt = (K + bk - 1) / bk;
     const int n_tiles = (N + wg * SUB_N - 1) / (wg * SUB_N);
-    if (K <= 0 || N <= 0 || K % 8 || N % 8 || !(bk == 64 || bk == 32)
-        || !(wg == 1 || wg == 2) || s_base < 1 || extra < 0
-        || extra >= n_tiles || s_base + (extra > 0) > kt)
+    if (K <= 0 || N <= 0 || K % 8 || !(bk == 64 || bk == 32)
+        || (!nk && (ld < N || ld % 8)) || !(wg == 1 || wg == 2) || s_base < 1
+        || extra < 0 || extra >= n_tiles || s_base + (extra > 0) > kt
+        || (n_exp > 0 && (nk || ld != N || s_base != 1 || extra)))
         return (int)cudaErrorInvalidValue;
     const EncodeTiled enc = encoder();
     if (!enc) return (int)cudaErrorNotSupported;
@@ -455,14 +510,18 @@ extern "C" int gemm_rows_record(const void* w, int K, int N, int nk, int bk,
     if (!r) return (int)cudaErrorMemoryAllocation;
     // (K, N): dims (N, K), a box of 64 columns x bk rows of k, 128 bytes
     // inner; (N, K): dims (K, N), a box of bk k x 64 rows of n, 2 bk bytes
-    // inner; each in the swizzle of its inner width
-    const cuuint64_t dims[2] = {(cuuint64_t)(nk ? K : N),
-                                (cuuint64_t)(nk ? N : K)};
-    const cuuint64_t strides[1] = {(cuuint64_t)(nk ? K : N) * 2};
-    const cuuint32_t box[2] = {(cuuint32_t)(nk ? bk : SUB_N),
-                               (cuuint32_t)(nk ? SUB_N : bk)};
-    const cuuint32_t unit[2] = {1, 1};
-    const CUresult res = enc(&r->map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+    // inner; each in the swizzle of its inner width; grouped: dims (N, K,
+    // n_exp), a box of one expert's (K, N) box
+    const cuuint64_t dims[3] = {(cuuint64_t)(nk ? K : N),
+                                (cuuint64_t)(nk ? N : K),
+                                (cuuint64_t)(n_exp > 0 ? n_exp : 1)};
+    const cuuint64_t strides[2] = {(cuuint64_t)(nk ? K : ld) * 2,
+                                   (cuuint64_t)K * N * 2};
+    const cuuint32_t box[3] = {(cuuint32_t)(nk ? bk : SUB_N),
+                               (cuuint32_t)(nk ? SUB_N : bk), 1};
+    const cuuint32_t unit[3] = {1, 1, 1};
+    const CUresult res = enc(&r->map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                             n_exp > 0 ? 3 : 2,
                              const_cast<void*>(w), dims, strides, box, unit,
                              CU_TENSOR_MAP_INTERLEAVE_NONE,
                              nk && bk == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -476,6 +535,7 @@ extern "C" int gemm_rows_record(const void* w, int K, int N, int nk, int bk,
     r->N = N; r->K = K; r->nk = nk; r->bk = bk; r->wg = wg;
     r->n_tiles = n_tiles; r->s_base = s_base; r->extra = extra;
     r->evict_first = evict_first;
+    r->n_exp = n_exp;
     *rec = r;
     return 0;
 }
@@ -504,7 +564,7 @@ extern "C" int gemm_rows_bf16(const void* x, const void* rec, void* out,
     cudaStream_t st = (cudaStream_t)stream;
     // a split tile's blocks wait for each other: they must share a wave
     const bool split = r->s_base > 1 || r->extra > 0;
-    if (M <= 0 || grid <= 0
+    if (M <= 0 || grid <= 0 || r->n_exp > 0
         || (split && r->n_tiles * r->s_base + r->extra > grid))
         return (int)cudaErrorInvalidValue;
     if (r->nk)
@@ -514,4 +574,23 @@ extern "C" int gemm_rows_bf16(const void* x, const void* rec, void* out,
     return r->bk == 32
         ? launch_wg<32, true>(r, x, out, part, counters, M, grid, st)
         : launch_wg<64, true>(r, x, out, part, counters, M, grid, st);
+}
+
+// The grouped product: buf (E, C, K), out (E, C, N) contiguous bf16,
+// 16-byte aligned, rec a grouped record of E experts; counts (E,) int64
+// (torch.bincount's type) or null: expert e's rows at or past counts[e]
+// are neither read nor written. grid the plan's block count.
+// Returns cudaGetLastError() after the launch.
+extern "C" int gemm_rows_grouped_bf16(const void* buf, const void* rec,
+                                      void* out, const void* counts, int C,
+                                      int grid, void* stream) {
+    const Record* r = static_cast<const Record*>(rec);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (C <= 0 || grid <= 0 || r->n_exp <= 0 || r->bk != 64)
+        return (int)cudaErrorInvalidValue;
+    return r->wg == 2
+        ? launch<64, true, 2, true>(r, buf, out, nullptr, nullptr, counts, C,
+                                    grid, st)
+        : launch<64, true, 1, true>(r, buf, out, nullptr, nullptr, counts, C,
+                                    grid, st);
 }

@@ -1,6 +1,6 @@
 // Hopper helpers shared by the kernels that stream tiles with TMA into a
 // shared-memory ring and multiply them with wgmma (flash_attention.cu,
-// gemm_rows.cu): mbarriers, 2-D and 4-D tensor-map loads, the
+// gemm_rows.cu): mbarriers, 2-D, 3-D and 4-D tensor-map loads, the
 // cp.async-to-mbarrier arrival, the async-proxy fence, the wgmma
 // descriptor of a 128-byte-swizzled tile and wgmma's fences, and the
 // tensor-map encoder.
@@ -75,6 +75,31 @@ __device__ __forceinline__ void tma_load_2d_hint(void* dst,
         " [%0], [%1, {%3, %4}], [%2], %5;\n"
         :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
            "r"(smem_u32(bar)), "r"(c0), "r"(c1), "l"(policy)
+        : "memory");
+}
+
+// one box of a 3-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5}], [%2];\n"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
+// the same with an L2 cache policy
+__device__ __forceinline__ void tma_load_3d_hint(void* dst,
+                                                 const CUtensorMap* map,
+                                                 uint64_t* bar, int c0, int c1,
+                                                 int c2, uint64_t policy) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+        " [%0], [%1, {%3, %4, %5}], [%2], %6;\n"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "l"(policy)
         : "memory");
 }
 

@@ -16,12 +16,20 @@ count, and the segments' f32 partials are added in segment order.
 It is chosen by entry point, never by row count: ``decode_paged_fn`` (and
 so the verify) passes it down as ``mm``; prefill, the dense engine and the
 SSM families keep ``torch.matmul``.
+
+``gemm_rows_grouped`` is the same kernel over all E experts of an MoE
+layer at once (``buf (E, C, K) @ w (E, K, N)``, one launch): its plan
+(``plan_grouped``) is fixed by (E, K, N, the SM count), never by the
+capacity C or the routing, and with the routing's ``counts`` it skips the
+64-row passes no token reached, so an expert no lane chose costs no weight
+read. The MoE paged decode step takes it for the routed experts.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -30,6 +38,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import _build
 from repro_torch.kernels._flash_decode import counters
 from repro_torch.kernels.ref import gemm_rows as plain  # noqa: F401  (beside the kernel)
+from repro_torch.kernels.ref import gemm_rows_grouped as plain_grouped  # noqa: F401
 
 SUB_N = 64                # columns of a consumer warpgroup: SUB_N
 ROWS = 64                 # rows of a pass: XROWS
@@ -136,9 +145,24 @@ def _cut(K: int, N: int, n_sm: int, bn: int) -> Plan:
 
 
 @functools.cache
+def plan_grouped(E: int, K: int, N: int, n_sm: int) -> Plan:
+    """The kernel's cut of a grouped ``(E, K, N)`` product on a card of
+    ``n_sm`` SMs: tiles of 128 columns, or 64 where 128 would give fewer
+    items than SMs (granite-moe's 32 experts at N 512), k steps of 64,
+    every tile whole (E tiles already give the SMs items: no K split, no
+    partials), the items (expert, tile) expert by expert. A pure function
+    of these four: no capacity, no routing."""
+    bn = 2 * SUB_N if E * -(-N // (2 * SUB_N)) >= n_sm else SUB_N
+    n_tiles = -(-N // bn)
+    items = E * n_tiles
+    return Plan(K, N, bn, 64, n_tiles, 1, 0, min(n_sm, items),
+                RING_BYTES // (64 * bn * 2 + X_STAGE), items <= n_sm)
+
+
+@functools.cache
 def _lib():
     lib = _build.load("gemm_rows")
-    lib.gemm_rows_record.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 8 + [
+    lib.gemm_rows_record.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 10 + [
         ctypes.POINTER(ctypes.c_void_p)]
     lib.gemm_rows_record.restype = ctypes.c_int
     lib.gemm_rows_free_record.argtypes = [ctypes.c_void_p]
@@ -149,6 +173,10 @@ def _lib():
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    grouped = lib.gemm_rows_grouped_bf16
+    grouped.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    grouped.restype = ctypes.c_int
     return lib
 
 
@@ -166,16 +194,43 @@ MAX_RECORDS = 4096
 _partials: dict[torch.device, torch.Tensor] = {}
 
 
-def _prepare(x: torch.Tensor, w: torch.Tensor, key: tuple) -> tuple:
-    """Check a weight (and that ``x`` can meet it), plan its product and
-    encode its tensor map; cached under ``key``."""
-    dev = x.device
-    if dev.type != "cuda" or w.device != dev:
+def _record(w: torch.Tensor, K: int, N: int, ld: int, nk: int, p: Plan,
+            n_exp: int) -> int:
+    """Encode w's tensor map and ``p`` into a launch record."""
+    lib = _lib()
+    if len(_launches) >= MAX_RECORDS:
+        forget()
+    rec = ctypes.c_void_p()
+    err = lib.gemm_rows_record(w.data_ptr(), K, N, ld, nk, p.bk,
+                               p.bn // SUB_N, p.s_base, p.extra,
+                               int(p.evict_first), n_exp, ctypes.byref(rec))
+    _build.check(err, "gemm_rows (tensor map)")
+    return rec.value
+
+
+def _check_device(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"gemm_rows kernel needs CUDA tensors on one "
                          f"device, got {x.device} and {w.device}")
-    if w.dtype != torch.bfloat16 or w.ndim != 2:
-        raise TypeError(f"gemm_rows kernel: w must be a bf16 matrix, got "
-                        f"{w.dtype} {tuple(w.shape)}")
+    if w.dtype != torch.bfloat16:
+        raise TypeError(f"gemm_rows kernel: w must be bf16, got {w.dtype}")
+
+
+def _prepare(x: torch.Tensor, w: torch.Tensor, key: tuple) -> tuple:
+    """Check a weight (and that ``x`` can meet it), plan its product and
+    encode its tensor map; cached under ``key``. The record holds no
+    reference to w (the cache must not keep a dropped model's weights
+    alive): a weight keeps its address for the life of a serve. A (K, N)
+    weight whose N is no multiple of 8 is copied once into rows of ``ld``
+    (N rounded up to 8) columns, zero past N, which the record keeps with
+    a weak reference to w: the map's row pitch must be a multiple of 16
+    bytes. The copy is taken when the record is made, as the tensor map is:
+    a weight keeps its values for the life of a serve, and another tensor
+    at w's address is copied anew."""
+    _check_device(x, w)
+    if w.ndim != 2:
+        raise TypeError(f"gemm_rows kernel: w must be a matrix, got "
+                        f"{tuple(w.shape)}")
     K, N = w.shape
     if w.is_contiguous():
         nk = 0
@@ -184,26 +239,24 @@ def _prepare(x: torch.Tensor, w: torch.Tensor, key: tuple) -> tuple:
     else:
         raise ValueError("gemm_rows kernel: w must be contiguous or the "
                          "transpose of a contiguous tensor")
-    if K % 8 or N % 8 or w.data_ptr() % 16:
-        raise ValueError(f"gemm_rows kernel: K {K} and N {N} must be "
-                         f"multiples of 8 and w 16-byte aligned")
-    p = plan(K, N, nk, _n_sm(dev.index))
-    lib = _lib()
-    if len(_launches) >= MAX_RECORDS:
-        forget()
-    rec = ctypes.c_void_p()
-    err = lib.gemm_rows_record(w.data_ptr(), K, N, nk, p.bk, p.bn // SUB_N,
-                               p.s_base, p.extra, int(p.evict_first),
-                               ctypes.byref(rec))
-    _build.check(err, "gemm_rows (tensor map)")
-    launch = _launches[key] = (K, N, rec.value, p.grid, p.scratch_floats(1),
-                               p.n_tiles)
+    if K % 8 or w.data_ptr() % 16:
+        raise ValueError(f"gemm_rows kernel: K {K} must be a multiple of 8 "
+                         f"and w 16-byte aligned")
+    src, ld, pad = w, N, None
+    if not nk and N % 8:
+        ld = -(-N // 8) * 8
+        src = torch.zeros(K, ld, dtype=w.dtype, device=w.device)
+        src[:, :N] = w
+        pad = (src, weakref.ref(w))
+    p = plan(K, N, nk, _n_sm(x.device.index))
+    launch = _launches[key] = (K, N, _record(src, K, N, ld, nk, p, 0),
+                               p.grid, p.scratch_floats(1), p.n_tiles, pad)
     return launch
 
 
 def forget() -> None:
-    """Free every launch record (the next call of a weight encodes its
-    tensor map again)."""
+    """Free every launch record, grouped ones too (the next call of a
+    weight encodes its tensor map again)."""
     for launch in _launches.values():
         _lib().gemm_rows_free_record(launch[2])
     _launches.clear()
@@ -224,8 +277,13 @@ def gemm_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     per weight, with its plan and tensor map; a call checks ``x``."""
     dev = x.device
     key = (w.data_ptr(), w.shape, w.stride(), w.dtype, dev)
-    launch = _launches.get(key) or _prepare(x, w, key)
-    K, N, rec, grid, scratch_a_row, n_tiles = launch
+    launch = _launches.get(key)
+    if launch is not None and launch[6] is not None \
+            and launch[6][1]() is not w:   # a padded copy of another w
+        _lib().gemm_rows_free_record(launch[2])
+        launch = None
+    launch = launch or _prepare(x, w, key)
+    K, N, rec, grid, scratch_a_row, n_tiles, _ = launch
     if x.dtype != torch.bfloat16 or x.shape[-1] != K:
         raise ValueError(f"gemm_rows kernel: x {x.dtype} "
                          f"{tuple(x.shape)} @ w {tuple(w.shape)} (bf16)")
@@ -250,6 +308,62 @@ def gemm_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 gemm_rows.launches = 0
 
 
+def _prepare_grouped(buf: torch.Tensor, w: torch.Tensor, key: tuple) -> tuple:
+    """``_prepare`` for a grouped product: w (E, K, N) contiguous bf16."""
+    _check_device(buf, w)
+    if w.ndim != 3 or not w.is_contiguous():
+        raise ValueError(f"gemm_rows_grouped kernel: w must be a contiguous "
+                         f"(E, K, N) tensor, got {tuple(w.shape)}")
+    E, K, N = w.shape
+    if K % 8 or N % 8 or w.data_ptr() % 16:
+        raise ValueError(f"gemm_rows_grouped kernel: K {K} and N {N} must "
+                         f"be multiples of 8 and w 16-byte aligned")
+    p = plan_grouped(E, K, N, _n_sm(buf.device.index))
+    launch = _launches[key] = (K, N, _record(w, K, N, N, 0, p, E), p.grid,
+                               0, p.n_tiles, None)
+    return launch
+
+
+def gemm_rows_grouped(buf: torch.Tensor, w: torch.Tensor,
+                      counts: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the kernel: ``buf (E, C, K) @ w (E, K, N)`` in bf16 with f32
+    sums, one launch for all experts. With ``counts`` (E,) int64 on the
+    card (the routing's per-expert counts), expert e's rows at or past
+    ``counts[e]`` are neither read nor written: the result holds whatever
+    its memory held there."""
+    dev = buf.device
+    key = (w.data_ptr(), w.shape, w.stride(), w.dtype, dev)
+    launch = _launches.get(key) or _prepare_grouped(buf, w, key)
+    K, N, rec, grid = launch[:4]
+    E = w.shape[0]
+    if buf.dtype != torch.bfloat16 or buf.ndim != 3 \
+            or buf.shape[0] != E or buf.shape[2] != K:
+        raise ValueError(f"gemm_rows_grouped kernel: buf {buf.dtype} "
+                         f"{tuple(buf.shape)} @ w {tuple(w.shape)} (bf16)")
+    if counts is not None and (counts.dtype != torch.int64
+                               or counts.shape != (E,)
+                               or counts.device != dev):
+        raise ValueError(f"gemm_rows_grouped kernel: counts must be ({E},) "
+                         f"int64 on {dev}")
+    buf = buf.contiguous()
+    if buf.data_ptr() % 16:
+        raise ValueError("gemm_rows_grouped kernel: buf is not 16-byte "
+                         "aligned")
+    C = buf.shape[1]
+    out = torch.empty((E, C, N), dtype=torch.bfloat16, device=dev)
+    if C:
+        err = _lib().gemm_rows_grouped_bf16(
+            buf.data_ptr(), rec, out.data_ptr(),
+            None if counts is None else counts.data_ptr(), C, grid,
+            _build.stream(dev))
+        _build.check(err, "gemm_rows_grouped")
+        gemm_rows_grouped.launches += 1
+    return out
+
+
+gemm_rows_grouped.launches = 0
+
+
 def decode_products(cfg: ModelConfig) -> list[tuple[str, int, int, bool]]:
     """``(name, K, N, nk)`` of each matrix product that one decode step of
     a dense config runs per layer (q, k, v, o, the MLP's three) and once
@@ -262,3 +376,32 @@ def decode_products(cfg: ModelConfig) -> list[tuple[str, int, int, bool]]:
             ("gate", d, cfg.d_ff, False), ("up", d, cfg.d_ff, False),
             ("down", cfg.d_ff, d, False),
             ("unembed", d, cfg.vocab_size, cfg.tie_embeddings)]
+
+
+def step_products(cfg: ModelConfig) -> list[tuple[str, int, int, bool, int]]:
+    """``(name, K, N, nk, times)``: each row-invariant product of one paged
+    decode step of a dense or an MoE config and how many times a step runs
+    it. An MoE config's layers run q, k, v and o, its MoE layers the shared
+    experts' three (its routed experts go through ``gemm_rows_grouped``),
+    its leading dense layers their MLP's three."""
+    if cfg.family == "dense":
+        return [(name, K, N, nk, 1 if name == "unembed" else cfg.n_layers)
+                for name, K, N, nk in decode_products(cfg)]
+    d, nd = cfg.d_model, cfg.first_k_dense
+    out = [(name, K, N, nk, cfg.n_layers)
+           for name, K, N, nk in decode_products(cfg)[:4]]
+    shared = cfg.n_shared_experts * cfg.d_expert
+    for tag, width, times in (("shared", shared, cfg.n_layers - nd),
+                              ("dense", cfg.d_ff_dense or cfg.d_ff, nd)):
+        if width and times:
+            out += [(f"{tag} gate", d, width, False, times),
+                    (f"{tag} up", d, width, False, times),
+                    (f"{tag} down", width, d, False, times)]
+    return out + [("unembed", d, cfg.vocab_size, cfg.tie_embeddings, 1)]
+
+
+def grouped_products(cfg: ModelConfig) -> list[tuple[str, int, int, int]]:
+    """``(name, E, K, N)`` of each grouped product of an MoE layer's routed
+    experts on the paged decode step (gate, up, down)."""
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_expert
+    return [("gate", E, d, f), ("up", E, d, f), ("down", E, f, d)]

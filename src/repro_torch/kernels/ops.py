@@ -14,7 +14,9 @@ which path it took. ``paged_verify_attention`` is no kernel of its own: on
 the card it folds its window into the paged decode kernel, as the TPU path
 does (``repro/kernels/ops.py:285-301``), and counts there. ``gemm_rows`` has
 no TPU kernel: it is the paged decode step's row-invariant product
-(``kernels/gemm_rows.py``). ``causal_conv1d``, ``selective_scan_step`` and
+(``kernels/gemm_rows.py``); nor have ``gemm_rows_grouped``, its form over
+all experts of an MoE layer, and ``moe_route``, the MoE router
+(``kernels/moe_route.py``). ``causal_conv1d``, ``selective_scan_step`` and
 ``ssd_step`` have no TPU kernel (the JAX package runs them through XLA on
 every backend): they are plain code on every device, and not counted.
 """
@@ -29,6 +31,7 @@ import torch
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gemm_rows as _gemm
+from repro_torch.kernels import moe_route as _route
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rmsnorm
@@ -48,6 +51,8 @@ KERNELS = {
     "selective_scan": _scan.selective_scan,
     "ssd": _ssd.ssd,
     "gemm_rows": _gemm.gemm_rows,
+    "moe_route": _route.moe_route,
+    "gemm_rows_grouped": _gemm.gemm_rows_grouped,
 }
 plain_calls = {name: 0 for name in KERNELS}
 
@@ -161,6 +166,28 @@ def gemm_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if _plain(x, "gemm_rows"):
         return ref.gemm_rows(x, w)
     return _gemm.gemm_rows(x, w)
+
+
+def gemm_rows_grouped(buf: torch.Tensor, w: torch.Tensor,
+                      counts: torch.Tensor | None = None) -> torch.Tensor:
+    """``buf (E, C, K) @ w (E, K, N)``, bf16 with f32 sums, each (expert,
+    row)'s bits independent of C, of its rank and of the other experts (the
+    MoE paged decode step's routed experts). On the card, rows of expert e
+    at or past ``counts[e]`` are left unwritten; the plain version computes
+    every row."""
+    if _plain(buf, "gemm_rows_grouped"):
+        return ref.gemm_rows_grouped(buf, w)
+    return _gemm.gemm_rows_grouped(buf, w, counts)
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor,
+              k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x (T, d)`` bf16 through the f32 ``router (d, E)``: ``weights (T,
+    k)`` f32 and ``ids (T, k)`` int32 of each token's top-k experts, a
+    token's result independent of the others."""
+    if _plain(x, "moe_route"):
+        return ref.moe_route(x, router, k)
+    return _route.moe_route(x, router, k)
 
 
 def selective_scan(

@@ -14,7 +14,10 @@ chunked form of the reference's XLA path (``ops.py:519-576``: masked
 ``c x c`` products within a chunk, a carried ``(P, N)`` state across
 chunks), the blocking the CUDA kernel follows. ``causal_conv1d``,
 ``selective_scan_step`` and ``ssd_step`` have no TPU kernel: they are plain
-code on every device (``ops.py:381-405,457-477,579-605``).
+code on every device (``ops.py:381-405,457-477,579-605``). ``gemm_rows``,
+``gemm_rows_grouped`` and ``moe_route`` have no TPU kernel either: the
+reference leaves them to XLA; the port's kernels for them exist for row
+invariance (``kernels/gemm_rows.py``, ``kernels/moe_route.py``).
 
 One deliberate difference from ``repro.kernels.ref``: a decode lane of
 length 0, dense or paged, gives zeros, which is the kernels' contract (the
@@ -156,6 +159,34 @@ def gemm_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     result: the plain product the paged decode step took before it had a
     kernel of its own."""
     return x @ w
+
+
+def gemm_rows_grouped(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``buf (E, C, K) @ w (E, K, N)`` with bf16 operands, f32 sums and a
+    bf16 result: the reference's expert products (``einsum("ecd,edf->ecf")``,
+    ``repro/models/moe.py:81-87``)."""
+    return torch.bmm(buf, w)
+
+
+# ---------------------------------------------------------------------------
+# MoE routing (no TPU kernel: the reference routes in XLA,
+# ``repro/models/moe.py:209-213``)
+# ---------------------------------------------------------------------------
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor,
+              k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k routing: f32 logits ``x.float() @ router``, a
+    softmax, the ``k`` most probable experts (a tie goes to the lower id, as
+    ``lax.top_k`` breaks it), their probabilities renormalised by
+    ``max(sum, 1e-9)``. ``x (T, d)``, ``router (d, E)``; returns ``weights
+    (T, k)`` f32 and ``ids (T, k)`` int32, best first."""
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    # a stable descending sort keeps equal probabilities in id order
+    weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, ids = weights[:, :k], ids[:, :k]
+    weights = weights / weights.sum(-1, keepdim=True).clamp(min=1e-9)
+    return weights, ids.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,9 @@ Usage:
         [--full] [--device cpu] [--requests 8 --max-new 12] [--fail-after 5]
 
 ``--arch`` takes every arch the port carries: ``qwen3-8b``,
-``smollm-360m`` (dense), ``falcon-mamba-7b`` (SSM) and ``zamba2-1.2b``
-(hybrid).
+``smollm-360m``, ``phi4-mini-3.8b``, ``minitron-4b`` (dense),
+``granite-moe-1b-a400m``, ``deepseek-moe-16b`` (MoE), ``falcon-mamba-7b``
+(SSM) and ``zamba2-1.2b`` (hybrid).
 """
 
 from __future__ import annotations

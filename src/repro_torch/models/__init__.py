@@ -1,9 +1,9 @@
 """Model zoo of the port: ``get_model(cfg)`` returns a
 :class:`repro_torch.models.model_api.ModelFns`.
 
-The dense (``transformer``), SSM (``mamba``) and hybrid (``hybrid``)
-families are ported; the others raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+The dense (``transformer``), MoE (``moe``), SSM (``mamba``) and hybrid
+(``hybrid``) families are ported; the multimodal ones raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -12,7 +12,6 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.model_api import ModelFns
 
 _LATER = {
-    "moe": "ROADMAP Queue 1, item 11 (MoE family)",
     "encdec": "ROADMAP Queue 1, item 13 (multimodal families)",
     "vlm": "ROADMAP Queue 1, item 13 (multimodal families)",
 }
@@ -21,6 +20,8 @@ _LATER = {
 def get_model(cfg: ModelConfig) -> ModelFns:
     if cfg.family == "dense":
         from repro_torch.models import transformer as family
+    elif cfg.family == "moe":
+        from repro_torch.models import moe as family
     elif cfg.family == "ssm":
         from repro_torch.models import mamba as family
     elif cfg.family == "hybrid":

@@ -12,6 +12,11 @@ whose rows do not depend on the row count, and the speculative verify
 folds its ``B·W`` window lanes into that step (``verify_paged_fn``): so a
 verified token's logits are a plain decode step's, bit for bit, on the card
 too. Prefill and the dense path keep ``torch.matmul``.
+
+The MoE family (``models/moe.py``) serves through these same entry points:
+its layers are blocks too, whose ``ffn`` routes through the experts, and
+the paged decode step hands them ``ops.gemm_rows_grouped`` for the routed
+experts' products beside ``ops.gemm_rows`` for every other product.
 """
 
 from __future__ import annotations
@@ -44,6 +49,12 @@ class Block(nn.Module):
         self.attn = Params(**attn)
         self.mlp = Params(**mlp)
 
+    def ffn(self, h: torch.Tensor, cfg: ModelConfig, mm: ll.Matmul,
+            grouped=None) -> torch.Tensor:
+        """The block's MLP on the normalized ``h`` (a dense block takes no
+        grouped product)."""
+        return ll.mlp_forward(self.mlp, h, cfg, mm)
+
 
 class DenseLM(nn.Module):
     """Weights of a dense decoder: embedding, one :class:`Block` per layer,
@@ -64,12 +75,14 @@ class DenseLM(nn.Module):
 
 
 def _block(lp: Block, x: torch.Tensor, cfg: ModelConfig, attend,
-           mm: ll.Matmul = torch.matmul):
-    """Pre-norm attention (``attend(p, h)``, the call's attention) + MLP."""
+           mm: ll.Matmul = torch.matmul, grouped=None):
+    """Pre-norm attention (``attend(p, h)``, the call's attention) + the
+    block's MLP (``lp.ffn``; ``grouped`` is the routed experts' product of
+    an MoE block, None for ``torch.bmm``)."""
     h = ops.rmsnorm(x, lp.attn.ln, cfg.norm_eps)
     y = x + attend(lp.attn, h)
     h = ops.rmsnorm(y, lp.mlp.ln, cfg.norm_eps)
-    return y + ll.mlp_forward(lp.mlp, h, cfg, mm)
+    return y + lp.ffn(h, cfg, mm, grouped)
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +173,8 @@ def prefill_chunk_fn(params: DenseLM, cache: Tree, batch: dict,
 def decode_paged_fn(params: DenseLM, cache: Tree, batch: dict,
                     cfg: ModelConfig) -> torch.Tensor:
     """One batched token step (``transformer.py:226-246``), its products
-    through ``ops.gemm_rows``. Returns (B, V)."""
+    through ``ops.gemm_rows`` (an MoE block's routed experts through
+    ``ops.gemm_rows_grouped``). Returns (B, V)."""
     positions = batch["positions"]
     table = batch["page_table"]
     mm = ops.gemm_rows
@@ -169,7 +183,8 @@ def decode_paged_fn(params: DenseLM, cache: Tree, batch: dict,
     lengths = (positions + 1).to(torch.int32)
     for lp, kp, vp in zip(params.layers, cache["k_pages"], cache["v_pages"]):
         x = _block(lp, x, cfg, lambda p, h: ll.attn_decode_paged(
-            p, h, cfg, rows, lengths, kp, vp, table, mm), mm)
+            p, h, cfg, rows, lengths, kp, vp, table, mm), mm,
+            ops.gemm_rows_grouped)
     x = ops.rmsnorm(x, params.final_ln, cfg.norm_eps)
     return ll.logits_last(params, x[:, 0], cfg, mm)
 

@@ -6,8 +6,11 @@ order. A row's bits may depend only on that row and w, so every choice of
 the cut is made by ``kernels/gemm_rows.py::plan`` from (K, N, the layout of
 w, the SM count), never from the row count. The kernel cannot run here;
 these tests hold the plan itself at every decode product of full-width and
-REDUCED qwen3-8b and smollm-360m (``gemm_rows.decode_products``), in both
-layouts of w, and the constants that the wrapper and the source share.
+REDUCED qwen3-8b, smollm-360m, phi4-mini-3.8b and minitron-4b
+(``gemm_rows.decode_products``), in both layouts of w, and the constants
+that the wrapper and the source share; and the grouped product's plan at
+the MoE configs' expert products, and the shapes of an MoE decode step's
+other products (granite-moe's tied 49,155-column unembedding among them).
 """
 
 import inspect
@@ -24,7 +27,8 @@ from repro_torch.kernels import gemm_rows as gk  # noqa: E402
 N_SM = 132  # the H100 SXM's SMs
 SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
           / "gemm_rows.cu")
-ARCHS = ("qwen3-8b", "smollm-360m")
+ARCHS = ("qwen3-8b", "smollm-360m", "phi4-mini-3.8b", "minitron-4b")
+MOE_ARCHS = ("granite-moe-1b-a400m", "deepseek-moe-16b")
 
 
 def _cases(widths):
@@ -119,3 +123,63 @@ def test_constants_mirror_the_source():
                  "it.k1 = (it.s + 1) * KT / it.n_seg;",
                  "const int per_pass = n_tiles * s_base + extra;"):
         assert line in text
+
+
+def _moe_products(cfg):
+    """(K, N, nk) of an MoE decode step's row-invariant products: q, k, v,
+    o, the shared experts', the dense layers' and the unembedding."""
+    d, dh = cfg.d_model, cfg.d_head
+    out = [(d, cfg.n_heads * dh, False), (d, cfg.n_kv_heads * dh, False),
+           (cfg.n_heads * dh, d, False),
+           (d, cfg.vocab_size, cfg.tie_embeddings)]
+    for width in (cfg.n_shared_experts * cfg.d_expert,
+                  (cfg.d_ff_dense or cfg.d_ff) if cfg.first_k_dense else 0):
+        if width:
+            out += [(d, width, False), (width, d, False)]
+    return out
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("reduced", [False, True])
+def test_moe_step_products_plan_to_whole_k(arch, reduced):
+    """Every other product of an MoE decode step plans as a dense one does:
+    segments cover K once on the k step, with an N no multiple of 8 (the
+    tied 49,155-column unembedding) cut into tiles like any other."""
+    for K, N, nk in _moe_products(get(arch, reduced=reduced)):
+        p = gk.plan(K, N, nk, N_SM)
+        assert p.n_tiles == -(-N // p.bn)
+        for t in range(p.n_tiles):
+            segs = p.segments(t)
+            assert segs[0][0] == 0 and segs[-1][1] == K
+        assert p.items >= N_SM or reduced
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("reduced", [False, True])
+def test_grouped_plan_takes_no_capacity_and_splits_nothing(arch, reduced):
+    """The grouped plan of each routed-expert product: a function of (E,
+    K, N, n_sm) alone, every tile whole (one segment, no partials), tiles
+    that cover N, a ring that fits; at full width at least one item an
+    SM."""
+    assert list(inspect.signature(gk.plan_grouped).parameters) == [
+        "E", "K", "N", "n_sm"]
+    cfg = get(arch, reduced=reduced)
+    for name, E, K, N in gk.grouped_products(cfg):
+        p = gk.plan_grouped(E, K, N, N_SM)
+        assert (p.s_base, p.extra, p.n_seg, p.bk) == (1, 0, 1, 64)
+        assert p.scratch_floats(40) == 0
+        assert p.n_tiles * p.bn >= N > (p.n_tiles - 1) * p.bn
+        assert p.grid == min(N_SM, E * p.n_tiles)
+        assert p.stages * (p.bk * p.bn * 2 + gk.X_STAGE) <= gk.RING_BYTES
+        assert p.work() == [(t, 0, 0, p.kt) for t in range(p.n_tiles)]
+        if not reduced:
+            assert E * p.n_tiles >= N_SM, (name, p)
+        gk.plan_grouped.cache_clear()
+        assert gk.plan_grouped(E, K, N, N_SM) == p
+
+
+def test_grouped_products_are_the_experts():
+    cfg = get("deepseek-moe-16b")
+    assert gk.grouped_products(cfg) == [("gate", 64, 2048, 1408),
+                                        ("up", 64, 2048, 1408),
+                                        ("down", 64, 1408, 2048)]

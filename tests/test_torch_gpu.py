@@ -758,3 +758,213 @@ def test_verify_paged_equals_decode_steps_on_the_card():
     for k in cache:
         assert torch.equal(cache[k].view(torch.int16),
                            seq_cache[k].view(torch.int16)), k
+
+
+# ---------------------------------------------------------------------------
+# The MoE family's kernels: routing and the grouped expert products
+# ---------------------------------------------------------------------------
+
+# (d, E, k) of the routers: deepseek-moe-16b, granite-moe-1b-a400m, and
+# their REDUCED twins
+ROUTERS = [(2048, 64, 6), (1024, 32, 8), (64, 8, 2), (64, 4, 2)]
+# a near tie: where two of the plain version's first k + 1 probabilities
+# (sorted) differ by less than this, the kernel may rank them either way;
+# the two compute a probability near 1/64 to ~2e-9 (f32 sums over d in
+# another order, the exponential's ulp)
+ROUTE_TIE = 1e-7
+
+
+def _router_case(g, T, d, E):
+    """Normalized-looking bf16 rows and an f32 router at the init's scale
+    (``small``, 1e-4), so the experts' probabilities sit near 1/E."""
+    x = torch.randn(T, d, generator=g, device="cuda").bfloat16()
+    router = torch.randn(d, E, generator=g, device="cuda") * 1e-4
+    return x, router
+
+
+def _route_ties(x, router, k) -> torch.Tensor:
+    """Per token, whether two of its first k + 1 probabilities (plain
+    version, sorted) are a near tie."""
+    probs = torch.softmax(x.float() @ router, -1).sort(-1, descending=True)[0]
+    top = probs[:, :k + 1]
+    return ((top[:, :-1] - top[:, 1:]) < ROUTE_TIE).any(-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,E,k", ROUTERS)
+def test_moe_route_matches_plain_version_on_the_card(d, E, k):
+    """On the H100: the router kernel against its plain version at 8, 40
+    and 256 tokens: ids equal except at a near tie (printed), weights
+    within 1e-5; and each token's ids and weights bitwise the same at 1, 8,
+    40 and 64 tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(E)
+    x, router = _router_case(g, 256, d, E)
+    for T in (8, 40, 256):
+        w, ids = ops.moe_route(x[:T], router, k)
+        with ops.use_backend("plain"):
+            pw, pids = ops.moe_route(x[:T], router, k)
+        same = (ids == pids).all(-1)
+        ties = _route_ties(x[:T], router, k)
+        print(d, E, k, T, "near ties", int(ties.sum()),
+              "rows differing", int((~same).sum()))
+        assert bool((same | ties).all())
+        torch.testing.assert_close(w[same], pw[same], atol=1e-5, rtol=1e-5)
+    whole = ops.moe_route(x[:64], router, k)
+    for T in (1, 8, 40, 64):
+        part = ops.moe_route(x[:T], router, k)
+        assert torch.equal(part[0], whole[0][:T])
+        assert torch.equal(part[1], whole[1][:T])
+
+
+def _routing(g, E, C, n_empty):
+    """Per-expert row counts (E,) int64 for a buffer of C rows an expert:
+    ``n_empty`` experts get none, one gets all C, the rest 1..C."""
+    counts = torch.randint(1, C + 1, (E,), generator=g, device="cuda")
+    perm = torch.randperm(E, generator=g, device="cuda")
+    counts[perm[:n_empty]] = 0
+    counts[perm[n_empty]] = C
+    return counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b",
+                                  "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("reduced", [False, True])
+def test_gemm_rows_grouped_matches_plain_version_on_the_card(arch, reduced):
+    """On the H100, each routed-expert product of the config (gate, up,
+    down) at the decode step's and a k = 4 verify's capacity (8 and 40),
+    with routings that leave experts empty: every row below its expert's
+    count within bf16 atol = rtol = 2e-2 of the plain version; without
+    counts, every row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get
+    from repro_torch.kernels.gemm_rows import grouped_products
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for name, E, K, N in grouped_products(get(arch, reduced=reduced)):
+        w = (torch.randn(E, K, N, generator=g, device="cuda")
+             * K ** -0.5).bfloat16()
+        for C in (8, 40):
+            buf = torch.randn(E, C, K, generator=g, device="cuda").bfloat16()
+            counts = _routing(g, E, C, E // 3)
+            with ops.use_backend("plain"):
+                want = ops.gemm_rows_grouped(buf, w, counts)
+            got = ops.gemm_rows_grouped(buf, w, counts)
+            rows = torch.arange(C, device="cuda")[None, :] < counts[:, None]
+            torch.testing.assert_close(got[rows].float(), want[rows].float(),
+                                       atol=2e-2, rtol=2e-2,
+                                       msg=f"{arch} {name} C={C}")
+            torch.testing.assert_close(
+                ops.gemm_rows_grouped(buf, w).float(), want.float(),
+                atol=2e-2, rtol=2e-2)
+        del w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b",
+                                  "granite-moe-1b-a400m"])
+def test_gemm_rows_grouped_rows_are_invariant_on_the_card(arch):
+    """On the H100: an (expert, row) result of the grouped product has the
+    same bits at capacity 8, 40 and 64, at any rank within its expert (the
+    rows of expert e shifted down by 3), with the other experts empty or
+    full, and without counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get
+    from repro_torch.kernels.gemm_rows import grouped_products
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for name, E, K, N in grouped_products(get(arch)):
+        w = (torch.randn(E, K, N, generator=g, device="cuda")
+             * K ** -0.5).bfloat16()
+        src = torch.randn(E, 64, K, generator=g, device="cuda").bfloat16()
+        full = ops.gemm_rows_grouped(src, w)
+        for C in (8, 40, 64):
+            for n_empty in (0, E // 2, E - 1):
+                counts = _routing(g, E, C, n_empty)
+                got = ops.gemm_rows_grouped(src[:, :C].contiguous(), w,
+                                            counts)
+                rows = torch.arange(C, device="cuda")[None] < counts[:, None]
+                assert torch.equal(got[rows], full[:, :C][rows]), \
+                    (name, C, n_empty)
+            # rank: expert rows moved down by 3 in a fresh buffer
+            moved = torch.zeros(E, C, K, device="cuda",
+                                dtype=torch.bfloat16)
+            moved[:, 3:] = src[:, :C - 3]
+            got = ops.gemm_rows_grouped(moved, w)
+            assert torch.equal(got[:, 3:], full[:, :C - 3]), (name, C)
+        del w
+
+
+@pytest.mark.gpu
+def test_gemm_rows_takes_an_unaligned_n_on_the_card():
+    """On the H100: granite-moe's tied unembedding, N = 49,155 (no multiple
+    of 8), K 1024, w as the transpose of the (N, K) embedding and as a (K,
+    N) matrix: within bf16 atol = rtol = 2e-2 of the plain version, and
+    each row's bits the same at every row count 1-80 (and 128)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    K, N = 1024, 49_155
+    for nk in (True, False):
+        w = _weight(g, K, N, nk)
+        x = torch.randn(128, K, generator=g, device="cuda").bfloat16()
+        for M in (8, 40):
+            with ops.use_backend("plain"):
+                want = ops.gemm_rows(x[:M], w)
+            got = ops.gemm_rows(x[:M], w)
+            assert got.shape == (M, N)
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                       rtol=2e-2, msg=f"nk={nk} M={M}")
+        assert all(_rows_invariant(ops.gemm_rows, w, x).values()), nk
+        del w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b",
+                                  "granite-moe-1b-a400m"])
+def test_moe_decode_lane_is_batch_invariant_on_the_card(arch):
+    """On the H100, REDUCED ``arch`` at its full REDUCED depth: a lane's
+    paged decode logits alone, in a batch of 8 and in the 40-lane verify
+    fold of a k = 4 window are bitwise equal; the router and the grouped
+    product were launched, no plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get
+    from repro_torch.models import get_model
+
+    model = get_model(get(arch, reduced=True))
+    params = model.init(0, device="cuda")
+    B, W, P, pages = 8, 5, 16, 6
+    table = torch.arange(1, 1 + B * pages, device="cuda",
+                         dtype=torch.int32).reshape(B, pages)
+    g = torch.Generator(device="cuda").manual_seed(10)
+    toks = torch.randint(1, 512, (B, 40), generator=g, device="cuda",
+                         dtype=torch.int32)
+    cache = model.init_paged_cache(B, 1 + B * pages, P, device="cuda")
+    for t in range(30):
+        model.decode_paged(params, cache, {
+            "tokens": toks[:, t:t + 1], "page_table": table,
+            "positions": torch.full((B,), t, device="cuda",
+                                    dtype=torch.int32)})
+    pos = torch.full((B,), 30, device="cuda", dtype=torch.int32)
+
+    def fresh():
+        return {k: v.clone() for k, v in cache.items()}
+
+    ops.reset_counts()
+    alone = model.decode_paged(params, fresh(), {
+        "tokens": toks[:1, 30:31], "positions": pos[:1],
+        "page_table": table[:1]})[0]
+    batch = model.decode_paged(params, fresh(), {
+        "tokens": toks[:, 30:31], "positions": pos, "page_table": table})[0]
+    fold = model.verify_paged(params, fresh(), {
+        "tokens": toks[:, 30:30 + W], "positions": pos,
+        "page_table": table})[0, 0]
+    assert torch.equal(alone, batch) and torch.equal(alone, fold)
+    counts = ops.counts()
+    for name in ("moe_route", "gemm_rows_grouped", "gemm_rows"):
+        assert counts[name]["launches"] > 0 and not counts[name]["plain"]

@@ -144,8 +144,8 @@ def test_cuda_entry_points_raise_without_a_card():
 
 def test_engine_rejects_what_the_slice_leaves_out():
     """Speculative decoding is ported: a draft builds its pools beside the
-    target's. What the port still leaves out is the MoE pair's draft
-    (ROADMAP item 11), whose config raises; and a recurrent-state target is
+    target's. What the port still leaves out is the multimodal families
+    (ROADMAP item 13), whose configs raise; and a recurrent-state target is
     refused as the reference refuses it."""
     from repro_torch.configs import draft_for
     from repro_torch.serving.engine import ServeEngine
@@ -156,16 +156,20 @@ def test_engine_rejects_what_the_slice_leaves_out():
     eng = ServeEngine(model, params, **kw, draft=model, draft_params=params)
     assert sorted(eng.cache) == ["draft_k_pages", "draft_v_pages",
                                  "k_pages", "v_pages"]
+    assert draft_for("deepseek-moe-16b").arch_id == "granite-moe-1b-a400m"
     with pytest.raises(KeyError, match="ROADMAP"):
-        draft_for("deepseek-moe-16b")
+        get("llava-next-mistral-7b")
     ssm = get_model(get("falcon-mamba-7b", reduced=True))
     with pytest.raises(ValueError, match="verify"):
         ServeEngine(ssm, ssm.init(0, device="cpu"), **kw, draft=model,
                     draft_params=params)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "smollm-360m",
-                                  "falcon-mamba-7b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", [
+    "qwen3-8b", "smollm-360m", "falcon-mamba-7b", "zamba2-1.2b",
+    "phi4-mini-3.8b", "minitron-4b", "granite-moe-1b-a400m",
+    "deepseek-moe-16b",
+])
 def test_configs_equal_the_reference(arch):
     from repro.configs import get as ref_get
 
@@ -174,10 +178,7 @@ def test_configs_equal_the_reference(arch):
             dataclasses.asdict(ref_get(arch, reduced))
 
 
-@pytest.mark.parametrize("arch", [
-    "phi4-mini-3.8b", "minitron-4b", "granite-moe-1b-a400m",
-    "deepseek-moe-16b", "llava-next-mistral-7b", "whisper-medium",
-])
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "whisper-medium"])
 def test_archs_not_ported_raise(arch):
     from repro.configs import get as ref_get
 
@@ -187,7 +188,7 @@ def test_archs_not_ported_raise(arch):
     from repro_torch.config import ModelConfig
 
     cfg = ref_get(arch, reduced=True)
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(ModelConfig(**dataclasses.asdict(cfg)))
 

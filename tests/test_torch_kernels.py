@@ -177,11 +177,18 @@ def test_cpu_tensors_dispatch_to_the_plain_versions():
     w = torch.randn(16, 8).bfloat16()
     torch.testing.assert_close(ops.gemm_rows(x.bfloat16(), w),
                                x.bfloat16() @ w)
+    buf = torch.randn(4, 3, 16).bfloat16()
+    wg = torch.randn(4, 16, 8).bfloat16()
+    torch.testing.assert_close(ops.gemm_rows_grouped(buf, wg),
+                               torch.bmm(buf, wg))
+    router = torch.randn(16, 4)
+    torch.testing.assert_close(ops.moe_route(x.bfloat16(), router, 2),
+                               ref.moe_route(x.bfloat16(), router, 2))
     counts = ops.counts()
     assert {n: c["plain"] for n, c in counts.items()} == {
         "rmsnorm": 1, "flash_attention": 1, "paged_decode_attention": 2,
         "decode_attention": 1, "selective_scan": 0, "ssd": 0,
-        "gemm_rows": 1}
+        "gemm_rows": 1, "moe_route": 1, "gemm_rows_grouped": 1}
     assert all(c["launches"] == 0 for c in counts.values())
     ops.reset_counts()
     assert all(c == {"launches": 0, "plain": 0} for c in ops.counts().values())
@@ -192,12 +199,18 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     computes on the CPU itself (that is the dispatch's plain route)."""
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import gemm_rows as gk
+    from repro_torch.kernels import moe_route as mk
     from repro_torch.kernels import paged_decode_attention as pk
     from repro_torch.kernels import rmsnorm as rk
 
     x = torch.randn(2, 16, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         rk.rmsnorm(x, torch.ones(16))
+    with pytest.raises(ValueError):
+        mk.moe_route(x, torch.randn(16, 4), 2)
+    with pytest.raises(ValueError):
+        gk.gemm_rows_grouped(x[None], torch.randn(1, 16, 8).bfloat16())
     q = torch.randn(1, 8, 4, 16, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fk.flash_attention(q, q[:, :, :2], q[:, :, :2])

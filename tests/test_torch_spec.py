@@ -1,8 +1,9 @@
 """Speculative decoding and ``fork`` on the port, against the JAX package.
 
-- every case of ``tests/test_spec_decode.py`` but the MoE parity case (the
-  port has no MoE family yet, ROADMAP Queue 1, item 11), run on the port's
-  engine on the CPU with the reference's own assertion: greedy and sampled
+- every case of ``tests/test_spec_decode.py``, its MoE parity case
+  (REDUCED deepseek-moe-16b drafted by granite-moe-1b-a400m) included, run
+  on the port's engine on the CPU with the reference's own assertion:
+  greedy and sampled
   speculation give plain decode's tokens, a self-draft accepts everything,
   a rejection at every window offset rolls back with exact counters,
   preemption, snapshot and budget fallback keep the tokens, the
@@ -118,8 +119,11 @@ def test_draft_pairs_are_the_references():
     assert draft_for("qwen3-8b", reduced=True) == get("smollm-360m",
                                                       reduced=True)
     assert draft_for("smollm-360m") is None
-    with pytest.raises(KeyError, match="not ported"):
-        draft_for("deepseek-moe-16b")
+    # the MoE pair resolves, at published widths too (where its vocabs
+    # differ, ROADMAP Queue 3, R4)
+    for reduced in (False, True):
+        assert draft_for("deepseek-moe-16b", reduced=reduced) == get(
+            "granite-moe-1b-a400m", reduced=reduced)
 
 
 def test_only_paged_attention_families_speculate():
@@ -174,6 +178,42 @@ def test_spec_matches_plain_greedy(pair):
     got = _drain(spec_eng, prompts)
     assert got == base
     assert spec_eng.stats["spec_rounds"] > 0
+
+
+@pytest.fixture(scope="module")
+def moe_pair():
+    """``tests/test_spec_decode.py::_pair("deepseek-moe-16b")``: REDUCED
+    deepseek-moe-16b and its REDUCED granite-moe-1b-a400m draft, in both
+    packages."""
+    arch = "deepseek-moe-16b"
+    jm = ref_get_model(REDUCED[arch])
+    jp = jm.init(jax.random.key(0))
+    jd = ref_get_model(ref_draft_for(arch, reduced=True))
+    jdp = jd.init(jax.random.key(1))
+    tm = get_model(get(arch, reduced=True))
+    td = get_model(draft_for(arch, reduced=True))
+    tp = params_from_reference(jax.tree.map(np.asarray, jp), tm,
+                               device="cpu")
+    tdp = params_from_reference(jax.tree.map(np.asarray, jdp), td,
+                                device="cpu")
+    return REDUCED[arch], jm, jp, jd, jdp, tm, tp, td, tdp
+
+
+def test_spec_matches_plain_greedy_moe(moe_pair):
+    """``tests/test_spec_decode.py:82``'s MoE case on the port: greedy
+    speculation gives plain decode's tokens; and both equal the reference's
+    engines' run op by op (P1), with equal ``spec_*`` counters."""
+    cfg, *_, tm, tp, td, tdp = moe_pair
+    prompts = _prompts(cfg, [32, 17, 40, 5], seed=3)
+    base = _drain(_engine(tm, tp), prompts)
+    spec_eng = _engine(tm, tp, draft=td, draft_params=tdp, spec_k=SPEC_K)
+    got = _drain(spec_eng, prompts)
+    assert got == base
+    assert spec_eng.stats["spec_rounds"] > 0
+    jeng, _ = _both(moe_pair, draft="pair")
+    with jax.disable_jit():
+        assert _drain(jeng, prompts) == got
+    assert _counters(spec_eng) == _counters(jeng)
 
 
 def test_spec_matches_plain_greedy_synchronous(pair):
