@@ -50,7 +50,18 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    granite-moe-1b-a400m (its tied 49,155-column unembedding, row-invariant
    at 1-80 rows in both layouts), phi4-mini-3.8b and minitron-4b through
    ``gemm_rows``; the attention kernels at deepseek-moe's (16 / 16 of 128)
-   and granite-moe's (16 / 8 of 64) heads;
+   and granite-moe's (16 / 8 of 64) heads; the multimodal families:
+   whisper-medium's encoder attention through the flash kernel's
+   non-causal branch at (1, 1500, 16, 64) and (1, 750, 16, 64) beside SDPA,
+   its cross read folded into the paged decode kernel (8 lanes at C = 1,
+   and a 256-row chunk, 8 rows a folded lane in the kv heads' groups,
+   lengths 1500 and 750; every folded query bitwise a one-lane decode;
+   beside the fold of one row a lane), the dense cross read over the 1500-padded cache, its
+   decoder's attention (16 / 16 of 64) and block norms (d 1024, and the
+   encoder's 1500 rows), and every decode product of whisper-medium and
+   llava-next-mistral-7b through ``gemm_rows`` at 8 and 40 rows, each
+   row-invariant at 1-80 rows (whisper's tied 51,865-column unembedding in
+   both layouts);
 3b. cli: ``repro_torch.launch.serve.main`` at its defaults (REDUCED
    configs, whose heads of 16 and 24 the attention wrappers pad to 64) for
    ``qwen3-8b``, ``zamba2-1.2b``, ``falcon-mamba-7b`` and
@@ -66,10 +77,22 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    before the next, through phases a-e (and f-h for qwen3-8b, i for
    deepseek-moe-16b); then ``granite-moe-1b-a400m`` (a short serve: 8
    requests of 16 new tokens on 4 slots, and phase c), ``phi4-mini-3.8b``
-   and ``minitron-4b`` (a short serve each):
+   and ``minitron-4b`` (a short serve each); then the multimodal families,
+   ``whisper-medium`` (enc-dec: 24 encoder and 24 decoder layers, d 1024,
+   16 heads of 64, GELU MLP, tied 51,865 vocab) and
+   ``llava-next-mistral-7b`` (VLM: 576 image rows of the stub vision width
+   1024 through ``mm_proj``, then a 32-layer Mistral backbone) through
+   phases a-e with modality inputs (whisper also j):
    a. serve: 16 requests (4 share a 512-token prefix) through
       ``repro_torch.serving.engine.ServeEngine``; every kernel of the
       model's path must have been launched and no plain version called;
+      whisper's requests carry frames (8 share one 1500-row input, 4
+      distinct 1500-row and 4 distinct 750-row inputs, one prompt's text
+      under other frames): exactly 9 encoder regions computed, 7 shared,
+      168 pages shared, the cross fold and the encoder's flash launched;
+      llava's carry 576 image rows each (4 share an image and a 256-token
+      text prefix: 3 x 832 prefill positions shared, one prompt's text
+      under another image);
       for the SSM and hybrid models the prefix trie is bookkeeping only
       (would-be hits counted, no prefill shared), and the longest prompt's
       state when its prefill ends, with decode steps of other lanes run
@@ -78,8 +101,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    c. logits: two requests, prefill plus 8 teacher-forced decode steps,
       once through the kernels and once under ``ops.use_backend("plain")``;
       the logits must agree within the model's bound where the model is
-      not chaotic (qwen3-8b), beside a control (the plain path with one
-      bf16 ulp added to one embedding value); and every kernel call of the
+      not chaotic (qwen3-8b, whisper-medium, llava-next-mistral-7b),
+      beside controls (the plain path with one bf16 ulp added to one
+      embedding value, and to every one; for llava the image/text split
+      one row early, which must move the logits past the bound); and
+      every kernel call of the
       plain path is also run through the kernel on the same activations
       and must agree within the kernel's tolerance (kernel-forced);
    d. dense: the same 16 requests through ``ServeEngine(paged=False)``
@@ -138,7 +164,13 @@ Phases, each of which raises on failure (the exit code is then non-zero):
       speculation (``spec_k`` 4) gives plain decode's tokens with every
       proposal accepted: the 8-lane decode step and the 40-lane verify
       route and multiply every lane alike (its granite-moe draft differs
-      in vocab at published widths, R4).
+      in vocab at published widths, R4);
+   j. cross spill (whisper-medium, ``phase_cross_spill``): a second
+      request's admission reallocates cached pages of the first, which are
+      lent to a peer (decoder and encoder-region pages, each payload its
+      region's leaves); the first request's frames and prompt again share
+      its region through their recall, every recalled page bitwise the
+      lent one, the tokens unchanged.
 
 The MoE models' logits have no bound (random-weight routing is chaotic):
 the kernel-forced check holds the router there (ids equal but at a near
@@ -146,7 +178,9 @@ tie) and the grouped product (rows below each expert's count).
 
 The line two before the last is the kernels summary as JSON (one row per
 kernel and model whose path runs it, and rows with ``"path": "spec"`` for
-the speculative path and ``"path": "batch"`` for the batch tier), the line
+the speculative path, ``"path": "batch"`` for the batch tier, and
+whisper's routes: the cross fold, the encoder's flash and the dense cross
+read, each with the launches counted around that route's calls), the line
 before the last the card's
 name and power limit, the last ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of ``repro``.
@@ -154,6 +188,7 @@ nothing of JAX or of ``repro``.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import statistics
@@ -655,16 +690,20 @@ def check_gemm_rows(gen, arch: str = "qwen3-8b",
     return rows
 
 
-def check_decode(gen, *, n_heads=32, n_kv=8, d=128) -> dict:
+def check_decode(gen, *, n_heads=32, n_kv=8, d=128, S=MAX_SEQ,
+                 lengths=(0, 1, 63, MAX_SEQ, 700, 1300, MAX_SEQ - 1, 64)
+                 ) -> dict:
     """The dense-cache decode at the dense engine's shape: 8 lanes over a
-    ``MAX_SEQ`` cache, lengths from 0 (zeros) to the whole cache."""
+    ``MAX_SEQ`` cache, lengths from 0 (zeros) to the whole cache (or
+    ``S`` and ``lengths`` given: whisper's cross read over its
+    ``ENC_SEQ``-padded encoder cache at each lane's ``enc_len``)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as dk, ops
 
-    lengths = [0, 1, 63, MAX_SEQ, 700, 1300, MAX_SEQ - 1, 64]
-    B, S = len(lengths), MAX_SEQ
+    lengths = list(lengths)
+    B = len(lengths)
     q = torch.randn(B, n_heads, d, generator=gen, device="cuda").bfloat16()
     k = torch.randn(B, S, n_kv, d, generator=gen, device="cuda").bfloat16()
     v = torch.randn(B, S, n_kv, d, generator=gen, device="cuda").bfloat16()
@@ -673,7 +712,7 @@ def check_decode(gen, *, n_heads=32, n_kv=8, d=128) -> dict:
     with ops.use_backend("plain"):
         want = ops.decode_attention(q, k, v, lens)
     err = _close(got, want, "decode_attention")
-    if bool(got[0].float().abs().max() != 0):
+    if lengths[0] == 0 and bool(got[0].float().abs().max() != 0):
         raise AssertionError("decode: zero-length lane is not zeros")
     if not torch.equal(got, dk.decode_attention(q, k, v, lens)):
         raise AssertionError("decode: two runs differ bitwise")
@@ -1172,6 +1211,165 @@ def check_unaligned_gemm_rows(gen) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 3b. the multimodal families' routes: the encoder's non-causal flash, the
+# cross fold, the dense cross read, their decode products
+# ---------------------------------------------------------------------------
+
+# whisper-medium's encoder sequence and attention heads (16 of 64, MHA);
+# the cross region's pages
+from repro_torch.models.encdec import ENC_SEQ  # noqa: E402
+
+W_HEADS, W_D = 16, 64
+CROSS_PAGES = -(-ENC_SEQ // PAGE)
+MM_ARCHS = ("whisper-medium", "llava-next-mistral-7b")
+
+
+def check_flash_encoder(gen) -> list[dict]:
+    """whisper-medium's encoder attention, the flash kernel's non-causal
+    branch (Sq = Sk = 1500 and 750: key tails of 28 and 92 at the 64- and
+    128-key tiles, the query tail zero-filled by TMA): against the plain
+    version, beside SDPA (no mask) and the bound; each query row alone
+    gives its row of the whole call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fk, ops
+
+    rows = []
+    for S in (ENC_SEQ, ENC_SEQ // 2):
+        q, k, v = (torch.randn(1, S, W_HEADS, W_D, generator=gen,
+                               device="cuda").bfloat16() for _ in range(3))
+        got = fk.flash_attention(q, k, v, causal=False)
+        with ops.use_backend("plain"):
+            want = ops.attention(q, k, v, causal=False)
+        err = _close(got, want, f"flash_attention non-causal S={S}")
+        for r in (0, S // 2, S - 1):
+            one = fk.flash_attention(q[:, r:r + 1].contiguous(), k, v,
+                                     causal=False)
+            _close(one, got[:, r:r + 1], f"flash non-causal S={S} row {r}")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        rows.append({
+            "shape": {"Sq": S, "Sk": S, "causal": False, "H": W_HEADS,
+                      "K": W_HEADS, "D": W_D},
+            "max_abs_err": err,
+            "ms": _time_ms(lambda: fk.flash_attention(q, k, v, causal=False),
+                           flush=True),
+            "plain_ms": _time_ms(lambda: fk.plain(q, k, v, causal=False),
+                                 flush=True),
+            "library_ms": _time_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                flush=True),
+            **_bound(4 * q.numel() * 2, 4 * W_D * W_HEADS * S * S,
+                     BF16_TC_FLOPS)})
+    return rows
+
+
+def _cross_case(gen, lengths, C):
+    """q (B, C, 16, 64) and a pool of whisper's cross pages: each lane's
+    24-page region of its own."""
+    import torch
+
+    B = len(lengths)
+    n_pages = B * CROSS_PAGES + 1
+    kp = torch.randn(n_pages, PAGE, W_HEADS, W_D, generator=gen,
+                     device="cuda").bfloat16()
+    vp = torch.randn(kp.shape, generator=gen, device="cuda").bfloat16()
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator()
+                          .manual_seed(B * 1000 + C)) + 1
+    table = perm.reshape(B, CROSS_PAGES).to(torch.int32).cuda()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = torch.randn(B, C, W_HEADS, W_D, generator=gen,
+                    device="cuda").bfloat16()
+    return q, kp, vp, table, lens
+
+
+def check_cross_fold(gen) -> list[dict]:
+    """whisper-medium's cross read, folded into the paged decode kernel
+    (``ops.paged_cross_attention``): a decode step's 8 lanes (C = 1) at
+    lengths 1500 and 750 (the last page partial), and a 256-row prefill
+    chunk (C = 256: 32 folded lanes of 8 rows in each of the 16 kv heads'
+    groups over a 24-page table) at 1500 and at 750: against the plain
+    version, and each folded query (all of C = 1; rows 0-8, 127 and 255 of
+    a chunk, every place in a group) bitwise a one-lane decode at its
+    length. ``one_row_ms`` times the fold of one row a lane (the TPU path's,
+    this route before PR 22's review) on the same inputs."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    rows = []
+    for lengths, C in (([ENC_SEQ, ENC_SEQ // 2] * 4, 1), ([ENC_SEQ], CHUNK),
+                       ([ENC_SEQ // 2], CHUNK)):
+        q, kp, vp, table, lens = _cross_case(gen, lengths, C)
+        got = ops.paged_cross_attention(q, kp, vp, table, lens)
+        want = ref.paged_cross_attention(q, kp, vp, table, lens)
+        err = _close(got, want, f"paged cross fold C={C} {lengths[:2]}")
+        for b in range(len(lengths)):
+            for c in sorted({*range(9), C // 2 - 1, C - 1} & set(range(C))):
+                one = ops.paged_decode_attention(
+                    q[b, c][None].contiguous(), kp, vp, table[b:b + 1],
+                    lens[b:b + 1])
+                if not torch.equal(one[0], got[b, c]):
+                    raise AssertionError(f"cross fold C={C}: query ({b}, "
+                                         f"{c}) differs from a one-lane "
+                                         f"decode at its length")
+        n_keys = int(lens.sum())
+        # each lane's region once (every folded query reads the same keys)
+        nbytes = (n_keys * W_HEADS * W_D * 2 * 2 + 2 * q.numel() * 2
+                  + table.numel() * 4 + lens.numel() * 4)
+        # Q K^T and P V on bf16 operands: the tensor cores' rate; the same
+        # work on the f32 units outside them (``bound_f32_ms``)
+        flops = 4 * C * n_keys * W_HEADS * W_D
+        f32 = _bound(nbytes, flops, F32_FLOPS)
+        one_row = (q, kp, vp, table, lens[:, None].expand(len(lengths), C))
+        rows.append({
+            "shape": {"B": len(lengths), "C": C, "H": W_HEADS, "K": W_HEADS,
+                      "D": W_D, "P": PAGE, "table": CROSS_PAGES,
+                      "lengths": lengths, "folded_lanes": len(lengths) * C},
+            "max_abs_err": err,
+            "ms": _time_ms(lambda: ops.paged_cross_attention(
+                q, kp, vp, table, lens), flush=True),
+            "one_row_ms": _time_ms(lambda: ops._fold(*one_row), flush=True),
+            "plain_ms": _time_ms(lambda: ref.paged_cross_attention(
+                q, kp, vp, table, lens), flush=True),
+            "library_ms": None,
+            **_bound(nbytes, flops, BF16_TC_FLOPS),
+            "bound_f32_ms": f32["bound_ms"], "bound_f32_by": f32["bound_by"]})
+    return rows
+
+
+def check_rows_invariant(gen, arch: str) -> dict:
+    """Each decode product of ``arch`` (``gemm_rows.step_products``)
+    through ``gemm_rows``: a row's bits the same at every row count 1-80,
+    w as a (K, N) matrix; the unembedding also as the transpose of the
+    (N, K) embedding where it is tied (whisper-medium's 51,865 columns)."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import gemm_rows as gk
+
+    out = {}
+    for name, K, N, nk, _ in gk.step_products(get(arch)):
+        for layout in ((True, False) if nk else (False,)):
+            w = (torch.randn(N, K, generator=gen, device="cuda")
+                 * K ** -0.5).bfloat16()
+            w = w.t() if layout else w.t().contiguous()
+            x = torch.randn(80, K, generator=gen, device="cuda").bfloat16()
+            y80 = gk.gemm_rows(x, w)
+            bad = [M for M in range(1, 81)
+                   if not torch.equal(gk.gemm_rows(x[:M], w), y80[:M])]
+            if bad:
+                raise AssertionError(f"gemm_rows {arch} {name} (K {K}, N "
+                                     f"{N}, nk {layout}): rows change at M "
+                                     f"in {bad[:5]}")
+            out[f"{name} {'nk' if layout else 'kn'}"] = {
+                "K": K, "N": N, "row_counts_1_80_bitwise": True,
+                "max_abs_err": _close(y80, x @ w, f"gemm_rows {name}")}
+            del w
+    return out
+
+
 def phase_kernels(seed: int = 0) -> dict:
     import torch
 
@@ -1216,7 +1414,29 @@ def phase_kernels(seed: int = 0) -> dict:
            **{f"gemm_rows@{arch}": check_gemm_rows(gen, arch, (N_SLOTS,
                                                                N_SLOTS * 5))
               for arch in ("deepseek-moe-16b", "granite-moe-1b-a400m",
-                           "phi4-mini-3.8b", "minitron-4b")}}
+                           "phi4-mini-3.8b", "minitron-4b", *MM_ARCHS)},
+           # the multimodal families: whisper-medium's block norms (d 1024:
+           # a decode step, a chunk, the encoder's 1500 rows), its decoder's
+           # attention (16 / 16 of 64), the encoder's non-causal flash, the
+           # cross fold and the dense cross read over the ENC_SEQ-padded
+           # cache; llava-next-mistral-7b's heads are qwen3-8b's (32 / 8 of
+           # 128, d 4096)
+           "rmsnorm@whisper": check_rmsnorm(
+               gen, [(N_SLOTS, 1024), (CHUNK, 1024), (ENC_SEQ, 1024)]),
+           "paged_decode_attention@whisper": [
+               check_paged_decode(gen, n_heads=W_HEADS, n_kv=W_HEADS,
+                                  d=W_D)],
+           "decode_attention@whisper": [
+               check_decode(gen, n_heads=W_HEADS, n_kv=W_HEADS, d=W_D)],
+           "flash_attention@whisper": check_flash(gen, H=W_HEADS, K=W_HEADS,
+                                                  D=W_D),
+           "flash_attention@encoder": check_flash_encoder(gen),
+           "paged_cross": check_cross_fold(gen),
+           "decode_attention@cross": [
+               check_decode(gen, n_heads=W_HEADS, n_kv=W_HEADS, d=W_D,
+                            S=ENC_SEQ,
+                            lengths=(ENC_SEQ, 750, ENC_SEQ, 1, 750, 1300,
+                                     ENC_SEQ - 1, 64))]}
     for name, rows in out.items():
         for r in rows:
             r.update(_factors(r))
@@ -1226,6 +1446,9 @@ def phase_kernels(seed: int = 0) -> dict:
     log({"kernel_check": "gemm_rows_grouped bitwise", **invariance})
     log({"kernel_check": "gemm_rows N 49155 bitwise",
          **check_unaligned_gemm_rows(gen)})
+    for arch in MM_ARCHS:
+        log({"kernel_check": f"gemm_rows@{arch} bitwise at 1-80 rows",
+             **check_rows_invariant(gen, arch)})
     return out
 
 
@@ -1258,6 +1481,110 @@ def _traffic(seed: int, vocab: int) -> list[list[int]]:
     return prompts
 
 
+def _mm_input(cfg, rng, rows: int | None = None):
+    """One request's modality input for a multimodal ``cfg``: whisper's
+    frames ``(1, rows or ENC_SEQ, d_model)`` or llava's image rows ``(1,
+    n_image_tokens, VISION_D)``, f32 from ``rng``; None for a text-only
+    config."""
+    import numpy as np
+
+    if cfg.family == "encdec":
+        return {"frames": rng.standard_normal(
+            (1, rows or ENC_SEQ, cfg.d_model)).astype(np.float32)}
+    if cfg.family == "vlm":
+        from repro_torch.models.transformer import VISION_D
+
+        return {"embeds": rng.standard_normal(
+            (1, cfg.n_image_tokens, VISION_D)).astype(np.float32)}
+    return None
+
+
+def _mm_traffic(cfg, seed: int):
+    """The multimodal serve traffic (16 requests): prompts, each request's
+    ``extra`` and the counters the engine must show.
+
+    whisper-medium: decoder prompts of 32-448 tokens; requests 0, 2, .., 14
+    share one 1500-row frames input (the shared region), 1, 5, 9, 13 have
+    distinct 1500-row inputs, 3, 7, 11, 15 distinct 750-row inputs (a
+    partial last cross page); request 5 has request 0's text under other
+    frames, so its prompt shares nothing. Expected: 9 regions computed, 7
+    shared, 7 x 24 pages shared.
+
+    llava-next-mistral-7b: 576 image rows each, then 96-1024 text tokens;
+    requests 1, 5, 9, 13 share one image and a 256-token text prefix (the
+    later three share its whole pages: 13 of them, 3 x 832 positions),
+    request 2 has request 0's text under another image (nothing
+    shared)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    V = cfg.vocab_size
+    if cfg.family == "encdec":
+        lens = rng.integers(32, 449, 16)
+        prompts = [rng.integers(1, V, int(n)).tolist() for n in lens]
+        prompts[5] = list(prompts[0])
+        shared = _mm_input(cfg, rng)
+        extras = [shared if i % 2 == 0 else
+                  _mm_input(cfg, rng, ENC_SEQ if i % 4 == 1 else ENC_SEQ // 2)
+                  for i in range(16)]
+        expect = {"cross_regions_computed": 9, "cross_regions_shared": 7,
+                  "cross_pages_shared": 7 * CROSS_PAGES}
+        return prompts, extras, expect
+    lens = rng.integers(96, 1025, 16)
+    prefix = rng.integers(1, V, 256).tolist()
+    image = _mm_input(cfg, rng)
+    prompts, extras = [], []
+    for i, n in enumerate(lens):
+        if i % 4 == 1:
+            prompts.append(prefix + rng.integers(
+                1, V, max(int(n) - 256, 32)).tolist())
+            extras.append(image)
+        else:
+            prompts.append(rng.integers(1, V, int(n)).tolist())
+            extras.append(_mm_input(cfg, rng))
+    prompts[2] = list(prompts[0])
+    shared = (cfg.n_image_tokens + 256) // PAGE * PAGE
+    expect = {"prefill_tokens_shared": 3 * shared}
+    return prompts, extras, expect
+
+
+def _engine_kw(cfg) -> dict:
+    """The smoke engines' cross region: whisper's 1500 frames (24 pages) a
+    slot, not ``max_seq``'s 32."""
+    return {"max_cross_seq": ENC_SEQ} if cfg.family == "encdec" else {}
+
+
+def _warm(engine, cfg) -> None:
+    """A warm-up request (cuBLAS handles, the allocator), a multimodal one
+    with an input of its own, then a clean slate."""
+    import numpy as np
+
+    engine.submit(list(range(1, 300)), max_new_tokens=2,
+                  extra=_mm_input(cfg, np.random.default_rng(99)))
+    engine.run()
+    engine.reset_stats()
+
+
+def _route_launches(module, attr: str, kernel, into: dict, key: str,
+                    when=lambda *a, **k: True):
+    """Patch ``module.attr`` so that the launches of ``kernel`` made inside
+    its calls (those ``when`` accepts) are added to ``into[key]``: the
+    launches of one route of a kernel (the cross fold, the encoder's
+    flash, the dense cross read). Returns the undo."""
+    orig = getattr(module, attr)
+
+    def run(*args, **kw):
+        if not when(*args, **kw):
+            return orig(*args, **kw)
+        before = kernel.launches
+        out = orig(*args, **kw)
+        into[key] = into.get(key, 0) + kernel.launches - before
+        return out
+
+    setattr(module, attr, run)
+    return lambda: setattr(module, attr, orig)
+
+
 # kernels each model's path launches (every one of them must run in its
 # serve phase; no plain version may)
 _DENSE_PAGED = ("rmsnorm", "paged_decode_attention", "flash_attention",
@@ -1272,6 +1599,8 @@ PATH_KERNELS = {
     "granite-moe-1b-a400m": _MOE_PAGED,
     "phi4-mini-3.8b": _DENSE_PAGED,
     "minitron-4b": _DENSE_PAGED,
+    "whisper-medium": _DENSE_PAGED,
+    "llava-next-mistral-7b": _DENSE_PAGED,
 }
 # the same for the dense engine (``paged=False``)
 DENSE_PATH_KERNELS = {
@@ -1280,6 +1609,9 @@ DENSE_PATH_KERNELS = {
     "zamba2-1.2b": ("rmsnorm", "decode_attention", "flash_attention", "ssd"),
     "deepseek-moe-16b": ("rmsnorm", "decode_attention", "flash_attention",
                          "moe_route"),
+    "whisper-medium": ("rmsnorm", "decode_attention", "flash_attention"),
+    "llava-next-mistral-7b": ("rmsnorm", "decode_attention",
+                              "flash_attention"),
 }
 
 
@@ -1346,20 +1678,43 @@ def phase_serve(model, params, seed: int = 0, *, short: bool = False) -> dict:
     cfg = model.cfg
     slots = N_SLOTS // 2 if short else N_SLOTS
     engine = ServeEngine(model, params, n_slots=slots, max_seq=MAX_SEQ,
-                         page_size=PAGE, prefill_chunk=CHUNK, device="cuda")
-    # warm-up request (cuBLAS handles, allocator), then a clean slate
-    engine.submit(list(range(1, 300)), max_new_tokens=2)
-    engine.run()
-    engine.reset_stats()
+                         page_size=PAGE, prefill_chunk=CHUNK, device="cuda",
+                         **_engine_kw(cfg))
+    _warm(engine, cfg)
     per_step: dict = {}
     per_chunk: dict = {}
     engine.model = dataclasses.replace(
         model, decode_paged=_per_call(model.decode_paged, per_step),
         prefill_chunk=_per_call(model.prefill_chunk, per_chunk))
-    prompts = _traffic(seed, cfg.vocab_size)
+    expect = None
+    if cfg.family in ("encdec", "vlm"):
+        prompts, extras, expect = _mm_traffic(cfg, seed)
+    else:
+        prompts = _traffic(seed, cfg.vocab_size)
+        extras = [None] * len(prompts)
     n_new = 32
     if short:
         prompts, n_new = prompts[:8], 16
+    # the launches of the paged decode kernel's cross route and of the
+    # encoder's flash (whisper)
+    routes: dict = {}
+    undo = []
+    if cfg.family == "encdec":
+        from repro_torch.kernels import flash_attention as fk
+        from repro_torch.kernels import ops as ops_mod
+        from repro_torch.kernels import paged_decode_attention as pk
+        from repro_torch.models import encdec
+
+        # the decode step's cross read (C = 1) and a chunk's (C > 1) apart
+        undo = [_route_launches(ops_mod, "paged_cross_attention",
+                                pk.paged_decode_attention, routes, "cross",
+                                when=lambda q, *a: q.shape[1] == 1),
+                _route_launches(ops_mod, "paged_cross_attention",
+                                pk.paged_decode_attention, routes,
+                                "cross chunk",
+                                when=lambda q, *a: q.shape[1] > 1),
+                _route_launches(encdec, "encode", fk.flash_attention, routes,
+                                "encoder")]
     # R3: the longest prompt's state when its last chunk lands
     longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
     at_finish: dict = {}
@@ -1375,7 +1730,8 @@ def phase_serve(model, params, seed: int = 0, *, short: bool = False) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     t0 = time.perf_counter()
-    reqs = [engine.submit(p, max_new_tokens=n_new) for p in prompts]
+    reqs = [engine.submit(p, max_new_tokens=n_new, extra=e)
+            for p, e in zip(prompts, extras)]
     ttft: dict[int, float] = {}
     decode_ms, prefill_s, prefill_tok = [], 0.0, 0
     overlapped = 0   # decode steps run while the longest prompt prefilled
@@ -1397,11 +1753,20 @@ def phase_serve(model, params, seed: int = 0, *, short: bool = False) -> dict:
                 ttft[r.req_id] = time.perf_counter() - t0
     wall = time.perf_counter() - t0
     counts = ops.counts()
+    for fn in reversed(undo):  # the last patch of an attribute first
+        fn()
     done = [r for r in reqs if r.done]
     if len(done) != len(reqs):
         raise AssertionError(f"{len(done)}/{len(reqs)} requests completed")
     _check_counts(counts, PATH_KERNELS[cfg.arch_id], "paged serve")
     stats = engine.stats
+    got = {k: stats[k] for k in expect} if expect else None
+    if expect and got != expect:
+        raise AssertionError(f"multimodal counters {got}, expected {expect}")
+    if cfg.family == "encdec" and not (routes.get("cross")
+                                       and routes.get("cross chunk")
+                                       and routes.get("encoder")):
+        raise AssertionError(f"enc-dec routes not launched: {routes}")
     r3 = None
     if model.paged_state:
         # the trie is bookkeeping only: would-be hits, nothing shared
@@ -1415,8 +1780,8 @@ def phase_serve(model, params, seed: int = 0, *, short: bool = False) -> dict:
         for k in solo:
             _close(at_finish[k], solo[k], f"R3 {k} state",
                    STATE_TOL if k == "ssm" else TOL)
-    elif stats["prefix_hits"] <= 0:
-        raise AssertionError("the shared 512-token prefix was never hit")
+    elif stats["prefix_hits"] <= 0 and cfg.family != "encdec":
+        raise AssertionError("the shared prefix was never hit")
     n_gen = sum(len(r.generated) for r in reqs)
     out = {
         "phase": "serve", "arch": cfg.arch_id, "layers": cfg.n_layers,
@@ -1433,7 +1798,12 @@ def phase_serve(model, params, seed: int = 0, *, short: bool = False) -> dict:
         "prefill_tokens_shared": stats["prefill_tokens_shared"],
         "decode_steps_overlapping_prefill": overlapped,
         "r3_max_abs_diff": r3,
+        "multimodal_counters": got, "multimodal_expected": expect,
+        "cross_cache_stats": ({k: stats[k] for k in (
+            "cross_regions_computed", "cross_regions_shared",
+            "cross_pages_shared")} if cfg.family == "encdec" else None),
         "launches": {n: c["launches"] for n, c in counts.items()},
+        "route_launches": routes,
         "launches_per_call": {"decode_step": per_step,
                               "prefill_chunk": per_chunk},
     }
@@ -1442,10 +1812,20 @@ def phase_serve(model, params, seed: int = 0, *, short: bool = False) -> dict:
     return out
 
 
+# the profiled serve: short, since the profiler's own trace processing
+# grows with the launches it records (8 requests of 512 tokens and 8 new
+# cost 240 s in the four profiles of qwen3-8b, falcon-mamba, zamba2 and
+# deepseek-moe on an H100 80GB HBM3 at 700 W, falcon-mamba's 99.7 s for a
+# 4.7 s serve)
+PROFILE_REQUESTS, PROFILE_PROMPT, PROFILE_NEW = 4, 256, 4
+
+
 def phase_profile(model, params, seed: int = 2) -> dict:
-    """Where the time goes: ``torch.profiler`` over a short serve (8
-    requests of 512 prompt tokens, 8 new tokens each) on a warm engine —
-    the device's busy share of the wall time and the kernels that fill it."""
+    """Where the time goes: ``torch.profiler`` over a short serve
+    (``PROFILE_REQUESTS`` requests of ``PROFILE_PROMPT`` prompt tokens,
+    ``PROFILE_NEW`` new tokens each, a multimodal one with its inputs) on a
+    warm engine — the device's busy share of the wall time and the kernels
+    that fill it."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1453,13 +1833,15 @@ def phase_profile(model, params, seed: int = 2) -> dict:
     from repro_torch.serving.engine import ServeEngine
 
     rng = np.random.default_rng(seed)
+    cfg = model.cfg
     engine = ServeEngine(model, params, n_slots=N_SLOTS, max_seq=MAX_SEQ,
-                         page_size=PAGE, prefill_chunk=CHUNK, device="cuda")
-    engine.submit(list(range(1, 300)), max_new_tokens=2)
-    engine.run()
-    for _ in range(N_SLOTS):
-        engine.submit(rng.integers(1, model.cfg.vocab_size, 512).tolist(),
-                      max_new_tokens=8)
+                         page_size=PAGE, prefill_chunk=CHUNK, device="cuda",
+                         **_engine_kw(cfg))
+    _warm(engine, cfg)
+    for _ in range(PROFILE_REQUESTS):
+        engine.submit(rng.integers(1, cfg.vocab_size,
+                                   PROFILE_PROMPT).tolist(),
+                      max_new_tokens=PROFILE_NEW, extra=_mm_input(cfg, rng))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1475,7 +1857,9 @@ def phase_profile(model, params, seed: int = 2) -> dict:
     host = [e for e in events
             if e.device_type == torch.autograd.DeviceType.CPU]
     top_host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]
-    out = {"phase": "profile", "wall_s": wall, "device_busy_s": busy,
+    out = {"phase": "profile", "arch": cfg.arch_id,
+           "requests": PROFILE_REQUESTS, "prompt_tokens": PROFILE_PROMPT,
+           "new_tokens": PROFILE_NEW, "wall_s": wall, "device_busy_s": busy,
            "device_busy_share": busy / wall,
            "host_self_s": sum(e.self_cpu_time_total for e in host) / 1e6,
            "top_kernels": [{"name": e.key[:70], "calls": e.count,
@@ -1518,49 +1902,94 @@ def phase_profile(model, params, seed: int = 2) -> dict:
 # a rounding-sized difference in h reorders experts: random-weight routing
 # is chaotic. The kernel-forced check holds the router (ids equal but at a
 # near tie, counted) and the grouped product there.
+# whisper-medium: the first measured run (H100 80GB HBM3, 700 W) gave 0.047
+# at most, mean 0.0079, on logits up to 2.98 (the one-ulp control 0.041);
+# the bound is about twice that. llava-next-mistral-7b: qwen3-8b's 0.5.
+# Five readings (H100 80GB HBM3, 700 W; ``tools/logit_spread.py`` at seeds
+# 1-4 and this phase) gave 0.176-0.211 on logits up to 5.4; the fault
+# control, the image/text split one row early, moved the logits by
+# 0.766-0.891, and the phase fails if it ever moves them by less than the
+# bound: the bound must catch a broken split.
 LOGIT_ATOL = {"qwen3-8b": 0.5, "falcon-mamba-7b": None, "zamba2-1.2b": None,
-              "deepseek-moe-16b": None, "granite-moe-1b-a400m": None}
+              "deepseek-moe-16b": None, "granite-moe-1b-a400m": None,
+              "whisper-medium": 0.1, "llava-next-mistral-7b": 0.5}
 
 
 def _teacher_forced(model, params, prompts, forced, n_steps: int, *,
-                    device: str = "cuda"):
+                    device: str = "cuda", extras=None, mm_shift: int = 0):
     """Prefill each prompt (one slot each), then ``n_steps`` batched decode
     steps feeding ``forced`` tokens; returns the logits of every step
-    (prefill's first-token logits first) and the launches per call."""
+    (prefill's first-token logits first) and the launches per call. A
+    multimodal prompt takes its ``extras[b]``: a VLM's image rows chunked
+    inline ahead of the text (``embeds``, ``mm_len``), an enc-dec's frames
+    through ``prefill_cross`` into a region of the lane's own that every
+    chunk and decode step reads (``cross_page_table``, ``cross_len``).
+    ``mm_shift`` tells the model an ``mm_len`` that many rows short: a
+    broken image/text split, its last image rows read as text (token 0)."""
+    import numpy as np
     import torch
 
     from repro_torch.kernels import ops
 
     B = len(prompts)
+    extras = extras or [None] * B
+    cross = model.supports_paged_cross
+    mm = [int(np.asarray(e["embeds"]).shape[-2])
+          if e and "embeds" in e else 0 for e in extras]
     max_pages = MAX_SEQ // PAGE
-    cache = model.init_paged_cache(B, B * max_pages + 1, PAGE, device=device)
+    n_cp = CROSS_PAGES if cross else 0
+    cache = model.init_paged_cache(B, B * (max_pages + n_cp) + 1, PAGE,
+                                   device=device)
     table = torch.zeros(B, max_pages, dtype=torch.int32, device=device)
     for b in range(B):
         table[b] = torch.arange(1 + b * max_pages, 1 + (b + 1) * max_pages)
+    ctx: dict = {}
+    if cross:
+        base = 1 + B * max_pages
+        ctable = torch.arange(base, base + B * n_cp, dtype=torch.int32,
+                              device=device).reshape(B, n_cp)
+        clen = torch.tensor([e["frames"].shape[-2] for e in extras],
+                            dtype=torch.int32, device=device)
+        for b, e in enumerate(extras):
+            model.prefill_cross(params, cache, {
+                "frames": torch.from_numpy(e["frames"]).to(device),
+                "cross_page_table": ctable[b]})
+        ctx = {"cross_page_table": ctable, "cross_len": clen}
     rows, per_call = [], {}
     first = []
     for b, p in enumerate(prompts):
-        for off in range(0, len(p), CHUNK):
-            n = min(CHUNK, len(p) - off)
+        tlen = mm[b] + len(p)
+        for off in range(0, tlen, CHUNK):
+            n = min(CHUNK, tlen - off)
+            si = min(max(mm[b] - off, 0), n)      # image rows in the chunk
             toks = torch.zeros(1, CHUNK, dtype=torch.int32, device=device)
-            toks[0, :n] = torch.tensor(p[off:off + n])
+            toks[0, si:n] = torch.tensor(p[off + si - mm[b]:off + n - mm[b]])
+            batch = {"tokens": toks, "valid": n, "slot": b,
+                     "page_table": table[b]}
+            kw = {}
+            if model.paged_mm_inline:
+                emb = np.zeros((1, CHUNK, extras[b]["embeds"].shape[-1]),
+                               np.float32)
+                emb[0, :si] = extras[b]["embeds"][0, off:off + si]
+                batch["embeds"] = torch.from_numpy(emb).to(device)
+                kw["mm_len"] = mm[b] - mm_shift
+            if cross:
+                batch.update(cross_page_table=ctable[b], cross_len=clen[b])
             before = ops.counts()
-            lg = model.prefill_chunk(params, cache, {
-                "tokens": toks, "valid": n, "slot": b,
-                "page_table": table[b]}, offset=off)
+            lg = model.prefill_chunk(params, cache, batch, offset=off, **kw)
             per_call.setdefault("prefill_chunk", {
                 k: ops.counts()[k]["launches"] - v["launches"]
                 for k, v in before.items()})
         first.append(lg[0])
     rows.append(torch.stack(first))
-    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
-                       device=device)
+    pos = torch.tensor([m + len(p) for m, p in zip(mm, prompts)],
+                       dtype=torch.int32, device=device)
     for s in range(n_steps):
         toks = torch.tensor([[forced[b][s]] for b in range(B)],
                             dtype=torch.int32, device=device)
         before = ops.counts()
         lg = model.decode_paged(params, cache, {
-            "tokens": toks, "positions": pos, "page_table": table})
+            "tokens": toks, "positions": pos, "page_table": table, **ctx})
         per_call.setdefault("decode_step", {
             k: ops.counts()[k]["launches"] - v["launches"]
             for k, v in before.items()})
@@ -1588,6 +2017,13 @@ def _kernel_forced(run) -> dict:
                 "gemm_rows_grouped": "gemm_rows_grouped"}
     saved = {n: getattr(ops, n) for n in dispatch}
     worst: dict[str, float] = {}
+    # the cross route (enc-dec): the paged decode kernel over the folded
+    # query rows, i.e. the dispatch itself under the kernel backend
+    cross = ops.paged_cross_attention
+
+    def fold(*args):
+        with ops.use_backend("kernel"):
+            return cross(*args)
 
     def both(name, plain, kernel):
         def run(*args, **kw):
@@ -1617,12 +2053,14 @@ def _kernel_forced(run) -> dict:
 
     for n, k in dispatch.items():
         setattr(ops, n, both(k, saved[n], ops.KERNELS[k]))
+    ops.paged_cross_attention = both("paged_cross_attention", cross, fold)
     try:
         with ops.use_backend("plain"):
             run()
     finally:
         for n, fn in saved.items():
             setattr(ops, n, fn)
+        ops.paged_cross_attention = cross
     return worst
 
 
@@ -1637,9 +2075,12 @@ def phase_logits(model, params, seed: int = 1) -> dict:
     vocab = model.cfg.vocab_size
     prompts = [rng.integers(1, vocab, n).tolist() for n in (700, 300)]
     forced = rng.integers(1, vocab, (2, 8)).tolist()
-    got, per_call = _teacher_forced(model, params, prompts, forced, 8)
+    # whisper: a full and a half encoder input; llava: an image each
+    extras = [_mm_input(model.cfg, rng, rows) for rows in (ENC_SEQ, 750)]
+    tf = functools.partial(_teacher_forced, extras=extras)
+    got, per_call = tf(model, params, prompts, forced, 8)
     with ops.use_backend("plain"):
-        want, _ = _teacher_forced(model, params, prompts, forced, 8)
+        want, _ = tf(model, params, prompts, forced, 8)
         # controls: the plain path with one bf16 ulp added to one embedding
         # value (the first prompt token's first), and to every embedding
         # value, each up or down at random — how far rounding-sized
@@ -1649,15 +2090,20 @@ def phase_logits(model, params, seed: int = 1) -> dict:
         keep = emb.clone()
         try:
             emb[t0, 0] = (keep[t0, 0].float() * (1 + 2 ** -7)).to(emb.dtype)
-            nudged, _ = _teacher_forced(model, params, prompts, forced, 8)
+            nudged, _ = tf(model, params, prompts, forced, 8)
             gen = torch.Generator(device="cuda").manual_seed(seed)
             sign = torch.randint(0, 2, keep.shape, generator=gen,
                                  device="cuda", dtype=torch.int8) * 2 - 1
             emb.copy_((keep.float() * (1 + sign * 2.0 ** -7)).to(emb.dtype))
-            nudged_all, _ = _teacher_forced(model, params, prompts, forced, 8)
+            nudged_all, _ = tf(model, params, prompts, forced, 8)
         finally:
             emb.copy_(keep)
         del keep
+        # a VLM's fault control: the image/text split one row early (the
+        # last image row read as a text token), the size of fault the
+        # bound must catch
+        split = tf(model, params, prompts, forced, 8,
+                   mm_shift=1)[0] if model.paged_mm_inline else None
     if not torch.isfinite(got).all():
         raise AssertionError("non-finite logits on the kernel path")
     diff = (got - want).abs()
@@ -1674,15 +2120,21 @@ def phase_logits(model, params, seed: int = 1) -> dict:
            "one_ulp_control_max_abs_diff": (nudged - want).abs().max().item(),
            "every_value_ulp_control_max_abs_diff":
                (nudged_all - want).abs().max().item(),
+           "split_control_max_abs_diff":
+               None if split is None else (split - want).abs().max().item(),
            "atol": atol, "launches_per_call": per_call}
     out["kernel_forced_max_abs_err"] = _kernel_forced(
-        lambda: _teacher_forced(model, params, prompts, forced, 8))
+        lambda: tf(model, params, prompts, forced, 8))
     log(out)
     if atol is not None and (diff.max().item() > atol
                              or tie_gap.item() > atol):
         raise AssertionError(f"kernel and plain logits differ by "
                              f"{diff.max().item():.4g}, greedy choices by "
                              f"{tie_gap.item():.4g} (bound {atol})")
+    split_diff = out["split_control_max_abs_diff"]
+    if atol is not None and split_diff is not None and split_diff <= atol:
+        raise AssertionError(f"a broken image/text split moves the logits "
+                             f"by {split_diff:.4g}, within the bound {atol}")
     return out
 
 
@@ -1691,11 +2143,13 @@ def phase_logits(model, params, seed: int = 1) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _teacher_forced_dense(model, params, prompts, forced, n_steps: int):
+def _teacher_forced_dense(model, params, prompts, forced, n_steps: int,
+                          extras=None):
     """The dense path's counterpart of :func:`_teacher_forced`: each prompt
-    right-aligned in its bucket, prefilled whole and scattered into its
-    slot of a dense cache, then ``n_steps`` batched ``decode_step`` calls
-    feeding ``forced`` tokens; returns the launches per call."""
+    right-aligned in its bucket (after a VLM's image rows; with an
+    enc-dec's frames), prefilled whole and scattered into its slot of a
+    dense cache, then ``n_steps`` batched ``decode_step`` calls feeding
+    ``forced`` tokens; returns the launches per call."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1715,12 +2169,16 @@ def _teacher_forced_dense(model, params, prompts, forced, n_steps: int):
         n = _bucket(len(p))
         toks = torch.zeros(1, n, dtype=torch.int32, device="cuda")
         toks[0, n - len(p):] = torch.tensor(p)
+        batch = {"tokens": toks}
+        for k, v in ((extras or [None] * B)[b] or {}).items():
+            batch[k] = torch.from_numpy(v).cuda()
         before = ops.counts()
-        _, pcache = model.prefill(params, {"tokens": toks})
+        _, pcache = model.prefill(params, batch)
         per_call.setdefault("prefill", launches(before))
         scatter_slot(cache, expand_prefill_cache(
             pcache, {k: v[:, :1] for k, v in cache.items()}), b)
-        pos.append(n)
+        pos.append(n + (batch["embeds"].shape[1] if "embeds" in batch
+                        else 0))
     pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
     for s in range(n_steps):
         toks = torch.tensor([[forced[b][s]] for b in range(B)],
@@ -1744,15 +2202,31 @@ def phase_dense(model, params, paged_tokens: list, seed: int = 0) -> dict:
     cfg = model.cfg
     engine = ServeEngine(model, params, n_slots=N_SLOTS, max_seq=MAX_SEQ,
                          paged=False, device="cuda")
-    engine.submit(list(range(1, 300)), max_new_tokens=2)   # warm-up
-    engine.run()
-    engine.reset_stats()
-    prompts = _traffic(seed, cfg.vocab_size)
+    _warm(engine, cfg)
+    if cfg.family in ("encdec", "vlm"):
+        prompts, extras, _ = _mm_traffic(cfg, seed)
+    else:
+        prompts, extras = _traffic(seed, cfg.vocab_size), [None] * 16
+    # the dense cross read's and the encoder's launches (whisper)
+    routes: dict = {}
+    undo = []
+    if cfg.family == "encdec":
+        from repro_torch.kernels import decode_attention as dk
+        from repro_torch.kernels import flash_attention as fk
+        from repro_torch.models import encdec, layers
+
+        undo = [_route_launches(layers, "attn_decode", dk.decode_attention,
+                                routes, "dense cross",
+                                lambda *a, **k: k.get("update_cache") is
+                                False),
+                _route_launches(encdec, "encode", fk.flash_attention, routes,
+                                "encoder")]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     t0 = time.perf_counter()
-    reqs = [engine.submit(p, max_new_tokens=32) for p in prompts]
+    reqs = [engine.submit(p, max_new_tokens=32, extra=e)
+            for p, e in zip(prompts, extras)]
     ttft: dict[int, float] = {}
     decode_ms = []
     while engine.pending():
@@ -1767,9 +2241,14 @@ def phase_dense(model, params, paged_tokens: list, seed: int = 0) -> dict:
                 ttft[r.req_id] = time.perf_counter() - t0
     wall = time.perf_counter() - t0
     counts = ops.counts()
+    for fn in reversed(undo):  # the last patch of an attribute first
+        fn()
     if not all(r.done for r in reqs):
         raise AssertionError("dense serve: not every request completed")
     _check_counts(counts, DENSE_PATH_KERNELS[cfg.arch_id], "dense serve")
+    if cfg.family == "encdec" and not (routes.get("dense cross")
+                                       and routes.get("encoder")):
+        raise AssertionError(f"dense enc-dec routes not launched: {routes}")
     tokens = [r.generated for r in reqs]
     n_gen = sum(map(len, tokens))
     same = sum(a == b for t, u in zip(tokens, paged_tokens)
@@ -1778,7 +2257,9 @@ def phase_dense(model, params, paged_tokens: list, seed: int = 0) -> dict:
     tf_prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                   for n in (700, 300)]
     forced = rng.integers(1, cfg.vocab_size, (2, 8)).tolist()
-    per_call = _teacher_forced_dense(model, params, tf_prompts, forced, 8)
+    tf_extras = [_mm_input(cfg, rng, rows) for rows in (ENC_SEQ, 750)]
+    per_call = _teacher_forced_dense(model, params, tf_prompts, forced, 8,
+                                     tf_extras)
     out = {
         "phase": "dense", "arch": cfg.arch_id, "requests": len(reqs),
         "generated_tokens": n_gen, "wall_s": wall,
@@ -1794,10 +2275,11 @@ def phase_dense(model, params, paged_tokens: list, seed: int = 0) -> dict:
         "greedy_agreement_with_paged": same / max(1, sum(
             min(len(t), len(u)) for t, u in zip(tokens, paged_tokens))),
         "launches": {n: c["launches"] for n, c in counts.items()},
+        "route_launches": routes,
         "launches_per_call": per_call,
         "kernel_forced_max_abs_err": _kernel_forced(
             lambda: _teacher_forced_dense(model, params, tf_prompts, forced,
-                                          8)),
+                                          8, tf_extras)),
     }
     log(out)
     return out
@@ -1822,16 +2304,19 @@ def phase_continuity(model, params, *, paged: bool, seed: int = 3) -> dict:
     from repro_torch.serving.engine import ServeEngine
 
     rng = np.random.default_rng(seed)
-    prompts = [rng.integers(1, model.cfg.vocab_size, int(n)).tolist()
+    cfg = model.cfg
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
                for n in rng.integers(100, 601, 8)]
+    extras = [_mm_input(cfg, rng) for _ in prompts]
 
     def engine():
         return ServeEngine(model, params, n_slots=N_SLOTS, max_seq=MAX_SEQ,
                            page_size=PAGE, prefill_chunk=CHUNK, paged=paged,
-                           device="cuda")
+                           device="cuda", **(_engine_kw(cfg) if paged else {}))
 
     def submit(eng):
-        return [eng.submit(p, max_new_tokens=16) for p in prompts]
+        return [eng.submit(p, max_new_tokens=16, extra=e)
+                for p, e in zip(prompts, extras)]
 
     whole = engine()
     want = [r.generated for r in submit(whole)]
@@ -2031,22 +2516,27 @@ def _tie_check(model, params, prompts, a: list, b: list) -> int:
 
 def _watch_spilled_pages(engine) -> dict:
     """Follow the pages the engine lends: a device copy of a page's bits
-    when its trie node becomes a stub, and, when the stub is recalled,
-    whether the page it lands in holds the same bits (counted)."""
+    (of its region's leaves: an enc-dec cross page's ``cross_*`` pools, any
+    other page the rest) when its trie node becomes a stub, and, when the
+    stub is recalled, whether the page it lands in holds the same bits
+    (counted; ``cross`` counts the cross pages recalled)."""
     import torch
 
     idx = engine.prefix_index
-    seen = {"stubs": {}, "recalled": 0, "equal": 0}
+    seen = {"stubs": {}, "recalled": 0, "equal": 0, "cross": 0}
     remap = idx.remap
 
     def spy(old: int, new: int) -> None:
         if old < engine.n_pages <= new:            # lent
+            keys = engine._region_keys(cross=engine._node_is_cross(old))
             seen["stubs"][new] = {k: v[:, old].clone()
                                   for k, v in engine.cache.items()
-                                  if k.endswith("_pages")}
+                                  if k.endswith("_pages")
+                                  and (keys is None or k in keys)}
         elif new < engine.n_pages <= old:          # recalled, installed
             bits = seen["stubs"].pop(old)
             seen["recalled"] += 1
+            seen["cross"] += any(k.startswith("cross_") for k in bits)
             seen["equal"] += all(
                 torch.equal(engine.cache[k][:, new].view(torch.int16),
                             b.view(torch.int16)) for k, b in bits.items())
@@ -2427,6 +2917,88 @@ def phase_spill(model, params, card: str, seed: int = 4) -> dict:
 SPEC_K, SPEC_NEW = 4, 32
 # the spec path's kernels: the draft's and the target's decode, the verify
 # fold, the prefill chunks, and the row-invariant product of every decode
+# whisper's cross-region spill: one request holds ceil((200 + 16) / 64) = 4
+# decoder pages and a 24-page region; a pool of 28 + 20 usable pages keeps
+# one request's pages and 20 more, so the second request reallocates 8 of
+# the first's cached pages (its 4 decoder pages and 4 region pages, the
+# coldest) and they are lent; the budget covers a whole region's recalls
+CROSS_SPILL_PROMPT, CROSS_SPILL_NEW = 200, 16
+CROSS_SPILL_POOL = 1 + 4 + CROSS_PAGES + 20
+
+
+def phase_cross_spill(model, params, card: str, seed: int = 7) -> dict:
+    """The spill tier's cross branch at full width (whisper-medium): A
+    (frames F0) is served, B (other frames, another prompt) reallocates
+    some of A's cached pages, which are lent to a peer (decoder pages and
+    encoder-region pages, each payload one region's leaves); A's prompt
+    and frames again share the cached region through the recall of its
+    lent pages (the encoder not run), every recalled page bitwise the lent
+    one, and the tokens equal A's first ones. Every kernel of the paged
+    path launched, no plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    _, remote = _cloudlet_pool()
+    engine = ServeEngine(model, params, n_slots=1, max_seq=MAX_SEQ,
+                         page_size=PAGE, prefill_chunk=CHUNK,
+                         n_pages=CROSS_SPILL_POOL, remote_pool=remote,
+                         recall_budget=64, device="cuda", **_engine_kw(cfg))
+    seen = _watch_spilled_pages(engine)
+    a_prompt, b_prompt = (rng.integers(1, cfg.vocab_size,
+                                       CROSS_SPILL_PROMPT).tolist()
+                          for _ in range(2))
+    a_in, b_in = _mm_input(cfg, rng), _mm_input(cfg, rng)
+    ops.reset_counts()
+    out_tokens, seconds = [], []
+    for prompt, extra in ((a_prompt, a_in), (b_prompt, b_in),
+                          (a_prompt, a_in)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        req = engine.submit(prompt, max_new_tokens=CROSS_SPILL_NEW,
+                            extra=extra)
+        engine.run()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        out_tokens.append(req.generated)
+    counts = ops.counts()
+    _check_counts(counts, PATH_KERNELS[cfg.arch_id], "cross spill")
+    st = engine.stats
+    out = {"phase": "cross_spill", "arch": cfg.arch_id, "card": card,
+           "pool_pages": CROSS_SPILL_POOL, "region_pages": CROSS_PAGES,
+           **{k: st[k] for k in (
+               "pages_spilled", "pages_recalled", "recall_misses",
+               "cross_regions_computed", "cross_regions_shared",
+               "cross_pages_shared", "prefill_tokens_shared")},
+           "recalled_pages": seen["recalled"],
+           "recalled_cross_pages": seen["cross"],
+           "recalled_pages_bitwise_equal": seen["equal"],
+           "tokens_equal": out_tokens[2] == out_tokens[0],
+           "request_seconds": seconds,
+           "pool_outstanding": engine.pool.outstanding,
+           "launches": {n: c["launches"] for n, c in counts.items()}}
+    log(out)
+    problems = []
+    if not (st["pages_spilled"] and st["pages_recalled"]
+            and seen["cross"]):
+        problems.append("no cross page spilled and recalled")
+    if seen["equal"] != seen["recalled"]:
+        problems.append("a recalled page differs from the lent one")
+    if (st["cross_regions_computed"], st["cross_regions_shared"]) != (2, 1):
+        problems.append("the repeat did not share A's region")
+    if out_tokens[2] != out_tokens[0]:
+        problems.append("the recalled region changed the tokens")
+    if engine.pool.outstanding:
+        problems.append("pages left outstanding")
+    if problems:
+        raise AssertionError("cross spill: " + "; ".join(problems))
+    return out
+
+
 SPEC_PATH_KERNELS = PATH_KERNELS["qwen3-8b"]
 
 
@@ -3069,11 +3641,43 @@ SUMMARY_ROW = {
         "gemm_rows_grouped": ("gemm_rows_grouped@granite", 3)},
     "phi4-mini-3.8b": {"gemm_rows": ("gemm_rows@phi4-mini-3.8b", -2)},
     "minitron-4b": {"gemm_rows": ("gemm_rows@minitron-4b", -2)},
+    # the multimodal families: whisper's block norm (d 1024), its decoder's
+    # attention (16 / 16 of 64) and longest chunk; llava's are qwen3-8b's
+    # shapes (d 4096, 32 / 8 of 128); one decode step's products each
+    "whisper-medium": {
+        "rmsnorm": ("rmsnorm@whisper", 0),
+        "paged_decode_attention": ("paged_decode_attention@whisper", 0),
+        "decode_attention": ("decode_attention@whisper", 0),
+        "flash_attention": ("flash_attention@whisper", 2),
+        "gemm_rows": ("gemm_rows@whisper-medium", -2)},
+    "llava-next-mistral-7b": {
+        "rmsnorm": ("rmsnorm", 0),
+        "paged_decode_attention": ("paged_decode_attention", 0),
+        "decode_attention": ("decode_attention", 0),
+        "flash_attention": ("flash_attention", 2),
+        "gemm_rows": ("gemm_rows@llava-next-mistral-7b", -2)},
 }
+# rows of a kernel's other routes, with the route's own launches (counted
+# around the route's calls in the serve phases): the cross fold of the
+# paged decode kernel (the decode step's 8 lanes, C = 1; a chunk's rows,
+# C > 1, counted apart),
+# the encoder's non-causal flash (1500 frames), the dense cross read over
+# the ENC_SEQ-padded cache: (kernel, check row, path, route key)
+ROUTE_ROWS = {"whisper-medium": [
+    ("paged_decode_attention", ("paged_cross", 0), "paged cross", "cross"),
+    ("paged_decode_attention", ("paged_cross", 1), "paged cross chunk",
+     "cross chunk"),
+    ("flash_attention", ("flash_attention@encoder", 0), "paged encoder",
+     "encoder"),
+    ("flash_attention", ("flash_attention@encoder", 0), "dense encoder",
+     "encoder"),
+    ("decode_attention", ("decode_attention@cross", 0), "dense cross",
+     "dense cross")]}
 # the models whose every phase runs (serve, profile, logits, dense,
 # continuity both ways); the others run a short paged serve, and granite-moe
 # its logits too
-FULL_RUN = ("qwen3-8b", "falcon-mamba-7b", "zamba2-1.2b", "deepseek-moe-16b")
+FULL_RUN = ("qwen3-8b", "falcon-mamba-7b", "zamba2-1.2b", "deepseek-moe-16b",
+            "whisper-medium", "llava-next-mistral-7b")
 # deepseek-moe's spec path: its block norm, decode attention and longest
 # prefill chunk, the verify's router (40 tokens) and one verify's grouped and
 # other products (40 rows)
@@ -3103,10 +3707,11 @@ BATCH_SUMMARY_ROW = {"rmsnorm": ("rmsnorm@batch", 0),
 def run_model(arch: str, card: str) -> dict:
     """Serve, profile, logits, dense and continuity phases of one model of
     ``FULL_RUN`` at full width, for qwen3-8b the spill, spec and batch
-    phases, for deepseek-moe-16b the self-draft spec phase (their numbers
-    printed beside ``card``, the card's name and power limit); a short
-    paged serve of any other model, and granite-moe's logits. Its weights
-    and caches are freed before returning."""
+    phases, for deepseek-moe-16b the self-draft spec phase, for
+    whisper-medium the cross spill (their numbers printed beside ``card``,
+    the card's name and power limit); a short paged serve of any other
+    model, and granite-moe's logits. Its weights and caches are freed
+    before returning."""
     import torch
 
     from repro_torch.configs import get
@@ -3149,6 +3754,8 @@ def run_model(arch: str, card: str) -> dict:
     elif arch == "deepseek-moe-16b":
         spec = timed("spec", phase_spec_moe, model, params,
                      card)["self_draft"]
+    elif arch == "whisper-medium":
+        timed("cross_spill", phase_cross_spill, model, params, card)
     log({"phase_seconds": seconds, "arch": arch})
     del model, params
     gc.collect()
@@ -3160,7 +3767,9 @@ def run_model(arch: str, card: str) -> dict:
             "dense": dense and (dense["launches"],
                                 dense["launches_per_call"]["decode_step"],
                                 dense["launches_per_call"]["prefill"]),
-            "spec": spec, "batch": batch}
+            "spec": spec, "batch": batch,
+            "routes": {"paged": serve["route_launches"],
+                       "dense": dense and dense["route_launches"]}}
 
 
 def main() -> int:
@@ -3198,8 +3807,8 @@ def main() -> int:
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms",
                                    "x_library", "x_bound", "shape")},
-            **({"bound_f32_ms": row["bound_f32_ms"]}
-               if "bound_f32_ms" in row else {})})
+            **{k: row[k] for k in ("bound_f32_ms", "one_row_ms")
+               if k in row}})
 
     for arch, rows in SUMMARY_ROW.items():
         ran = run_model(arch, device["smi"])
@@ -3220,6 +3829,10 @@ def main() -> int:
         for name, (check, i) in (BATCH_SUMMARY_ROW.items()
                                  if ran["batch"] else ()):
             row_of(name, check, i, arch, "batch", ran["batch"][name])
+        for name, (check, i), path, key in ROUTE_ROWS.get(arch, ()):
+            routes = ran["routes"]["dense" if path.startswith("dense")
+                                   else "paged"]
+            row_of(name, check, i, arch, path, routes[key])
     log({"kernels": kernels})
     log(device["smi"])
     log({"ok": True, "device": {"platform": device["platform"],

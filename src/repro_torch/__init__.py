@@ -9,8 +9,10 @@ points run on ``cuda`` unless the caller passes ``device="cpu"``; asked for
 The continuously batched engine serves the dense decoders (``qwen3-8b``,
 ``smollm-360m``, ``phi4-mini-3.8b``, ``minitron-4b``), the MoE family
 (``granite-moe-1b-a400m``, ``deepseek-moe-16b``), the SSM family
-(``falcon-mamba-7b``, Mamba1) and the hybrid family (``zamba2-1.2b``,
-Mamba2 with a shared attention block),
+(``falcon-mamba-7b``, Mamba1), the hybrid family (``zamba2-1.2b``,
+Mamba2 with a shared attention block) and the multimodal families
+(``whisper-medium``, enc-dec with a paged cross-attention region;
+``llava-next-mistral-7b``, VLM with image rows inline),
 over a paged KV cache (the default) or a dense one (``paged=False``), with
 snapshot/restore in the JAX package's blob format. The paged engine's
 spill tier lends cold KV pages to peer hosts of a cloudlet and recalls

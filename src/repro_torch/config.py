@@ -128,6 +128,14 @@ class ModelConfig:
         di, N, W = self.d_inner, self.ssm_state, self.d_conv
         if self.family == "dense":
             return emb + L * (attn + mlp)
+        if self.family == "vlm":      # + mm_proj (repro/models/transformer.py)
+            from repro_torch.models.transformer import VISION_D
+            return emb + L * (attn + mlp) + VISION_D * d
+        if self.family == "encdec":   # repro/models/encdec.py build_specs
+            from repro_torch.models.encdec import ENC_SEQ
+            pos = (ENC_SEQ + (self.max_position or 32_768)) * d + d
+            return (emb + pos + self.n_encoder_layers * (attn + mlp)
+                    + L * (2 * attn + mlp))
         if self.family == "ssm":      # Mamba1 block (repro/models/mamba.py)
             R = self.dt_rank
             block = (d + 2 * d * di + W * di + di + di * R + 2 * di * N
@@ -146,8 +154,7 @@ class ModelConfig:
             moe = (d * self.n_experts + 3 * self.n_experts * d * f + d
                    + 3 * d * self.n_shared_experts * f)
             return emb + nd * (attn + dense) + (L - nd) * (attn + moe)
-        raise NotImplementedError(
-            f"param_count: the {self.family} family is not ported")
+        raise ValueError(f"param_count: unknown family {self.family!r}")
 
 
 @dataclass(frozen=True)

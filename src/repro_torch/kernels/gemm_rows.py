@@ -380,13 +380,26 @@ def decode_products(cfg: ModelConfig) -> list[tuple[str, int, int, bool]]:
 
 def step_products(cfg: ModelConfig) -> list[tuple[str, int, int, bool, int]]:
     """``(name, K, N, nk, times)``: each row-invariant product of one paged
-    decode step of a dense or an MoE config and how many times a step runs
-    it. An MoE config's layers run q, k, v and o, its MoE layers the shared
-    experts' three (its routed experts go through ``gemm_rows_grouped``),
-    its leading dense layers their MLP's three."""
-    if cfg.family == "dense":
-        return [(name, K, N, nk, 1 if name == "unembed" else cfg.n_layers)
+    decode step of a config and how many times a step runs it. A dense or
+    VLM config's layers run ``decode_products``. An enc-dec config's
+    decoder layers run q, k, v and o of the self attention, q and o of the
+    cross attention and the GELU MLP's two. An MoE config's layers run q,
+    k, v and o, its MoE layers the shared experts' three (its routed
+    experts go through ``gemm_rows_grouped``), its leading dense layers
+    their MLP's three."""
+    L = cfg.n_layers
+    if cfg.family in ("dense", "vlm"):
+        return [(name, K, N, nk, 1 if name == "unembed" else L)
                 for name, K, N, nk in decode_products(cfg)]
+    if cfg.family == "encdec":
+        d, hd = cfg.d_model, cfg.n_heads * cfg.d_head
+        out = [(name, K, N, nk, L)
+               for name, K, N, nk in decode_products(cfg)[:4]]
+        return out + [("cross q", d, hd, False, L),
+                      ("cross o", hd, d, False, L),
+                      ("wi", d, cfg.d_ff, False, L),
+                      ("wd", cfg.d_ff, d, False, L),
+                      ("unembed", d, cfg.vocab_size, cfg.tie_embeddings, 1)]
     d, nd = cfg.d_model, cfg.first_k_dense
     out = [(name, K, N, nk, cfg.n_layers)
            for name, K, N, nk in decode_products(cfg)[:4]]

@@ -10,9 +10,11 @@ CLI.
 
 Each kernel wrapper counts its own launches (``<wrapper>.launches``); this
 module counts the calls that went to a plain version, so a run can show
-which path it took. ``paged_verify_attention`` is no kernel of its own: on
-the card it folds its window into the paged decode kernel, as the TPU path
-does (``repro/kernels/ops.py:285-301``), and counts there. ``gemm_rows`` has
+which path it took. ``paged_verify_attention`` and ``paged_cross_attention``
+are no kernels of their own: on the card each folds its query rows into the
+paged decode kernel (``_fold``), the verify window into its batch as the TPU
+path does (``repro/kernels/ops.py:285-301``), a cross read's rows eight to a
+lane into its GQA groups, and counts there. ``gemm_rows`` has
 no TPU kernel: it is the paged decode step's row-invariant product
 (``kernels/gemm_rows.py``); nor have ``gemm_rows_grouped``, its form over
 all experts of an MoE layer, and ``moe_route``, the MoE router
@@ -134,6 +136,29 @@ def paged_decode_attention(
                                          lengths)
 
 
+def _fold(q, k_pages, v_pages, page_table, lengths, *, rows: int = 1,
+          run=None) -> torch.Tensor:
+    """``q (B, W, H, D)`` through the paged decode kernel (or ``run``, a
+    function of its arguments) as ``B * W / rows`` folded lanes: each
+    ``rows`` consecutive query rows of a lane, which share a length, stack
+    into the GQA group of every kv head (``rows * H / K`` query heads a
+    block, at most ``_paged.MAX_GROUP``), and each folded lane takes its
+    lane's table row. ``lengths (B, W / rows)`` per folded lane; ``W`` a
+    multiple of ``rows``. A row's arithmetic is the same wherever it sits in
+    the group, so each is bitwise a one-lane decode at its length."""
+    B, W, H, D = q.shape
+    K = k_pages.shape[2]
+    n = W // rows
+    qf = (q.reshape(B, n, rows, K, H // K, D).transpose(2, 3)
+          .reshape(B * n, K * rows * (H // K), D))
+    table = page_table if n == 1 else page_table.repeat_interleave(n, dim=0)
+    out = (run or _paged.paged_decode_attention)(
+        qf.contiguous(), k_pages, v_pages, table.contiguous(),
+        lengths.reshape(-1).to(torch.int32).contiguous())
+    return (out.reshape(B, n, K, rows, H // K, D).transpose(2, 3)
+            .reshape(B, W, H, D))
+
+
 def paged_verify_attention(
     q: torch.Tensor,           # (B, W, H, D) — a window of W queries a lane
     k_pages: torch.Tensor,     # (n_pages, P, K, D)
@@ -149,14 +174,53 @@ def paged_verify_attention(
     if _plain(q, "paged_decode_attention"):
         return ref.paged_verify_attention(q, k_pages, v_pages, page_table,
                                           positions)
-    B, W, H, D = q.shape
-    lengths = (positions[:, None]
-               + torch.arange(W, device=q.device)[None, :] + 1)
-    out = _paged.paged_decode_attention(
-        q.reshape(B * W, H, D), k_pages, v_pages,
-        page_table.repeat_interleave(W, dim=0).contiguous(),
-        lengths.reshape(-1).to(torch.int32))
-    return out.reshape(B, W, H, D)
+    W = q.shape[1]
+    return _fold(q, k_pages, v_pages, page_table,
+                 positions[:, None] + torch.arange(W, device=q.device) + 1)
+
+
+def cross_rows(C: int, H: int, K: int) -> int:
+    """Query rows of a cross read that share one folded lane: as many as
+    fill the kernel's group (whisper's MHA: 8), never more than C."""
+    return max(1, min(_paged.MAX_GROUP // (H // K), C))
+
+
+def _cross_fold(q, k_pages, v_pages, page_table, lengths,
+                run=None) -> torch.Tensor:
+    """The card's route of :func:`paged_cross_attention`: every row of a
+    lane has the lane's length, so ``cross_rows`` of them share a folded
+    lane (C padded with zero rows to a multiple). ``run`` stands in for the
+    kernel (a test's plain twin on the CPU)."""
+    B, C, H, _ = q.shape
+    rows = cross_rows(C, H, k_pages.shape[2])
+    pad = -C % rows
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
+    out = _fold(q, k_pages, v_pages, page_table,
+                lengths[:, None].expand(B, (C + pad) // rows), rows=rows,
+                run=run)
+    return out[:, :C] if pad else out
+
+
+def paged_cross_attention(
+    q: torch.Tensor,           # (B, C, H, D) — C query rows a lane
+    k_pages: torch.Tensor,     # (n_pages, P, K, D) — the encoder region pool
+    v_pages: torch.Tensor,     # (n_pages, P, K, D)
+    page_table: torch.Tensor,  # (B, max_cross_pages) int32
+    lengths: torch.Tensor,     # (B,) int32 — valid encoder positions
+) -> torch.Tensor:
+    """Non-causal attention of a query block over a paged cross-attention
+    (encoder-output) region, keys masked at ``lengths``. On the card the C
+    query rows fold into the paged decode kernel (``_cross_fold``), and
+    count there: ``cross_rows`` rows a folded lane as the rows of its kv
+    heads' groups, so each region segment is read once for that many rows
+    rather than once a row, as the TPU path's one row a lane does
+    (``repro/kernels/ops.py:323-349``). At C = 1 the lanes go as they
+    are."""
+    if _plain(q, "paged_decode_attention"):
+        return ref.paged_cross_attention(q, k_pages, v_pages, page_table,
+                                         lengths)
+    return _cross_fold(q, k_pages, v_pages, page_table, lengths)
 
 
 def gemm_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,10 @@ import torch
 from repro_torch.kernels import _build, _flash_decode, _pad
 from repro_torch.kernels.ref import paged_decode_attention as plain  # noqa: F401
 
+# the most query heads a kv head's block takes (the rows of its mma tile
+# that csrc/flash_decode.cuh fills)
+MAX_GROUP = 8
+
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                           ctypes.c_void_p]
 
@@ -61,12 +65,12 @@ def paged_decode_attention(
         raise ValueError(f"paged_decode_attention kernel needs CUDA, got {dev}")
     B, H, D = q.shape
     n_pages, P, K, Dk = k_pages.shape
-    if (Dk != D or v_pages.shape != k_pages.shape or H % K or H // K > 8
-            or D > _pad.WIDTHS[-1]):
+    if (Dk != D or v_pages.shape != k_pages.shape or H % K
+            or H // K > MAX_GROUP or D > _pad.WIDTHS[-1]):
         raise ValueError(
             f"paged_decode_attention kernel: q {tuple(q.shape)}, pages "
             f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)} (need H % K == 0, "
-            f"H/K <= 8 and D <= {_pad.WIDTHS[-1]})")
+            f"H/K <= {MAX_GROUP} and D <= {_pad.WIDTHS[-1]})")
     if page_table.shape[0] != B or lengths.shape != (B,):
         raise ValueError("paged_decode_attention kernel: page_table/lengths "
                          "do not match the batch")

@@ -148,6 +148,34 @@ def paged_verify_attention(
     return out.to(q.dtype)
 
 
+def paged_cross_attention(
+    q: torch.Tensor,           # (B, C, H, D) — C query rows a lane
+    k_pages: torch.Tensor,     # (n_pages, P, K, D) — the encoder region pool
+    v_pages: torch.Tensor,     # (n_pages, P, K, D)
+    page_table: torch.Tensor,  # (B, max_pages) int — physical page ids
+    lengths: torch.Tensor,     # (B,) int — valid encoder positions a lane
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Non-causal attention of C query rows a lane over its paged cross
+    (encoder-output) region, keys masked at ``lengths[b]``
+    (``repro/kernels/ref.py:177-200``): the enc-dec decode step (C = 1)
+    and a prefill chunk (C = chunk)."""
+    b, c, h, d = q.shape
+    kh = k_pages.shape[2]
+    idx = page_table.long()
+    k = _expand_kv(k_pages[idx].reshape(b, -1, kh, d), h)
+    v = _expand_kv(v_pages[idx].reshape(b, -1, kh, d), h)
+    s = k.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = torch.arange(s, device=q.device)[None, :] < lengths[:, None]
+    logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Row-invariant matrix product (no TPU kernel: it keeps the verify fold's
 # lanes equal to plain decode's on the card, see kernels/gemm_rows.py)

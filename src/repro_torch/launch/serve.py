@@ -12,15 +12,23 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
         [--full] [--device cpu] [--requests 8 --max-new 12] [--fail-after 5]
 
-``--arch`` takes every arch the port carries: ``qwen3-8b``,
+``--arch`` takes every text-only arch the port carries: ``qwen3-8b``,
 ``smollm-360m``, ``phi4-mini-3.8b``, ``minitron-4b`` (dense),
 ``granite-moe-1b-a400m``, ``deepseek-moe-16b`` (MoE), ``falcon-mamba-7b``
-(SSM) and ``zamba2-1.2b`` (hybrid).
+(SSM) and ``zamba2-1.2b`` (hybrid). The multimodal archs
+(``llava-next-mistral-7b``, ``whisper-medium``) need a modality input with
+every request, which this CLI does not make: it refuses them before
+building anything, and they serve through the Python API,
+``ServeEngine.submit(prompt, extra={"embeds": ...})`` or ``extra={"frames":
+...}``.
 """
 
 from __future__ import annotations
 
 import argparse
+
+# the modality input each multimodal family's requests carry
+MODALITY = {"encdec": "frames", "vlm": "embeds"}
 
 
 def main(argv: list[str] | None = None) -> list:
@@ -46,6 +54,12 @@ def main(argv: list[str] | None = None) -> list:
     from repro_torch.serving.engine import ServeEngine
 
     cfg = get(args.arch, reduced=not args.full)
+    if cfg.family in MODALITY:
+        raise SystemExit(
+            f"{args.arch}: the {cfg.family} family needs "
+            f"extra={{{MODALITY[cfg.family]!r}: ...}} with every request, "
+            "which this CLI does not supply; serve it through "
+            "ServeEngine.submit(prompt, extra={'frames'|'embeds': ...})")
     model = get_model(cfg)
     params = model.init(args.seed, device=args.device)
     rng = np.random.default_rng(args.seed)

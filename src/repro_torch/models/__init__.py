@@ -1,9 +1,9 @@
 """Model zoo of the port: ``get_model(cfg)`` returns a
 :class:`repro_torch.models.model_api.ModelFns`.
 
-The dense (``transformer``), MoE (``moe``), SSM (``mamba``) and hybrid
-(``hybrid``) families are ported; the multimodal ones raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Every family of the JAX package is ported: dense and VLM
+(``transformer``), MoE (``moe``), SSM (``mamba``), hybrid (``hybrid``) and
+enc-dec (``encdec``).
 """
 
 from __future__ import annotations
@@ -11,14 +11,9 @@ from __future__ import annotations
 from repro_torch.config import ModelConfig
 from repro_torch.models.model_api import ModelFns
 
-_LATER = {
-    "encdec": "ROADMAP Queue 1, item 13 (multimodal families)",
-    "vlm": "ROADMAP Queue 1, item 13 (multimodal families)",
-}
-
 
 def get_model(cfg: ModelConfig) -> ModelFns:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         from repro_torch.models import transformer as family
     elif cfg.family == "moe":
         from repro_torch.models import moe as family
@@ -26,11 +21,8 @@ def get_model(cfg: ModelConfig) -> ModelFns:
         from repro_torch.models import mamba as family
     elif cfg.family == "hybrid":
         from repro_torch.models import hybrid as family
-    elif cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family} family is not ported yet "
-            f"({_LATER[cfg.family]})"
-        )
+    elif cfg.family == "encdec":
+        from repro_torch.models import encdec as family
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
     return family.make_model(cfg)

@@ -4,8 +4,8 @@ attention over a dense or a paged cache, the MLP, embeddings and logits.
 Ported from ``repro/models/layers.py``. Results are rounded to bf16 at
 exactly the reference's points, so the two packages compute the same
 numbers up to summation order: every matrix product takes bf16 operands and
-gives a bf16 result, RoPE and the SiLU run in f32 and
-cast back, and the logits are a bf16 product cast to f32
+gives a bf16 result, RoPE, the SiLU and the GELU run in f32
+and cast back, and the logits are a bf16 product cast to f32
 (``layers.py:379``). Weights arrive already in bf16 (see ``model_api``).
 
 Page pools and dense caches are updated in place (``index_put_``): the JAX
@@ -191,13 +191,31 @@ def _project_qkv(p: nn.Module, x: torch.Tensor, cfg: ModelConfig, rows: Rows,
     return q, k, v
 
 
+def _project_q(p: nn.Module, x: torch.Tensor, cfg: ModelConfig, rows: Rows,
+               mm: Matmul = torch.matmul) -> torch.Tensor:
+    """The query alone (cross attention, whose K/V come from the encoder):
+    x (B,S,d) -> q (B,S,H,dh), with qk-norm and RoPE where the config has
+    them."""
+    q = _mm(x, p.wq, mm)
+    if cfg.qk_norm:
+        q = ops.rmsnorm(q, p.q_norm, cfg.norm_eps)
+    if rows.cos is not None:
+        q = apply_rope(q, rows.cos, rows.sin)
+    return q
+
+
 def attn_forward(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
-                 rows: Rows):
-    """Full-sequence causal attention (prefill, ``layers.py:88-110``); x
-    (B, S, d) already normalized, ``rows = dense_rows(arange(S))``.
-    Returns (out (B, S, d), k, v (B, S, K, dh))."""
-    q, k, v = _project_qkv(p, x, cfg, rows)
-    out = ops.attention(q, k, v, causal=True)
+                 rows: Rows, *, causal: bool = True,
+                 kv: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """Full-sequence attention (prefill, ``layers.py:88-110``); x (B, S, d)
+    already normalized, ``rows = dense_rows(arange(S))``. With ``kv`` (the
+    cross attention's encoder K/V) only q is projected. Returns (out (B, S,
+    d), k, v (B, S, K, dh))."""
+    if kv is None:
+        q, k, v = _project_qkv(p, x, cfg, rows)
+    else:
+        q, (k, v) = _project_q(p, x, cfg, rows), kv
+    out = ops.attention(q, k, v, causal=causal)
     return _mm(out.flatten(2), p.wo.flatten(0, 1)), k, v
 
 
@@ -219,13 +237,20 @@ def attn_decode(
     lengths: torch.Tensor,      # (B,) int32 — positions + 1
     cache_k: torch.Tensor,      # (B, S, K, dh) — updated in place
     cache_v: torch.Tensor,
+    *,
+    update_cache: bool = True,
 ) -> torch.Tensor:
     """Single-token attention against a dense cache (``layers.py:113-130``):
     the token's K/V land at its position, then it attends over ``lengths``
-    keys. Returns (B, 1, d)."""
-    q, k, v = _project_qkv(p, x, cfg, rows)
-    kv_append(cache_k, k[:, 0], rows)
-    kv_append(cache_v, v[:, 0], rows)
+    keys. With ``update_cache=False`` (the enc-dec cross read, over the
+    encoder's cache at ``enc_len``) nothing is written and only q is
+    projected. Returns (B, 1, d)."""
+    if update_cache:
+        q, k, v = _project_qkv(p, x, cfg, rows)
+        kv_append(cache_k, k[:, 0], rows)
+        kv_append(cache_v, v[:, 0], rows)
+    else:
+        q = _project_q(p, x, cfg, rows)
     out = ops.decode_attention(q[:, 0], cache_k, cache_v, lengths)
     return _mm(out.flatten(1), p.wo.flatten(0, 1))[:, None]
 
@@ -337,6 +362,26 @@ def attn_prefill_chunk(
     return _mm(out.flatten(2), p.wo.flatten(0, 1))
 
 
+def attn_cross_paged(
+    p: nn.Module,
+    x: torch.Tensor,            # (B, C, d) — decoder rows, normalized
+    cfg: ModelConfig,
+    k_pages: torch.Tensor,      # (n_pages, P, K, dh) — the encoder region
+    v_pages: torch.Tensor,
+    cross_table: torch.Tensor,  # (B, max_cross_pages) int32
+    cross_len: torch.Tensor,    # (B,) int32 — valid encoder positions
+    mm: Matmul = torch.matmul,
+) -> torch.Tensor:
+    """Cross attention of decoder rows against the paged encoder region
+    (``layers.py:290-318``). Read-only: ``prefill_cross`` wrote the region
+    once at admission, so shared regions stay intact. No RoPE on either
+    side: the encoder keys are unrotated. Returns (B, C, d)."""
+    q = _project_q(p, x, cfg, Rows(None, None), mm)
+    out = ops.paged_cross_attention(q, k_pages, v_pages, cross_table,
+                                    cross_len)
+    return _mm(out.flatten(2), p.wo.flatten(0, 1), mm)
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
@@ -346,19 +391,27 @@ def mlp_specs(cfg: ModelConfig, width: int, layers: int | None = None) -> dict:
     d = cfg.d_model
     lead = () if layers is None else (layers,)
     lax_ = () if layers is None else ("layers",)
+    wd = PSpec(lead + (width, d), lax_ + ("mlp", "embed_out"), cast=True)
+    ln = PSpec(lead + (d,), lax_ + ("embed",), init="ones")
     if not cfg.gated_mlp:
-        raise NotImplementedError("the port's MLP is gated (SwiGLU)")
+        return {"wi": PSpec(lead + (d, width), lax_ + ("embed_in", "mlp"),
+                            cast=True), "wd": wd, "ln": ln}
     return {
         "wg": PSpec(lead + (d, width), lax_ + ("embed_in", "mlp"), cast=True),
         "wu": PSpec(lead + (d, width), lax_ + ("embed_in", "mlp"), cast=True),
-        "wd": PSpec(lead + (width, d), lax_ + ("mlp", "embed_out"), cast=True),
-        "ln": PSpec(lead + (d,), lax_ + ("embed",), init="ones"),
+        "wd": wd, "ln": ln,
     }
 
 
 def mlp_forward(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
                 mm: Matmul = torch.matmul) -> torch.Tensor:
-    """SwiGLU; x (..., d) already normalized."""
+    """SwiGLU, or the GELU MLP where ``cfg.gated_mlp`` is off; x (..., d)
+    already normalized. The GELU is ``jax.nn.gelu``'s default, the tanh
+    approximation, in f32 and cast back (``layers.py:341-343``)."""
+    if not cfg.gated_mlp:
+        h = mm(x, p.wi)
+        h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
+        return mm(h, p.wd)
     g = mm(x, p.wg)
     u = mm(x, p.wu)
     h = F.silu(g.float()).to(g.dtype) * u

@@ -150,6 +150,21 @@ class ModelFns:
       max_pages)``; writes the window's K/V as W sequential
       ``decode_paged`` steps would and returns ``(B, W, V)`` logits.
 
+    The multimodal families add (``repro/models/model_api.py:147-159``):
+
+    - ``paged_cross_specs(n_pages, page_size)`` and ``prefill_cross(params,
+      cache, batch)`` (enc-dec): the cross-attention K/V, made once a
+      request from the encoder output, lives in its own ``cross_*_pages``
+      pools beside the self pools, addressed by the engine's per-slot cross
+      page table; ``prefill_cross`` runs the encoder over ``frames (1,
+      S_enc, d)`` and writes each decoder layer's cross K/V into the pages
+      of ``cross_page_table (max_cross_pages,)``. With both set, the
+      chunks and the decode step also take ``cross_page_table`` and
+      ``cross_len`` in their batch;
+    - ``paged_mm_inline`` (VLM): ``prefill_chunk`` also takes ``embeds (1,
+      C, VISION_D)`` and the keyword ``mm_len``: positions below ``mm_len``
+      read projected image rows, the rest token embeddings.
+
     ``paged_state`` is True when the cache carries per-slot recurrent state
     (``repro/models/model_api.py:121-130``): that state is not
     page-addressable, so the engine's prefix sharing falls back to trie
@@ -168,6 +183,9 @@ class ModelFns:
     decode_paged: Callable[..., torch.Tensor] | None = None
     paged_state: bool = False
     verify_paged: Callable[..., torch.Tensor] | None = None
+    paged_cross_specs: Callable[..., Tree] | None = None
+    prefill_cross: Callable[..., None] | None = None
+    paged_mm_inline: bool = False
 
     @property
     def supports_paged(self) -> bool:
@@ -193,6 +211,15 @@ class ModelFns:
         are excluded: their recurrent state cannot be rewound."""
         return self.verify_paged is not None and self.supports_prefix_sharing
 
+    @property
+    def supports_paged_cross(self) -> bool:
+        """True when the family pages its cross-attention region (enc-dec):
+        the engine then allocates a cross page chain a request at admission
+        and runs :attr:`prefill_cross` to fill it
+        (``repro/models/model_api.py:219-226``)."""
+        return (self.supports_paged and self.paged_cross_specs is not None
+                and self.prefill_cross is not None)
+
     def init(self, generator: torch.Generator | int = 0,
              device: str | torch.device = "cuda") -> nn.Module:
         """Seeded weights drawn on ``device`` with the reference's fan-in
@@ -215,9 +242,12 @@ class ModelFns:
     def init_paged_cache(self, n_slots: int, n_pages: int, page_size: int,
                          dtype: torch.dtype = torch.bfloat16,
                          device: str | torch.device = "cuda") -> Tree:
-        return zeros_from_specs(
-            self.paged_cache_specs(n_slots, n_pages, page_size), dtype,
-            resolve_device(device))
+        """The zeroed paged cache, the cross-attention pools (enc-dec)
+        allocated beside the self pools."""
+        specs = dict(self.paged_cache_specs(n_slots, n_pages, page_size))
+        if self.paged_cross_specs is not None:
+            specs.update(self.paged_cross_specs(n_pages, page_size))
+        return zeros_from_specs(specs, dtype, resolve_device(device))
 
 
 def zeros_from_specs(specs: dict, dtype: torch.dtype = torch.bfloat16,

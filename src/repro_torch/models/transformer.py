@@ -1,5 +1,6 @@
-"""Dense decoder-only transformer (qwen3, smollm): the dense and the paged
-serving paths.
+"""Dense decoder-only transformer (qwen3, smollm, phi4-mini, minitron) and
+the LLaVA-NeXT VLM (a stub vision frontend on a Mistral backbone): the
+dense and the paged serving paths.
 
 Ported from ``repro/models/transformer.py``. The reference's ``lax.scan``
 over layer-stacked parameters becomes a loop over per-layer modules; the
@@ -12,6 +13,14 @@ whose rows do not depend on the row count, and the speculative verify
 folds its ``B·W`` window lanes into that step (``verify_paged_fn``): so a
 verified token's logits are a plain decode step's, bit for bit, on the card
 too. Prefill and the dense path keep ``torch.matmul``.
+
+The VLM family's image rows are precomputed patch embeddings (``embeds``,
+``(1, n_image_tokens, VISION_D)``; the vision tower is a stub in the
+reference too) projected by ``mm_proj`` and placed ahead of the text: a
+dense prefill concatenates them (``_embed_inputs``), and a paged prefill
+chunk reads them inline for its positions below ``mm_len``, so image rows
+take ordinary pages and share through the prefix trie like text
+(``repro/models/transformer.py:83-90, 186-223``).
 
 The MoE family (``models/moe.py``) serves through these same entry points:
 its layers are blocks too, whose ``ffn`` routes through the experts, and
@@ -31,16 +40,22 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as ll
 from repro_torch.models.model_api import ModelFns, Params, PSpec, Tree
 
+VISION_D = 1024  # stub vision-tower embedding width (CLIP-like)
+
 
 def build_specs(cfg: ModelConfig) -> dict:
     L = cfg.n_layers
-    return {
+    specs = {
         **ll.embed_specs(cfg),
         "layers": {
             "attn": ll.attn_specs(cfg, layers=L),
             "mlp": ll.mlp_specs(cfg, cfg.d_ff, layers=L),
         },
     }
+    if cfg.family == "vlm":
+        specs["mm_proj"] = PSpec((VISION_D, cfg.d_model),
+                                 ("embed_in", "embed"), cast=True)
+    return specs
 
 
 class Block(nn.Module):
@@ -90,6 +105,22 @@ def _block(lp: Block, x: torch.Tensor, cfg: ModelConfig, attend,
 # ---------------------------------------------------------------------------
 
 
+def _image_rows(params: DenseLM, embeds: torch.Tensor) -> torch.Tensor:
+    """Patch embeddings (1, n, VISION_D), any float type, cast to bf16 and
+    projected: (1, n, d)."""
+    return ll._mm(embeds.to(torch.bfloat16), params.mm_proj)
+
+
+def _embed_inputs(params: DenseLM, cfg: ModelConfig,
+                  batch: dict) -> torch.Tensor:
+    """Token embeddings, with a VLM's image rows ahead of them
+    (``transformer.py:83-90``)."""
+    x = ll.embed_lookup(params, batch["tokens"])
+    if cfg.family == "vlm":
+        x = torch.cat([_image_rows(params, batch["embeds"]), x], dim=1)
+    return x
+
+
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     L, K, dh = cfg.n_layers, cfg.n_kv_heads, cfg.d_head
     axes = ("layers", "batch", "seq_fallback", "kv_heads", "head_dim")
@@ -101,10 +132,10 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
 
 def prefill_fn(params: DenseLM, batch: dict, cfg: ModelConfig):
     """The whole prompt from position 0 (``transformer.py:131-143``): causal
-    attention over every position, pads included. Returns the logits of the
-    last position (1, V) f32 and the batch-1 cache ``k``/``v`` (L, 1, S, K,
-    dh)."""
-    x = ll.embed_lookup(params, batch["tokens"])          # (1, S, d)
+    attention over every position, pads included, a VLM's image rows
+    first. Returns the logits of the last position (1, V) f32 and the
+    batch-1 cache ``k``/``v`` (L, 1, S, K, dh)."""
+    x = _embed_inputs(params, cfg, batch)                 # (1, S, d)
     rows = ll.dense_rows(cfg, torch.arange(x.shape[1], device=x.device))
     ks, vs = [], []
 
@@ -152,12 +183,20 @@ def paged_cache_specs(cfg: ModelConfig, n_slots: int, n_pages: int,
 
 
 def prefill_chunk_fn(params: DenseLM, cache: Tree, batch: dict,
-                     cfg: ModelConfig, *, offset: int) -> torch.Tensor:
+                     cfg: ModelConfig, *, offset: int,
+                     mm_len: int = 0) -> torch.Tensor:
     """One prompt chunk at absolute position ``offset`` (``transformer.py:
     186-223``): K/V written into the slot's pages, logits taken at the true
-    final token (``valid - 1`` within the chunk). Returns (1, V) f32."""
+    final token (``valid - 1`` within the chunk). A VLM chunk's positions
+    below ``mm_len`` read the projected image rows of ``batch["embeds"]``
+    (1, C, VISION_D), aligned with the chunk, instead of token embeddings.
+    Returns (1, V) f32."""
     table = batch["page_table"]
     x = ll.embed_lookup(params, batch["tokens"])          # (1, C, d)
+    si = min(max(mm_len - offset, 0), x.shape[1])  # image rows in the chunk
+    if si:
+        x = torch.cat([_image_rows(params, batch["embeds"][:, :si]),
+                       x[:, si:]], dim=1)
     P = cache["k_pages"].shape[2]
     rows = ll.chunk_rows(cfg, offset, x.shape[1], table, P)
     n_ctx = min((offset + x.shape[1] + P - 1) // P, table.shape[0])
@@ -222,4 +261,6 @@ def make_model(cfg: ModelConfig) -> ModelFns:
         prefill_chunk=functools.partial(prefill_chunk_fn, cfg=cfg),
         decode_paged=functools.partial(decode_paged_fn, cfg=cfg),
         verify_paged=functools.partial(verify_paged_fn, cfg=cfg),
+        # VLM prompts chunk their image rows inline (positions < mm_len)
+        paged_mm_inline=cfg.family == "vlm",
     )

@@ -2,8 +2,9 @@
 the legacy dense cache that is its oracle.
 
 Ported from ``repro/serving/engine.py``. The engine owns ``n_slots`` decode
-lanes. It serves the dense (qwen3-8b, smollm-360m), SSM (falcon-mamba-7b)
-and hybrid (zamba2-1.2b) families, in one of two modes:
+lanes. It serves every family of the port: dense, MoE, SSM (falcon-mamba-7b),
+hybrid (zamba2-1.2b) and the multimodal VLM (llava-next-mistral-7b) and
+enc-dec (whisper-medium), in one of two modes:
 
 - paged (the default): a shared pool of fixed-size pages with per-slot
   page tables (:mod:`repro_torch.serving.kvcache`). Admission runs chunked
@@ -69,15 +70,28 @@ What carries over from the reference, with the same semantics and the same
   snapshots carry them with no bookkeeping of their own. The draft rides
   every prefill chunk and every decode step that does not speculate;
 - ``fork``: sampling children split off a live slot, sharing its full
-  committed pages copy-on-write.
+  committed pages copy-on-write;
+- the multimodal families (``engine.py:396-760, 1490-1860``): a request
+  carries ``extra={"embeds": ...}`` (VLM) or ``extra={"frames": ...}``
+  (enc-dec). VLM image rows take ordinary cache positions ahead of the
+  text, chunked inline, keyed in the trie by a CRC of each row's bytes, so
+  a shared image and text prefix shares pages like text. An enc-dec
+  request also holds a cross-attention region, a page chain of its own
+  (``cross_table``, ``cross_len``) filled once by the family's
+  ``prefill_cross``: requests with the same frames share one region
+  (a full-chain trie hit on the frames' content keys skips the encoder),
+  a released region stays cached for the next, and cold region pages
+  spill and recall through the remote pool like prefix pages, each page's
+  payload carrying its own region's leaves only. Decoder prompt keys are
+  salted with the frames' digest: the same text under other frames never
+  shares. A preempted enc-dec slot re-prefills (no chain spill, no
+  write-behind), and a multimodal target takes no draft, as in the
+  reference.
 
 One deliberate difference: a lane whose chunked prefill is still in flight
 keeps its recurrent state through the batched decode steps that run
 meanwhile, bit for bit (``_decode_step``). The reference's decode advances
 the conv/SSM state of every lane, that one included (ROADMAP Queue 3, R3).
-
-Not ported: the multimodal and cross-attention families, with their
-branches of the spill tier.
 
 The model's entry points update the page pools in place; the JAX engine
 donates its cache to the jitted step for the same reason
@@ -89,6 +103,7 @@ from __future__ import annotations
 import base64
 import json
 import weakref
+import zlib
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -112,6 +127,22 @@ from repro_torch.serving.kvcache import (
     scatter_slot,
 )
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+
+# Trie key namespaces of multimodal content (``engine.py:143-160``): text
+# ids are < 2^32 and salted keys < 2^70, so keys made from modality bytes
+# never collide with a text prompt's, nor the three kinds with each other.
+_MM_NS = 1 << 70                    # VLM image-embedding rows
+_CROSS_NS = 2 << 70                 # enc-dec encoder-frame rows
+_CROSS_PAD = 1 << 33                # cross-key pad sentinel (crc32 < 2^32)
+_SALT_SHIFT = 34                    # frames-digest salt of enc-dec keys
+
+
+def _content_keys(arr) -> list[int]:
+    """One key per modality row (image patch, audio frame): a CRC of its
+    raw bytes, stable across processes and packages, so a restored
+    engine's trie keys keep matching."""
+    a = np.ascontiguousarray(np.asarray(arr))
+    return [zlib.crc32(r.tobytes()) for r in a.reshape(-1, a.shape[-1])]
 
 
 @dataclass
@@ -137,13 +168,13 @@ class Request:
     # noise from ``seed`` (a sampled stream is a function of prompt + seed)
     temperature: float = 0.0
     seed: int = 0
-    # modality inputs of the reference's multimodal families: none of the
-    # port's families takes one, but a snapshot carries them through
+    # modality inputs: ``embeds`` (VLM) or ``frames`` (enc-dec), numpy
     extra: dict = field(default_factory=dict)
     generated: list[int] = field(default_factory=list)
     slot: int | None = None
     done: bool = False
-    # memo for derived trie keys (pure functions of the immutable prompt)
+    # memo for derived trie keys and modality lengths (pure functions of the
+    # immutable prompt and extra): not snapshotted, recomputed after restore
     key_cache: dict = field(default_factory=dict, repr=False)
 
 
@@ -262,10 +293,12 @@ class _PrefillTask:
     never touches real (possibly shared) pages."""
 
     req: Request
-    tlen: int                    # prompt + resume positions
-    ptoks: list[int]             # prompt + resume
+    tlen: int                    # image rows + prompt + resume positions
+    mm: int                      # inline image positions (VLM)
+    ptoks: list[int]             # prompt + resume (text positions)
     offset: int                  # next position to compute
     key_tokens: list[int]        # trie keys registered at completion
+    embeds: np.ndarray | None = None    # (mm, VISION_D) image rows, VLM
     logits: torch.Tensor | None = None  # last chunk's logits
 
 
@@ -277,6 +310,7 @@ class ServeEngine:
         *,
         n_slots: int = 8,
         max_seq: int = 1024,
+        max_cross_seq: int | None = None,
         paged: bool | None = None,
         page_size: int = 64,
         n_pages: int | None = None,
@@ -301,11 +335,17 @@ class ServeEngine:
         if remote_pool is not None and not paged:
             raise ValueError(
                 "the spill tier needs the paged cache; use paged=True")
+        # multimodal capabilities (orthogonal to paged): inline image rows
+        # in the prompt (VLM), a paged cross-attention region (enc-dec)
+        self._mm = getattr(model, "paged_mm_inline", False)
+        self.cross = paged and model.supports_paged_cross
         if draft is not None:
-            # the reference's checks and messages (engine.py:411-433); every
-            # family of the port is text-only
+            # the reference's checks and messages (engine.py:411-433)
             if not paged:
                 raise ValueError("speculative decoding needs the paged cache")
+            if self._mm or model.supports_paged_cross:
+                raise ValueError(
+                    "speculative decoding covers text-only paged families")
             if not model.supports_spec_decode:
                 raise ValueError(
                     f"{model.cfg.arch_id}: family has no paged verify path")
@@ -348,8 +388,7 @@ class ServeEngine:
         self.requests: dict[int, Request] = {}
         self._req_counter = 0
         self.steps = 0
-        # every key of the reference engine (engine.py:444-489); the cross
-        # counters stay 0 (no family of the port has a cross region)
+        # every key of the reference engine (engine.py:444-489)
         self.stats = {k: 0 for k in (
             "prefill_tokens", "prefill_tokens_shared", "prefix_hit_tokens",
             "prefix_hits", "cow_copies", "peak_pages",
@@ -378,12 +417,24 @@ class ServeEngine:
 
         self.page_size = page_size
         self.max_pages = -(-max_seq // page_size)
+        # the cross region's capacity (enc-dec): pages a slot holds for the
+        # encoder output, beside its decoder pages
+        self.max_cross_seq = ((max_cross_seq if max_cross_seq is not None
+                               else max_seq) if self.cross else 0)
+        self.max_cross_pages = -(-self.max_cross_seq // page_size)
         # default pool: full capacity (one spare page for scratch)
         self.n_pages = (n_pages if n_pages is not None
-                        else n_slots * self.max_pages + 1)
+                        else n_slots * (self.max_pages + self.max_cross_pages)
+                        + 1)
         self.pool = PagePool(self.n_pages)
         self.page_table = np.zeros((n_slots, self.max_pages), np.int32)
         self.slot_pages: list[list[int]] = [[] for _ in range(n_slots)]
+        if self.cross:
+            self.cross_table = np.zeros((n_slots, self.max_cross_pages),
+                                        np.int32)
+            self.cross_len = np.zeros((n_slots,), np.int32)
+            self.slot_cross_pages: list[list[int]] = [
+                [] for _ in range(n_slots)]
         self.prefill_chunk = min(prefill_chunk, self.max_pages * page_size)
         # prefix sharing through the trie: on by default; families with
         # recurrent state (not page-addressable) keep trie bookkeeping only
@@ -399,8 +450,10 @@ class ServeEngine:
         self.decode_step_s = decode_step_s
         self.spill = remote_pool is not None and self.prefix_share
         # write-behind: stage each decode page on a peer as it fills, so a
-        # later preemption ships only the unstaged remainder
-        self.write_behind = bool(write_behind) and self.spill
+        # later preemption ships only the unstaged remainder (an enc-dec
+        # slot's chain does not spill: cross regions have their own path)
+        self.write_behind = bool(write_behind) and self.spill \
+            and not self.cross
         self.spilled: dict[int, SpilledPage] = {}
         self._spill_next = self.n_pages  # stub ids, never page-table ids
         # decode steps a slot sits out after a recall (the simulated
@@ -430,7 +483,10 @@ class ServeEngine:
 
     # ------------------------------------------------------------- helpers
     def _tensor(self, arr) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(arr)).to(self.device)
+        a = np.asarray(arr)
+        if not a.flags.writeable:   # a restored request's extra
+            a = a.copy()
+        return torch.as_tensor(a).to(self.device)
 
     def _target(self) -> dict:
         """The target model's leaves of the cache (the draft's ride under
@@ -440,25 +496,129 @@ class ServeEngine:
         return {k: v for k, v in self.cache.items()
                 if not k.startswith("draft_")}
 
+    # --------------------------------------------------------- multimodal
+    def _mm_len(self, req: Request) -> int:
+        """Cache positions a VLM request's image rows take ahead of its
+        text; 0 for every other family."""
+        if self._mm and "embeds" in req.extra:
+            if "mm_len" not in req.key_cache:
+                req.key_cache["mm_len"] = int(
+                    np.asarray(req.extra["embeds"]).shape[-2])
+            return req.key_cache["mm_len"]
+        return 0
+
+    def _total_len(self, req: Request) -> int:
+        return self._mm_len(req) + len(req.prompt)
+
+    def _frames_salt(self, req: Request) -> int:
+        """CRC of the request's whole frames: mixed into every enc-dec trie
+        key, so regions and prompts share only on an exact match of the
+        whole input."""
+        if "salt" not in req.key_cache:
+            req.key_cache["salt"] = zlib.crc32(np.ascontiguousarray(
+                np.asarray(req.extra["frames"])).tobytes())
+        return req.key_cache["salt"]
+
+    def _key_tokens(self, req: Request) -> list[int]:
+        """Trie key sequence of the prompt pages (``engine.py:651-671``): a
+        VLM's image rows lead as content keys; an enc-dec prompt's text is
+        salted with the frames' digest (its K/V depends on the encoder
+        input through cross attention)."""
+        if "key_tokens" not in req.key_cache:
+            if self._mm and "embeds" in req.extra:
+                ks = [_MM_NS | c for c in _content_keys(req.extra["embeds"])
+                      ] + list(req.prompt)
+            else:
+                ks = self._gen_keys(req, req.prompt)
+            req.key_cache["key_tokens"] = ks
+        return req.key_cache["key_tokens"]
+
+    def _gen_keys(self, req: Request, toks: list[int]) -> list[int]:
+        """Trie keys of text tokens past the image rows: the ids, salted
+        with the frames' digest for enc-dec as the prompt's are."""
+        if self.cross and "frames" in req.extra:
+            salt = (self._frames_salt(req) + 1) << _SALT_SHIFT
+            return [t + salt for t in toks]
+        return list(toks)
+
     def _admit_keys(self, req: Request) -> list[int]:
-        """Trie key sequence for admission: the prompt plus one key per
-        ``resume`` token. Memoized until the resume suffix changes."""
+        """Trie key sequence for admission: the prompt's keys plus one key
+        per ``resume`` token. Memoized until the resume suffix changes."""
         if "admit_keys" not in req.key_cache:
-            req.key_cache["admit_keys"] = list(req.prompt) + list(req.resume)
+            req.key_cache["admit_keys"] = (self._key_tokens(req)
+                                           + self._gen_keys(req, req.resume))
         return req.key_cache["admit_keys"]
+
+    def _cross_keys(self, req: Request) -> list[int]:
+        """Trie key sequence of the encoder region: a content key per frame,
+        padded to whole pages with a sentinel, every key mixing in the
+        whole frames' digest (``engine.py:694-707``): the encoder is
+        non-causal, so frames that are a page-aligned prefix of a longer
+        cached input must not hit its region."""
+        if "cross_keys" not in req.key_cache:
+            ns = _CROSS_NS | (self._frames_salt(req) << _SALT_SHIFT)
+            ks = [ns | c for c in _content_keys(req.extra["frames"])]
+            pad = -len(ks) % self.page_size
+            req.key_cache["cross_keys"] = ks + [ns | _CROSS_PAD] * pad
+        return req.key_cache["cross_keys"]
+
+    def _n_frames(self, req: Request) -> int:
+        if "n_frames" not in req.key_cache:
+            req.key_cache["n_frames"] = int(
+                np.asarray(req.extra["frames"]).shape[-2])
+        return req.key_cache["n_frames"]
+
+    def _cross_batch(self, batch: dict, slot: int | None = None) -> dict:
+        """``batch`` with the cross tables an enc-dec entry point reads:
+        every slot's, or one slot's row (a prefill chunk)."""
+        if self.cross:
+            if slot is None:
+                batch["cross_page_table"] = self._tensor(self.cross_table)
+                batch["cross_len"] = self._tensor(self.cross_len)
+            else:
+                batch["cross_page_table"] = self._tensor(
+                    self.cross_table[slot])
+                batch["cross_len"] = self._tensor(self.cross_len[slot])
+        return batch
 
     # ------------------------------------------------------------- interface
     def submit(self, prompt: list[int], *, max_new_tokens: int = 16,
-               eos_id: int | None = None, priority: int = 0,
-               deadline_ms: float | None = None,
+               eos_id: int | None = None, extra: dict | None = None,
+               priority: int = 0, deadline_ms: float | None = None,
                temperature: float = 0.0, seed: int = 0) -> Request:
-        if not 1 <= len(prompt) < self.max_seq:
+        """Queue a request. A VLM request carries ``extra={"embeds": (1,
+        n_image_tokens, VISION_D)}``, an enc-dec one ``extra={"frames": (1,
+        S_enc, d_model)}`` (numpy); the checks and messages are the
+        reference's (``engine.py:715-760``)."""
+        extra = dict(extra or {})
+        probe = Request(-1, list(prompt), max_new_tokens, eos_id, extra=extra)
+        allowed = ({"embeds"} if self._mm else set()) | (
+            {"frames"} if self.cross else set())
+        if self.paged and set(extra) - allowed:
             raise ValueError(
-                f"prompt length {len(prompt)} outside [1, {self.max_seq})")
+                f"unsupported modality extras {sorted(set(extra) - allowed)} "
+                "for this family's paged path; construct the engine with "
+                "paged=False")
+        if self._mm and "embeds" not in extra:
+            raise ValueError("vlm requests need extra={'embeds': ...}")
+        if self.cross and "frames" not in extra:
+            raise ValueError("enc-dec requests need extra={'frames': ...}")
+        tlen = self._total_len(probe)
+        if not 1 <= len(prompt) or not tlen < self.max_seq:
+            raise ValueError(
+                f"prompt length {len(prompt)} (+{tlen - len(prompt)} "
+                f"modality positions) outside [1, {self.max_seq})")
         if self.paged:
-            need = pages_needed(
-                min(len(prompt) + max_new_tokens, self.max_seq),
-                self.page_size)
+            need = pages_needed(min(tlen + max_new_tokens, self.max_seq),
+                                self.page_size)
+            if self.cross:
+                n_cp = pages_needed(self._n_frames(probe), self.page_size)
+                if (n_cp > self.max_cross_pages
+                        or self._n_frames(probe) > self.max_cross_seq):
+                    raise ValueError(
+                        f"{self._n_frames(probe)} frames exceed "
+                        f"max_cross_seq={self.max_cross_seq}")
+                need += n_cp
             if need > self.n_pages - 1:
                 raise ValueError(
                     f"request needs {need} pages but the pool only has "
@@ -466,7 +626,7 @@ class ServeEngine:
         req = Request(self._req_counter, list(prompt), max_new_tokens, eos_id,
                       priority=priority, deadline_ms=deadline_ms,
                       arrival_step=self.steps,
-                      temperature=temperature, seed=seed)
+                      temperature=temperature, seed=seed, extra=extra)
         if deadline_ms is not None:
             self._has_deadlines = True
         self._req_counter += 1
@@ -555,7 +715,7 @@ class ServeEngine:
         }
         if self.paged:
             batch["page_table"] = self._tensor(self.page_table)
-            logits = self._decode_step(batch)
+            logits = self._decode_step(self._cross_batch(batch))
             if self._draft is not None:
                 # keep the draft's cache complete at every position through
                 # the steps that do not speculate (forcing, budget fallback)
@@ -713,8 +873,9 @@ class ServeEngine:
         ``(temperature, seed)``; the shared pages stay read-only, since
         every lane writes only past its fork length. The parent's
         write-behind staging carries over to each child for the shared
-        pages. Needs ``n`` free slots and the pages; raises ``ValueError``
-        before any side effect otherwise."""
+        pages. An enc-dec child shares its parent's encoder region. Needs
+        ``n`` free slots and the pages; raises ``ValueError`` before any
+        side effect otherwise."""
         assert self.paged, "fork needs the paged cache"
         req = self.requests[req_id]
         slot = req.slot
@@ -730,7 +891,7 @@ class ServeEngine:
         full = length // P
         partial = length % P != 0
         need = pages_needed(
-            min(len(req.prompt) + req.max_new_tokens, self.max_seq), P)
+            min(self._total_len(req) + req.max_new_tokens, self.max_seq), P)
         priv_n = need - full
         if n * priv_n > self.pool.available:
             raise ValueError(f"fork of {n} needs {n * priv_n} pages, "
@@ -763,6 +924,15 @@ class ServeEngine:
             self.last_token[c] = self.last_token[slot]
             self.slot_req[c] = child.req_id
             child.slot = c
+            if self.cross:
+                # the child reads the parent's encoder region (one more
+                # reference); the reference engine leaves the child's
+                # cross table empty (ROADMAP Queue 3, R6)
+                region = self.slot_cross_pages[slot]
+                self.pool.share(region)
+                self.slot_cross_pages[c] = list(region)
+                self.cross_table[c] = self.cross_table[slot]
+                self.cross_len[c] = self.cross_len[slot]
             # the parent's staged pages are immutable and now shared: the
             # child's spill group stages them too (a lease has one
             # borrower), so its preemption ships only pages past the fork
@@ -827,9 +997,10 @@ class ServeEngine:
         prompt extending this transcript shares them."""
         if self.paged and self.prefix_share:
             covered = int(self.lengths[i])
-            gen = req.generated[: covered - len(req.prompt)]
-            self._register_prefix(req.prompt + list(gen),
-                                  self.slot_pages[i])
+            gen = req.generated[: covered - self._total_len(req)]
+            self._register_prefix(
+                self._key_tokens(req) + self._gen_keys(req, gen),
+                self.slot_pages[i])
         if self.paged and self.remote_pool is not None:
             # write-behind staged pages die with the request
             self.remote_pool.release_slot(req.req_id)
@@ -953,10 +1124,11 @@ class ServeEngine:
             raise ValueError("only active decode slots can be preempted")
         if self.prefix_cache:
             covered = int(self.lengths[slot])
-            gen = req.generated[: covered - len(req.prompt)]
-            self._register_prefix(req.prompt + list(gen),
-                                  self.slot_pages[slot])
-        if self.spill:
+            gen = req.generated[: covered - self._total_len(req)]
+            self._register_prefix(
+                self._key_tokens(req) + self._gen_keys(req, gen),
+                self.slot_pages[slot])
+        if self.spill and not self.cross:
             # only the pages holding real positions travel; staged indices
             # are already on a peer
             length = int(self.lengths[slot])
@@ -1000,8 +1172,8 @@ class ServeEngine:
     def _spill_cost(self, req: Request) -> int:
         """Pages a preemption of ``req`` would still have to move: its used
         chain less the pages already staged. Zero without the spill
-        tier."""
-        if not self.spill or req.slot is None:
+        tier (and for an enc-dec slot, whose chain does not spill)."""
+        if not self.spill or self.cross or req.slot is None:
             return 0
         n_chain = pages_needed(int(self.lengths[req.slot]), self.page_size)
         staged = sum(1 for idx in self.remote_pool.staged_pages(req.req_id)
@@ -1039,7 +1211,7 @@ class ServeEngine:
             self.stats["resume_fallbacks"] += 1
             return None
         need = pages_needed(
-            min(len(req.prompt) + req.max_new_tokens, self.max_seq), P)
+            min(self._total_len(req) + req.max_new_tokens, self.max_seq), P)
         if need > self.pool.available:
             return False
         payloads, wait_s = self.remote_pool.recall_slot(req.req_id)
@@ -1051,8 +1223,7 @@ class ServeEngine:
         chain = self.pool.alloc(need)
         assert chain is not None  # guaranteed by the pre-check
         self._retire_cached(chain)
-        install_page_payloads(self.cache, [chain[i] for i in payloads],
-                              list(payloads.values()))
+        self._install([chain[i] for i in payloads], list(payloads.values()))
         self.stats["pages_recalled"] += len(payloads)
         self.lifecycle.bind(slot, req, chain)
         self.lifecycle.resume_recalled(slot, req, length)
@@ -1073,27 +1244,36 @@ class ServeEngine:
     def _try_admit_paged(self, slot: int, req: Request, *,
                          require_shared: bool = False) -> bool:
         """Plan + execute one paged admission: trie lookup, batched recall
-        of spilled prefix pages, refcount bumps on the shared pages,
-        private allocation for the rest. Returns False with no local side
-        effects if the pool cannot satisfy it, or if ``require_shared`` and
-        no resident cached page shrinks the request.
+        of spilled prefix (and encoder-region) pages, refcount bumps on the
+        shared pages, private allocation for the rest. Returns False with
+        no local side effects if the pool cannot satisfy it, or if
+        ``require_shared`` and no resident cached page shrinks the request.
 
         The usable prefix is the resident pages plus spilled stubs within
-        the per-request ``recall_budget``. The plan re-plans after a recall
-        miss (the stub's subtree dropped, those tokens recomputed), and
-        retries with resident pages only when the recalls will not fit;
-        payloads recalled by an attempt that then fails are lent again (or
-        evicted), so no cached page is lost silently."""
-        tlen = len(req.prompt) + len(req.resume)
+        the per-request ``recall_budget``. An enc-dec request also plans
+        its encoder region (``engine.py:1490-1680``): a full-chain trie hit
+        on the frames' keys shares the cached region (the encoder is
+        skipped), else fresh pages are allocated and ``prefill_cross``
+        fills them; region stubs recall through the same budget. The plan
+        re-plans after a recall miss (the stub's subtree dropped, those
+        tokens or that region recomputed), and retries with resident pages
+        only when the recalls will not fit; payloads recalled by an attempt
+        that then fails are lent again (or evicted), so no cached page is
+        lost silently."""
+        tlen = self._total_len(req) + len(req.resume)
         P = self.page_size
         need = pages_needed(
-            min(len(req.prompt) + req.max_new_tokens, self.max_seq), P)
+            min(self._total_len(req) + req.max_new_tokens, self.max_seq), P)
         key_tokens = self._admit_keys(req)
+        cross_keys = self._cross_keys(req) if self.cross else []
+        n_cp = len(cross_keys) // P
         payloads: dict[int, bytes] = {}   # stub id -> recalled page bytes
         wait_s = 0.0
         allow_spill = self.spill
         while True:
             matched, shared, recalls, would_be = 0, [], [], 0
+            cross_shared: list[int] = []
+            cross_recalls: list[int] = []
             budget = self.recall_budget - len(payloads)
             if self.prefix_cache:
                 chain = self.prefix_index.lookup(key_tokens)
@@ -1121,24 +1301,37 @@ class ServeEngine:
                 elif matched:
                     shared = usable[: pages_needed(matched, P)]
                     recalls = [s for s in shared if s >= self.n_pages]
+                # the encoder region: reusable only on a full-chain hit (a
+                # prefix of a non-causal encoder's output is not a function
+                # of a prefix of its input)
+                if self.prefix_share and n_cp:
+                    cross_shared = self._plan_cross(
+                        cross_keys, n_cp, payloads, budget, allow_spill)
+                    cross_recalls = [s for s in cross_shared
+                                     if s >= self.n_pages]
             resident = [s for s in shared if s < self.n_pages]
-            if require_shared and not resident:
+            cross_resident = [s for s in cross_shared if s < self.n_pages]
+            if require_shared and not (resident or cross_resident):
                 self._abort_recalls(payloads)
                 return False
             # feasibility pre-check, so that failure has no local side
             # effects: revived pages leave the free list, and every recall
-            # needs a fresh local page on top of the private ones
-            revive = sum(1 for p in resident if self.pool.refcount(p) == 0)
-            if ((need - matched // P) + len(recalls) + revive
-                    > self.pool.available):
-                if recalls:
+            # needs a fresh local page on top of the private ones (and of a
+            # freshly computed region's)
+            revive = sum(1 for p in resident + cross_resident
+                         if self.pool.refcount(p) == 0)
+            cross_new = n_cp if (self.cross and not cross_shared) else 0
+            if ((need - matched // P) + len(recalls) + revive + cross_new
+                    + len(cross_recalls) > self.pool.available):
+                if recalls or cross_recalls:
                     # the recalls will not fit: retry with resident pages
                     # only (the stubs stay spilled for a later hit)
                     allow_spill = False
                     continue
                 self._abort_recalls(payloads)
                 return False
-            missing = [s for s in recalls if s not in payloads]
+            missing = [s for s in recalls + cross_recalls
+                       if s not in payloads]
             if missing:
                 got, w = self.remote_pool.recall(
                     [self.spilled[s].lease_id for s in missing])
@@ -1150,7 +1343,7 @@ class ServeEngine:
                     blob = got.get(self.spilled[s].lease_id)
                     if blob is None:
                         # the holder left: drop the stub's subtree and
-                        # recompute those tokens
+                        # recompute those tokens (or that region)
                         self._evict_node(s)
                         self.stats["recall_misses"] += 1
                         missed = True
@@ -1161,44 +1354,116 @@ class ServeEngine:
             break
         # payloads the final plan cannot use: lend them again
         unused = {s: payloads.pop(s) for s in list(payloads)
-                  if s not in recalls}
+                  if s not in recalls and s not in cross_recalls}
         if unused:
             self._abort_recalls(unused)
         # ---- execute: guaranteed to succeed from here ----
         self.pool.share(resident)       # revive cached pages before alloc
-        if recalls:
-            local = self.pool.alloc(len(recalls))
+        self.pool.share(cross_resident)
+        all_recalls = recalls + cross_recalls
+        if all_recalls:
+            local = self.pool.alloc(len(all_recalls))
             assert local is not None  # guaranteed by the pre-check
             self._retire_cached(local)
-            install_page_payloads(self.cache, local,
-                                  [payloads.pop(s) for s in recalls])
-            for sid, page in zip(recalls, local):
-                self.prefix_index.remap(sid, page)
-                del self.spilled[sid]
-                shared[shared.index(sid)] = page
-            self.stats["pages_recalled"] += len(recalls)
+            for region, sids in ((False, recalls), (True, cross_recalls)):
+                pages = local[:len(sids)]
+                local = local[len(sids):]
+                self._install(pages, [payloads.pop(s) for s in sids],
+                              cross=region)
+                tgt = cross_shared if region else shared
+                for sid, page in zip(sids, pages):
+                    self.prefix_index.remap(sid, page)
+                    del self.spilled[sid]
+                    tgt[tgt.index(sid)] = page
+            self.stats["pages_recalled"] += len(all_recalls)
         private = self.pool.alloc(need - matched // P)
         assert private is not None  # guaranteed by the pre-check
         self._retire_cached(private)
+        cross_chain: list[int] | None = None
+        cross_computed = False
+        if self.cross:
+            if cross_shared:
+                cross_chain = cross_shared
+                self.stats["cross_regions_shared"] += 1
+                self.stats["cross_pages_shared"] += len(cross_shared)
+            else:
+                cross_chain = self.pool.alloc(n_cp)
+                assert cross_chain is not None  # covered by the pre-check
+                self._retire_cached(cross_chain)
+                cross_computed = True
         if would_be:
             self.stats["prefix_hits"] += 1
             self.stats["prefix_hit_tokens"] += would_be
-        self._prefill_paged(slot, req, shared, private, matched, key_tokens)
+        self._prefill_paged(slot, req, shared, private, matched, key_tokens,
+                            cross_keys, cross_chain, cross_computed)
         if self.slot_req[slot] == req.req_id:
             self._hold(slot, wait_s)
         return True
+
+    def _plan_cross(self, cross_keys: list[int], n_cp: int,
+                    payloads: dict[int, bytes], budget: int,
+                    allow_spill: bool) -> list[int]:
+        """The cached encoder region of ``cross_keys``: its whole chain of
+        ``n_cp`` pages and stubs (the stubs recalled already or within
+        ``budget`` recalls), else ``[]``."""
+        cchain = self.prefix_index.lookup(cross_keys)
+        if len(cchain) != n_cp:
+            return []
+        used = 0
+        for sid in cchain:
+            if sid < self.n_pages:
+                continue
+            if not (allow_spill and sid in self.spilled
+                    and (sid in payloads or budget - used > 0)):
+                return []
+            if sid not in payloads:
+                used += 1
+        return list(cchain)
+
+    def _install(self, pages: list[int], blobs: list[bytes], *,
+                 cross: bool = False) -> None:
+        """Recalled payloads of one region into ``pages``, batched (a family
+        without a cross region: every paged leaf)."""
+        if not pages:
+            return
+        keys = self._region_keys(cross=cross)
+        if keys is None:
+            install_page_payloads(self.cache, pages, blobs)
+        else:
+            install_page_payloads(self.cache, pages, blobs, keys)
+
+    def _region_keys(self, *, cross: bool) -> frozenset[str] | None:
+        """The cache leaves one region's page payload carries: a cross page
+        only the ``cross_*`` pools, a prompt page the rest; None (every
+        ``*_pages`` leaf) for a family without a cross region
+        (``engine.py:1681-1689``)."""
+        if not self.cross:
+            return None
+        names = {k for k in self.cache if k.endswith("_pages")}
+        cross_names = {k for k in names if k.startswith("cross_")}
+        return frozenset(cross_names if cross else names - cross_names)
+
+    def _node_is_cross(self, page: int) -> bool:
+        """A trie node belongs to the cross region iff its block's keys
+        carry the cross namespace (``engine.py:1691-1695``)."""
+        ent = self.prefix_index._nodes.get(page)
+        return bool(ent and ent[1] and ent[1][0] >= _CROSS_NS)
 
     def _retire_cached(self, pages: list[int]) -> None:
         """Freshly reallocated pages lose their cached contents: lend the
         still-cached ones to a peer (the pool's LRU order makes them the
         coldest retained prefixes), leaving a trie stub, or evict them (and
         their subtrees) when no peer takes them. The payloads are read in
-        one batched copy before any of these pages is written."""
+        one batched copy a region before any of these pages is written."""
         if not self.prefix_cache:
             return
         cached = [p for p in pages if p in self.prefix_index._nodes]
-        blobs = (dict(zip(cached, extract_page_payloads(self.cache, cached)))
-                 if self.spill else {})
+        blobs = {}
+        if self.spill:
+            for region in ((False, True) if self.cross else (False,)):
+                some = [p for p in cached if self._node_is_cross(p) == region]
+                blobs.update(zip(some, extract_page_payloads(
+                    self.cache, some, self._region_keys(cross=region))))
         for p in cached:
             if p not in self.prefix_index._nodes:
                 continue  # dropped with an evicted ancestor's subtree
@@ -1245,24 +1510,42 @@ class ServeEngine:
             self.pool.free(self.slot_pages[slot])
             self.slot_pages[slot] = []
             self.page_table[slot, :] = 0  # scratch page: inert lane writes
+            if self.cross:
+                # drop this slot's reference on its encoder region; the
+                # pages keep their content in the free list, so a later
+                # request with the same frames revives them from the trie
+                self.pool.free(self.slot_cross_pages[slot])
+                self.slot_cross_pages[slot] = []
+                self.cross_table[slot, :] = 0
+                self.cross_len[slot] = 0
             self.slot_hold[slot] = 0
             self.prefilling.pop(slot, None)
             self._admit_ready = True      # freed capacity: rescan the queue
 
     def _prefill_paged(self, slot: int, req: Request, shared: list[int],
                        private: list[int], matched: int,
-                       key_tokens: list[int]) -> None:
+                       key_tokens: list[int],
+                       cross_keys: list[int] | None = None,
+                       cross_chain: list[int] | None = None,
+                       cross_computed: bool = False) -> None:
         """Begin the chunked prefill of the uncached suffix: the slot's
         chain is the shared prefix pages plus its private pages. On a
         whole-prompt hit (``matched`` not page-aligned) the final, partly
         used shared page is copied on write into ``private[0]`` and only
         the last prompt token is recomputed, by one synthetic decode step.
 
+        A VLM prompt spans its image rows, then its text: each chunk reads
+        its share of the rows (``embeds`` and ``mm_len``). An enc-dec
+        request first installs its encoder region (``cross_chain``),
+        running ``prefill_cross`` only when the region was not served from
+        the cache (``engine.py:1776-1860``).
+
         Under a continuous scheduler this only binds the slot and queues a
         ``_PrefillTask`` that ``step()`` pumps under the token budget; the
         synchronous mode drains it here."""
         ptoks = req.prompt + req.resume
-        tlen = len(ptoks)
+        mm = self._mm_len(req)
+        tlen = mm + len(ptoks)
         P = self.page_size
         full = matched // P
         cow = bool(matched % P)
@@ -1276,6 +1559,24 @@ class ServeEngine:
         # the page-table row stays on the scratch page until the last chunk
         # lands; the COW path installs it below, finishing in this call
         self.page_table[slot, :] = 0
+        if self.cross:
+            # the encoder region goes in before any decoder compute (the
+            # chunks and the COW recompute both read it)
+            self.slot_cross_pages[slot] = list(cross_chain)
+            self.cross_table[slot, :] = 0
+            self.cross_table[slot, : len(cross_chain)] = cross_chain
+            self.cross_len[slot] = self._n_frames(req)
+            if cross_computed:
+                frames = np.asarray(req.extra["frames"])
+                if frames.ndim == 2:
+                    frames = frames[None]
+                self.model.prefill_cross(self.params, self.cache, {
+                    "frames": self._tensor(frames),
+                    "cross_page_table": self._tensor(self.cross_table[slot]),
+                })
+                self.stats["cross_regions_computed"] += 1
+                if self.prefix_share:
+                    self.prefix_index.insert(cross_keys, cross_chain)
         self.slot_req[slot] = req.req_id
         req.slot = slot
         self.stats["prefill_tokens"] += tlen - matched
@@ -1305,7 +1606,7 @@ class ServeEngine:
                 "positions": self._tensor(pos),
                 "page_table": self._tensor(self.page_table),
             }
-            logits = self._decode_step(batch)
+            logits = self._decode_step(self._cross_batch(batch))
             if self._draft is not None:
                 # the recomputed last prompt token needs its draft K/V too
                 self._draft_decode(self.draft_params, self.cache, batch)
@@ -1313,8 +1614,10 @@ class ServeEngine:
             self._finish_prefill(slot, req, key_tokens, chain, first, tlen)
             return
         self.prefilling[slot] = _PrefillTask(
-            req=req, tlen=tlen, ptoks=ptoks, offset=matched,
-            key_tokens=key_tokens)
+            req=req, tlen=tlen, mm=mm, ptoks=ptoks, offset=matched,
+            key_tokens=key_tokens,
+            embeds=(np.asarray(req.extra["embeds"]).reshape(mm, -1)
+                    if mm else None))
         if self.sched.cfg.synchronous:
             self._advance_prefill(slot, None)
 
@@ -1337,13 +1640,22 @@ class ServeEngine:
                     and not (force and used == 0)):
                 break
             off = task.offset
+            mm = task.mm
+            si = min(max(mm - off, 0), n)  # image rows in this chunk
             toks = np.zeros((1, C), np.int32)
-            toks[0, :n] = task.ptoks[off:off + n]
+            toks[0, si:n] = task.ptoks[off + si - mm:off + n - mm]
             batch = {"tokens": self._tensor(toks), "valid": n, "slot": slot,
                      "page_table": table_row}
-            task.logits = self.model.prefill_chunk(self.params,
-                                                   self._target(), batch,
-                                                   offset=off)
+            kw = {"offset": off}
+            if self._mm:
+                emb = np.zeros((1, C, task.embeds.shape[1]),
+                               task.embeds.dtype)
+                emb[0, :si] = task.embeds[off:off + si]
+                batch["embeds"] = self._tensor(emb)
+                kw["mm_len"] = mm
+            task.logits = self.model.prefill_chunk(
+                self.params, self._target(), self._cross_batch(batch, slot),
+                **kw)
             if self._draft is not None:
                 # the draft rides every chunk: its prompt K/V lands in the
                 # same pages, so shared and COW'd prefixes are complete
@@ -1411,24 +1723,29 @@ class ServeEngine:
     def _prefill_into(self, slot: int, req: Request) -> None:
         """Dense admission (``engine.py:2033-2062``): the prompt,
         right-aligned in its bucket and left-padded with token 0, runs
-        through one ``prefill``; the zero-padded batch-1 cache is written
-        over the whole slot row. The pad rows are attended (bucketed
-        serving; exact comparisons use prompts of bucket length). The first
-        token is the argmax of the last position, and the admitted length
-        is the bucket."""
+        through one ``prefill`` with the request's modality inputs (a VLM's
+        image rows ahead of the bucket, an enc-dec's frames); the
+        zero-padded batch-1 cache is written over the whole slot row. The
+        pad rows are attended (bucketed serving; exact comparisons use
+        prompts of bucket length). The first token is the argmax of the
+        last position, and the admitted length is the image rows plus the
+        bucket."""
         plen = len(req.prompt)
-        assert 1 <= plen < self.max_seq, plen
-        bucket = min(_bucket(plen), self.max_seq)
+        mm = self._mm_len(req)
+        assert plen >= 1 and mm + plen < self.max_seq, (plen, mm)
+        bucket = min(_bucket(plen), self.max_seq - mm)
         toks = np.zeros((1, bucket), np.int32)
         toks[0, bucket - plen:] = req.prompt
-        logits, pcache = self.model.prefill(self.params,
-                                            {"tokens": self._tensor(toks)})
+        batch = {"tokens": self._tensor(toks)}
+        for k, v in req.extra.items():
+            batch[k] = self._tensor(v)
+        logits, pcache = self.model.prefill(self.params, batch)
         pcache = expand_prefill_cache(
             pcache, {k: v[:, :1] for k, v in self.cache.items()})
         scatter_slot(self.cache, pcache, slot)
         # (B, V) logits, or (B, S, V) where a family returns every position
         row = logits[0, -1] if logits.ndim == 3 else logits[0]
-        self.lifecycle.activate(slot, req, int(row.argmax()), bucket)
+        self.lifecycle.activate(slot, req, int(row.argmax()), mm + bucket)
 
     # -------------------------------------------------------------- snapshot
     def snapshot(self) -> bytes:
@@ -1449,6 +1766,9 @@ class ServeEngine:
         }
         if self.paged:
             state["page_table"] = self.page_table
+            if self.cross:
+                state["cross_table"] = self.cross_table
+                state["cross_len"] = self.cross_len
         blob = serialize_tree(state)
         meta = {
             "paged": self.paged,
@@ -1481,6 +1801,9 @@ class ServeEngine:
             meta["free_pages"] = pool_free
             meta["slot_pages"] = [[int(p) for p in ps]
                                   for ps in self.slot_pages]
+            if self.cross:
+                meta["slot_cross_pages"] = [[int(p) for p in ps]
+                                            for ps in self.slot_cross_pages]
             # refcounts and the trie must survive a restore on a substitute
             # host, or shared pages would double-free
             meta["page_ref"] = {str(p): r for p, r in pool_ref.items()}
@@ -1528,6 +1851,9 @@ class ServeEngine:
             assert meta["page_size"] == self.page_size
             assert meta["n_pages"] == self.n_pages
             like["page_table"] = self.page_table
+            if self.cross:
+                like["cross_table"] = self.cross_table
+                like["cross_len"] = self.cross_len
         state = deserialize_tree(blob[4 + mlen:], like)
         self.cache = state["cache"]
         self.lengths = state["lengths"].copy()
@@ -1535,6 +1861,13 @@ class ServeEngine:
         self.steps = int(state["steps"])
         if self.paged:
             self.page_table = state["page_table"].copy()
+            if self.cross:
+                self.cross_table = state["cross_table"].copy()
+                self.cross_len = state["cross_len"].copy()
+                self.slot_cross_pages = [
+                    [int(p) for p in ps]
+                    for ps in meta.get("slot_cross_pages",
+                                       [[] for _ in range(self.n_slots)])]
             self.pool.restore(meta["free_pages"], meta.get("page_ref"),
                               meta.get("page_touch"))
             self.slot_pages = [[int(p) for p in ps]

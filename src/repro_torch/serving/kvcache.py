@@ -68,7 +68,8 @@ def expand_prefill_cache(prefill_cache: Tree, like: Tree) -> Tree:
     """Zero-pad a prefill cache's trailing dims up to the ``like`` leaves'
     shapes (batch dim already equal), so that scattering it rewrites the
     whole slot row: positions past the prompt's bucket become zeros, not
-    what the slot held before."""
+    what the slot held before. An enc-dec prefill's cross K/V pads to
+    ``ENC_SEQ`` this way, and its int32 ``enc_len`` keeps its dtype."""
     out = {}
     for name, p in prefill_cache.items():
         want = like[name].shape
@@ -478,8 +479,10 @@ def extract_page_payload(cache: Tree, page: int,
     (``*_pages``, laid out ``(layers, n_pages, page_size, ...)``) into a
     self-describing blob — the unit a host lends to a peer.
 
-    ``keys`` restricts the payload to some leaves (the reference's
-    enc-dec families ship one region's leaves only)."""
+    ``keys`` restricts the payload to one region's leaves: an enc-dec page
+    serves either the decoder's self pools or the cross (encoder-output)
+    pools, never both, so it ships that region's leaves only
+    (``repro/serving/kvcache.py:508-523``)."""
     return serialize_tree({k: v[:, page]
                            for k, v in _paged_leaves(cache, keys).items()})
 
@@ -522,14 +525,16 @@ def _copy_to_host(staging: torch.Tensor) -> torch.Tensor:
     return host.copy_(staging)
 
 
-def extract_page_payloads(cache: Tree, pages: list[int]) -> list[bytes]:
-    """:func:`extract_page_payload` of each page of ``pages``, byte for
-    byte, in one pass: the pages gathered page-major on the cache's device,
-    one device-to-host copy, then each page's blob serialized from host
-    views that are already contiguous."""
+def extract_page_payloads(cache: Tree, pages: list[int],
+                          keys: frozenset[str] | set[str] | None = None,
+                          ) -> list[bytes]:
+    """:func:`extract_page_payload` of each page of ``pages`` (all of one
+    region, ``keys``), byte for byte, in one pass: the pages gathered
+    page-major on the cache's device, one device-to-host copy, then each
+    page's blob serialized from host views that are already contiguous."""
     if not pages:
         return []
-    leaves = _paged_leaves(cache, None)
+    leaves = _paged_leaves(cache, keys)
     host = _page_views(leaves, _copy_to_host(_gather_pages(leaves, pages)))
     return [serialize_tree({k: t[j] for k, t in host.items()})
             for j in range(len(pages))]
@@ -582,19 +587,21 @@ def _scatter_pages(leaves: dict[str, torch.Tensor], pages: list[int],
 
 
 def install_page_payloads(cache: Tree, pages: list[int],
-                          blobs: list[bytes]) -> None:
+                          blobs: list[bytes],
+                          keys: frozenset[str] | set[str] | None = None,
+                          ) -> None:
     """Recall: write each payload of ``blobs`` into physical page
-    ``pages[j]`` of the paged leaves, in place — the inverse of
-    :func:`extract_page_payloads`. Per leaf the payloads are gathered into
-    one host buffer (page-locked for a CUDA cache), copied to the device
-    once, synchronously, and scattered with one ``index_copy_`` along the
-    page dim. A payload must carry every leaf, in the cache's dtype and
-    page shape."""
+    ``pages[j]`` of the paged leaves (of one region, ``keys``), in place —
+    the inverse of :func:`extract_page_payloads`. Per leaf the payloads
+    are gathered into one host buffer (page-locked for a CUDA cache),
+    copied to the device once, synchronously, and scattered with one
+    ``index_copy_`` along the page dim. A payload must carry every leaf of
+    the region, in the cache's dtype and page shape."""
     if len(pages) != len(blobs):
         raise ValueError(f"{len(pages)} pages for {len(blobs)} payloads")
     if not pages:
         return
-    leaves = _paged_leaves(cache, None)
+    leaves = _paged_leaves(cache, keys)
     some = next(iter(leaves.values()))
     _scatter_pages(leaves, pages, _stack_payloads(leaves, blobs, some.is_cuda))
 

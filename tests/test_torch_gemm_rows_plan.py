@@ -183,3 +183,37 @@ def test_grouped_products_are_the_experts():
     assert gk.grouped_products(cfg) == [("gate", 64, 2048, 1408),
                                         ("up", 64, 2048, 1408),
                                         ("down", 64, 1408, 2048)]
+
+
+MM_ARCHS = ("whisper-medium", "llava-next-mistral-7b")
+
+
+@pytest.mark.parametrize("arch", MM_ARCHS)
+@pytest.mark.parametrize("reduced", [False, True])
+def test_multimodal_step_products_plan_to_whole_k(arch, reduced):
+    """Every product of a multimodal decode step (``step_products``:
+    whisper-medium's self and cross attention, GELU MLP and tied
+    51,865-column unembedding; llava's as a dense config's) plans in both
+    layouts of w as a dense one does: segments cover K once in order on
+    the k step, tiles cover N, and at full width every SM gets an item."""
+    cfg = get(arch, reduced=reduced)
+    products = gk.step_products(cfg)
+    names = [p[0] for p in products]
+    if cfg.family == "encdec":
+        assert names == ["q", "k", "v", "o", "cross q", "cross o", "wi",
+                         "wd", "unembed"]
+        assert products[-1][1:] == (cfg.d_model, cfg.vocab_size, True, 1)
+    else:
+        assert names == [p[0] for p in gk.decode_products(cfg)]
+    for _, K, N, _, times in products:
+        assert times in (1, cfg.n_layers)
+        for nk in (False, True):
+            p = gk.plan(K, N, nk, N_SM)
+            assert p.n_tiles == -(-N // p.bn)
+            for t in range(p.n_tiles):
+                segs = p.segments(t)
+                assert segs[0][0] == 0 and segs[-1][1] == K
+                for (_, a1), (b0, _) in zip(segs, segs[1:]):
+                    assert a1 == b0
+                assert all(k0 % p.bk == 0 for k0, _ in segs)
+            assert p.items >= N_SM or reduced, (K, N, nk, p)

@@ -968,3 +968,112 @@ def test_moe_decode_lane_is_batch_invariant_on_the_card(arch):
     counts = ops.counts()
     for name in ("moe_route", "gemm_rows_grouped", "gemm_rows"):
         assert counts[name]["launches"] > 0 and not counts[name]["plain"]
+
+
+# ---------------------------------------------------------------------------
+# The multimodal families: the encoder's non-causal flash, the cross fold
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1500, 750, 37])
+def test_flash_non_causal_at_the_encoder_shapes_on_the_card(S):
+    """On the H100, whisper-medium's encoder attention: Sq = Sk = S, 16
+    heads of 64 (G 1), non-causal, against the plain version at atol = rtol
+    = 2e-2; 1500 leaves key tails of 28 (64-key tiles) and 92 (128)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(S)
+    q, k, v = (torch.randn(1, S, 16, 64, generator=g, device="cuda")
+               .bfloat16() for _ in range(3))
+    with ops.use_backend("plain"):
+        want = ops.attention(q, k, v, causal=False)
+    got = ops.attention(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    # each query row alone gives its row of the whole call
+    one = ops.attention(q[:, S // 2:S // 2 + 1].contiguous(), k, v,
+                        causal=False)
+    torch.testing.assert_close(one.float(), got[:, S // 2:S // 2 + 1].float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 17, 256])
+def test_cross_fold_is_single_lane_decodes_on_the_card(C):
+    """On the H100, whisper-medium's cross read (16 heads of 64 over 16 kv
+    heads, pages of 64, a 24-page region): C query rows a lane folded into
+    the paged decode kernel, 8 rows a folded lane in the kv heads' groups
+    (C padded to a multiple); every folded query, at every place in a
+    group, bitwise a one-lane decode at its lane's length (1500 or 750, the
+    last page partial), and the fold within 2e-2 of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(C)
+    B, H, D, P, width = 2, 16, 64, 64, 24
+    kp = torch.randn(B * width + 1, P, H, D, generator=g,
+                     device="cuda").bfloat16()
+    vp = torch.randn(kp.shape, generator=g, device="cuda").bfloat16()
+    table = (torch.randperm(B * width, generator=g, device="cuda")
+             + 1).to(torch.int32).reshape(B, width)
+    lens = torch.tensor([1500, 750], device="cuda", dtype=torch.int32)
+    q = torch.randn(B, C, H, D, generator=g, device="cuda").bfloat16()
+    got = ops.paged_cross_attention(q, kp, vp, table, lens)
+    for b in range(B):
+        for c in sorted({*range(min(C, 9)), C // 2, C - 1}):
+            one = ops.paged_decode_attention(
+                q[b, c][None].contiguous(), kp, vp, table[b:b + 1],
+                lens[b:b + 1])
+            assert torch.equal(one[0], got[b, c]), (b, c)
+    with ops.use_backend("plain"):
+        want = ops.paged_cross_attention(q, kp, vp, table, lens)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-mistral-7b"])
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_reduced_multimodal_serving_on_the_card(arch, paged):
+    """On the H100, REDUCED whisper-medium (enc-dec) and
+    llava-next-mistral-7b (VLM), heads padded to 64: four requests (two
+    sharing the modality input) complete through every kernel of the path,
+    no plain version; the paged enc-dec engine computes two encoder
+    regions and shares one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = get(arch, reduced=True)
+    model = get_model(cfg)
+    params = model.init(0, device="cuda")
+    rng = np.random.default_rng(3)
+    key = "frames" if cfg.family == "encdec" else "embeds"
+    shape = ((1, 40, cfg.d_model) if key == "frames"
+             else (1, cfg.n_image_tokens, 1024))
+    inputs = [rng.standard_normal(shape).astype(np.float32)
+              for _ in range(3)]
+    kw = dict(n_slots=2, max_seq=128, device="cuda", paged=paged)
+    if paged:
+        kw.update(page_size=16, prefill_chunk=32)
+    eng = ServeEngine(model, params, **kw)
+    ops.reset_counts()
+    reqs = [eng.submit(rng.integers(1, cfg.vocab_size, n).tolist(),
+                       max_new_tokens=6, extra={key: inputs[min(i, 2)]})
+            for i, n in enumerate((32, 20, 45, 32))]
+    eng.run(500)
+    assert all(r.done and len(r.generated) == 6 for r in reqs)
+    counts = ops.counts()
+    path = ["rmsnorm", "flash_attention"] + (
+        ["paged_decode_attention", "gemm_rows"] if paged
+        else ["decode_attention"])
+    for name in path:
+        assert counts[name]["launches"] > 0, name
+    assert not any(c["plain"] for c in counts.values()), counts
+    if paged and key == "frames":
+        assert eng.stats["cross_regions_computed"] == 3
+        assert eng.stats["cross_regions_shared"] == 1
+        assert eng.pool.outstanding == 0

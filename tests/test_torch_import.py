@@ -6,8 +6,8 @@
   of ``jax`` or of ``repro``;
 - without a card, every entry point asked for ``cuda`` raises instead of
   running on the CPU;
-- the port's configs equal the JAX package's, and archs of families not
-  ported yet raise ``KeyError`` naming their ROADMAP item;
+- the port's configs equal the JAX package's, every arch of it, the
+  multimodal ones included, and ``get_model`` builds every family;
 - initialization follows the reference's rules (fan-in, ``normal``,
   ``small``; an unknown rule raises), and ``param_count`` counts every
   family's leaves.
@@ -59,7 +59,9 @@ def test_every_module_imports_without_jax():
             "repro_torch.core.client", "repro_torch.core.cloud",
             "repro_torch.checkpoint.store",
             "repro_torch.checkpoint.replicated",
-            "repro_torch.serving.batch"} <= set(mods)
+            "repro_torch.serving.batch", "repro_torch.models.encdec",
+            "repro_torch.configs.whisper_medium",
+            "repro_torch.configs.llava_next_mistral_7b"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -144,9 +146,11 @@ def test_cuda_entry_points_raise_without_a_card():
 
 def test_engine_rejects_what_the_slice_leaves_out():
     """Speculative decoding is ported: a draft builds its pools beside the
-    target's. What the port still leaves out is the multimodal families
-    (ROADMAP item 13), whose configs raise; and a recurrent-state target is
-    refused as the reference refuses it."""
+    target's. The engine refuses a draft for a multimodal (VLM) or cross
+    (enc-dec) target, and for a recurrent-state one, as the reference
+    refuses them (``repro/serving/engine.py:413-416``); ``get_model``
+    builds both multimodal families, the enc-dec's cross pools beside its
+    self pools."""
     from repro_torch.configs import draft_for
     from repro_torch.serving.engine import ServeEngine
 
@@ -157,8 +161,15 @@ def test_engine_rejects_what_the_slice_leaves_out():
     assert sorted(eng.cache) == ["draft_k_pages", "draft_v_pages",
                                  "k_pages", "v_pages"]
     assert draft_for("deepseek-moe-16b").arch_id == "granite-moe-1b-a400m"
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get("llava-next-mistral-7b")
+    for arch in ("llava-next-mistral-7b", "whisper-medium"):
+        mm = get_model(get(arch, reduced=True))
+        mparams = mm.init(0, device="cpu")
+        with pytest.raises(ValueError, match="text-only"):
+            ServeEngine(mm, mparams, **kw, draft=model, draft_params=params)
+    enc = get_model(get("whisper-medium", reduced=True))
+    assert enc.supports_paged_cross and not model.supports_paged_cross
+    assert sorted(enc.init_paged_cache(2, 9, 16, device="cpu")) == [
+        "cross_k_pages", "cross_v_pages", "self_k_pages", "self_v_pages"]
     ssm = get_model(get("falcon-mamba-7b", reduced=True))
     with pytest.raises(ValueError, match="verify"):
         ServeEngine(ssm, ssm.init(0, device="cpu"), **kw, draft=model,
@@ -168,29 +179,20 @@ def test_engine_rejects_what_the_slice_leaves_out():
 @pytest.mark.parametrize("arch", [
     "qwen3-8b", "smollm-360m", "falcon-mamba-7b", "zamba2-1.2b",
     "phi4-mini-3.8b", "minitron-4b", "granite-moe-1b-a400m",
-    "deepseek-moe-16b",
+    "deepseek-moe-16b", "llava-next-mistral-7b", "whisper-medium",
 ])
 def test_configs_equal_the_reference(arch):
+    from repro.configs import ARCHS
     from repro.configs import get as ref_get
 
     for reduced in (False, True):
         assert dataclasses.asdict(get(arch, reduced)) == \
             dataclasses.asdict(ref_get(arch, reduced))
+    # every arch of the JAX package is here, and its family builds
+    from repro_torch.configs import ARCHS as PORT_ARCHS
 
-
-@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "whisper-medium"])
-def test_archs_not_ported_raise(arch):
-    from repro.configs import get as ref_get
-
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get(arch)
-    # and a family the port does not carry is refused by get_model
-    from repro_torch.config import ModelConfig
-
-    cfg = ref_get(arch, reduced=True)
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(ModelConfig(**dataclasses.asdict(cfg)))
+    assert set(PORT_ARCHS) == set(ARCHS)
+    assert get_model(get(arch, reduced=True)).supports_paged
 
 
 def test_init_follows_the_reference_fan_in_rule():
@@ -285,11 +287,13 @@ def test_unknown_init_rule_raises():
 @pytest.mark.parametrize("arch,billions", [
     ("qwen3-8b", 8.191), ("smollm-360m", 0.362),
     ("falcon-mamba-7b", 7.273), ("zamba2-1.2b", 1.229),
+    ("llava-next-mistral-7b", 7.246), ("whisper-medium", 0.793),
 ])
 def test_param_count_counts_every_leaf(arch, billions):
     """``param_count`` equals the number of values the specs declare, for
     every family the port carries (falcon-mamba-7b 7.273 B, zamba2-1.2b
-    1.229 B)."""
+    1.229 B, llava-next-mistral-7b 7.246 B with ``mm_proj``,
+    whisper-medium 0.793 B with its 32,768 learned decoder positions)."""
     cfg = get(arch)
     specs = _spec_leaves(get_model(cfg).param_specs)
     assert cfg.param_count() == sum(int(np.prod(s.shape)) for s in specs)

@@ -639,6 +639,21 @@ def test_paged_verify_matches_reference(dtype):
     assert got.dtype == tx[0].dtype
 
 
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_verify_fold_matches_reference(dtype):
+    """The card's route of ``ops.paged_verify_attention`` (``ops._fold``,
+    one window row a folded lane at its own length) with the paged decode
+    kernel's plain twin in its place, against the reference's oracle."""
+    jx, (q, kp, vp, table, positions) = _paged_case(dtype)
+    lengths = positions[:, None] + torch.arange(q.shape[1]) + 1
+    got = ops._fold(q, kp, vp, table, lengths,
+                    run=ops.ref.paged_decode_attention)
+    assert got.shape == q.shape and got.dtype == q.dtype
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(jref.paged_verify_attention(*jx),
+                                          np.float32), **_tol(dtype))
+
+
 def test_paged_verify_equals_sequential_decode():
     """Query j of the window equals a single-token paged decode at length
     ``positions + j + 1`` (``tests/test_kernels.py:187-198``)."""
