@@ -74,8 +74,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    (Mamba1), then ``zamba2-1.2b`` (Mamba2 + shared attention), then
    ``deepseek-moe-16b`` (MoE: a dense layer, 27 MoE layers of 64 routed
    experts, top-6, and 2 shared), each with seeded random weights, freed
-   before the next, through phases a-e (and f-h for qwen3-8b, i for
-   deepseek-moe-16b); then ``granite-moe-1b-a400m`` (a short serve: 8
+   before the next, through phases a-e (and f-h and k for qwen3-8b, i
+   for deepseek-moe-16b); then ``granite-moe-1b-a400m`` (a short serve: 8
    requests of 16 new tokens on 4 slots, and phase c), ``phi4-mini-3.8b``
    and ``minitron-4b`` (a short serve each); then the multimodal families,
    ``whisper-medium`` (enc-dec: 24 encoder and 24 decoder layers, d 1024,
@@ -170,7 +170,28 @@ Phases, each of which raises on failure (the exit code is then non-zero):
       lent to a peer (decoder and encoder-region pages, each payload its
       region's leaves); the first request's frames and prompt again share
       its region through their recall, every recalled page bitwise the
-      lent one, the tokens unchanged.
+      lent one, the tokens unchanged;
+   k. cell (qwen3-8b only, ``phase_cell``): the elastic serving cell
+      (``repro_torch.serving.cell``, layout-only) over the paged engine at
+      full width: 8 prompts of 96-384 tokens, 32 new tokens each, on 4
+      hosts of 2 lanes on a (2, 2) grid (engines of
+      ``make_engine_factory``: 8 slots, 64-page pools), four fresh cells
+      one after another, faults timed from the end of formation: a, clean
+      (nothing re-sharded, replayed or shed); b, a crash, then the host
+      rejoins (collective timeout, re-shard onto 3 hosts resumed from a
+      snapshot with a replay, 2 lanes shed, grow back to 4); c, two
+      crashes with ``min_hosts`` 2 and priorities 0,0,1,1,2,2,3,3 (4
+      lanes: the four lowest shed); d, a host slowed 8x, evicted and
+      never placed on again. Every finished stream equals a trusted
+      engine's, every shed one is a prefix of it, no forced mismatch in b
+      and d, hosts lost equal the crashes, every kernel of the paged path
+      launched and no plain version, each engine built only once every
+      earlier one is freed, the device memory back within less than one
+      pool after each run; wall seconds by part (engine build, restore,
+      relayout, replay, snapshot placement, ``gather_state``'s host copy)
+      beside simulated ones, printed beside the card's name and power
+      limit (``tools/cell_rehearsal.py`` predicts every counter on the
+      CPU).
 
 The MoE models' logits have no bound (random-weight routing is chaotic):
 the kernel-forced check holds the router there (ids equal but at a near
@@ -178,7 +199,8 @@ tie) and the grouped product (rows below each expert's count).
 
 The line two before the last is the kernels summary as JSON (one row per
 kernel and model whose path runs it, and rows with ``"path": "spec"`` for
-the speculative path, ``"path": "batch"`` for the batch tier, and
+the speculative path, ``"path": "batch"`` for the batch tier,
+``"path": "cell"`` for the elastic cell, and
 whisper's routes: the cross fold, the encoder's flash and the dense cross
 read, each with the launches counted around that route's calls), the line
 before the last the card's
@@ -532,19 +554,21 @@ def check_paged_decode(gen, *, n_heads=32, n_kv=8, d=128) -> dict:
     }
 
 
-def check_paged_decode_batch(gen) -> dict:
-    """The paged decode at the batch tier's shape (``phase_batch``): 4
-    lanes of a workunit (prompt plus generated positions up to 472) in a
-    24-page pool, page tables of 16 (``max_seq`` 1024): against the plain
-    version, two runs bitwise equal, and each lane bitwise the same alone
-    as in its batch — what bitwise hash quorum across replicas rests on."""
+def check_paged_decode_pool(gen, lengths, engine: dict, what: str) -> dict:
+    """The paged decode at an engine's pool and table shape: the batch
+    tier's (``phase_batch``: 4 lanes of a workunit, prompt plus generated
+    positions up to 472, in a 24-page pool, page tables of 16) or the
+    elastic cell's (``phase_cell``: 8 lanes up to 416 positions in a
+    64-page pool, tables of 8): against the plain version, two runs
+    bitwise equal, and each lane bitwise the same alone as in its batch —
+    what bitwise hash quorum across replicas and the cell's exact replay
+    rest on."""
     import torch
 
     from repro_torch.kernels import ops, paged_decode_attention as pk
 
-    lengths = [88, 300, 472, 150]
     B, H, K, D = len(lengths), 32, 8, 128
-    n_pages, width = BATCH_ENGINE["n_pages"], BATCH_ENGINE["max_seq"] // PAGE
+    n_pages, width = engine["n_pages"], engine["max_seq"] // PAGE
     q = torch.randn(B, H, D, generator=gen, device="cuda").bfloat16()
     kp = torch.randn(n_pages, PAGE, K, D, generator=gen,
                      device="cuda").bfloat16()
@@ -562,15 +586,15 @@ def check_paged_decode_batch(gen) -> dict:
     got = pk.paged_decode_attention(q, kp, vp, table, lens)
     with ops.use_backend("plain"):
         want = ops.paged_decode_attention(q, kp, vp, table, lens)
-    err = _close(got, want, "paged_decode_attention (batch)")
+    err = _close(got, want, f"paged_decode_attention ({what})")
     if not torch.equal(got, pk.paged_decode_attention(q, kp, vp, table,
                                                       lens)):
-        raise AssertionError("paged decode (batch): two runs differ")
+        raise AssertionError(f"paged decode ({what}): two runs differ")
     for i in range(B):
         alone = pk.paged_decode_attention(q[i:i + 1], kp, vp, table[i:i + 1],
                                           lens[i:i + 1])
         if not torch.equal(alone[0], got[i]):
-            raise AssertionError(f"paged decode (batch): lane {i} changed "
+            raise AssertionError(f"paged decode ({what}): lane {i} changed "
                                  f"with its batch")
     n_keys = int(lens.sum())
     nbytes = (n_keys * K * D * 2 * 2 + 2 * q.numel() * 2
@@ -1391,7 +1415,12 @@ def phase_kernels(seed: int = 0) -> dict:
            "flash_attention@zamba2": check_flash(gen, H=32, K=32, D=64),
            # the batch tier's decode step: 4 slots, 24-page pools
            "rmsnorm@batch": check_rmsnorm(gen, BATCH_RMSNORM_SHAPES),
-           "paged_decode_attention@batch": [check_paged_decode_batch(gen)],
+           "paged_decode_attention@batch": [check_paged_decode_pool(
+               gen, [88, 300, 472, 150], BATCH_ENGINE, "batch")],
+           # the elastic cell's decode step: 8 slots, a 64-page pool
+           "paged_decode_attention@cell": [check_paged_decode_pool(
+               gen, [130, 250, 416, 96, 300, 180, 384, 222], CELL_ENGINE,
+               "cell")],
            # the MoE family: the router and the routed experts' products,
            # deepseek-moe's attention (MHA 16 of 128), every other decode
            # product of each new config (granite-moe's with its tied
@@ -3574,6 +3603,310 @@ def phase_batch(model, params, card: str, seed: int = 6) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4k. the elastic serving cell
+# ---------------------------------------------------------------------------
+
+# The cell's engines (``phase_cell``): 8 slots over a 64-page pool of 64
+# (36 layers x 2 x 8 kv heads x 128 x 2 B x 64 = 9,437,184 B a page), so
+# a snapshot carries ~0.6 GB
+CELL_ENGINE = dict(n_slots=8, max_seq=512, page_size=PAGE, n_pages=64)
+# 4 hosts of 2 lanes on a model axis of 2: the (2, 2) grid; the simulated
+# clock as tests/test_cell.py sets it, but a re-shard's bytes move at
+# 12.5 GB/s (a 100 Gb/s link): full-width formation "moves" ~17 GB, 3.4
+# simulated s, below the 6 s failure timeout (at the reference's default
+# 64 MB/s it would take 267 s)
+CELL_HOSTS = 4
+CELL = dict(model_parallel=2, target_hosts=CELL_HOSTS, min_hosts=1,
+            slots_per_host=2, decode_step_s=1.0, collective_s=0.1,
+            step_deadline_s=4.0, snapshot_every_s=6.0, reshard_fixed_s=2.0,
+            reshard_bw_bytes_s=12.5e9)
+CELL_FAILURE_TIMEOUT_S = 6.0
+CELL_PROMPTS, CELL_PROMPT_LENS, CELL_NEW = 8, (96, 384), 32
+CELL_PRIORITIES = (0, 0, 1, 1, 2, 2, 3, 3)
+# each scenario: settings over CELL, priorities or None, and its faults as
+# (simulated seconds after formation ends, kind, host, slow factor)
+# (a crash lands one step after the snapshot of the sixth step, so the
+# re-shard resumes from it and replays a token a lane)
+CELL_SCENARIOS = {
+    "clean": ({}, None, []),
+    "crash_rejoin": ({}, None, [(6.5, "crash", "h1", None),
+                                (17.0, "rejoin", "h1", None)]),
+    "shed": ({"min_hosts": 2}, CELL_PRIORITIES,
+             [(6.5, "crash", "h2", None), (6.5, "crash", "h3", None)]),
+    "straggler": ({}, None, [(7.0, "slow", "h0", 8.0)]),
+}
+# device memory after a run (the cell and its server dropped) against
+# before it: within less than one pool (0.604 GB)
+CELL_MEM_SLACK_BYTES = 0.25e9
+
+
+def _cell_prompts(vocab: int, seed: int) -> list[list[int]]:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo, hi = CELL_PROMPT_LENS
+    return [rng.integers(1, vocab, int(n)).tolist()
+            for n in rng.integers(lo, hi + 1, CELL_PROMPTS)]
+
+
+def _cell_formed(model, params, factory, name: str, prompts):
+    """One scenario's cloudlet, server and cell over ``factory``, its
+    requests submitted and the cell formed (one tick of ``run``); the
+    fault plan timed from the end of formation. Returns (server, cell,
+    requests, clock, plan)."""
+    from repro_torch.core.faults import FaultEvent, FaultPlan
+    from repro_torch.core.server import AdHocServer
+    from repro_torch.core.simulation import SimClock
+    from repro_torch.serving.cell import ElasticServeCell
+
+    settings, prios, faults = CELL_SCENARIOS[name]
+    srv = AdHocServer(failure_timeout=CELL_FAILURE_TIMEOUT_S)
+    srv.create_cloudlet("cell", model.cfg.arch_id)
+    for i in range(CELL_HOSTS):
+        srv.register_host(f"h{i}", 0.0, cloudlets=["cell"])
+    cell = ElasticServeCell(srv, "cell", model, params, factory=factory,
+                            **{**CELL, **settings})
+    reqs = [cell.submit(p, max_new_tokens=CELL_NEW,
+                        priority=prios[i] if prios else 0)
+            for i, p in enumerate(prompts)]
+    clock = SimClock()
+    cell.run(clock, max_ticks=1)
+    formed = [kv for _, ev, kv in srv.log if ev == "cell_resharded"]
+    if [kv["cause"] for kv in formed] != ["form"] or cell.grid != (2, 2):
+        raise AssertionError(f"cell {name}: formation {formed}, "
+                             f"grid {cell.grid}")
+    t0 = clock.now()
+    plan = FaultPlan([FaultEvent(at=t0 + dt, kind=kind, host=host,
+                                 **({"factor": f} if f else {}))
+                      for dt, kind, host, f in faults])
+    return srv, cell, reqs, clock, plan
+
+
+def _cell_checks(name: str, s: dict, cell, reqs, want) -> list[str]:
+    """What tests/test_cell.py asserts for the scenario, at full width:
+    every stream done equals the trusted engine's, every shed one is an
+    exact prefix of it, nothing pending, no host lost but to a crash."""
+    faults = CELL_SCENARIOS[name][2]
+    crashes = sum(kind == "crash" for _, kind, _, _ in faults)
+    problems = []
+    for r in reqs:
+        if r.state == "done" and r.committed != want[r.req_id]:
+            problems.append(f"request {r.req_id}: stream differs")
+        if r.state == "shed" and r.committed != \
+                want[r.req_id][:len(r.committed)]:
+            problems.append(f"request {r.req_id}: shed stream not a prefix")
+    if s["requests_pending"] or s["requests_done"] + s["requests_shed"] \
+            != len(reqs):
+        problems.append("requests left pending")
+    if s["hosts_lost"] != crashes:
+        problems.append(f"{s['hosts_lost']} hosts lost, {crashes} crashed")
+    if name == "clean":
+        if (s["grid"] != (2, 2) or s["resharded"] or s["tokens_replayed"]
+                or s["slots_shed"] or s["requests_done"] != len(reqs)):
+            problems.append("a clean run re-sharded, replayed or shed")
+    elif name == "crash_rejoin":
+        if not (s["collective_timeouts"] >= 1 and s["resharded"] >= 1
+                and s["resumed_from_snapshot"] >= 1
+                and s["tokens_replayed"] >= 1 and s["reshard_grow"] >= 1
+                and len(s["hosts"]) == CELL_HOSTS and "h1" in s["hosts"]):
+            problems.append("no crash re-shard, resume, replay or grow-back")
+    elif name == "shed":
+        prios = CELL_SCENARIOS[name][1]
+        shed = sorted(r.req_id for r in reqs if r.state == "shed")
+        lowest = sorted(sorted(range(len(reqs)), key=lambda i: prios[i])[:4])
+        if s["slots_shed"] != 4 or shed != lowest or s["grid"] != (1, 2):
+            problems.append(f"shed {shed}, not the four lowest priorities "
+                            f"{lowest} on a (1, 2) grid")
+    elif name == "straggler":
+        if not (s["stragglers_evicted"] == 1 and "h0" in cell.demoted
+                and "h0" not in s["hosts"] and s["tokens_replayed"] >= 1):
+            problems.append("the slow host was not evicted, or no replay")
+    if name in ("crash_rejoin", "straggler") and s["forced_mismatches"]:
+        problems.append(f"{s['forced_mismatches']} forced mismatches")
+    return problems
+
+
+class _CellParts:
+    """Hooks on the cell's re-shard parts while a scenario runs: each
+    engine build (the factory call), relayout, replay, snapshot placement
+    and the elastic checkpoint's host copy (``gather_state``), in seconds
+    between device syncs (a restore's are :class:`_EngineMeter`'s). The
+    hooks sit on the class and the module, never on a cell, so they keep
+    no dropped cell alive."""
+
+    PARTS = ("engine_build", "relayout", "replay", "snapshot_placement",
+             "gather_state")
+
+    def __init__(self):
+        import repro_torch.serving.cell as cell_mod
+
+        self.mod, self.cls = cell_mod, cell_mod.ElasticServeCell
+        self.seconds = {p: [] for p in self.PARTS}
+
+    def _timed(self, part: str, fn):
+        import torch
+
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds[part].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def __enter__(self):
+        self.orig = [(self.mod, "gather_state", self.mod.gather_state)] + [
+            (self.cls, n, getattr(self.cls, n))
+            for n in ("_relayout", "_replay", "_place_snapshot")]
+        for obj, attr, fn in self.orig:
+            part = {"_relayout": "relayout", "_replay": "replay",
+                    "_place_snapshot": "snapshot_placement"}.get(attr, attr)
+            setattr(obj, attr, self._timed(part, fn))
+        return self
+
+    def factory(self, factory):
+        return self._timed("engine_build", factory)
+
+    def __exit__(self, *exc):
+        for obj, attr, fn in self.orig:
+            setattr(obj, attr, fn)
+
+    def report(self, restore_s: list[float]) -> dict:
+        return {p: {"n": len(v), "s": sum(v), "max_s": max(v, default=0.0)}
+                for p, v in {**self.seconds, "restore": restore_s}.items()}
+
+
+def _cell_run(model, params, factory, name: str, prompts, want) -> dict:
+    """One scenario on a fresh cell: formed, then run under its fault plan
+    with the launch counts zeroed just before and read just after and the
+    cyclic collector off, each engine built only once every earlier one is
+    freed; then the cell and its server dropped (they hold each other:
+    the collector's cycle) and the device memory read again."""
+    import weakref
+
+    import torch
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    built: list = []
+    alive_at_build: list[int] = []
+
+    def tracked(host_id):
+        alive_at_build.append(sum(r() is not None for r in built))
+        eng = factory(host_id)
+        built.append(weakref.ref(eng))
+        return eng
+
+    gc.disable()
+    try:
+        with _CellParts() as parts, _EngineMeter() as meter:
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            srv, cell, reqs, clock, plan = _cell_formed(
+                model, params, parts.factory(tracked), name, prompts)
+            formed_s = time.perf_counter() - t0
+            summary = cell.run(clock, fault_plan=plan, max_ticks=2000)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.counts()
+        events = [(round(t, 3), ev, {k: v for k, v in kv.items()
+                                     if k not in ("cell",)})
+                  for t, ev, kv in srv.log
+                  if ev.startswith("cell_") or ev == "fault_injected"]
+        problems = _cell_checks(name, summary, cell, reqs, want)
+        peak = torch.cuda.max_memory_allocated()
+        del cell, srv, reqs
+    finally:
+        gc.enable()
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    if any(alive_at_build):
+        problems.append(f"engines alive at each build: {alive_at_build}")
+    if mem1 - mem0 > CELL_MEM_SLACK_BYTES:
+        problems.append(f"device memory grew by {mem1 - mem0} B")
+    _check_counts(counts, PATH_KERNELS["qwen3-8b"], f"cell {name}")
+    return {
+        "summary": summary, "events": events, "problems": problems,
+        "counts": counts,
+        "numbers": {
+            "wall_s": wall, "formation_wall_s": formed_s,
+            "sim_s": clock.now(), "engine_steps": meter.steps,
+            "generated_tokens": meter.tokens,
+            "snapshots_taken": len(meter.snapshot_s),
+            "snapshot_s": sum(meter.snapshot_s),
+            "blob_bytes": max(meter.blob_bytes, default=None),
+            "parts": parts.report(meter.restore_s),
+            "engines_built": len(built),
+            "memory_before_gb": mem0 / 1e9, "memory_after_gb": mem1 / 1e9,
+            "max_memory_allocated_gb": peak / 1e9},
+    }
+
+
+def phase_cell(model, params, card: str, seed: int = 8) -> dict:
+    """The elastic serving cell (``repro_torch.serving.cell``) driving the
+    paged engine at full width through host churn: a trusted engine of the
+    factory serves the 8 prompts in one queue; then four fresh cells of 4
+    hosts on a (2, 2) grid, one after another: a, clean (nothing
+    re-sharded, replayed or shed); b, a crash, then the host rejoins
+    (collective timeout, re-shard onto 3 hosts resumed from a snapshot and
+    replayed, 2 lanes shed, grow back to 4); c, two crashes at once with
+    ``min_hosts`` 2 and priorities 0,0,1,1,2,2,3,3 (capacity 4 lanes: the
+    four lowest priorities shed with exact prefixes); d, a host slowed 8x,
+    evicted and never placed on again. Every stream done equals the trusted
+    engine's token for token, every shed one is a prefix of it, replay
+    recomputes the committed tokens exactly (no forced mismatch in b and
+    d), every kernel of the paged path runs and no plain version, and the
+    device memory after each run is back within less than one pool. Wall
+    seconds by part (engine build, restore, relayout, replay, snapshot
+    placement, ``gather_state``'s host copy) beside simulated ones, printed
+    beside ``card``."""
+    import torch
+
+    from repro_torch.serving.batch import make_engine_factory
+
+    cfg = model.cfg
+    factory = make_engine_factory(model, params, device="cuda", **CELL_ENGINE)
+    prompts = _cell_prompts(cfg.vocab_size, seed)
+    t0 = time.perf_counter()
+    trusted = factory("__trusted__")
+    reqs = [trusted.submit(p, max_new_tokens=CELL_NEW) for p in prompts]
+    trusted.run(100_000)
+    torch.cuda.synchronize()
+    want = [list(r.generated) for r in reqs]
+    out = {"phase": "cell", "arch": cfg.arch_id, "layers": cfg.n_layers,
+           "params_b": round(cfg.param_count() / 1e9, 3), "card": card,
+           "prompts": len(prompts), "prompt_tokens": sum(map(len, prompts)),
+           "new_tokens": CELL_NEW, "hosts": CELL_HOSTS,
+           "engine": CELL_ENGINE, "cell": CELL,
+           "failure_timeout_s": CELL_FAILURE_TIMEOUT_S,
+           "trusted": {"wall_s": time.perf_counter() - t0,
+                       "steps": trusted.steps}}
+    del trusted, reqs
+    gc.collect()
+    launches = {}
+    for name in CELL_SCENARIOS:
+        got = _cell_run(model, params, factory, name, prompts, want)
+        s = got["summary"]
+        out[name] = {**got["numbers"], **s, "events": got["events"],
+                     "launches": {n: c["launches"]
+                                  for n, c in got["counts"].items()}}
+        for n, c in got["counts"].items():
+            launches[n] = launches.get(n, 0) + c["launches"]
+        if got["problems"]:
+            log(out)
+            raise AssertionError(f"cell {name}: " + "; ".join(
+                got["problems"]))
+    out["launches"] = launches
+    log(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3702,6 +4035,15 @@ BATCH_SUMMARY_ROW = {"rmsnorm": ("rmsnorm@batch", 0),
                          "paged_decode_attention@batch", 0),
                      "flash_attention": ("flash_attention", 1),
                      "gemm_rows": ("gemm_rows", -3)}
+# the cell path's rows (qwen3-8b): its decode step's block norm (8 lanes),
+# the paged decode over its 64-page pool, a second prefill chunk (256
+# queries over 512 keys, the longest its prompts need), one decode step's
+# products at 8 rows
+CELL_SUMMARY_ROW = {"rmsnorm": ("rmsnorm", 0),
+                    "paged_decode_attention": ("paged_decode_attention@cell",
+                                               0),
+                    "flash_attention": ("flash_attention", 1),
+                    "gemm_rows": ("gemm_rows", -2)}
 
 
 def run_model(arch: str, card: str) -> dict:
@@ -3735,7 +4077,7 @@ def run_model(arch: str, card: str) -> dict:
 
     serve = timed("serve", phase_serve, model, params, short=not full)
     per_call = serve["launches_per_call"]
-    dense = spec = batch = None
+    dense = spec = batch = cell = None
     if full:
         timed("profile", phase_profile, model, params)
     if full or arch == "granite-moe-1b-a400m":
@@ -3751,6 +4093,7 @@ def run_model(arch: str, card: str) -> dict:
         spec = timed("spec", phase_spec, model, params, card)["self_draft"]
         batch = timed("batch", phase_batch, model, params,
                       card)["launches"]
+        cell = timed("cell", phase_cell, model, params, card)["launches"]
     elif arch == "deepseek-moe-16b":
         spec = timed("spec", phase_spec_moe, model, params,
                      card)["self_draft"]
@@ -3767,7 +4110,7 @@ def run_model(arch: str, card: str) -> dict:
             "dense": dense and (dense["launches"],
                                 dense["launches_per_call"]["decode_step"],
                                 dense["launches_per_call"]["prefill"]),
-            "spec": spec, "batch": batch,
+            "spec": spec, "batch": batch, "cell": cell,
             "routes": {"paged": serve["route_launches"],
                        "dense": dense and dense["route_launches"]}}
 
@@ -3829,6 +4172,9 @@ def main() -> int:
         for name, (check, i) in (BATCH_SUMMARY_ROW.items()
                                  if ran["batch"] else ()):
             row_of(name, check, i, arch, "batch", ran["batch"][name])
+        for name, (check, i) in (CELL_SUMMARY_ROW.items()
+                                 if ran["cell"] else ()):
+            row_of(name, check, i, arch, "cell", ran["cell"][name])
         for name, (check, i), path, key in ROUTE_ROWS.get(arch, ()):
             routes = ran["routes"]["dense" if path.startswith("dense")
                                    else "paged"]

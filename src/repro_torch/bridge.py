@@ -71,6 +71,6 @@ def params_from_reference(tree: dict, model: ModelFns, *,
             return {k: walk(specs[k], sub[k]) for k in specs}
         return leaf(specs, sub)
 
-    return model.build(walk(model.param_specs, tree))
+    return model.assemble(walk(model.param_specs, tree))
 
 

@@ -6,9 +6,9 @@
   (memory/disk).
 - :mod:`~repro_torch.checkpoint.replicated` — P2P replicated checkpoint
   manager (placement per the paper's ≤5%-joint-failure rule).
-
-The reference's ``checkpoint/elastic.py`` (restore onto another mesh)
-belongs with the port's trainer, not ported yet.
+- :mod:`~repro_torch.checkpoint.elastic` — the grid a surviving elastic
+  cell re-forms on (``plan_elastic_mesh``) and the host copy it
+  re-lays-out from (``gather_state``).
 """
 
 from repro_torch.checkpoint.serializer import (
@@ -17,6 +17,7 @@ from repro_torch.checkpoint.serializer import (
     split_into_shards,
     join_shards,
 )
+from repro_torch.checkpoint.elastic import gather_state, plan_elastic_mesh
 from repro_torch.checkpoint.store import DiskStore, SnapshotStore
 
 __all__ = [
@@ -26,4 +27,6 @@ __all__ = [
     "join_shards",
     "SnapshotStore",
     "DiskStore",
+    "gather_state",
+    "plan_elastic_mesh",
 ]

@@ -182,8 +182,8 @@ class AdHocServer:
         failure/leave, and — if it defines one — its ``job_status``
         answers through :meth:`job_status`. Used by the batch tier
         (:class:`repro_torch.serving.batch.BatchMaster`, lost replicas
-        re-issue) and the elastic cell (``ElasticServeCell`` in the JAX
-        package's ``serving/cell.py``, not ported yet; re-shard)."""
+        re-issue) and the elastic cell
+        (:class:`repro_torch.serving.cell.ElasticServeCell`, re-shard)."""
         if listener not in self._batch_masters:
             self._batch_masters.append(listener)
 

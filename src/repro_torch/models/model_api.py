@@ -229,7 +229,39 @@ class ModelFns:
         if isinstance(generator, int):
             gen = torch.Generator(device=dev).manual_seed(generator)
         tree = tree_map(lambda s: _materialize(s, gen, dev), self.param_specs)
-        return self.build(tree)
+        return self.assemble(tree)
+
+    def assemble(self, tree: Tree) -> nn.Module:
+        """The family's module over ``tree`` (``build``). Its per-layer
+        weights are views of the tree's layer-stacked leaves, and the module
+        keeps the tree, so :meth:`param_tree` hands the leaves back without
+        a copy."""
+        module = self.build(tree)
+        module._param_tree = tree
+        return module
+
+    def param_tree(self, params: nn.Module) -> Tree:
+        """The weights of ``params`` as a tree of ``param_specs``'
+        structure (stacked leaves ``(L, ...)``, the reference's layout),
+        sharing their storage: what the partition rules pair with
+        :meth:`param_axes`."""
+        tree = getattr(params, "_param_tree", None)
+        if tree is None:
+            raise ValueError("params were not made by ModelFns.init, "
+                             "ModelFns.assemble or the bridge")
+        return tree
+
+    def param_axes(self) -> Tree:
+        """Each weight's logical axes (``repro/models/model_api.py:164-
+        165``)."""
+        return tree_map(lambda s: s.axes, self.param_specs)
+
+    def abstract_params(self) -> Tree:
+        """Each weight's shape and storage type as a meta tensor:
+        allocates nothing."""
+        return tree_map(lambda s: torch.empty(s.shape, dtype=storage_dtype(s),
+                                              device="meta"),
+                        self.param_specs)
 
     def init_cache(self, n_slots: int, max_seq: int,
                    dtype: torch.dtype = torch.bfloat16,
@@ -244,10 +276,35 @@ class ModelFns:
                          device: str | torch.device = "cuda") -> Tree:
         """The zeroed paged cache, the cross-attention pools (enc-dec)
         allocated beside the self pools."""
+        return zeros_from_specs(
+            self._full_paged_specs(n_slots, n_pages, page_size), dtype,
+            resolve_device(device))
+
+    def _full_paged_specs(self, n_slots: int, n_pages: int,
+                          page_size: int) -> dict:
+        """The paged cache's specs, the cross-attention pools (enc-dec)
+        merged in."""
         specs = dict(self.paged_cache_specs(n_slots, n_pages, page_size))
         if self.paged_cross_specs is not None:
             specs.update(self.paged_cross_specs(n_pages, page_size))
-        return zeros_from_specs(specs, dtype, resolve_device(device))
+        return specs
+
+    def paged_cache_axes(self, n_slots: int, n_pages: int,
+                         page_size: int) -> Tree:
+        """Each paged cache leaf's logical axes
+        (``repro/models/model_api.py:246-249``)."""
+        return {k: s.axes for k, s in
+                self._full_paged_specs(n_slots, n_pages, page_size).items()}
+
+    def abstract_paged_cache(self, n_slots: int, n_pages: int,
+                             page_size: int,
+                             dtype: torch.dtype = torch.bfloat16) -> Tree:
+        """Each paged cache leaf's shape and cache dtype as a meta tensor
+        (``repro/models/model_api.py:251-257``): allocates nothing."""
+        return {k: torch.empty(s.shape, dtype=_cache_dtype(s, dtype),
+                               device="meta")
+                for k, s in self._full_paged_specs(n_slots, n_pages,
+                                                   page_size).items()}
 
 
 def zeros_from_specs(specs: dict, dtype: torch.dtype = torch.bfloat16,

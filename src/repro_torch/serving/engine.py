@@ -38,7 +38,8 @@ What carries over from the reference, with the same semantics and the same
   register (``_await_inflight_prefix``);
 - token-exact preemption with re-prefill resume, shedding of expired and
   overflowing requests, ``cancel`` and teacher forcing (``step(
-  force_tokens=...)``);
+  force_tokens=...)``), and ``active_cap``, the lanes an elastic cell
+  (:mod:`repro_torch.serving.cell`) lets admission fill;
 - host-side sampling from numpy Gumbel noise keyed by (seed, position)
   (``_choose``), so sampled streams match the reference's exactly;
 - the spill tier (``remote_pool``, a
@@ -320,6 +321,7 @@ class ServeEngine:
         recall_budget: int = 8,
         write_behind: bool = False,
         decode_step_s: float = 5e-3,
+        active_cap: int | None = None,
         scheduler: SchedulerConfig | None = None,
         draft: ModelFns | None = None,
         draft_params: nn.Module | None = None,
@@ -372,6 +374,10 @@ class ServeEngine:
         self.spec_k = spec_k
         self.paged = paged
         self.n_slots = n_slots
+        # elastic serving: a cell may cap concurrent decode lanes below
+        # n_slots when its survivor grid shrinks (slots stay allocated so
+        # snapshots keep their shape; admission just stops above the cap)
+        self.active_cap = active_cap
         self.sched = Scheduler(scheduler, decode_step_s=decode_step_s)
         # slot -> in-flight chunked prefill (continuous batching only; the
         # synchronous mode drains each task within its admission call)
@@ -1027,6 +1033,10 @@ class ServeEngine:
         higher-ranked one, only while the blocked request's aged lead stays
         below ``bypass_margin``."""
         free = [i for i, r in enumerate(self.slot_req) if r is None]
+        if self.active_cap is not None:
+            headroom = self.active_cap - sum(
+                r is not None for r in self.slot_req)
+            free = free[:max(0, headroom)]
         if not self.paged:
             while free and self.queue:
                 req = self.sched.order(self.queue, self.steps)[0]

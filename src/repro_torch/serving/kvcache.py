@@ -5,9 +5,11 @@ trie — the pool allocation, and the multi-host spill tier.
 Ported from ``repro/serving/kvcache.py`` (``init_cache``, ``scatter_slot``,
 ``expand_prefill_cache``: lines 87-134; ``pages_needed``, ``PagePool``,
 ``PrefixIndex``: lines 137-487; the spill tier: lines 490-808;
-``init_paged_cache``: line 809). The allocator, the trie and the remote
-pool are plain Python, copied as they are; the caches themselves are torch
-tensors made by the model's ``init_cache`` and ``init_paged_cache``.
+``init_paged_cache``: line 809; the layout half of
+``paged_cache_shardings``: lines 814-819). The allocator, the trie and the
+remote pool are plain Python, copied as they are; the caches themselves
+are torch tensors made by the model's ``init_cache`` and
+``init_paged_cache``.
 
 **Multi-host page spill** (:class:`RemotePagePool`): when reallocation
 would destroy retained prefix-cache pages, the engine serializes them and
@@ -42,6 +44,7 @@ from repro_torch.checkpoint.serializer import read_leaves, serialize_tree
 from repro_torch.core.cloudlet import CloudletRegistry, PageLease
 from repro_torch.core.reliability import ReliabilityRegistry
 from repro_torch.models.model_api import ModelFns, Tree
+from repro_torch.parallel.partition import tree_partition_specs
 
 def init_cache(model: ModelFns, n_slots: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16,
@@ -877,3 +880,16 @@ def init_paged_cache(model: ModelFns, n_slots: int, n_pages: int,
     in f32 (the reference's rule, ``model_api._cache_dtype``). The
     engine's page operations (``_copy_pages``) touch only ``*_pages``."""
     return model.init_paged_cache(n_slots, n_pages, page_size, dtype, device)
+
+
+def paged_cache_partition_specs(model: ModelFns, n_slots: int, n_pages: int,
+                                page_size: int, grid) -> Tree:
+    """The paged cache's :class:`~repro_torch.parallel.partition.
+    PartitionSpec` per leaf on ``grid``, from its logical axes and abstract
+    shapes: a pool shards over ``kv_heads`` where the count divides the
+    model axis, else over ``pages``. The layout half of the reference's
+    ``paged_cache_shardings``; placing the pool on real devices belongs to
+    the materialized cell (ROADMAP Queue 1, item 16)."""
+    axes = model.paged_cache_axes(n_slots, n_pages, page_size)
+    abstract = model.abstract_paged_cache(n_slots, n_pages, page_size)
+    return tree_partition_specs(axes, abstract, grid)

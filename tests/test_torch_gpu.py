@@ -1077,3 +1077,59 @@ def test_reduced_multimodal_serving_on_the_card(arch, paged):
         assert eng.stats["cross_regions_computed"] == 3
         assert eng.stats["cross_regions_shared"] == 1
         assert eng.pool.outstanding == 0
+
+
+@pytest.mark.gpu
+def test_elastic_cell_crash_and_rejoin_on_the_card():
+    """On the H100, REDUCED qwen3-8b (heads padded to 64) through the
+    port's elastic cell with ``tests/test_cell.py``'s engines and settings:
+    a host crashes mid-stream and rejoins. The collective deadline finds
+    it, the cell re-shards onto 3 hosts, resumes from a snapshot and
+    replays to the committed frontier, then grows back to 4; the streams
+    equal a trusted engine's, and replay recomputes every committed token
+    (no forced mismatch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.core.faults import FaultEvent, FaultPlan
+    from repro_torch.core.server import AdHocServer
+    from repro_torch.core.simulation import SimClock
+    from repro_torch.models import get_model
+    from repro_torch.serving.batch import make_engine_factory
+    from repro_torch.serving.cell import ElasticServeCell
+
+    model = get_model(get("qwen3-8b", reduced=True))
+    params = model.init(0, device="cuda")
+    factory = make_engine_factory(model, params, device="cuda", n_slots=6,
+                                  max_seq=96, page_size=8, n_pages=80)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, model.cfg.vocab_size, 8).tolist()
+               for _ in range(2)]
+    trusted = factory("__trusted__")
+    want = [trusted.submit(p, max_new_tokens=24) for p in prompts]
+    trusted.run(5000)
+    srv = AdHocServer(failure_timeout=6.0)
+    srv.create_cloudlet("cell", "qwen3-8b")
+    for i in range(4):
+        srv.register_host(f"h{i}", 0.0, cloudlets=["cell"])
+    cell = ElasticServeCell(srv, "cell", model, params, factory=factory,
+                            model_parallel=2, target_hosts=4, min_hosts=1,
+                            slots_per_host=1, decode_step_s=1.0,
+                            step_deadline_s=4.0, snapshot_every_s=3.0)
+    reqs = [cell.submit(p, max_new_tokens=24) for p in prompts]
+    plan = FaultPlan([FaultEvent(at=6.0, kind="crash", host="h1"),
+                      FaultEvent(at=16.0, kind="rejoin", host="h1")])
+    ops.reset_counts()
+    s = cell.run(SimClock(), fault_plan=plan, max_ticks=500)
+    counts = ops.counts()
+    assert s["requests_done"] == 2 and s["hosts_lost"] == 1
+    assert s["resharded"] >= 1 and s["resumed_from_snapshot"] >= 1
+    assert s["tokens_replayed"] >= 1 and s["reshard_grow"] >= 1
+    assert s["forced_tokens"] >= 1 and s["forced_mismatches"] == 0
+    assert len(s["hosts"]) == 4 and "h1" in s["hosts"]
+    assert [r.committed for r in reqs] == [r.generated for r in want]
+    for name in ("rmsnorm", "paged_decode_attention", "flash_attention",
+                 "gemm_rows"):
+        assert counts[name]["launches"] > 0 and not counts[name]["plain"]

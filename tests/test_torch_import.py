@@ -61,7 +61,10 @@ def test_every_module_imports_without_jax():
             "repro_torch.checkpoint.replicated",
             "repro_torch.serving.batch", "repro_torch.models.encdec",
             "repro_torch.configs.whisper_medium",
-            "repro_torch.configs.llava_next_mistral_7b"} <= set(mods)
+            "repro_torch.configs.llava_next_mistral_7b",
+            "repro_torch.parallel", "repro_torch.parallel.partition",
+            "repro_torch.checkpoint.elastic",
+            "repro_torch.serving.cell"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -139,6 +142,13 @@ def test_cuda_entry_points_raise_without_a_card():
     factory = make_engine_factory(model, params, n_slots=2, max_seq=64,
                                   page_size=16, device="cpu")
     assert factory("h0").cache["k_pages"].device.type == "cpu"
+    from repro_torch.core.server import AdHocServer
+    from repro_torch.serving.cell import ElasticServeCell
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ElasticServeCell(AdHocServer(), "cell", model, params,
+                         engine_kwargs=dict(n_slots=2, max_seq=64,
+                                            page_size=16))
     eng = ServeEngine(model, params, n_slots=2, max_seq=64, page_size=16,
                       device="cpu")
     assert eng.cache["k_pages"].device.type == "cpu"
