@@ -193,6 +193,32 @@ Phases, each of which raises on failure (the exit code is then non-zero):
       limit (``tools/cell_rehearsal.py`` predicts every counter on the
       CPU).
 
+5. train (``phase_train``): a, training's kernels at its shapes against
+   autograd through the plain versions: the flash forward (with ``lse``)
+   and the hand-written backward (``csrc/flash_attention_bwd.cu``) at
+   smollm-360m's B 8, S 2048, 15 / 5 heads of 64 and qwen3-8b's B 2, S
+   2048, 32 / 8 heads of 128, the RMSNorm forward and backward at
+   smollm's (16,384, 960) rows and qwen3's (131,072, 128) qk and (4,096,
+   4,096) block rows (dq, dk, dv within 2 % of each gradient's largest
+   magnitude, dx at 2e-2, dw within 1e-3 of its largest value; two
+   backward runs bitwise equal; the forward's bits the same with ``lse``
+   as without, at a training and at a serving chunk's shape), beside the
+   backward of SDPA (``enable_gqa``) and of ``F.rms_norm``; b, smollm-360m
+   at full width and depth through ``repro_torch.launch.train.main``
+   (seq 2048, batch 8, 10 steps, 2 hosts, snapshots every 5, a failure
+   at step 7), then the same run without the failure: the counters equal
+   a REDUCED CPU rehearsal of the schedule, the final states bitwise
+   equal, every loss finite, the run's first loss the same step's run
+   alone, which is within 2e-2 (loss) and 5 % (grad norm) of that step
+   under the plain versions; the flash and RMSNorm kernels launched
+   forward and backward and no plain version; step ms, tokens/s, peak
+   device memory, host memory, blob bytes, snapshot and restore seconds;
+   c, qwen3-8b at published widths with its depth cut to 8 of 36 layers:
+   3 steps at B 2, S 2048, twice from seed 0: finite losses, the two runs
+   bitwise equal (losses, grad norms, an exact digest of every leaf); step
+   ms and peak memory. Sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (unless
+   set) before CUDA starts, for the whole run.
+
 The MoE models' logits have no bound (random-weight routing is chaotic):
 the kernel-forced check holds the router there (ids equal but at a near
 tie) and the grouped product (rows below each expert's count).
@@ -200,7 +226,8 @@ tie) and the grouped product (rows below each expert's count).
 The line two before the last is the kernels summary as JSON (one row per
 kernel and model whose path runs it, and rows with ``"path": "spec"`` for
 the speculative path, ``"path": "batch"`` for the batch tier,
-``"path": "cell"`` for the elastic cell, and
+``"path": "cell"`` for the elastic cell, ``"path": "train"`` for
+training (the backward kernels among them), and
 whisper's routes: the cross fold, the encoder's flash and the dense cross
 read, each with the launches counted around that route's calls), the line
 before the last the card's
@@ -213,11 +240,16 @@ from __future__ import annotations
 import functools
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+# the train step runs in torch's deterministic mode, whose cuBLAS needs
+# this before CUDA starts (src/repro_torch/training/step.py)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -3907,6 +3939,616 @@ def phase_cell(model, params, card: str, seed: int = 8) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 5. training (the dense family): the backward kernels, the trainer
+# ---------------------------------------------------------------------------
+
+# the training shapes: smollm-360m at B 8, S 2048 (15 / 5 heads of 64, rows
+# of 960), qwen3-8b at B 2, S 2048 (32 / 8 heads of 128, qk rows of 128,
+# block rows of 4096)
+TRAIN = dict(B=8, S=2048)
+QWEN_TRAIN = dict(B=2, S=2048, layers=8, steps=3)
+# the flash backward against plain autograd: for each (batch, 64-row tile
+# of the sequence, head), the gradient's difference over the reference's in
+# the Frobenius norm, the largest over the tiles within this (bf16 outputs,
+# P and dS rounded to bf16 for their products). Each tile is measured
+# against its own size: under causal attention dq, dk and dv fall about as
+# 1/sqrt(position), so a share of the whole gradient's largest value would
+# let the last tiles be wrong. Planted faults (the last key tile's dv
+# zeroed, the last query tile's dq 10 % too large) must land above it.
+# Read on the H100 (tools/train_limits.py): 0.0034-0.0042 at both training
+# shapes and the gpu tests' six; the planted faults 1.0 and 0.100.
+GRAD_TILE_SHARE = 1e-2
+# dw (f32 sums over 16,384-131,072 rows, in another order than autograd's):
+# its largest difference within this share of its largest magnitude
+DW_REL = 1e-3
+# the trainer's first step under the kernels against the same step under
+# the plain versions: the loss (absolute), the grad norm (relative), and
+# every gradient leaf, layer by layer (the Frobenius norm of the difference
+# over the plain step's; read from AdamW's first moment, which after one
+# step is (1 - b1) times the clipped gradient). Read on the H100
+# (tools/train_limits.py): loss 3.6e-4, grad norm 4.9e-5, leaves 0.013 (the
+# final norm) to 0.057 (a layer's MLP norm). A
+# planted fault (one layer's attention-norm gradient 20 % too large) must
+# land above the leaves' limit.
+FIRST_STEP_LOSS_ATOL = 2e-2
+FIRST_STEP_NORM_REL = 5e-2
+FIRST_STEP_LEAF_SHARE = 0.1
+TRAIN_RUN = dict(steps=10, hosts=2, snapshot_every=5, fail_at=7)
+
+
+def _tile_share(got, want, tile: int = 64) -> float:
+    """The largest, over (batch, ``tile`` rows of dim 1, head) tiles of
+    (B, S, H, D) gradients, of ||got - want|| / ||want|| (Frobenius, f32).
+    NaN where a tile of ``want`` is all zero or ``got`` is not finite."""
+    import torch.nn.functional as F
+
+    B, S, H, D = want.shape
+
+    def sums(t):
+        t = F.pad(t, (0, 0, 0, 0, 0, -S % tile))
+        return t.square().reshape(B, -1, tile, H, D).sum((2, 4))
+
+    want = want.float()
+    return float((sums(got.float() - want) / sums(want)).max().sqrt())
+
+
+def _planted(got, want, tile: int = 64) -> dict:
+    """The tile share of two faults planted in the kernel's gradients:
+    the last key tile's dv zeroed, the last query tile's dq scaled by
+    1.1."""
+    dq, _, dv = (t.clone() for t in got)
+    last = (dv.shape[1] - 1) // tile * tile
+    dv[:, last:] = 0
+    dq[:, last:] *= 1.1
+    return {"dv_last_tile_zeroed": _tile_share(dv, want[2], tile),
+            "dq_last_tile_x1.1": _tile_share(dq, want[0], tile)}
+
+
+def _grad_ms(out, ins, dout) -> float:
+    import torch
+
+    return _time_ms(lambda: torch.autograd.grad(out, ins, dout,
+                                                retain_graph=True),
+                    flush=True)
+
+
+def check_flash_bwd(gen, *, B, S, H, K, D, what: str) -> list[dict]:
+    """The flash forward (with ``lse``) and backward kernels at a training
+    shape against plain autograd; the forward's bits the same with ``lse``
+    as without; two backward runs bitwise equal. Rows: forward, backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fk, ref
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v, dout = rnd(B, S, H, D), rnd(B, S, K, D), rnd(B, S, K, D), \
+        rnd(B, S, H, D)
+    out, lse = fk.flash_attention(q, k, v, causal=True, with_lse=True)
+    if not torch.equal(out, fk.flash_attention(q, k, v, causal=True)):
+        raise AssertionError(f"flash {what}: the output with lse differs "
+                             f"from the output without")
+    got = fk.flash_attention_bwd(q, k, v, out, dout, lse)
+    again = fk.flash_attention_bwd(q, k, v, out, dout, lse)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash backward {what}: two runs differ")
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain_out = ref.attention(*ins, causal=True)
+    want = torch.autograd.grad(plain_out, ins, dout, retain_graph=True)
+    fwd_err = _close(out, plain_out.detach(), f"flash forward {what}")
+    shares = {n: _tile_share(a, w) for n, a, w in zip(("dq", "dk", "dv"),
+                                                      got, want)}
+    if not all(x <= GRAD_TILE_SHARE for x in shares.values()):
+        raise AssertionError(f"flash backward {what}: tile shares {shares} "
+                             f"over {GRAD_TILE_SHARE}")
+    planted = _planted(got, want)
+    if not all(x > GRAD_TILE_SHARE for x in planted.values()):
+        raise AssertionError(f"flash backward {what}: a planted fault "
+                             f"passes the check: {planted}")
+    bwd_err = max(float((a.float() - w.float()).abs().max())
+                  for a, w in zip(got, want))
+    pairs = B * H * S * (S + 1) // 2
+    io = (q.numel() + k.numel() + v.numel()) * 2
+    shape = {"B": B, "S": S, "H": H, "K": K, "D": D, "causal": True}
+    lib_ins = [t.detach().transpose(1, 2).clone().requires_grad_()
+               for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_ins, is_causal=True,
+                                             enable_gqa=True)
+    lib_dout = dout.transpose(1, 2)
+    fwd = {"shape": shape, "max_abs_err": fwd_err,
+           "ms": _time_ms(lambda: fk.flash_attention(
+               q, k, v, causal=True, with_lse=True), flush=True),
+           "plain_ms": _time_ms(lambda: ref.attention(q, k, v, causal=True),
+                                flush=True),
+           "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+               *(t.detach() for t in lib_ins), is_causal=True,
+               enable_gqa=True), flush=True),
+           **_bound(io + q.numel() * 2 + lse.numel() * 4, 4 * D * pairs,
+                    BF16_TC_FLOPS)}
+    # the backward's work: five products of D-deep dots a pair (S, dP, dV,
+    # dK, dQ); q, k, v, o, dO and lse read once, dq, dk, dv written once
+    bwd = {"shape": shape, "max_abs_err": bwd_err,
+           "grad_tile_share": shares, "planted_tile_share": planted,
+           "bitwise_repeat": True,
+           "ms": _time_ms(lambda: fk.flash_attention_bwd(
+               q, k, v, out, dout, lse), flush=True),
+           "plain_ms": _grad_ms(plain_out, ins, dout),
+           "library_ms": _grad_ms(lib_out, lib_ins, lib_dout),
+           **_bound(2 * io + 2 * q.numel() * 2 + lse.numel() * 4,
+                    10 * D * pairs, BF16_TC_FLOPS)}
+    for row in (fwd, bwd):
+        row["x_library"] = row["ms"] / row["library_ms"]
+        row["x_bound"] = row["ms"] / row["bound_ms"]
+    log({"check": f"flash_attention_bwd@{what}", "forward": fwd,
+         "backward": bwd})
+    return [fwd, bwd]
+
+
+def check_rmsnorm_bwd(gen, shape, what: str) -> list[dict]:
+    """The RMSNorm forward and backward kernels at a training shape against
+    plain autograd; two backward runs bitwise equal. Rows: forward,
+    backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref, rmsnorm as rk
+
+    eps = 1e-5
+    x, w = _rmsnorm_case(gen, shape)
+    g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    dx, dw = rk.rmsnorm_bwd(x, w, g, eps)
+    dx2, dw2 = rk.rmsnorm_bwd(x, w, g, eps)
+    if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+        raise AssertionError(f"rmsnorm backward {what}: two runs differ")
+    xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = ref.rmsnorm(xp, wp, eps)
+    want = torch.autograd.grad(y, (xp, wp), g, retain_graph=True)
+    err = _close(dx, want[0], f"rmsnorm backward dx {what}")
+    dw_rel = _rel_err(dw, want[1])
+    if dw_rel > DW_REL:
+        raise AssertionError(f"rmsnorm backward dw {what}: {dw_rel:.3g} of "
+                             f"its largest value, over {DW_REL}")
+    fwd_err = _close(rk.rmsnorm(x, w, eps), y.detach(),
+                     f"rmsnorm forward {what}")
+    xl, wl = x.clone().requires_grad_(), w.to(x.dtype).requires_grad_()
+    yl = F.rms_norm(xl, (shape[-1],), wl, eps)
+    nx = x.numel() * 2
+    fwd = {"shape": list(shape), "max_abs_err": fwd_err,
+           "ms": _time_ms(lambda: rk.rmsnorm(x, w, eps)),
+           "plain_ms": _time_ms(lambda: ref.rmsnorm(x, w, eps)),
+           "library_ms": _time_ms(lambda: F.rms_norm(
+               x, (shape[-1],), wl.detach(), eps)),
+           **_bound(2 * nx + w.numel() * 4, 0, F32_FLOPS)}
+    bwd = {"shape": list(shape), "max_abs_err": err, "dw_rel": dw_rel,
+           "bitwise_repeat": True,
+           "ms": _time_ms(lambda: rk.rmsnorm_bwd(x, w, g, eps)),
+           "plain_ms": _time_ms(lambda: torch.autograd.grad(
+               y, (xp, wp), g, retain_graph=True)),
+           "library_ms": _time_ms(lambda: torch.autograd.grad(
+               yl, (xl, wl), g, retain_graph=True)),
+           **_bound(3 * nx + 2 * w.numel() * 4, 0, F32_FLOPS)}
+    for row in (fwd, bwd):
+        row["x_library"] = row["ms"] / row["library_ms"]
+        row["x_bound"] = row["ms"] / row["bound_ms"]
+    log({"check": f"rmsnorm_bwd@{what}", "forward": fwd, "backward": bwd})
+    return [fwd, bwd]
+
+
+def _rss_gb() -> dict:
+    """The process's resident host memory (``/proc``) and its peak so far
+    (``getrusage``), GB."""
+    import resource
+
+    out = {"peak": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+           * 1024 / 1e9}
+    for line in Path("/proc/self/status").read_text().splitlines():
+        key, _, val = line.partition(":")
+        if key == "VmRSS":
+            out["now"] = int(val.split()[0]) * 1024 / 1e9
+    return out
+
+
+def _state_bits(state) -> list:
+    """Every leaf of a train state, tensors as they are, numpy as bytes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model_api import tree_leaves
+
+    return [t if isinstance(t, torch.Tensor) else np.asarray(t).tobytes()
+            for t in tree_leaves(state)]
+
+
+def _states_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for x, y in zip(_state_bits(a), _state_bits(b)))
+
+
+def _train_argv(fail: bool) -> list[str]:
+    r = TRAIN_RUN
+    argv = ["--arch", "smollm-360m", "--full", "--steps", str(r["steps"]),
+            "--hosts", str(r["hosts"]), "--snapshot-every",
+            str(r["snapshot_every"]), "--seq-len", str(TRAIN["S"]),
+            "--batch", str(TRAIN["B"])]
+    return argv + (["--fail-at", str(r["fail_at"])] if fail else [])
+
+
+def _rehearsed_counters() -> dict:
+    """The trainer's counters for the smoke's schedule, from the same
+    trainer at REDUCED width on the CPU (the protocol does not depend on
+    the model)."""
+    from repro_torch.config import RunConfig
+    from repro_torch.configs import get
+    from repro_torch.training.trainer import AdHocTrainer
+
+    r = TRAIN_RUN
+    t = AdHocTrainer(get("smollm-360m", reduced=True),
+                     RunConfig(arch="smollm-360m",
+                               snapshot_interval_steps=r["snapshot_every"]),
+                     n_hosts=r["hosts"], total_steps=r["steps"], seq_len=16,
+                     global_batch=2, fail_at_steps={r["fail_at"]: "host000"},
+                     device="cpu")
+    rep = t.run_to_completion()
+    return {k: getattr(rep, k) for k in (
+        "completed", "effective_steps", "executed_steps", "recomputed_steps",
+        "restores", "restarts_from_zero", "host_of_step")}
+
+
+def _timed_guest(timing: dict):
+    """Wrap ``TrainingGuest``'s step, snapshot and restore with device-
+    synchronised host clocks into ``timing``; returns the undo."""
+    import torch
+
+    from repro_torch.training import trainer as tr
+
+    orig = {n: getattr(tr.TrainingGuest, n)
+            for n in ("run_step", "snapshot", "restore")}
+
+    def wrap(name):
+        def run(self, *args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig[name](self, *args)
+            torch.cuda.synchronize()
+            timing[name].append(time.perf_counter() - t)
+            if name == "snapshot":
+                timing["blob_bytes"] = len(out)
+            return out
+        return run
+
+    for n in orig:
+        setattr(tr.TrainingGuest, n, wrap(n))
+    return lambda: [setattr(tr.TrainingGuest, n, f) for n, f in orig.items()]
+
+
+def _profile_step(step, state, batch) -> dict:
+    """One warm train step under ``torch.profiler``: the device's busy
+    share of the step's wall time, the kernels by device time, the host's
+    own time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    host = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_busy_share": busy / (wall * 1e3),
+            "host_self_ms": sum(e.self_cpu_time_total for e in host) / 1e3,
+            "top_kernels": [{"name": e.key[:70], "calls": e.count,
+                             "ms": e.self_device_time_total / 1e3,
+                             "share": e.self_device_time_total / 1e3 / busy}
+                            for e in top]}
+
+
+def _leaf_shares(got, want, prefix: str = "") -> dict:
+    """For each leaf of two trees of one structure, ||got - want|| /
+    ||want|| (Frobenius, f32), as a list: a layer-stacked leaf (under
+    ``layers``) layer by layer, any other whole."""
+    out = {}
+    for k, w in want.items():
+        name = f"{prefix}/{k}"
+        if isinstance(w, dict):
+            out.update(_leaf_shares(got[k], w, name))
+            continue
+        d, w = got[k].float() - w.float(), w.float()
+        dims = tuple(range("/layers/" in name, w.dim()))
+        out[name] = (d.square().sum(dims) / w.square().sum(dims)).sqrt() \
+            .reshape(-1).tolist()
+    return out
+
+
+def _first_step(card: str) -> dict:
+    """The first step of the smoke's run (seed 0, step 0's batch) under the
+    kernels and under the plain versions, from one initial state: the loss,
+    the grad norm and every gradient leaf, layer by layer, held together;
+    a planted fault (the last layer's attention-norm gradient 20 % too
+    large) must read above the leaves' limit."""
+    import torch
+
+    from repro_torch.config import RunConfig
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import SyntheticDataset
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.models.model_api import tree_map
+    from repro_torch.training.state import init_train_state
+    from repro_torch.training.step import make_train_step
+
+    cfg = get("smollm-360m")
+    model = get_model(cfg)
+    step = make_train_step(model, RunConfig(arch=cfg.arch_id))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticDataset(
+        cfg, TRAIN["S"], TRAIN["B"], 0).batch(0).items()}
+    out, mu = {}, {}
+    for name in ("kernel", "plain"):
+        state = init_train_state(model, 0, "cuda")
+        with ops.use_backend(name):
+            state, m = step(state, batch)
+        out[name] = {k: float(m[k]) for k in ("loss", "grad_norm", "ce")}
+        mu[name] = tree_map(torch.clone, state["opt"]["mu"])
+        if name == "kernel":
+            out["profile"] = _profile_step(step, state, batch)
+        del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    d_loss = abs(out["kernel"]["loss"] - out["plain"]["loss"])
+    d_norm = abs(out["kernel"]["grad_norm"] / out["plain"]["grad_norm"] - 1)
+    by_layer = _leaf_shares(mu["kernel"], mu["plain"])
+    # NaN (a leaf not finite, or all zero in the plain step) reads as inf
+    leaves = {n: max(float("inf") if x != x else x for x in v)
+              for n, v in by_layer.items()}
+    worst = max(leaves, key=leaves.get)
+    mu["kernel"]["layers"]["attn"]["ln"][-1] *= 1.2
+    planted = _leaf_shares(mu["kernel"], mu["plain"])[
+        "/layers/attn/ln"][-1]
+    del mu
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(loss_diff=d_loss, grad_norm_rel=d_norm,
+               loss_atol=FIRST_STEP_LOSS_ATOL,
+               grad_norm_rel_tol=FIRST_STEP_NORM_REL,
+               leaf_shares=leaves, worst_leaf=worst,
+               worst_leaf_by_layer=by_layer[worst],
+               leaf_share_limit=FIRST_STEP_LEAF_SHARE,
+               planted_leaf_share=planted)
+    if (d_loss > FIRST_STEP_LOSS_ATOL or d_norm > FIRST_STEP_NORM_REL
+            or not leaves[worst] <= FIRST_STEP_LEAF_SHARE):
+        raise AssertionError(f"train: the first step's kernel and plain "
+                             f"runs disagree: {out}")
+    if not planted > FIRST_STEP_LEAF_SHARE:
+        raise AssertionError(f"train: a planted gradient fault passes the "
+                             f"leaf check: {planted}")
+    return out
+
+
+def phase_train_run(card: str) -> dict:
+    """b. smollm-360m at full width and depth through ``launch/train.py``'s
+    ``main``: with a failure, then without; the restored run's final state
+    bitwise the uninterrupted run's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+
+    want = _rehearsed_counters()
+    first = _first_step(card)
+    out = {"phase": "train", "arch": "smollm-360m", "card": card,
+           "seq": TRAIN["S"], "batch": TRAIN["B"], **TRAIN_RUN,
+           "first_step": first, "rehearsed": want}
+    reports = {}
+    for fail in (True, False):
+        timing = {"run_step": [], "snapshot": [], "restore": []}
+        undo = _timed_guest(timing)
+        torch.cuda.reset_peak_memory_stats()
+        rss0 = _rss_gb()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        try:
+            rep = train_cli.main(_train_argv(fail))
+        finally:
+            undo()
+        wall = time.perf_counter() - t0
+        gc.collect()
+        counts = ops.counts()
+        key = "failure" if fail else "clean"
+        steps = timing["run_step"]
+        med = statistics.median(steps)
+        out[key] = {
+            "wall_s": wall,
+            "counters": {k: getattr(rep, k) for k in want},
+            "losses": rep.losses,
+            "step_ms_median": med * 1e3, "step_ms_min": min(steps) * 1e3,
+            "step_ms_first": steps[0] * 1e3,
+            "tokens_per_s": TRAIN["B"] * TRAIN["S"] / med,
+            "snapshot_s": timing["snapshot"], "restore_s": timing["restore"],
+            "blob_bytes": timing.get("blob_bytes"),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "host_gb_before": rss0, "host_gb_after": _rss_gb(),
+            "launches": {k: v["launches"] for k, v in counts.items()},
+        }
+        _check_counts(counts, ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                               "flash_attention_bwd"), f"train {key}")
+        if not all(np.isfinite(l) for _, l in rep.losses):
+            raise AssertionError(f"train {key}: a loss is not finite")
+        reports[key] = rep
+        if fail:
+            got = out[key]["counters"]
+            if got != want:
+                raise AssertionError(f"train: counters {got}, the rehearsal "
+                                     f"predicts {want}")
+            if rep.losses[0][1] != first["kernel"]["loss"]:
+                raise AssertionError("train: the run's first loss differs "
+                                     "from the same step run alone")
+    if not reports["clean"].completed or reports["clean"].restores:
+        raise AssertionError("train: the clean run did not complete alone")
+    if not _states_equal(reports["failure"].final_state,
+                         reports["clean"].final_state):
+        raise AssertionError("train: the restored run's final state differs "
+                             "from the uninterrupted run's")
+    out["final_states_bitwise_equal"] = True
+    out["launches"] = out["failure"]["launches"]
+    del reports
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(out)
+    return out
+
+
+def _digest(state) -> list:
+    """An exact digest of every tensor leaf (its int32 words summed, and
+    weighted by position, in int64 on the device) and the numpy leaves'
+    bytes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model_api import tree_leaves
+
+    out = []
+    for t in tree_leaves(state):
+        if isinstance(t, torch.Tensor):
+            w = t.reshape(-1).view(torch.int32).to(torch.int64)
+            pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+            out.append((int(w.sum()), int((w * pos).sum())))
+        else:
+            out.append(np.asarray(t).tobytes())
+    return out
+
+
+def phase_train_qwen(card: str) -> dict:
+    """c. qwen3-8b at published widths, its depth cut to 8 of 36 layers:
+    3 steps at B 2, S 2048, twice from one seed; finite losses, the two
+    runs bitwise equal (losses, grad norms, every leaf's digest)."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.config import RunConfig
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import SyntheticDataset
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.training.state import init_train_state
+    from repro_torch.training.step import make_train_step
+
+    q = QWEN_TRAIN
+    cfg = replace(get("qwen3-8b"), n_layers=q["layers"])
+    model = get_model(cfg)
+    step = make_train_step(model, RunConfig(arch=cfg.arch_id))
+    data = SyntheticDataset(cfg, q["S"], q["B"], 0)
+    runs = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        state = init_train_state(model, 0, "cuda")
+        metrics, times = [], []
+        for i in range(q["steps"]):
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in data.batch(i).items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+            times.append(time.perf_counter() - t)
+        runs.append({"metrics": metrics, "step_ms": [t * 1e3 for t in times],
+                     "digest": _digest(state),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": {k: v["launches"]
+                                  for k, v in ops.counts().items()}})
+        _check_counts(ops.counts(), ("rmsnorm", "rmsnorm_bwd",
+                                     "flash_attention", "flash_attention_bwd"),
+                      "train qwen3-8b")
+        del state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = runs
+    if not all(np.isfinite(m["loss"]) for m in a["metrics"]):
+        raise AssertionError(f"train qwen3-8b: a loss is not finite: "
+                             f"{a['metrics']}")
+    if a["metrics"] != b["metrics"] or a["digest"] != b["digest"]:
+        raise AssertionError("train qwen3-8b: two runs from one state "
+                             "differ")
+    out = {"phase": "train_qwen3", "card": card, "arch": "qwen3-8b",
+           "reduced": {"n_layers": f"{q['layers']} of 36"},
+           "params": cfg.param_count(), "B": q["B"], "S": q["S"],
+           "metrics": a["metrics"], "step_ms": a["step_ms"],
+           "step_ms_second_run": b["step_ms"],
+           "tokens_per_s": q["B"] * q["S"] / (statistics.median(
+               a["step_ms"][1:]) / 1e3),
+           "peak_gb": a["peak_gb"], "runs_bitwise_equal": True,
+           "launches": a["launches"]}
+    del model, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(out)
+    return out
+
+
+def phase_train(card: str) -> dict:
+    """5. Training: a, the backward kernels (and the forwards they pair
+    with) at the training shapes against plain autograd; b, smollm-360m
+    trained through ``launch/train.py`` with a failure and without; c,
+    qwen3-8b at published widths, 8 of 36 layers."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    t0 = time.perf_counter()
+    checks = {
+        "flash@smollm": check_flash_bwd(gen, **TRAIN, H=15, K=5, D=64,
+                                        what="smollm-360m"),
+        "flash@qwen3": check_flash_bwd(gen, B=QWEN_TRAIN["B"],
+                                       S=QWEN_TRAIN["S"], H=32, K=8, D=128,
+                                       what="qwen3-8b"),
+        "rmsnorm@smollm": check_rmsnorm_bwd(
+            gen, (TRAIN["B"] * TRAIN["S"], 960), "smollm-360m block"),
+        "rmsnorm@qwen3-qk": check_rmsnorm_bwd(
+            gen, (QWEN_TRAIN["B"] * QWEN_TRAIN["S"] * 32, 128),
+            "qwen3-8b qk"),
+        "rmsnorm@qwen3": check_rmsnorm_bwd(
+            gen, (QWEN_TRAIN["B"] * QWEN_TRAIN["S"], 4096), "qwen3-8b block"),
+    }
+    # K-a at a serving shape: lse on leaves the output's bits
+    from repro_torch.kernels import flash_attention as fk
+
+    qs = torch.randn(1, CHUNK, 32, 128, generator=gen,
+                     device="cuda").bfloat16()
+    ks = torch.randn(1, 1536, 8, 128, generator=gen, device="cuda").bfloat16()
+    vs = torch.randn(1, 1536, 8, 128, generator=gen, device="cuda").bfloat16()
+    if not torch.equal(fk.flash_attention(qs, ks, vs, q_offset=1280),
+                       fk.flash_attention(qs, ks, vs, q_offset=1280,
+                                          with_lse=True)[0]):
+        raise AssertionError("flash: lse changed a serving chunk's bits")
+    del qs, ks, vs
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    run = phase_train_run(card)
+    t2 = time.perf_counter()
+    qwen = phase_train_qwen(card)
+    log({"phase_seconds": {"train_kernels": round(t1 - t0, 3),
+                           "train_smollm": round(t2 - t1, 3),
+                           "train_qwen3": round(time.perf_counter() - t2, 3)},
+         "arch": "train"})
+    return {"checks": checks, "run": run, "qwen": qwen}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3936,7 +4578,29 @@ ROUTES = {
     "gemm_rows_grouped": ("cuda", "src/repro_torch/csrc/gemm_rows.cu",
                           "src/repro/models/moe.py:83 (no TPU kernel: XLA's "
                           "expert einsums; torch.bmm on the card)"),
+    # training's backward kernels: the TPU kernels have none (the JAX
+    # package differentiates the ops' XLA form, repro/kernels/ops.py:35,
+    # 100-118); each is the backward of the port of the kernel named
+    "flash_attention_bwd": (
+        "cuda", "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:139 (its backward: XLA's "
+        "autodiff of repro/kernels/ops.py:100-118)"),
+    "rmsnorm_bwd": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:48 (its backward: XLA's "
+                    "autodiff of repro/kernels/ops.py:35)"),
 }
+# the training path's rows: (kernel, check, row, model, whose launches)
+TRAIN_ROWS = [
+    ("flash_attention", "flash@smollm", 0, "smollm-360m", "run"),
+    ("flash_attention_bwd", "flash@smollm", 1, "smollm-360m", "run"),
+    ("rmsnorm", "rmsnorm@smollm", 0, "smollm-360m", "run"),
+    ("rmsnorm_bwd", "rmsnorm@smollm", 1, "smollm-360m", "run"),
+    ("flash_attention", "flash@qwen3", 0, "qwen3-8b", "qwen"),
+    ("flash_attention_bwd", "flash@qwen3", 1, "qwen3-8b", "qwen"),
+    ("rmsnorm", "rmsnorm@qwen3", 0, "qwen3-8b", "qwen"),
+    ("rmsnorm_bwd", "rmsnorm@qwen3", 1, "qwen3-8b", "qwen"),
+    ("rmsnorm_bwd", "rmsnorm@qwen3-qk", 1, "qwen3-8b", "qwen"),
+]
 # the check row that stands for each (kernel, model) in the summary line:
 # the decode step's block norm (d 4096, or zamba2's d 2048), the paged and
 # the dense decode cases, the longest prefill chunk (q_offset 1280), the SSM
@@ -4150,7 +4814,8 @@ def main() -> int:
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms",
                                    "x_library", "x_bound", "shape")},
-            **{k: row[k] for k in ("bound_f32_ms", "one_row_ms")
+            **{k: row[k] for k in ("bound_f32_ms", "one_row_ms",
+                                   "grad_tile_share", "dw_rel")
                if k in row}})
 
     for arch, rows in SUMMARY_ROW.items():
@@ -4179,6 +4844,13 @@ def main() -> int:
             routes = ran["routes"]["dense" if path.startswith("dense")
                                    else "paged"]
             row_of(name, check, i, arch, path, routes[key])
+    t2 = time.perf_counter()
+    train = phase_train(device["smi"])
+    checks.update(train["checks"])
+    for name, check, i, arch, whose in TRAIN_ROWS:
+        path = "train" if arch == "smollm-360m" else "train (8 of 36 layers)"
+        row_of(name, check, i, arch, path, train[whose]["launches"][name])
+    log({"phase_seconds": {"train": round(time.perf_counter() - t2, 3)}})
     log({"kernels": kernels})
     log(device["smi"])
     log({"ok": True, "device": {"platform": device["platform"],

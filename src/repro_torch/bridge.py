@@ -16,6 +16,12 @@ nearest even, the same cast), every other leaf — norm weights, the SSM
 families' ``A_log`` and ``conv_w`` — stays f32 as the reference reads it.
 Nested groups (the hybrid family's ``shared.attn``/``shared.mlp``) and
 unstacked leaves (its ``app_proj``) follow the same rule.
+
+A train state crosses as a whole (:func:`train_state_from_reference`,
+:func:`train_state_to_reference`): ``params``, ``mu`` and ``nu`` as f32
+tensors of the reference's stacked layout, ``step``, ``rng`` and
+``data_step`` as the numpy scalars and words the port's state holds
+(``training/state.py``), so that the two packages step the same state.
 """
 
 from __future__ import annotations
@@ -74,3 +80,47 @@ def params_from_reference(tree: dict, model: ModelFns, *,
     return model.assemble(walk(model.param_specs, tree))
 
 
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def train_state_from_reference(state: dict, *,
+                               device: str | torch.device = "cuda") -> dict:
+    """The reference's train state (numpy leaves, ``jax.tree.map(np.asarray,
+    state)``) as the port's: ``params``/``mu``/``nu`` f32 tensors on
+    ``device``, ``step``/``data_step`` 0-d int32 and ``rng`` (2,) uint32
+    numpy arrays."""
+    dev = resolve_device(device)
+
+    def f32(a):
+        a = np.asarray(a)
+        if a.dtype != np.float32:
+            raise ValueError(f"a {a.dtype} leaf where f32 was expected")
+        return tensor_from_numpy(a, dev)
+
+    opt = state["opt"]
+    return {
+        "params": _map(f32, state["params"]),
+        "opt": {"mu": _map(f32, opt["mu"]), "nu": _map(f32, opt["nu"]),
+                "step": np.asarray(opt["step"], np.int32)},
+        "rng": np.asarray(state["rng"], np.uint32),
+        "data_step": np.asarray(state["data_step"], np.int32),
+    }
+
+
+def train_state_to_reference(state: dict) -> dict:
+    """The port's train state as numpy leaves of the reference's tree and
+    dtypes (``jax.tree.map(jnp.asarray, ...)`` makes it the reference's)."""
+    opt = state["opt"]
+    return {
+        "params": _map(numpy_from_tensor, state["params"]),
+        "opt": {"mu": _map(numpy_from_tensor, opt["mu"]),
+                "nu": _map(numpy_from_tensor, opt["nu"]),
+                "step": np.asarray(opt["step"], np.int32)},
+        "rng": np.asarray(state["rng"], np.uint32),
+        "data_step": np.asarray(state["data_step"], np.int32),
+    }

@@ -1,16 +1,16 @@
-"""Model and input-shape configuration.
+"""Model, input-shape and run configuration.
 
-A copy of the JAX package's ``ModelConfig`` and ``ShapeConfig``
-(``repro/config.py``): the port imports nothing of that package, so the
-field set and defaults are repeated here verbatim (the two packages'
-configs compare equal field by field); of the derived quantities only what
-the port uses is kept.
+A copy of the JAX package's ``ModelConfig``, ``ShapeConfig``, ``SHAPES``,
+``OptimConfig`` and ``RunConfig`` (``repro/config.py``): the port imports
+nothing of that package, so the field sets and defaults are repeated here
+verbatim (the two packages' configs compare equal field by field); of the
+derived quantities only what the port uses is kept.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
@@ -163,3 +163,57 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# Run configuration (training/serving hyper-parameters)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip_norm: float = 1.0
+    z_loss_coef: float = 1e-4
+    schedule: str = "cosine"  # cosine | constant
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Everything the launcher needs for one job."""
+
+    arch: str
+    shape: str = "train_4k"
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    seed: int = 0
+
+    # distribution
+    multi_pod: bool = False
+    remat: bool = True
+    grad_compression: str = "none"  # none | int8
+    microbatches: int = 1           # gradient accumulation steps
+
+    # ad hoc cloud runtime (paper constants, §III)
+    host_poll_interval_s: float = 60.0       # client polls server every 1 min
+    host_failure_timeout_s: float = 120.0    # failed after 2 min of silence
+    guest_probe_interval_s: float = 10.0     # VBoxManage-style guest probe
+    snapshot_interval_steps: int = 50        # periodic snapshot cadence
+    snapshot_target_failure: float = 0.05    # joint failure bound (≤5%)
+    max_snapshot_receivers: int = 8
+
+    def shape_config(self) -> ShapeConfig:
+        return SHAPES[self.shape]

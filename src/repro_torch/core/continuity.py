@@ -4,15 +4,16 @@ The paper's guest is a VirtualBox VM executing a BOINC task. Here a guest
 is any object implementing :class:`GuestRuntime` — the contract the ad hoc
 client needs to control it (start/stop), probe it (the 10-second
 VBoxManage-style liveness check), snapshot/restore it, and account its
-progress. The port carries one implementation:
+progress. Two implementations:
 
 - :class:`SimulatedGuest` — abstract work units advanced by simulated
   time; used by the reliability/performance benchmarks (paper §IV replays
   failure traces against these).
-
-A guest bound to a real training task (``TrainingGuest``, whose snapshot
-is a serialized train state) comes with the port's trainer, which is not
-ported yet (ROADMAP Queue 1).
+- ``TrainingGuest`` (in :mod:`repro_torch.training.trainer`) — a real
+  training task whose snapshot is a serialized train state; the port's
+  trainer and ``launch/train.py`` run these. Its loss is ported for the
+  dense family and the VLM; the MoE, SSM, hybrid and enc-dec losses wait
+  (ROADMAP Queue 1).
 
 Copied from ``repro/core/continuity.py`` (plain Python), so that
 the port imports nothing of the JAX package; only the

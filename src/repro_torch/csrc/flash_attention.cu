@@ -51,6 +51,11 @@
 //   probabilities rounded to bf16 for the P V product, and the row sum l
 //   adds the rounded values, so the weights that are normalized are the
 //   weights that were used; l clamped at 1e-30.
+// - Training: with a non-null `lse` the epilogue also writes each query
+//   row's log-sum-exp of the scaled scores, (m + log2 l) * ln 2, f32
+//   (B, H, Sq), which the backward kernel (flash_attention_bwd.cu)
+//   recomputes P from. With a null `lse` nothing else changes: the serving
+//   path's outputs are the same bits.
 // - Not done: the producer keeps its registers (no setmaxnreg), and one
 //   warpgroup does not overlap its softmax with its own next Q K^T.
 
@@ -136,6 +141,7 @@ __global__ void __launch_bounds__(THREADS, 2) flash_attention_kernel(
     const __grid_constant__ CUtensorMap tk,  // (B, Sk, K, D) bf16
     const __grid_constant__ CUtensorMap tv,  // (B, Sk, K, D) bf16
     __nv_bfloat16* __restrict__ out,         // (B, Sq, H, D) bf16
+    float* __restrict__ lse,                 // (B, H, Sq) f32, or null
     int Sq, int Sk, int H, int K, int causal, int q_offset,
     float scale_log2) {
     using P = Plan<D>;
@@ -312,6 +318,11 @@ __global__ void __launch_bounds__(THREADS, 2) flash_attention_kernel(
     __nv_bfloat16* ob = out + (size_t)b * Sq * q_row + (size_t)h * D;
     const int row0 = q0 + r0;
     const int row1 = row0 + 8;
+    if (lse != nullptr && (lane & 3) == 0) {
+        float* lb = lse + ((size_t)b * H + h) * Sq;
+        if (row0 < Sq) lb[row0] = (m0 + log2f(lv0)) * 0.6931471805599453f;
+        if (row1 < Sq) lb[row1] = (m1 + log2f(lv1)) * 0.6931471805599453f;
+    }
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
         const int col = 8 * j + cq;
@@ -353,7 +364,7 @@ static int make_map(CUtensorMap* map, const void* base, int B, int S,
 
 template <int D>
 static int launch(const void* q, const void* k, const void* v, void* out,
-                  int B, int Sq, int Sk, int H, int K, int causal,
+                  float* lse, int B, int Sq, int Sk, int H, int K, int causal,
                   int q_offset, float scale, cudaStream_t stream) {
     CUtensorMap tq, tk, tv;
     int e = make_map(&tq, q, B, Sq, H, D, BQ);
@@ -367,25 +378,32 @@ static int launch(const void* q, const void* k, const void* v, void* out,
     if (err != cudaSuccess) return (int)err;
     dim3 grid(B * H, (Sq + BQ - 1) / BQ);
     flash_attention_kernel<D><<<grid, THREADS, smem, stream>>>(
-        tq, tk, tv, (__nv_bfloat16*)out, Sq, Sk, H, K, causal, q_offset,
-        scale * 1.4426950408889634f);
+        tq, tk, tv, (__nv_bfloat16*)out, lse, Sq, Sk, H, K, causal,
+        q_offset, scale * 1.4426950408889634f);
     return (int)cudaGetLastError();
 }
 
-// D must be 64 or 128 and K must divide H (the wrapper checks both).
+// D must be 64 or 128 and K must divide H (the wrapper checks both). `lse`
+// (B, H, Sq) f32 is written when it is not null.
 extern "C" int flash_attention_bf16(
-    const void* q, const void* k, const void* v, void* out,
+    const void* q, const void* k, const void* v, void* out, void* lse,
     int B, int Sq, int Sk, int H, int K, int D, int causal, int q_offset,
     float scale, void* stream) {
     if (K <= 0 || H % K) return (int)cudaErrorInvalidValue;
-    if (Sk == 0)  // nothing to attend: zeros, as acc / max(l, 1e-30) gives
+    if (Sk == 0) {  // nothing to attend: zeros, as acc / max(l, 1e-30) gives
+        if (lse) {
+            const int e = (int)cudaMemsetAsync(lse, 0, (size_t)B * H * Sq * 4,
+                                               (cudaStream_t)stream);
+            if (e) return e;
+        }
         return (int)cudaMemsetAsync(out, 0, (size_t)B * Sq * H * D * 2,
                                     (cudaStream_t)stream);
+    }
     if (D == 128)
-        return launch<128>(q, k, v, out, B, Sq, Sk, H, K, causal, q_offset,
-                           scale, (cudaStream_t)stream);
+        return launch<128>(q, k, v, out, (float*)lse, B, Sq, Sk, H, K, causal,
+                           q_offset, scale, (cudaStream_t)stream);
     if (D == 64)
-        return launch<64>(q, k, v, out, B, Sq, Sk, H, K, causal, q_offset,
-                          scale, (cudaStream_t)stream);
+        return launch<64>(q, k, v, out, (float*)lse, B, Sq, Sk, H, K, causal,
+                          q_offset, scale, (cudaStream_t)stream);
     return (int)cudaErrorInvalidValue;
 }

@@ -32,6 +32,19 @@
 //   stores are vectors of x's width.
 // - The butterfly (xor) shuffle leaves the same sum in every lane: each
 //   step adds the same two operands on both sides.
+//
+// The backward (rmsnorm_bwd, for training; the TPU kernel has none: the
+// JAX package differentiates the XLA form, repro/kernels/ops.py:35), per
+// row in f32: r = rsqrt(mean(x^2) + eps), xh = x * r,
+// dx = r * (g * w - xh * mean(g * w * xh)) cast to x's type, and
+// dw = sum over rows of g * xh. Bound by bytes too (x and g read, dx
+// written). Design: threads per row fixed by d (a warp up to d = 256, 8
+// rows of a block in flight; above, a block per row of d/8 threads rounded
+// to warps), up to 8 columns a thread; a block walks a fixed run of
+// `chunk` rows (the wrapper's rule: at least 16, at most 1024 runs a
+// call) and leaves that run's dw in f32 registers, summed across its warps
+// in warp order into one partial row; a second launch sums the partial
+// rows per column in run order. No atomics: the same bits every run.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -237,6 +250,167 @@ extern "C" int rmsnorm_fwd(const void* x, const void* w, void* out, int rows,
         return launch<__nv_bfloat16>(x, w, wtype, out, rows, d, eps, st);
     if (xtype == 2) return launch<__half>(x, w, wtype, out, rows, d, eps, st);
     if (xtype == 0) return launch<float>(x, w, wtype, out, rows, d, eps, st);
+    return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+#define BWD_COLS 8     // columns a thread owns at most
+
+// a block walks rows [blockIdx.x * chunk, + chunk); `tpr` threads a row
+// (32, or all of the block's), groups of tpr threads on rows g, g + G, ...
+template <typename T>
+__global__ void __launch_bounds__(1024) rmsnorm_bwd_kernel(
+    const T* __restrict__ x, const void* __restrict__ w, int wtype,
+    const T* __restrict__ g, T* __restrict__ dx, float* __restrict__ part,
+    int rows, int d, int chunk, int tpr, float eps) {
+    __shared__ float red[2][32];
+    extern __shared__ float dw_red[];   // [G][d] where G > 1
+    const int tid = threadIdx.x;
+    const int G = blockDim.x / tpr;
+    const int grp = tid / tpr;
+    const int lt = tid - grp * tpr;
+    float wv[BWD_COLS], acc[BWD_COLS];
+#pragma unroll
+    for (int k = 0; k < BWD_COLS; ++k) {
+        const int c = lt + k * tpr;
+        wv[k] = c < d ? load_w(w, c, wtype) : 0.f;
+        acc[k] = 0.f;
+    }
+    const int r0 = blockIdx.x * chunk;
+    const int r1 = min(r0 + chunk, rows);
+    for (int row = r0 + grp; row < r1; row += G) {
+        const T* xr = x + (size_t)row * d;
+        const T* gr = g + (size_t)row * d;
+        float xv[BWD_COLS], gv[BWD_COLS];
+        float ss = 0.f, dot = 0.f;
+#pragma unroll
+        for (int k = 0; k < BWD_COLS; ++k) {
+            const int c = lt + k * tpr;
+            xv[k] = c < d ? to_f(xr[c]) : 0.f;
+            gv[k] = c < d ? to_f(gr[c]) : 0.f;
+            ss = fmaf(xv[k], xv[k], ss);
+            dot = fmaf(gv[k] * wv[k], xv[k], dot);
+        }
+        ss = warp_sum(ss);
+        dot = warp_sum(dot);
+        if (tpr > 32) {  // the whole block is one row: across its warps
+            if ((tid & 31) == 0) {
+                red[0][tid >> 5] = ss;
+                red[1][tid >> 5] = dot;
+            }
+            __syncthreads();
+            if (tid < 32) {
+                const bool in = tid < (blockDim.x >> 5);
+                const float a = warp_sum(in ? red[0][tid] : 0.f);
+                const float b = warp_sum(in ? red[1][tid] : 0.f);
+                if (tid == 0) {
+                    red[0][0] = a;
+                    red[1][0] = b;
+                }
+            }
+            __syncthreads();
+            ss = red[0][0];
+            dot = red[1][0];
+            __syncthreads();  // read before the next row writes
+        }
+        const float r = rsqrtf(ss / (float)d + eps);
+        const float m = dot * r / (float)d;   // mean(g * w * xh)
+        T* dr = dx + (size_t)row * d;
+#pragma unroll
+        for (int k = 0; k < BWD_COLS; ++k) {
+            const int c = lt + k * tpr;
+            if (c < d) {
+                const float xh = xv[k] * r;
+                dr[c] = from_f<T>(r * (gv[k] * wv[k] - xh * m));
+                acc[k] = fmaf(gv[k], xh, acc[k]);
+            }
+        }
+    }
+    float* out = part + (size_t)blockIdx.x * d;
+    if (G == 1) {
+#pragma unroll
+        for (int k = 0; k < BWD_COLS; ++k) {
+            const int c = lt + k * tpr;
+            if (c < d) out[c] = acc[k];
+        }
+        return;
+    }
+#pragma unroll
+    for (int k = 0; k < BWD_COLS; ++k) {
+        const int c = lt + k * tpr;
+        if (c < d) dw_red[grp * d + c] = acc[k];
+    }
+    __syncthreads();
+    for (int c = tid; c < d; c += blockDim.x) {
+        float v = 0.f;
+        for (int j = 0; j < G; ++j) v += dw_red[j * d + c];
+        out[c] = v;
+    }
+}
+
+// dw[c] = the sum of the partial rows' column c, in run order: 32 columns
+// a block, 32 threads a column each summing every 32nd run, then one
+// thread the 32 sums in order
+__global__ void __launch_bounds__(1024) rmsnorm_dw_kernel(
+    const float* __restrict__ part, float* __restrict__ dw, int runs, int d) {
+    __shared__ float s[32][33];
+    const int c = blockIdx.x * 32 + threadIdx.x;
+    float v = 0.f;
+    if (c < d)
+        for (int j = threadIdx.y; j < runs; j += 32) v += part[(size_t)j * d + c];
+    s[threadIdx.y][threadIdx.x] = v;
+    __syncthreads();
+    if (threadIdx.y == 0 && c < d) {
+        float t = 0.f;
+        for (int j = 0; j < 32; ++j) t += s[j][threadIdx.x];
+        dw[c] = t;
+    }
+}
+
+template <typename T>
+static int launch_bwd(const void* x, const void* w, int wtype, const void* g,
+                      void* dx, float* part, float* dw, int rows, int d,
+                      float eps, int chunk, cudaStream_t stream) {
+    const int per_thread = (d + BWD_COLS - 1) / BWD_COLS;
+    const int tpr = d <= WARP_D ? 32 : (per_thread + 31) / 32 * 32;
+    if (tpr > 1024) return (int)cudaErrorInvalidValue;
+    const int threads = tpr > 32 ? tpr : 32 * WARP_ROWS;
+    const int groups = threads / tpr;
+    const size_t smem = groups > 1 ? (size_t)groups * d * sizeof(float) : 0;
+    const int runs = (rows + chunk - 1) / chunk;
+    rmsnorm_bwd_kernel<T><<<runs, threads, smem, stream>>>(
+        (const T*)x, w, wtype, (const T*)g, (T*)dx, part, rows, d, chunk, tpr,
+        eps);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    rmsnorm_dw_kernel<<<(d + 31) / 32, dim3(32, 32), 0, stream>>>(part, dw,
+                                                                  runs, d);
+    return (int)cudaGetLastError();
+}
+
+// x, g and dx (rows, d) contiguous of type xtype, w (d,) of type wtype
+// (0 f32, 1 bf16, 2 f16), part (ceil(rows / chunk), d) f32 scratch, dw (d,)
+// f32; d at most 8 * 1024. Two launches; returns cudaGetLastError().
+extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* g,
+                           void* dx, void* part, void* dw, int rows, int d,
+                           int xtype, int wtype, float eps, int chunk,
+                           void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    float* pp = (float*)part;
+    float* pw = (float*)dw;
+    if (chunk <= 0) return (int)cudaErrorInvalidValue;
+    if (xtype == 1)
+        return launch_bwd<__nv_bfloat16>(x, w, wtype, g, dx, pp, pw, rows, d,
+                                         eps, chunk, st);
+    if (xtype == 2)
+        return launch_bwd<__half>(x, w, wtype, g, dx, pp, pw, rows, d, eps,
+                                  chunk, st);
+    if (xtype == 0)
+        return launch_bwd<float>(x, w, wtype, g, dx, pp, pw, rows, d, eps,
+                                 chunk, st);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -21,6 +21,16 @@ all experts of an MoE layer, and ``moe_route``, the MoE router
 (``kernels/moe_route.py``). ``causal_conv1d``, ``selective_scan_step`` and
 ``ssd_step`` have no TPU kernel (the JAX package runs them through XLA on
 every backend): they are plain code on every device, and not counted.
+
+Training differentiates ``attention`` and ``rmsnorm``. When an input needs
+a gradient, a CUDA tensor goes through the ``torch.autograd.Function``
+of the kernel (``flash_attention.FlashAttention``, ``rmsnorm.RMSNorm``),
+whose backward is a hand-written kernel too (``flash_attention_bwd``,
+``rmsnorm_bwd``, counted in ``counts()``); a CPU tensor, or any under
+``use_backend("plain")``, goes to the plain version and autograd
+differentiates that: the oracle of the backward kernels. Such a call counts
+a plain call of the backward too. A call that needs no gradient (serving)
+takes the path it always took.
 """
 
 from __future__ import annotations
@@ -55,8 +65,15 @@ KERNELS = {
     "gemm_rows": _gemm.gemm_rows,
     "moe_route": _route.moe_route,
     "gemm_rows_grouped": _gemm.gemm_rows_grouped,
+    "flash_attention_bwd": _flash.flash_attention_bwd,
+    "rmsnorm_bwd": _rmsnorm.rmsnorm_bwd,
 }
 plain_calls = {name: 0 for name in KERNELS}
+
+
+def current_backend() -> str:
+    """The backend of the current scope ("kernel" or "plain")."""
+    return _BACKEND.get()
 
 
 @contextlib.contextmanager
@@ -90,9 +107,18 @@ def _plain(x: torch.Tensor, name: str) -> bool:
     return False
 
 
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    grad = _needs_grad(x, w)
     if _plain(x, "rmsnorm"):
+        if grad:
+            plain_calls["rmsnorm_bwd"] += 1
         return ref.rmsnorm(x, w, eps)
+    if grad:
+        return _rmsnorm.RMSNorm.apply(x, w, eps)
     return _rmsnorm.rmsnorm(x, w, eps)
 
 
@@ -104,8 +130,13 @@ def attention(
     causal: bool = True,
     q_offset: int = 0,
 ) -> torch.Tensor:
+    grad = _needs_grad(q, k, v)
     if _plain(q, "flash_attention"):
+        if grad:
+            plain_calls["flash_attention_bwd"] += 1
         return ref.attention(q, k, v, causal=causal, q_offset=q_offset)
+    if grad:
+        return _flash.FlashAttention.apply(q, k, v, causal, q_offset)
     return _flash.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
 
 

@@ -445,3 +445,51 @@ def logits_last(p: nn.Module, h: torch.Tensor, cfg: ModelConfig,
     if cfg.tie_embeddings:
         return mm(h, p.embedding.t()).float()
     return mm(h, p.unembed).float()
+
+
+def _chunk_loss(hc: torch.Tensor, lc: torch.Tensor, w: torch.Tensor,
+                tied: bool):
+    """One chunk of :func:`lm_loss`: the sums of its masked nll and
+    squared log-normalizer, and its count of labels."""
+    logits = (hc @ (w.t() if tied else w)).float()          # (B, c, V) f32
+    lse = torch.logsumexp(logits, dim=-1)                   # (B, c)
+    mask = lc >= 0
+    lbl = torch.where(mask, lc, torch.zeros_like(lc)).long()
+    gold = logits.gather(-1, lbl[..., None])[..., 0]
+    nll = torch.where(mask, lse - gold, torch.zeros_like(lse))
+    z = torch.where(mask, torch.square(lse), torch.zeros_like(lse))
+    return nll.sum(), z.sum(), mask.sum(dtype=torch.int32)
+
+
+def lm_loss(p, hidden: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
+            *, chunk: int = 512, z_loss_coef: float = 1e-4):
+    """Chunked cross entropy with z-loss (``layers.py:387-428``): the
+    logits of ``chunk`` tokens at a time, a bf16 product cast to f32 as
+    :func:`logits_last` computes them; labels of -1 are masked out.
+    ``hidden`` (B, S, d) bf16, final norm applied; ``labels`` (B, S) int.
+    Each chunk runs under ``torch.utils.checkpoint``, so that its (B, c, V)
+    logits are recomputed in the backward rather than kept: the (B, S, V)
+    tensor never exists, as under the reference's scan. Returns (loss,
+    {"ce", "z_loss", "tokens"})."""
+    from torch.utils.checkpoint import checkpoint
+
+    b, s, d = hidden.shape
+    c = min(chunk, s)
+    pad = (-s) % c
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    w = p.embedding if cfg.tie_embeddings else p.unembed
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    zt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.int32, device=hidden.device)
+    for i in range(0, s + pad, c):
+        nll, z, n = checkpoint(_chunk_loss, hidden[:, i:i + c],
+                               labels[:, i:i + c], w, cfg.tie_embeddings,
+                               use_reentrant=False)
+        tot, zt, cnt = tot + nll, zt + z, cnt + n
+    denom = torch.clamp(cnt, min=1).float()
+    ce = tot / denom
+    z = zt / denom
+    loss = ce + z_loss_coef * z
+    return loss, {"ce": ce, "z_loss": z, "tokens": denom}

@@ -77,8 +77,9 @@ def _init_scale(spec: PSpec) -> float:
 
 
 def _materialize(spec: PSpec, gen: torch.Generator,
-                 device: torch.device) -> torch.Tensor:
-    dtype = storage_dtype(spec)
+                 device: torch.device,
+                 dtype: torch.dtype | None = None) -> torch.Tensor:
+    dtype = dtype or storage_dtype(spec)
     if spec.init in ("zeros", "ones"):
         fill = 0.0 if spec.init == "zeros" else 1.0
         return torch.full(spec.shape, fill, dtype=dtype, device=device)
@@ -100,6 +101,14 @@ def tree_map(fn, tree):
     if _is_leaf(tree) or not isinstance(tree, dict):
         return fn(tree)
     return {k: tree_map(fn, v) for k, v in tree.items()}
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict in ``jax.tree``'s order for dicts:
+    sorted keys, depth first."""
+    if _is_leaf(tree) or not isinstance(tree, dict):
+        return [tree]
+    return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
 
 
 class Params(nn.Module):
@@ -165,6 +174,11 @@ class ModelFns:
       C, VISION_D)`` and the keyword ``mm_len``: positions below ``mm_len``
       read projected image rows, the rest token embeddings.
 
+    Training (the dense family and the VLM, ``repro/models/model_api.py:
+    99-100``): ``loss(tree, batch)`` -> ``(loss, aux)`` over the
+    layer-stacked f32 master tree (:meth:`init_master`), not the serving
+    module; ``None`` where the family's loss is not ported yet.
+
     ``paged_state`` is True when the cache carries per-slot recurrent state
     (``repro/models/model_api.py:121-130``): that state is not
     page-addressable, so the engine's prefix sharing falls back to trie
@@ -186,6 +200,7 @@ class ModelFns:
     paged_cross_specs: Callable[..., Tree] | None = None
     prefill_cross: Callable[..., None] | None = None
     paged_mm_inline: bool = False
+    loss: Callable[..., tuple[torch.Tensor, dict]] | None = None
 
     @property
     def supports_paged(self) -> bool:
@@ -224,12 +239,24 @@ class ModelFns:
              device: str | torch.device = "cuda") -> nn.Module:
         """Seeded weights drawn on ``device`` with the reference's fan-in
         rule (the draws themselves differ from ``jax.random``'s)."""
+        return self.assemble(self._draw(generator, device))
+
+    def init_master(self, generator: torch.Generator | int = 0,
+                    device: str | torch.device = "cuda") -> Tree:
+        """The f32 master tree that training steps (``param_specs``'
+        structure, stacked leaves ``(L, ...)``): the draws of :meth:`init`
+        for the same generator, kept in f32 where :meth:`init` rounds a
+        ``cast`` leaf to bf16."""
+        return self._draw(generator, device, torch.float32)
+
+    def _draw(self, generator, device, dtype: torch.dtype | None = None
+              ) -> Tree:
         dev = resolve_device(device)
         gen = generator
         if isinstance(generator, int):
             gen = torch.Generator(device=dev).manual_seed(generator)
-        tree = tree_map(lambda s: _materialize(s, gen, dev), self.param_specs)
-        return self.assemble(tree)
+        return tree_map(lambda s: _materialize(s, gen, dev, dtype),
+                        self.param_specs)
 
     def assemble(self, tree: Tree) -> nn.Module:
         """The family's module over ``tree`` (``build``). Its per-layer

@@ -2,8 +2,9 @@
 and the paged serving paths.
 
 Ported from ``repro/models/moe.py`` (its non-EP path; ``loss_fn`` waits for
-training, and ``moe_mlp_forward_ep`` is expert parallelism over many
-devices). Leading dense layers (``first_k_dense``) come first, then the MoE
+the router's gradient — the port's trainer, ``training/trainer.py``, trains
+the dense family and the VLM so far — and ``moe_mlp_forward_ep`` is expert
+parallelism over many devices). Leading dense layers (``first_k_dense``) come first, then the MoE
 layers; the caches are layer-stacked over all of them in that order, as the
 reference concatenates them (``moe.py:309-313``). The attention, the norms
 and every entry point are the dense decoder's (``models/transformer.py``):

@@ -30,7 +30,9 @@ experts' products beside ``ops.gemm_rows`` for every other product.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+from types import SimpleNamespace
 
 import torch
 from torch import nn
@@ -249,6 +251,102 @@ def verify_paged_fn(params: DenseLM, cache: Tree, batch: dict,
     return decode_paged_fn(params, cache, fold, cfg).reshape(B, W, -1)
 
 
+# ---------------------------------------------------------------------------
+# Training: the loss over a layer-stacked f32 tree
+# ---------------------------------------------------------------------------
+
+
+class _LayerView:
+    """One layer's weights as :func:`_block` reads them, for the loss:
+    ``attn`` and ``mlp`` are namespaces of tensors, the ``cast`` leaves in
+    bf16 (the reference's ``ll.cast`` at each use) and the others f32."""
+
+    def __init__(self, attn: dict, mlp: dict):
+        self.attn = SimpleNamespace(**attn)
+        self.mlp = SimpleNamespace(**mlp)
+
+    def ffn(self, h: torch.Tensor, cfg: ModelConfig, mm: ll.Matmul,
+            grouped=None) -> torch.Tensor:
+        return ll.mlp_forward(self.mlp, h, cfg, mm)
+
+
+def _cast(t: torch.Tensor, spec: PSpec) -> torch.Tensor:
+    return t.to(torch.bfloat16) if spec.cast else t
+
+
+@contextlib.contextmanager
+def _recompute(ctx, backend: str):
+    with ctx, ops.use_backend(backend):
+        yield
+
+
+def _remat(fn, cfg: ModelConfig):
+    """Wrap a layer function per ``cfg.remat_policy`` (``transformer.py:
+    93-101``): ``full`` recomputes the whole layer in the backward, ``dots``
+    keeps the matrix products' outputs and recomputes the rest, ``none``
+    keeps everything. The recompute runs under the kernel backend the
+    forward ran under (``ops.use_backend``): autograd runs a CUDA backward
+    on a thread of its own, which the scope does not reach."""
+    from torch.utils.checkpoint import (
+        checkpoint,
+        create_selective_checkpoint_contexts,
+    )
+
+    if cfg.remat_policy == "none":
+        return fn
+
+    def run(*args):
+        backend = ops.current_backend()
+
+        def contexts():
+            fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+            if cfg.remat_policy == "dots":
+                fwd, rec = create_selective_checkpoint_contexts(
+                    [torch.ops.aten.mm.default, torch.ops.aten.bmm.default])
+            return fwd, _recompute(rec, backend)
+
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=contexts)
+
+    return run
+
+
+def loss_fn(tree: Tree, batch: dict, cfg: ModelConfig):
+    """The language-model loss of ``batch`` (``tokens``, ``labels`` (B, S)
+    int, a VLM's ``embeds`` (B, n_image_tokens, VISION_D)) under the
+    layer-stacked f32 tree ``tree`` (the reference's layout, ``transformer.
+    py:119-124``). Every layer runs :func:`_block` over views of its slice
+    of the stacked leaves, the ``cast`` ones in bf16, so autograd reaches
+    the f32 leaves through the casts; each layer is rematerialized per
+    ``cfg.remat_policy``. Returns (loss, {"ce", "z_loss", "tokens"})."""
+    specs = build_specs(cfg)
+    top = SimpleNamespace(**{k: _cast(v, specs[k]) for k, v in tree.items()
+                             if k != "layers"})
+    x = _embed_inputs(top, cfg, batch)
+    rows = ll.dense_rows(cfg, torch.arange(x.shape[1], device=x.device))
+    names = [(g, k) for g in ("attn", "mlp")
+             for k in sorted(tree["layers"][g])]
+    # one unbind a leaf: its backward stacks the layers' gradients at once
+    per_layer = list(zip(*(torch.unbind(tree["layers"][g][k])
+                           for g, k in names)))
+
+    def layer(x, *leaves):
+        groups = {"attn": {}, "mlp": {}}
+        for (g, k), t in zip(names, leaves):
+            groups[g][k] = _cast(t, specs["layers"][g][k])
+        lp = _LayerView(groups["attn"], groups["mlp"])
+        return _block(lp, x, cfg, lambda p, h: ll.attn_forward(
+            p, h, cfg, rows)[0])
+
+    body = _remat(layer, cfg)
+    for leaves in per_layer:
+        x = body(x, *leaves)
+    x = ops.rmsnorm(x, tree["final_ln"], cfg.norm_eps)
+    if cfg.family == "vlm":
+        x = x[:, -batch["labels"].shape[1]:]
+    return ll.lm_loss(top, x, batch["labels"], cfg)
+
+
 def make_model(cfg: ModelConfig) -> ModelFns:
     return ModelFns(
         cfg=cfg,
@@ -263,4 +361,5 @@ def make_model(cfg: ModelConfig) -> ModelFns:
         verify_paged=functools.partial(verify_paged_fn, cfg=cfg),
         # VLM prompts chunk their image rows inline (positions < mm_len)
         paged_mm_inline=cfg.family == "vlm",
+        loss=functools.partial(loss_fn, cfg=cfg),
     )

@@ -148,13 +148,6 @@ def tree_map2(fn: Callable, a: Tree, b: Tree) -> Tree:
     return fn(a, b)
 
 
-def tree_leaves(tree: Tree) -> list:
-    """The leaves of a tree of nested dicts, in key order."""
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
-    return [tree]
-
-
 def tree_partition_specs(axes_tree: Tree, value_tree: Tree, mesh) -> Tree:
     """Map a tree of logical-axis tuples and a tree of shaped values
     (tensors, meta tensors) of the same structure to PartitionSpecs."""

@@ -76,9 +76,9 @@ from repro_torch.core.backoff import JitteredBackoff
 from repro_torch.core.faults import FaultEvent, FaultPlan
 from repro_torch.core.server import AdHocServer
 from repro_torch.core.simulation import SimClock
+from repro_torch.models.model_api import tree_leaves
 from repro_torch.parallel.partition import (
     layout_grid,
-    tree_leaves,
     tree_map2,
     tree_partition_specs,
 )

@@ -7,8 +7,13 @@ runs where JAX is not installed. ``chip_smoke.py`` covers the main path's
 full shapes; these are small shapes, bf16, atol = rtol = 2e-2.
 """
 
+import os
+
 import pytest
 
+# the train step runs in torch's deterministic mode, whose cuBLAS needs this
+# before CUDA starts (repro_torch/training/step.py)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
@@ -1133,3 +1138,198 @@ def test_elastic_cell_crash_and_rejoin_on_the_card():
     for name in ("rmsnorm", "paged_decode_attention", "flash_attention",
                  "gemm_rows"):
         assert counts[name]["launches"] > 0 and not counts[name]["plain"]
+
+
+# the flash backward's limit: per (batch, 64-row tile, head), the
+# gradient's difference over plain autograd's in the Frobenius norm (read
+# on the H100 at these cases: 0.0033-0.0042)
+FLASH_BWD_TILE_SHARE = 1e-2
+
+
+def _tile_share(got, want, tile: int = 64) -> float:
+    """The largest, over (batch, ``tile`` rows of dim 1, head) tiles of
+    (B, S, H, D) gradients, of ||got - want|| / ||want|| (Frobenius, f32):
+    each tile against its own size, since causal gradients fall with the
+    position. NaN where a tile of ``want`` is all zero."""
+    import torch.nn.functional as F
+
+    B, S, H, D = want.shape
+
+    def sums(t):
+        t = F.pad(t, (0, 0, 0, 0, 0, -S % tile))
+        return t.square().reshape(B, -1, tile, H, D).sum((2, 4))
+
+    want = want.float()
+    return float((sums(got.float() - want) / sums(want)).max().sqrt())
+
+
+# (D, H, K, S, causal): widths 16 (padded to 64), 64 and 128, GQA 3:1 and
+# 4:1, lengths off the 64-row and 32-row tiles, the non-causal branch
+FLASH_BWD_CASES = [(16, 6, 2, 100, True), (64, 15, 5, 200, True),
+                   (128, 32, 8, 130, True), (64, 12, 3, 64, True),
+                   (128, 8, 2, 257, False), (64, 4, 1, 33, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,H,K,S,causal", FLASH_BWD_CASES)
+def test_flash_backward_matches_plain_autograd_on_the_card(D, H, K, S,
+                                                           causal):
+    """On the H100: the flash backward kernel's dq, dk and dv against
+    autograd through the plain attention, bf16, each 64-row tile within
+    ``FLASH_BWD_TILE_SHARE`` of its own size (a fault planted in the last,
+    ragged tile lands above it); two backward runs bitwise equal; the
+    forward's output bits the same with ``lse`` as without."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import flash_attention as fk
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(D + S)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, k, v = rnd(2, S, H, D), rnd(2, S, K, D), rnd(2, S, K, D)
+    dout = rnd(2, S, H, D)
+
+    def grads(plain: bool):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        if plain:
+            with ops.use_backend("plain"):
+                out = ops.attention(*ins, causal=causal)
+        else:
+            out = ops.attention(*ins, causal=causal)
+        return out.detach(), torch.autograd.grad(out, ins, dout)
+
+    want_out, want = grads(True)
+    before = fk.flash_attention_bwd.launches
+    out1, got1 = grads(False)
+    out2, got2 = grads(False)
+    torch.cuda.synchronize()
+    assert fk.flash_attention_bwd.launches == before + 2
+    assert torch.equal(out1, fk.flash_attention(q, k, v, causal=causal))
+    torch.testing.assert_close(out1.float(), want_out.float(), atol=2e-2,
+                               rtol=2e-2)
+    for a, b, w, name in zip(got1, got2, want, "qkv"):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        assert torch.equal(a, b), f"d{name} differs between two runs"
+        share = _tile_share(a, w)
+        assert share <= FLASH_BWD_TILE_SHARE, (name, share)
+        bad = a.clone()
+        bad[:, (S - 1) // 64 * 64:] *= 1.1
+        assert _tile_share(bad, w) > FLASH_BWD_TILE_SHARE, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d", [(37, 96), (1000, 128), (300, 960),
+                                    (64, 4096), (5, 33)])
+def test_rmsnorm_backward_matches_plain_autograd_on_the_card(rows, d):
+    """On the H100: the RMSNorm backward kernel's dx (bf16, 2e-2) and dw
+    (f32, within 1e-4 of its largest magnitude) against autograd through
+    the plain version; two runs bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(rows + d)
+    x = torch.randn(rows, d, generator=g, device=dev).to(torch.bfloat16)
+    w = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+    gy = torch.randn(rows, d, generator=g, device=dev).to(torch.bfloat16)
+
+    def grads(plain: bool):
+        xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
+        if plain:
+            with ops.use_backend("plain"):
+                y = ops.rmsnorm(xi, wi, 1e-6)
+        else:
+            y = ops.rmsnorm(xi, wi, 1e-6)
+        return torch.autograd.grad(y, (xi, wi), gy)
+
+    want = grads(True)
+    a, b = grads(False), grads(False)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert a[0].dtype == torch.bfloat16 and a[1].dtype == torch.float32
+    torch.testing.assert_close(a[0].float(), want[0].float(), atol=2e-2,
+                               rtol=2e-2)
+    assert _rel(a[1], want[1]) <= 1e-4
+
+
+def _rel(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.gpu
+def test_reduced_trainer_restores_bitwise_on_the_card():
+    """On the H100: REDUCED smollm-360m trained by ``AdHocTrainer`` with a
+    failure at step 5 (snapshots every 3) ends in the uninterrupted run's
+    state bit for bit; the flash and RMSNorm kernels ran forward and
+    backward, no plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from repro_torch.config import RunConfig
+    from repro_torch.configs import get
+    from repro_torch.models.model_api import tree_leaves
+    from repro_torch.training.trainer import AdHocTrainer
+
+    def run(fail):
+        t = AdHocTrainer(get("smollm-360m", reduced=True),
+                         RunConfig(arch="smollm-360m",
+                                   snapshot_interval_steps=3),
+                         n_hosts=2, total_steps=8, seq_len=64,
+                         global_batch=4, fail_at_steps=fail)
+        return t.run_to_completion()
+
+    ops.reset_counts()
+    failed = run({5: "host000"})
+    counts = ops.counts()
+    clean = run({})
+    assert failed.completed and clean.completed
+    assert failed.restores == 1 and failed.recomputed_steps == 2
+    assert all(np.isfinite(l) for _, l in failed.losses + clean.losses)
+    for name in ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                 "rmsnorm_bwd"):
+        assert counts[name]["launches"] > 0 and counts[name]["plain"] == 0
+    for a, b in zip(tree_leaves(failed.final_state),
+                    tree_leaves(clean.final_state)):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+        else:
+            assert np.asarray(a).tobytes() == np.asarray(b).tobytes()
+
+
+@pytest.mark.gpu
+def test_train_step_under_the_plain_backend_on_the_card():
+    """On the H100: a REDUCED qwen3-8b train step under
+    ``use_backend("plain")`` launches no kernel, its layers' recompute
+    included (autograd runs it on a thread of its own), and lands within
+    2e-2 of the kernel step's loss from the same state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.config import RunConfig
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import SyntheticDataset
+    from repro_torch.models import get_model
+    from repro_torch.training.state import init_train_state
+    from repro_torch.training.step import make_train_step
+
+    cfg = get("qwen3-8b", reduced=True)
+    model = get_model(cfg)
+    step = make_train_step(model, RunConfig(arch=cfg.arch_id))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             SyntheticDataset(cfg, 128, 4).batch(0).items()}
+    losses = {}
+    for name in ("plain", "kernel"):
+        ops.reset_counts()
+        with ops.use_backend(name):
+            _, m = step(init_train_state(model, 0), batch)
+        losses[name] = float(m["loss"])
+        counts = ops.counts()
+        if name == "plain":
+            assert all(c["launches"] == 0 for c in counts.values())
+            assert counts["flash_attention_bwd"]["plain"] > 0
+        else:
+            assert all(c["plain"] == 0 for c in counts.values())
+            assert counts["rmsnorm_bwd"]["launches"] > 0
+    assert abs(losses["plain"] - losses["kernel"]) <= 2e-2

@@ -64,7 +64,12 @@ def test_every_module_imports_without_jax():
             "repro_torch.configs.llava_next_mistral_7b",
             "repro_torch.parallel", "repro_torch.parallel.partition",
             "repro_torch.checkpoint.elastic",
-            "repro_torch.serving.cell"} <= set(mods)
+            "repro_torch.serving.cell", "repro_torch.data.synthetic",
+            "repro_torch.optim.adamw", "repro_torch.parallel.collectives",
+            "repro_torch.training.state", "repro_torch.training.step",
+            "repro_torch.training.straggler",
+            "repro_torch.training.trainer",
+            "repro_torch.launch.train"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -134,6 +139,16 @@ def test_cuda_entry_points_raise_without_a_card():
         params_from_reference({}, model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         repro_torch.resolve_device("cuda")
+    from repro_torch.config import RunConfig
+    from repro_torch.training.state import init_train_state
+    from repro_torch.training.trainer import AdHocTrainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AdHocTrainer(model.cfg, RunConfig(arch="qwen3-8b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_master(0)
     from repro_torch.serving.batch import make_engine_factory
 
     with pytest.raises(RuntimeError, match="no CUDA device"):

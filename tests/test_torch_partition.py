@@ -40,13 +40,16 @@ from repro_torch.checkpoint.elastic import (  # noqa: E402
 )
 from repro_torch.configs import REDUCED, get  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
-from repro_torch.models.model_api import PSpec, storage_dtype  # noqa: E402
+from repro_torch.models.model_api import (  # noqa: E402
+    PSpec,
+    storage_dtype,
+    tree_leaves,
+)
 from repro_torch.parallel.partition import (  # noqa: E402
     LayoutGrid,
     PartitionSpec,
     layout_grid,
     spec_for_axes,
-    tree_leaves,
     tree_partition_specs,
 )
 from repro_torch.serving.kvcache import (  # noqa: E402

@@ -33,7 +33,7 @@ import torch  # noqa: E402
 import chip_smoke as smoke  # noqa: E402
 from repro_torch.configs import get  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
-from repro_torch.parallel.partition import tree_leaves  # noqa: E402
+from repro_torch.models.model_api import tree_leaves  # noqa: E402
 from repro_torch.serving.batch import make_engine_factory  # noqa: E402
 from repro_torch.serving.cell import ElasticServeCell  # noqa: E402
 
