@@ -4012,7 +4012,73 @@ def _grad_ms(out, ins, dout) -> float:
                     flush=True)
 
 
-def check_flash_bwd(gen, *, B, S, H, K, D, what: str) -> list[dict]:
+# the flash backward's training shapes: (B, S, H, K, D), causal
+FLASH_BWD_SHAPES = {"smollm-360m": (TRAIN["B"], TRAIN["S"], 15, 5, 64),
+                    "qwen3-8b": (QWEN_TRAIN["B"], QWEN_TRAIN["S"], 32, 8,
+                                 128)}
+# the flash backward's launches by kernel name (csrc/flash_attention_bwd.cu):
+# dQ (which also writes the row sums of dO * O), then dK/dV
+FLASH_BWD_PARTS = {"flash_bwd_dq_kernel": "dq",
+                   "flash_bwd_dkdv_kernel": "dkdv"}
+
+
+def _parts_ms(fn, parts: dict) -> dict:
+    """The device time of each launch of one warm call of ``fn``, by the
+    kernel names of ``parts`` (name -> part), from one ``torch.profiler``
+    trace of that call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {part: 0.0 for part in parts.values()}
+    for e in prof.key_averages():
+        for name, part in parts.items():
+            if name in e.key:
+                out[part] += e.self_device_time_total / 1e3
+    return out
+
+
+def _print_flash_bwd_parts() -> int:
+    """``chip_smoke.py --flash-bwd-parts``: the flash backward's
+    ``parts_ms`` at both training shapes, on inputs drawn as
+    ``check_flash_bwd`` draws them, printed as one JSON line."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    res = {}
+    for what, (B, S, H, K, D) in FLASH_BWD_SHAPES.items():
+        q, k, v, dout = (
+            torch.randn(*shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D),
+                          (B, S, H, D)))
+        out, lse = fk.flash_attention(q, k, v, causal=True, with_lse=True)
+        res[what] = _parts_ms(
+            lambda: fk.flash_attention_bwd(q, k, v, out, dout, lse),
+            FLASH_BWD_PARTS)
+    log(res)
+    return 0
+
+
+def _flash_bwd_parts() -> dict:
+    """``_print_flash_bwd_parts`` in a fresh process. (In this process,
+    after the serve phases' traces, a trace of one backward call held no
+    kernels on the H100, with CUDA activity alone or with the CPU's; the
+    first trace of a process holds them.)"""
+    run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--flash-bwd-parts"], capture_output=True,
+                         text=True, timeout=600, check=True)
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def check_flash_bwd(gen, *, B, S, H, K, D, what: str,
+                    parts_ms: dict) -> list[dict]:
     """The flash forward (with ``lse``) and backward kernels at a training
     shape against plain autograd; the forward's bits the same with ``lse``
     as without; two backward runs bitwise equal. Rows: forward, backward."""
@@ -4068,6 +4134,7 @@ def check_flash_bwd(gen, *, B, S, H, K, D, what: str) -> list[dict]:
                enable_gqa=True), flush=True),
            **_bound(io + q.numel() * 2 + lse.numel() * 4, 4 * D * pairs,
                     BF16_TC_FLOPS)}
+
     # the backward's work: five products of D-deep dots a pair (S, dP, dV,
     # dK, dQ); q, k, v, o, dO and lse read once, dq, dk, dv written once
     bwd = {"shape": shape, "max_abs_err": bwd_err,
@@ -4075,6 +4142,11 @@ def check_flash_bwd(gen, *, B, S, H, K, D, what: str) -> list[dict]:
            "bitwise_repeat": True,
            "ms": _time_ms(lambda: fk.flash_attention_bwd(
                q, k, v, out, dout, lse), flush=True),
+           # each launch of one call (``_flash_bwd_parts``); the kernels
+           # execute 14 D FLOP a pair (S and dP twice: in dK/dV and in dQ)
+           # against the bound's 10 D
+           "parts_ms": parts_ms,
+           "executed_flop_per_pair": 14 * D,
            "plain_ms": _grad_ms(plain_out, ins, dout),
            "library_ms": _grad_ms(lib_out, lib_ins, lib_dout),
            **_bound(2 * io + 2 * q.numel() * 2 + lse.numel() * 4,
@@ -4510,12 +4582,15 @@ def phase_train(card: str) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(24)
     t0 = time.perf_counter()
+    parts = _flash_bwd_parts()
     checks = {
         "flash@smollm": check_flash_bwd(gen, **TRAIN, H=15, K=5, D=64,
-                                        what="smollm-360m"),
+                                        what="smollm-360m",
+                                        parts_ms=parts["smollm-360m"]),
         "flash@qwen3": check_flash_bwd(gen, B=QWEN_TRAIN["B"],
                                        S=QWEN_TRAIN["S"], H=32, K=8, D=128,
-                                       what="qwen3-8b"),
+                                       what="qwen3-8b",
+                                       parts_ms=parts["qwen3-8b"]),
         "rmsnorm@smollm": check_rmsnorm_bwd(
             gen, (TRAIN["B"] * TRAIN["S"], 960), "smollm-360m block"),
         "rmsnorm@qwen3-qk": check_rmsnorm_bwd(
@@ -4787,6 +4862,8 @@ def main() -> int:
         return 1
     import repro_torch  # noqa: F401  (fails here, before any output,
     # when the script stands without the rest of the repo)
+    if sys.argv[1:] == ["--flash-bwd-parts"]:
+        return _print_flash_bwd_parts()
 
     # f32 products and convolutions in full f32 (the plain versions' SSM
     # einsums are f32): both defaults stated, not left to the install
@@ -4815,7 +4892,8 @@ def main() -> int:
                                    "bound_ms", "bound_by", "library_ms",
                                    "x_library", "x_bound", "shape")},
             **{k: row[k] for k in ("bound_f32_ms", "one_row_ms",
-                                   "grad_tile_share", "dw_rel")
+                                   "grad_tile_share", "dw_rel", "parts_ms",
+                                   "executed_flop_per_pair")
                if k in row}})
 
     for arch, rows in SUMMARY_ROW.items():

@@ -61,7 +61,7 @@
 
 #include <cuda_bf16.h>
 
-#include "tma.cuh"  // mbarriers, TMA, the wgmma descriptor and fences
+#include "flash_wgmma.cuh"  // the wgmma shapes, the tensor map; TMA
 
 #define NEG_INF (-1e30f)
 #define BQ 64              // query rows of a block: one consumer warpgroup
@@ -70,47 +70,6 @@
 #define CONSUMERS 128      // the consumer warpgroup's threads
 #define THREADS (CONSUMERS + 32)  // and one producer warp
 static_assert(BQ == 64 && BK == 64, "tiles are 64 rows: one wgmma M, 8 swizzle atoms");
-
-// ---------------------------------------------------------------------------
-// PTX helpers: the wgmma shapes of this kernel (the rest in tma.cuh)
-// ---------------------------------------------------------------------------
-
-// D(64 x 64) (+)= A(64 x 16, shared) * B(64 x 16, shared, K-major)^T
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b,
-                                            int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D(64 x 64) += A(64 x 16, registers) * B(16 x 64, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// D(64 x 128) += A(64 x 16, registers) * B(16 x 128, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 v) {
-    return *reinterpret_cast<uint32_t*>(&v);
-}
 
 __device__ __forceinline__ float quad_max(float v) {
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -338,29 +297,6 @@ __global__ void __launch_bounds__(THREADS, 2) flash_attention_kernel(
 // ---------------------------------------------------------------------------
 // host side: TMA maps and the launch
 // ---------------------------------------------------------------------------
-
-// (B, S, heads, D) bf16 as a 4-D map (D, heads, S, B): a box is 64 columns
-// (128 bytes, 128-byte swizzle) of one head at `rows` positions of one
-// batch; positions past S read as zeros
-static int make_map(CUtensorMap* map, const void* base, int B, int S,
-                    int heads, int D, int rows) {
-    const EncodeTiled enc = encoder();
-    if (!enc) return (int)cudaErrorNotSupported;
-    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
-                                (cuuint64_t)S, (cuuint64_t)B};
-    const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
-                                   (cuuint64_t)heads * D * 2,
-                                   (cuuint64_t)S * heads * D * 2};
-    const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-    const cuuint32_t unit[4] = {1, 1, 1, 1};
-    const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                           const_cast<void*>(base), dims, strides, box, unit,
-                           CU_TENSOR_MAP_INTERLEAVE_NONE,
-                           CU_TENSOR_MAP_SWIZZLE_128B,
-                           CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
 
 template <int D>
 static int launch(const void* q, const void* k, const void* v, void* out,

@@ -1,9 +1,9 @@
 // Hopper helpers shared by the kernels that stream tiles with TMA into a
-// shared-memory ring and multiply them with wgmma (flash_attention.cu,
-// gemm_rows.cu): mbarriers, 2-D, 3-D and 4-D tensor-map loads, the
-// cp.async-to-mbarrier arrival, the async-proxy fence, the wgmma
-// descriptor of a 128-byte-swizzled tile and wgmma's fences, and the
-// tensor-map encoder.
+// shared-memory ring and multiply them with wgmma (flash_attention.cu and
+// flash_attention_bwd.cu through flash_wgmma.cuh, gemm_rows.cu):
+// mbarriers, 2-D, 3-D and 4-D tensor-map loads, the cp.async-to-mbarrier
+// arrival, the async-proxy fence, the wgmma descriptor of a
+// 128-byte-swizzled tile and wgmma's fences, and the tensor-map encoder.
 
 #pragma once
 

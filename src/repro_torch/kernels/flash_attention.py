@@ -17,8 +17,8 @@ H, Sq)``), and whose backward is the hand-written backward kernel
 :func:`flash_attention_bwd` gives dq, dk and dv from q, k, v, the output,
 its gradient and ``lse``, with no floating-point atomics, so the same bits
 every run. Both wrappers count their calls (``launches``; a backward call
-is three launches: the row sums of dO∘O, dK/dV, dQ). Without ``lse`` the
-forward's outputs are the serving path's bit for bit.
+is two launches: dQ, which also forms the row sums of dO∘O, then dK/dV).
+Without ``lse`` the forward's outputs are the serving path's bit for bit.
 """
 
 from __future__ import annotations

@@ -1163,17 +1163,29 @@ def _tile_share(got, want, tile: int = 64) -> float:
     return float((sums(got.float() - want) / sums(want)).max().sqrt())
 
 
-# (D, H, K, S, causal): widths 16 (padded to 64), 64 and 128, GQA 3:1 and
-# 4:1, lengths off the 64-row and 32-row tiles, the non-causal branch
-FLASH_BWD_CASES = [(16, 6, 2, 100, True), (64, 15, 5, 200, True),
-                   (128, 32, 8, 130, True), (64, 12, 3, 64, True),
-                   (128, 8, 2, 257, False), (64, 4, 1, 33, True)]
+# (D, H, K, Sq, Sk, q_offset, causal, B): widths 16 (padded to 64), 64 and
+# 128, GQA 3:1 and 4:1, lengths off the 64-row steps and the 128-row blocks
+# (127, 129, 191), the non-causal branch, Sq != Sk with a q_offset (causal
+# and not), and the training shapes' full 2048 rows at B 1
+FLASH_BWD_CASES = [(16, 6, 2, 100, 100, 0, True, 2),
+                   (64, 15, 5, 200, 200, 0, True, 2),
+                   (128, 32, 8, 130, 130, 0, True, 2),
+                   (64, 12, 3, 64, 64, 0, True, 2),
+                   (128, 8, 2, 257, 257, 0, False, 2),
+                   (64, 4, 1, 33, 33, 0, True, 2),
+                   (128, 8, 2, 100, 300, 200, True, 2),
+                   (64, 6, 2, 64, 257, 0, False, 2),
+                   (64, 6, 3, 127, 127, 0, True, 2),
+                   (128, 4, 1, 129, 129, 0, True, 2),
+                   (64, 15, 5, 191, 191, 0, True, 2),
+                   (64, 15, 5, 2048, 2048, 0, True, 1),
+                   (128, 32, 8, 2048, 2048, 0, True, 1)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D,H,K,S,causal", FLASH_BWD_CASES)
-def test_flash_backward_matches_plain_autograd_on_the_card(D, H, K, S,
-                                                           causal):
+@pytest.mark.parametrize("D,H,K,Sq,Sk,q_offset,causal,B", FLASH_BWD_CASES)
+def test_flash_backward_matches_plain_autograd_on_the_card(
+        D, H, K, Sq, Sk, q_offset, causal, B):
     """On the H100: the flash backward kernel's dq, dk and dv against
     autograd through the plain attention, bf16, each 64-row tile within
     ``FLASH_BWD_TILE_SHARE`` of its own size (a fault planted in the last,
@@ -1184,21 +1196,21 @@ def test_flash_backward_matches_plain_autograd_on_the_card(D, H, K, S,
     from repro_torch.kernels import flash_attention as fk
 
     dev = "cuda"
-    g = torch.Generator(device=dev).manual_seed(D + S)
+    g = torch.Generator(device=dev).manual_seed(D + Sk + q_offset)
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
 
-    q, k, v = rnd(2, S, H, D), rnd(2, S, K, D), rnd(2, S, K, D)
-    dout = rnd(2, S, H, D)
+    q, k, v = rnd(B, Sq, H, D), rnd(B, Sk, K, D), rnd(B, Sk, K, D)
+    dout = rnd(B, Sq, H, D)
 
     def grads(plain: bool):
         ins = [t.clone().requires_grad_() for t in (q, k, v)]
         if plain:
             with ops.use_backend("plain"):
-                out = ops.attention(*ins, causal=causal)
+                out = ops.attention(*ins, causal=causal, q_offset=q_offset)
         else:
-            out = ops.attention(*ins, causal=causal)
+            out = ops.attention(*ins, causal=causal, q_offset=q_offset)
         return out.detach(), torch.autograd.grad(out, ins, dout)
 
     want_out, want = grads(True)
@@ -1207,7 +1219,8 @@ def test_flash_backward_matches_plain_autograd_on_the_card(D, H, K, S,
     out2, got2 = grads(False)
     torch.cuda.synchronize()
     assert fk.flash_attention_bwd.launches == before + 2
-    assert torch.equal(out1, fk.flash_attention(q, k, v, causal=causal))
+    assert torch.equal(out1, fk.flash_attention(q, k, v, causal=causal,
+                                                q_offset=q_offset))
     torch.testing.assert_close(out1.float(), want_out.float(), atol=2e-2,
                                rtol=2e-2)
     for a, b, w, name in zip(got1, got2, want, "qkv"):
@@ -1216,7 +1229,7 @@ def test_flash_backward_matches_plain_autograd_on_the_card(D, H, K, S,
         share = _tile_share(a, w)
         assert share <= FLASH_BWD_TILE_SHARE, (name, share)
         bad = a.clone()
-        bad[:, (S - 1) // 64 * 64:] *= 1.1
+        bad[:, (a.shape[1] - 1) // 64 * 64:] *= 1.1
         assert _tile_share(bad, w) > FLASH_BWD_TILE_SHARE, name
 
 
