@@ -1066,14 +1066,15 @@ def _router(gen, cfg, T: int):
     return x, router
 
 
-def check_moe_route(gen, arch: str = "deepseek-moe-16b",
+def check_moe_route(gen, empty_ms: float, arch: str = "deepseek-moe-16b",
                     Ts=(8, 40, 256)) -> list[dict]:
     """The router kernel at ``arch``'s (d, E, k): a decode step's 8 tokens,
     a k = 4 verify's 40 and a prefill chunk's 256, against its plain
     version (``_route_agrees``), timed beside the plain composite (an f32
     product, a softmax, a sort; no single PyTorch call computes the
-    function, so ``library_ms`` is none); then each token's ids and weights
-    bitwise the same at 1, 8, 40 and 64 tokens."""
+    function, so ``library_ms`` is none) and, as ``x_empty``, over the same
+    run's empty kernel (``empty_ms``, ``phase_floor``); then each token's
+    ids and weights bitwise the same at 1, 8, 37, 40, 64 and 256 tokens."""
     import torch
 
     from repro_torch.configs import get
@@ -1081,7 +1082,7 @@ def check_moe_route(gen, arch: str = "deepseek-moe-16b",
 
     cfg = get(arch)
     d, E, k = cfg.d_model, cfg.n_experts, cfg.moe_top_k
-    x, router = _router(gen, cfg, max(Ts))
+    x, router = _router(gen, cfg, 256)
     rows = []
     for T in Ts:
         xt = x[:T]
@@ -1100,14 +1101,17 @@ def check_moe_route(gen, arch: str = "deepseek-moe-16b",
                      "library": "none", "composite_ms": plain_ms,
                      **_bound(nbytes, 2 * T * d * E, F32_FLOPS,
                               exps=T * E)})
-    whole = rk.moe_route(x[:64], router, k)
-    for T in (1, 8, 40, 64):
+        rows[-1]["empty_kernel_ms"] = empty_ms
+        rows[-1]["x_empty"] = rows[-1]["ms"] / empty_ms
+    whole = rk.moe_route(x, router, k)
+    invariant = [1, 8, 37, 40, 64, 256]
+    for T in invariant:
         part = rk.moe_route(x[:T], router, k)
         if not (torch.equal(part[0], whole[0][:T])
                 and torch.equal(part[1], whole[1][:T])):
             raise AssertionError(f"moe_route: tokens' results change at "
                                  f"T = {T}")
-    rows[0]["row_invariant_T"] = [1, 8, 40, 64]
+    rows[0]["row_invariant_T"] = invariant
     return rows
 
 
@@ -1430,7 +1434,7 @@ def phase_kernels(seed: int = 0) -> dict:
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    phase_floor(gen)
+    empty_ms = phase_floor(gen)["empty_kernel_ms"]
     out = {"rmsnorm": check_rmsnorm(gen),
            "paged_decode_attention": [check_paged_decode(gen)],
            "decode_attention": [check_decode(gen)],
@@ -1457,9 +1461,9 @@ def phase_kernels(seed: int = 0) -> dict:
            # deepseek-moe's attention (MHA 16 of 128), every other decode
            # product of each new config (granite-moe's with its tied
            # 49,155-column unembedding)
-           "moe_route": check_moe_route(gen),
-           "moe_route@granite": check_moe_route(gen, "granite-moe-1b-a400m",
-                                                (N_SLOTS,)),
+           "moe_route": check_moe_route(gen, empty_ms),
+           "moe_route@granite": check_moe_route(gen, empty_ms,
+                                                "granite-moe-1b-a400m"),
            "gemm_rows_grouped": check_gemm_rows_grouped(gen),
            "gemm_rows_grouped@granite": check_gemm_rows_grouped(
                gen, "granite-moe-1b-a400m"),
@@ -4045,13 +4049,23 @@ def _parts_ms(fn, parts: dict) -> dict:
 def _print_flash_bwd_parts() -> int:
     """``chip_smoke.py --flash-bwd-parts``: the flash backward's
     ``parts_ms`` at both training shapes, on inputs drawn as
-    ``check_flash_bwd`` draws them, printed as one JSON line."""
+    ``check_flash_bwd`` draws them, and the device operations one call of
+    the RMSNorm backward makes at each of its training shapes
+    (``_kernels_us``: per operation, its microseconds and launches a call),
+    printed as one JSON line."""
     import torch
 
-    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import flash_attention as fk, rmsnorm as rk
 
     gen = torch.Generator(device="cuda").manual_seed(24)
-    res = {}
+    res = {"rmsnorm_bwd_ops": {}}
+    for what, shape in RMSNORM_BWD_SHAPES.items():
+        x, w = _rmsnorm_case(gen, shape)
+        g = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        res["rmsnorm_bwd_ops"][what] = _kernels_us(
+            lambda: rk.rmsnorm_bwd(x, w, g, 1e-5))
+        del x, w, g
     for what, (B, S, H, K, D) in FLASH_BWD_SHAPES.items():
         q, k, v, dout = (
             torch.randn(*shape, generator=gen, device="cuda").to(
@@ -4064,6 +4078,17 @@ def _print_flash_bwd_parts() -> int:
             FLASH_BWD_PARTS)
     log(res)
     return 0
+
+
+# the RMSNorm backward's training shapes: smollm-360m's block norm, qwen3-8b's
+# qk-norm rows (32 heads of 128) and its block norm
+RMSNORM_BWD_SHAPES = {
+    "smollm-360m block": (TRAIN["B"] * TRAIN["S"], 960),
+    "qwen3-8b qk": (QWEN_TRAIN["B"] * QWEN_TRAIN["S"] * 32, 128),
+    "qwen3-8b block": (QWEN_TRAIN["B"] * QWEN_TRAIN["S"], 4096)}
+# the kernels one call of the RMSNorm backward launches: the rows, then the
+# sum of the partial rows; nothing else (no fill of dw)
+RMSNORM_BWD_OPS = ("rmsnorm_bwd_kernel", "rmsnorm_dw_kernel")
 
 
 def _flash_bwd_parts() -> dict:
@@ -4159,10 +4184,11 @@ def check_flash_bwd(gen, *, B, S, H, K, D, what: str,
     return [fwd, bwd]
 
 
-def check_rmsnorm_bwd(gen, shape, what: str) -> list[dict]:
+def check_rmsnorm_bwd(gen, shape, what: str, ops: dict) -> list[dict]:
     """The RMSNorm forward and backward kernels at a training shape against
-    plain autograd; two backward runs bitwise equal. Rows: forward,
-    backward."""
+    plain autograd; two backward runs bitwise equal; ``ops``, the device
+    operations of one backward call (``_flash_bwd_parts``), are the two
+    kernels once each. Rows: forward, backward."""
     import torch
     import torch.nn.functional as F
 
@@ -4175,6 +4201,11 @@ def check_rmsnorm_bwd(gen, shape, what: str) -> list[dict]:
     dx2, dw2 = rk.rmsnorm_bwd(x, w, g, eps)
     if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
         raise AssertionError(f"rmsnorm backward {what}: two runs differ")
+    found = sorted(n for n in RMSNORM_BWD_OPS for op in ops if n in op)
+    if found != sorted(RMSNORM_BWD_OPS) or len(ops) != 2 or any(
+            v["per_call"] != 1 for v in ops.values()):
+        raise AssertionError(f"rmsnorm backward {what}: device operations "
+                             f"{ops}, not {RMSNORM_BWD_OPS} once each")
     xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
     y = ref.rmsnorm(xp, wp, eps)
     want = torch.autograd.grad(y, (xp, wp), g, retain_graph=True)
@@ -4195,7 +4226,7 @@ def check_rmsnorm_bwd(gen, shape, what: str) -> list[dict]:
                x, (shape[-1],), wl.detach(), eps)),
            **_bound(2 * nx + w.numel() * 4, 0, F32_FLOPS)}
     bwd = {"shape": list(shape), "max_abs_err": err, "dw_rel": dw_rel,
-           "bitwise_repeat": True,
+           "bitwise_repeat": True, "device_ops": ops,
            "ms": _time_ms(lambda: rk.rmsnorm_bwd(x, w, g, eps)),
            "plain_ms": _time_ms(lambda: torch.autograd.grad(
                y, (xp, wp), g, retain_graph=True)),
@@ -4591,13 +4622,11 @@ def phase_train(card: str) -> dict:
                                        S=QWEN_TRAIN["S"], H=32, K=8, D=128,
                                        what="qwen3-8b",
                                        parts_ms=parts["qwen3-8b"]),
-        "rmsnorm@smollm": check_rmsnorm_bwd(
-            gen, (TRAIN["B"] * TRAIN["S"], 960), "smollm-360m block"),
-        "rmsnorm@qwen3-qk": check_rmsnorm_bwd(
-            gen, (QWEN_TRAIN["B"] * QWEN_TRAIN["S"] * 32, 128),
-            "qwen3-8b qk"),
-        "rmsnorm@qwen3": check_rmsnorm_bwd(
-            gen, (QWEN_TRAIN["B"] * QWEN_TRAIN["S"], 4096), "qwen3-8b block"),
+        **{key: check_rmsnorm_bwd(gen, RMSNORM_BWD_SHAPES[what], what,
+                                  parts["rmsnorm_bwd_ops"][what])
+           for key, what in (("rmsnorm@smollm", "smollm-360m block"),
+                             ("rmsnorm@qwen3-qk", "qwen3-8b qk"),
+                             ("rmsnorm@qwen3", "qwen3-8b block"))},
     }
     # K-a at a serving shape: lse on leaves the output's bits
     from repro_torch.kernels import flash_attention as fk

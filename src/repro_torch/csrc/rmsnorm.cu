@@ -37,14 +37,33 @@
 // JAX package differentiates the XLA form, repro/kernels/ops.py:35), per
 // row in f32: r = rsqrt(mean(x^2) + eps), xh = x * r,
 // dx = r * (g * w - xh * mean(g * w * xh)) cast to x's type, and
-// dw = sum over rows of g * xh. Bound by bytes too (x and g read, dx
-// written). Design: threads per row fixed by d (a warp up to d = 256, 8
-// rows of a block in flight; above, a block per row of d/8 threads rounded
-// to warps), up to 8 columns a thread; a block walks a fixed run of
-// `chunk` rows (the wrapper's rule: at least 16, at most 1024 runs a
-// call) and leaves that run's dw in f32 registers, summed across its warps
-// in warp order into one partial row; a second launch sums the partial
-// rows per column in run order. No atomics: the same bits every run.
+// dw = sum over rows of g * xh. Bound by bytes too: x and g read, dx
+// written (3 rows * d * itemsize); at the training shapes ~0.03 ms.
+// Design, to stream at the card's rate:
+// - Threads a row fixed by d (and the type), so the reductions' order is:
+//   d <= 256 half a warp of 16-byte runs (two rows a warp: at qwen3's qk
+//   rows of 128 a lane has one run), 3 rows ahead of the row it reduces;
+//   above, W warps of 16-byte runs (4 runs a thread, 8 where W would pass
+//   8: a warp at smollm's 960, 4 at 4096), one row ahead. A row within a
+//   warp reduces by shuffles alone; W > 1 warps add their sums in warp
+//   order after one named barrier of the group a row (partials
+//   double-buffered by the row's parity). A width that is no multiple of
+//   the run (d 33), or rows not aligned to it, load element by element
+//   with the same arithmetic.
+// - x's and g's runs go through a ring in shared memory: each thread
+//   copies its own runs there with cp.async, ahead of the row it reduces,
+//   and reads them back in both passes (the reductions, then dx and dw),
+//   so the rows in flight cost no registers. w is read once a block into
+//   shared memory laid out [run][4 columns][thread], so that a warp's
+//   16-byte reads of it hit distinct banks.
+// - A block of 256 threads walks a fixed run of `chunk` rows (the
+//   wrapper's rule: at least 32, at most 256 runs a call); each thread
+//   keeps its columns' dw in f32 registers, the block's row groups add
+//   theirs in group order into one partial row. A second launch (a
+//   programmatic dependent, so that its launch overlaps the row kernel's
+//   last blocks) sums the partial rows per column in a fixed order. No
+//   atomics: the same bits every run; no fill of dw (the second launch
+//   writes every column).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -131,11 +150,20 @@ __device__ __forceinline__ void store_run(T* row, const float* xv,
     }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// the sum over LANES lanes (16 or 32) of a warp, by an xor butterfly that
+// stays within each group of LANES; a half warp's shuffles name its own 16
+// lanes only, since the other half may have a row fewer (a ragged run)
+template <int LANES>
+__device__ __forceinline__ float group_sum(float v) {
+    const unsigned mask =
+        LANES == 32 ? 0xffffffffu : 0xffffu << (threadIdx.x & 16);
 #pragma unroll
-    for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    for (int o = LANES >> 1; o; o >>= 1)
+        v += __shfl_xor_sync(mask, v, o);
     return v;
 }
+
+__device__ __forceinline__ float warp_sum(float v) { return group_sum<32>(v); }
 
 // d <= WARP_D: a warp per row; lane l owns the runs l, l + 32, ...
 template <typename T, int VEC>
@@ -257,106 +285,231 @@ extern "C" int rmsnorm_fwd(const void* x, const void* w, void* out, int rows,
 // backward
 // ---------------------------------------------------------------------------
 
-#define BWD_COLS 8     // columns a thread owns at most
+#define BWD_THREADS 256   // a block: BWD_THREADS / tpr row groups
 
-// a block walks rows [blockIdx.x * chunk, + chunk); `tpr` threads a row
-// (32, or all of the block's), groups of tpr threads on rows g, g + G, ...
-template <typename T>
-__global__ void __launch_bounds__(1024) rmsnorm_bwd_kernel(
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// one 16-byte run of a row into shared memory: an asynchronous copy where
+// the row is aligned for it, else element by element (the row's end as
+// zeros)
+template <typename T, int VEC>
+__device__ __forceinline__ void copy_run(Run<T, VEC>* dst, const T* src,
+                                         int e, int d, bool vec) {
+    static_assert(sizeof(Run<T, VEC>) == 16, "a run is 16 bytes");
+    if (vec) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                     ::"r"(smem_addr(dst)), "l"(src + e) : "memory");
+    } else {
+        Run<T, VEC> r;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k)
+            r.v[k] = e + k < d ? src[e + k] : from_f<T>(0.f);
+        *dst = r;
+    }
+}
+
+__device__ __forceinline__ void cp_commit() {
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+    asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// w's VEC columns of run u of thread lt (zeros past the row's end), from
+// w laid out [run][4 columns][thread]
+template <int VEC>
+__device__ __forceinline__ void run_w(float* wv, const float4* wq, int u,
+                                      int tpr, int lt) {
+#pragma unroll
+    for (int k4 = 0; k4 < VEC / 4; ++k4) {
+        const float4 f = wq[(u * (VEC / 4) + k4) * tpr + lt];
+        wv[4 * k4] = f.x;
+        wv[4 * k4 + 1] = f.y;
+        wv[4 * k4 + 2] = f.z;
+        wv[4 * k4 + 3] = f.w;
+    }
+}
+
+// A block walks rows [blockIdx.x * chunk, + chunk) (its run); group grp of
+// its G groups of tpr threads (W = tpr / 32 warps) takes rows grp, grp + G,
+// ... of the run. Thread lt owns runs lt, lt + tpr, ... of VEC columns
+// (RUNS at most) and copies them itself into its own slots of a ring in
+// shared memory, DEPTH rows ahead of the row it reduces (cp.async; no
+// other thread reads them, so no barrier guards the ring). It sums its
+// squares and its g w x in run and element order, the warp by butterfly,
+// the group's W warps in warp order. dw: each thread's columns in f32
+// registers over its rows, then the groups' sums in group order into the
+// run's partial row.
+template <typename T, int VEC, int RUNS, int DEPTH, int MINB, int LANES>
+__global__ void __launch_bounds__(BWD_THREADS, MINB) rmsnorm_bwd_kernel(
     const T* __restrict__ x, const void* __restrict__ w, int wtype,
     const T* __restrict__ g, T* __restrict__ dx, float* __restrict__ part,
-    int rows, int d, int chunk, int tpr, float eps) {
-    __shared__ float red[2][32];
-    extern __shared__ float dw_red[];   // [G][d] where G > 1
+    int rows, int d, int chunk, int tpr, float eps, int vec) {
+    constexpr int SLOTS = DEPTH + 1;
+    __shared__ float2 red[2][BWD_THREADS / 32];   // [row parity][warp]
+    // w as each thread reads it, laid out [run][4 columns][thread] so that
+    // a warp's 16-byte reads of it hit distinct banks (RUNS VEC tpr floats);
+    // then the ring [SLOTS][RUNS][x, g][thread]; after the rows, the
+    // groups' sums [G][d] take the ring's place
+    extern __shared__ __align__(16) float smem[];
     const int tid = threadIdx.x;
-    const int G = blockDim.x / tpr;
+    const int nth = blockDim.x;
+    const int G = nth / tpr;
     const int grp = tid / tpr;
     const int lt = tid - grp * tpr;
-    float wv[BWD_COLS], acc[BWD_COLS];
+    const int W = tpr > 32 ? tpr >> 5 : 1;   // warps a row
+    const int wid = lt >> 5;
+    constexpr int WQ = RUNS * VEC / 4;   // float4s of w a thread
+    float4* wq = reinterpret_cast<float4*>(smem);
+    Run<T, VEC>* ring = reinterpret_cast<Run<T, VEC>*>(wq + WQ * tpr);
+    for (int i = tid; i < WQ * tpr; i += nth) {
+        const int t = i % tpr, q = i / tpr;
+        const int c = (t + q / (VEC / 4) * tpr) * VEC + q % (VEC / 4) * 4;
+        float v[4];
 #pragma unroll
-    for (int k = 0; k < BWD_COLS; ++k) {
-        const int c = lt + k * tpr;
-        wv[k] = c < d ? load_w(w, c, wtype) : 0.f;
-        acc[k] = 0.f;
+        for (int k = 0; k < 4; ++k)
+            v[k] = c + k < d ? load_w(w, c + k, wtype) : 0.f;
+        wq[i] = make_float4(v[0], v[1], v[2], v[3]);
     }
+
     const int r0 = blockIdx.x * chunk;
-    const int r1 = min(r0 + chunk, rows);
-    for (int row = r0 + grp; row < r1; row += G) {
-        const T* xr = x + (size_t)row * d;
-        const T* gr = g + (size_t)row * d;
-        float xv[BWD_COLS], gv[BWD_COLS];
+    const int len = min(chunk, rows - r0);
+    const int n = len > grp ? (len - grp + G - 1) / G : 0;   // my rows
+    auto issue = [&](int kk) {   // my runs of my row kk into its slots
+        const int slot = kk % SLOTS;
+        const size_t off = (size_t)(r0 + grp + kk * G) * d;
+#pragma unroll
+        for (int u = 0; u < RUNS; ++u) {
+            const int e = (lt + u * tpr) * VEC;
+            if (e < d) {
+                copy_run(ring + ((slot * RUNS + u) * 2) * nth + tid, x + off,
+                         e, d, vec);
+                copy_run(ring + ((slot * RUNS + u) * 2 + 1) * nth + tid,
+                         g + off, e, d, vec);
+            }
+        }
+    };
+#pragma unroll
+    for (int s = 0; s < DEPTH; ++s) {
+        if (s < n) issue(s);
+        cp_commit();
+    }
+    __syncthreads();   // w
+
+    float acc[RUNS][VEC];
+#pragma unroll
+    for (int u = 0; u < RUNS; ++u)
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) acc[u][k] = 0.f;
+    int par = 0;
+    for (int kk = 0; kk < n; ++kk) {
+        if (kk + DEPTH < n) issue(kk + DEPTH);   // into the slot freed last row
+        cp_commit();
+        cp_wait<DEPTH>();   // row kk's copies have landed
+        const Run<T, VEC>* cur = ring + (kk % SLOTS) * RUNS * 2 * nth + tid;
         float ss = 0.f, dot = 0.f;
 #pragma unroll
-        for (int k = 0; k < BWD_COLS; ++k) {
-            const int c = lt + k * tpr;
-            xv[k] = c < d ? to_f(xr[c]) : 0.f;
-            gv[k] = c < d ? to_f(gr[c]) : 0.f;
-            ss = fmaf(xv[k], xv[k], ss);
-            dot = fmaf(gv[k] * wv[k], xv[k], dot);
-        }
-        ss = warp_sum(ss);
-        dot = warp_sum(dot);
-        if (tpr > 32) {  // the whole block is one row: across its warps
-            if ((tid & 31) == 0) {
-                red[0][tid >> 5] = ss;
-                red[1][tid >> 5] = dot;
-            }
-            __syncthreads();
-            if (tid < 32) {
-                const bool in = tid < (blockDim.x >> 5);
-                const float a = warp_sum(in ? red[0][tid] : 0.f);
-                const float b = warp_sum(in ? red[1][tid] : 0.f);
-                if (tid == 0) {
-                    red[0][0] = a;
-                    red[1][0] = b;
+        for (int u = 0; u < RUNS; ++u) {
+            const int e = (lt + u * tpr) * VEC;
+            if (e < d) {
+                const Run<T, VEC> xr = cur[(2 * u) * nth];
+                const Run<T, VEC> gr = cur[(2 * u + 1) * nth];
+                float wv[VEC];
+                run_w<VEC>(wv, wq, u, tpr, lt);
+#pragma unroll
+                for (int k = 0; k < VEC; ++k) {
+                    const float xv = to_f(xr.v[k]);
+                    ss = fmaf(xv, xv, ss);
+                    dot = fmaf(to_f(gr.v[k]) * wv[k], xv, dot);
                 }
             }
-            __syncthreads();
-            ss = red[0][0];
-            dot = red[1][0];
-            __syncthreads();  // read before the next row writes
+        }
+        ss = group_sum<LANES>(ss);
+        dot = group_sum<LANES>(dot);
+        if (W > 1) {  // the group's warps, in warp order
+            if ((lt & 31) == 0) red[par][grp * W + wid] = make_float2(ss, dot);
+            asm volatile("bar.sync %0, %1;" ::"r"(grp + 1), "r"(tpr)
+                         : "memory");
+            float2 a = red[par][grp * W];
+            ss = a.x;
+            dot = a.y;
+            for (int j = 1; j < W; ++j) {
+                a = red[par][grp * W + j];
+                ss += a.x;
+                dot += a.y;
+            }
+            par ^= 1;   // the next row writes the other half
         }
         const float r = rsqrtf(ss / (float)d + eps);
         const float m = dot * r / (float)d;   // mean(g * w * xh)
-        T* dr = dx + (size_t)row * d;
+        T* dr = dx + (size_t)(r0 + grp + kk * G) * d;
 #pragma unroll
-        for (int k = 0; k < BWD_COLS; ++k) {
-            const int c = lt + k * tpr;
-            if (c < d) {
-                const float xh = xv[k] * r;
-                dr[c] = from_f<T>(r * (gv[k] * wv[k] - xh * m));
-                acc[k] = fmaf(gv[k], xh, acc[k]);
+        for (int u = 0; u < RUNS; ++u) {
+            const int e = (lt + u * tpr) * VEC;
+            if (e < d) {
+                const Run<T, VEC> xr = cur[(2 * u) * nth];
+                const Run<T, VEC> gr = cur[(2 * u + 1) * nth];
+                Run<T, VEC> o;
+                float wv[VEC];
+                run_w<VEC>(wv, wq, u, tpr, lt);
+#pragma unroll
+                for (int k = 0; k < VEC; ++k) {
+                    const float gv = to_f(gr.v[k]);
+                    const float xh = to_f(xr.v[k]) * r;
+                    o.v[k] = from_f<T>(r * (gv * wv[k] - xh * m));
+                    acc[u][k] = fmaf(gv, xh, acc[u][k]);
+                }
+                if (vec) {
+                    *reinterpret_cast<Run<T, VEC>*>(dr + e) = o;
+                } else {
+#pragma unroll
+                    for (int k = 0; k < VEC; ++k)
+                        if (e + k < d) dr[e + k] = o.v[k];
+                }
             }
         }
     }
     float* out = part + (size_t)blockIdx.x * d;
     if (G == 1) {
 #pragma unroll
-        for (int k = 0; k < BWD_COLS; ++k) {
-            const int c = lt + k * tpr;
-            if (c < d) out[c] = acc[k];
+        for (int u = 0; u < RUNS; ++u) {
+            const int e = (lt + u * tpr) * VEC;
+#pragma unroll
+            for (int k = 0; k < VEC; ++k)
+                if (e + k < d) out[e + k] = acc[u][k];
         }
         return;
     }
+    float* sums = reinterpret_cast<float*>(ring);
+    __syncthreads();   // every row done: the ring is free
 #pragma unroll
-    for (int k = 0; k < BWD_COLS; ++k) {
-        const int c = lt + k * tpr;
-        if (c < d) dw_red[grp * d + c] = acc[k];
+    for (int u = 0; u < RUNS; ++u) {
+        const int e = (lt + u * tpr) * VEC;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k)
+            if (e + k < d) sums[grp * d + e + k] = acc[u][k];
     }
     __syncthreads();
-    for (int c = tid; c < d; c += blockDim.x) {
-        float v = 0.f;
-        for (int j = 0; j < G; ++j) v += dw_red[j * d + c];
+    for (int c = tid; c < d; c += nth) {
+        float v = sums[c];
+        for (int j = 1; j < G; ++j) v += sums[j * d + c];
         out[c] = v;
     }
 }
 
-// dw[c] = the sum of the partial rows' column c, in run order: 32 columns
-// a block, 32 threads a column each summing every 32nd run, then one
-// thread the 32 sums in order
+// dw[c] = the sum of the partial rows' column c: 32 columns a block, thread
+// (c, y) sums runs y, y + 32, ... in order, then thread (c, 0) the 32 sums
+// in y order. Launched as a programmatic dependent of the row kernel: its
+// launch overlaps that kernel's last blocks, and it waits for the partial
+// rows before it reads one.
 __global__ void __launch_bounds__(1024) rmsnorm_dw_kernel(
     const float* __restrict__ part, float* __restrict__ dw, int runs, int d) {
     __shared__ float s[32][33];
+    asm volatile("griddepcontrol.wait;" ::: "memory");
     const int c = blockIdx.x * 32 + threadIdx.x;
     float v = 0.f;
     if (c < d)
@@ -370,30 +523,88 @@ __global__ void __launch_bounds__(1024) rmsnorm_dw_kernel(
     }
 }
 
+template <typename T, int VEC, int RUNS, int DEPTH, int MINB, int LANES>
+static int launch_rows(const void* x, const void* w, int wtype, const void* g,
+                       void* dx, float* part, int rows, int d, float eps,
+                       int chunk, int tpr, int vec, cudaStream_t stream) {
+    constexpr size_t RING = (size_t)(DEPTH + 1) * RUNS * 2 * BWD_THREADS
+                            * sizeof(Run<T, VEC>);
+    constexpr size_t MAX_SMEM = RING + RUNS * VEC * BWD_THREADS * sizeof(float);
+    static bool attr_set = false;   // once per instance: it costs host time
+    if (!attr_set) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            rmsnorm_bwd_kernel<T, VEC, RUNS, DEPTH, MINB, LANES>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
+        if (err != cudaSuccess) return (int)err;
+        attr_set = true;
+    }
+    const int groups = BWD_THREADS / tpr;
+    const int nth = groups * tpr;
+    const size_t ring = (size_t)(DEPTH + 1) * RUNS * 2 * nth
+                        * sizeof(Run<T, VEC>);
+    const size_t sums = (size_t)groups * d * sizeof(float);
+    const size_t wbytes = (size_t)RUNS * VEC * tpr * sizeof(float);
+    const size_t smem = wbytes + (ring > sums ? ring : sums);
+    rmsnorm_bwd_kernel<T, VEC, RUNS, DEPTH, MINB, LANES>
+        <<<(rows + chunk - 1) / chunk, nth, smem, stream>>>(
+            (const T*)x, w, wtype, (const T*)g, (T*)dx, part, rows, d, chunk,
+            tpr, eps, vec);
+    return (int)cudaGetLastError();
+}
+
+// Threads a row, fixed by d and the type: up to WARP_D half a warp of
+// 16-byte runs (2 a lane, 4 at f32), 3 rows ahead in the ring; above, W
+// warps of 16-byte runs (4 a thread, or 8 where W would pass 8 warps), one
+// row ahead.
 template <typename T>
 static int launch_bwd(const void* x, const void* w, int wtype, const void* g,
                       void* dx, float* part, float* dw, int rows, int d,
                       float eps, int chunk, cudaStream_t stream) {
-    const int per_thread = (d + BWD_COLS - 1) / BWD_COLS;
-    const int tpr = d <= WARP_D ? 32 : (per_thread + 31) / 32 * 32;
-    if (tpr > 1024) return (int)cudaErrorInvalidValue;
-    const int threads = tpr > 32 ? tpr : 32 * WARP_ROWS;
-    const int groups = threads / tpr;
-    const size_t smem = groups > 1 ? (size_t)groups * d * sizeof(float) : 0;
-    const int runs = (rows + chunk - 1) / chunk;
-    rmsnorm_bwd_kernel<T><<<runs, threads, smem, stream>>>(
-        (const T*)x, w, wtype, (const T*)g, (T*)dx, part, rows, d, chunk, tpr,
-        eps);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    rmsnorm_dw_kernel<<<(d + 31) / 32, dim3(32, 32), 0, stream>>>(part, dw,
-                                                                  runs, d);
+    int err;
+    constexpr int VEC = 16 / sizeof(T);
+    const int vec = d % VEC == 0 && aligned(x, 16) && aligned(g, 16)
+                    && aligned(dx, 16);
+    if (d <= WARP_D) {
+        constexpr int NR = WARP_D / (16 * VEC);   // 2 runs, 4 at f32
+        err = launch_rows<T, VEC, NR, 3, 2, 16>(x, w, wtype, g, dx, part,
+                                                rows, d, eps, chunk, 16, vec,
+                                                stream);
+    } else {
+        const int runs = (d + VEC - 1) / VEC;
+        const int w4 = (runs + 127) / 128;
+        if (w4 <= BWD_THREADS / 32) {
+            err = launch_rows<T, VEC, 4, 1, 2, 32>(x, w, wtype, g, dx, part,
+                                                   rows, d, eps, chunk,
+                                                   32 * w4, vec, stream);
+        } else {
+            const int w8 = (runs + 255) / 256;
+            if (w8 > BWD_THREADS / 32) return (int)cudaErrorInvalidValue;
+            err = launch_rows<T, VEC, 8, 1, 1, 32>(x, w, wtype, g, dx, part,
+                                                   rows, d, eps, chunk,
+                                                   32 * w8, vec, stream);
+        }
+    }
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((d + 31) / 32, 1, 1);
+    cfg.blockDim = dim3(32, 32, 1);
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e2 = cudaLaunchKernelEx(
+        &cfg, rmsnorm_dw_kernel, (const float*)part, dw,
+        (rows + chunk - 1) / chunk, d);
+    if (e2 != cudaSuccess) return (int)e2;
     return (int)cudaGetLastError();
 }
 
 // x, g and dx (rows, d) contiguous of type xtype, w (d,) of type wtype
 // (0 f32, 1 bf16, 2 f16), part (ceil(rows / chunk), d) f32 scratch, dw (d,)
-// f32; d at most 8 * 1024. Two launches; returns cudaGetLastError().
+// f32, every element of it written; d at most 8 * 1024. Two launches;
+// returns cudaGetLastError().
 extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* g,
                            void* dx, void* part, void* dw, int rows, int d,
                            int xtype, int wtype, float eps, int chunk,
@@ -401,7 +612,8 @@ extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* g,
     cudaStream_t st = (cudaStream_t)stream;
     float* pp = (float*)part;
     float* pw = (float*)dw;
-    if (chunk <= 0) return (int)cudaErrorInvalidValue;
+    if (chunk <= 0 || rows <= 0 || d <= 0 || d > 8 * 1024)
+        return (int)cudaErrorInvalidValue;
     if (xtype == 1)
         return launch_bwd<__nv_bfloat16>(x, w, wtype, g, dx, pp, pw, rows, d,
                                          eps, chunk, st);

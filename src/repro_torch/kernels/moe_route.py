@@ -6,16 +6,19 @@ TPU counterpart: the JAX package routes in XLA (``repro/models/moe.py:
 209-213``). It exists for the same reason as ``gemm_rows``: on the card a
 token's routing must not depend on how many tokens share the call, or a
 near tie between experts flips between an 8-lane decode step and a 40-lane
-verify and greedy speculation stops equalling plain decode. One block routes
-one token, with every summation order fixed by ``(d, E)``. It runs on every
-path on the card: prefill, the dense engine, the paged decode step and the
-verify folded into it.
+verify and greedy speculation stops equalling plain decode. A token tile is
+split over ``d`` across the blocks of a thread block cluster, one launch a
+call; :func:`plan` fixes the cluster, the slices and the runs, and so every
+summation order, from ``(d, E)`` alone. It runs on every path on the card:
+prefill, the dense engine, the paged decode step and the verify folded into
+it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -23,13 +26,73 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import moe_route as plain  # noqa: F401  (beside the kernel)
 
 MAX_E, MAX_K, MAX_D = 256, 16, 8192   # csrc MAX_E, MAX_K, MAX_D
+THREADS = 512      # csrc THREADS: a block
+MAX_C = 8          # csrc MAX_C: blocks of a cluster (portable)
+MIN_SLICE = 64     # the fewest router rows a block of a cluster owns
+
+
+class Plan(NamedTuple):
+    """How the kernel cuts ``x @ router`` for ``(d, E)``: a cluster of
+    ``C`` blocks, block ``r`` owning router rows ``[r S, r S + S)`` (the last
+    slice may be shorter); thread ``j E + e`` of a block folds expert ``e``
+    over run ``j`` of its slice, rows ``[j L, j L + L)`` of it (the last
+    runs may be shorter or empty), in row order. A logit is the ``J`` runs'
+    partials added in run order, then the ``C`` blocks' in rank order."""
+
+    d: int
+    E: int
+    C: int
+    S: int
+    J: int
+    L: int
+
+    def slices(self) -> list[tuple[int, int]]:
+        """Each block's router rows ``(start, stop)``, in rank order."""
+        return [(r * self.S, min((r + 1) * self.S, self.d))
+                for r in range(self.C)]
+
+    def runs(self, r: int) -> list[tuple[int, int]]:
+        """Block ``r``'s runs as router rows ``(start, stop)``, in run
+        order; an empty run has ``start >= stop``."""
+        lo, hi = self.slices()[r]
+        return [(lo + min(j * self.L, hi - lo), lo + min((j + 1) * self.L,
+                                                         hi - lo))
+                for j in range(self.J)]
+
+    def smem_bytes(self, tile: int) -> int:
+        """Dynamic shared memory of a block for a tile of ``tile`` tokens:
+        x's tile, the runs' partials, the cluster's partials of the tokens
+        the block ranks (f32)."""
+        tpb = -(-tile // self.C)
+        return 4 * (tile * (self.S + self.J * self.E) + self.C * tpb * self.E)
+
+
+@functools.cache
+def plan(d: int, E: int) -> Plan:
+    """The cut for ``(d, E)``; no token count enters it. ``C`` is the
+    largest power of two up to 8 whose slices hold at least ``MIN_SLICE``
+    rows (1 below that), ``J = THREADS // E`` runs a slice."""
+    if not (1 <= E <= MAX_E and 1 <= d <= MAX_D):
+        raise ValueError(f"moe_route plan: d {d}, E {E}")
+    C = MAX_C
+    while C > 1 and -(-d // C) < MIN_SLICE:
+        C //= 2
+    S = -(-d // C)
+    J = THREADS // E
+    return Plan(d, E, C, S, J, -(-S // J))
+
+
+def tile(T: int) -> int:
+    """Tokens a cluster takes (csrc: 8 up to 64 tokens, else 16). It
+    changes which tokens share a block, never a token's arithmetic."""
+    return 8 if T <= 64 else 16
 
 
 @functools.cache
 def _lib():
     lib = _build.load("moe_route")
     fn = lib.moe_route_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -56,8 +119,10 @@ def moe_route(x: torch.Tensor, router: torch.Tensor,
     weights = torch.empty(T, k, dtype=torch.float32, device=x.device)
     ids = torch.empty(T, k, dtype=torch.int32, device=x.device)
     if T:
+        p = plan(d, E)
         err = _lib()(x.data_ptr(), router.data_ptr(), weights.data_ptr(),
-                     ids.data_ptr(), T, d, E, k, _build.stream(x.device))
+                     ids.data_ptr(), T, d, E, k, p.C, p.S, p.J, p.L,
+                     _build.stream(x.device))
         _build.check(err, "moe_route")
         moe_route.launches += 1
     return weights, ids

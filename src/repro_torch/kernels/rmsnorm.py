@@ -15,10 +15,11 @@ Training needs the gradient: :class:`RMSNorm` is the
 ``torch.autograd.Function`` whose forward is this kernel and whose backward
 is the hand-written backward of ``csrc/rmsnorm.cu`` (:func:`rmsnorm_bwd`):
 per row in f32, ``r = rsqrt(mean(x²) + eps)``, ``x̂ = x·r``, ``dx = r·(g·w −
-x̂·mean(g·w·x̂))`` cast to x's type; ``dw`` as per-chunk f32 partial sums
-over fixed runs of rows, then a second launch that sums them in a fixed
-order: no atomics, the same bits every run. A backward call (two
-launches) counts one in ``rmsnorm_bwd.launches``.
+x̂·mean(g·w·x̂))`` cast to x's type; ``dw`` as f32 partial rows, one a block
+over its fixed run of rows (:func:`chunk_rows`), then a second launch that
+sums them in a fixed order: no atomics, the same bits every run, and no
+fill of ``dw`` (the second launch writes every column). A backward call
+(two launches) counts one in ``rmsnorm_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -92,9 +93,15 @@ def empty_launch(device: torch.device) -> None:
                  "empty kernel")
 
 
-# rows of one dw partial sum: at least 16, and at most 1024 partials a call
+MIN_CHUNK, MAX_RUNS_BWD = 32, 256
+
+
 def chunk_rows(rows: int) -> int:
-    return max(16, -(-rows // 1024))
+    """Rows of one block's run (one dw partial row): at least
+    ``MIN_CHUNK``, and at most ``MAX_RUNS_BWD`` runs a call, so that the
+    partial rows stay a small share of the bytes and one wave fills the
+    card."""
+    return max(MIN_CHUNK, -(-rows // MAX_RUNS_BWD))
 
 
 def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
@@ -120,17 +127,19 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     g2 = g.reshape(-1, d).contiguous()
     rows = x2.shape[0]
     dx = torch.empty_like(x2)
-    dw = torch.zeros(d, dtype=torch.float32, device=x.device)
-    if rows and d:
-        chunk = chunk_rows(rows)
-        part = torch.empty((-(-rows // chunk), d), dtype=torch.float32,
-                           device=x.device)
-        _, _, bwd = _lib()
-        err = bwd(x2.data_ptr(), w.contiguous().data_ptr(), g2.data_ptr(),
-                  dx.data_ptr(), part.data_ptr(), dw.data_ptr(), rows, d,
-                  xtype, wtype, eps, chunk, _build.stream(x.device))
-        _build.check(err, "rmsnorm_bwd")
-        rmsnorm_bwd.launches += 1
+    if not (rows and d):   # no rows: a zero gradient, no launch
+        return dx.reshape(x.shape), torch.zeros(d, dtype=torch.float32,
+                                                device=x.device)
+    dw = torch.empty(d, dtype=torch.float32, device=x.device)  # all written
+    chunk = chunk_rows(rows)
+    part = torch.empty((-(-rows // chunk), d), dtype=torch.float32,
+                       device=x.device)
+    _, _, bwd = _lib()
+    err = bwd(x2.data_ptr(), w.contiguous().data_ptr(), g2.data_ptr(),
+              dx.data_ptr(), part.data_ptr(), dw.data_ptr(), rows, d,
+              xtype, wtype, eps, chunk, _build.stream(x.device))
+    _build.check(err, "rmsnorm_bwd")
+    rmsnorm_bwd.launches += 1
     return dx.reshape(x.shape), dw
 
 

@@ -801,7 +801,8 @@ def test_moe_route_matches_plain_version_on_the_card(d, E, k):
     """On the H100: the router kernel against its plain version at 8, 40
     and 256 tokens: ids equal except at a near tie (printed), weights
     within 1e-5; and each token's ids and weights bitwise the same at 1, 8,
-    40 and 64 tokens."""
+    37, 40, 64 and 256 tokens (37 is no multiple of the kernel's token
+    tile, 256 takes the larger tile)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator(device="cuda").manual_seed(E)
@@ -816,8 +817,8 @@ def test_moe_route_matches_plain_version_on_the_card(d, E, k):
               "rows differing", int((~same).sum()))
         assert bool((same | ties).all())
         torch.testing.assert_close(w[same], pw[same], atol=1e-5, rtol=1e-5)
-    whole = ops.moe_route(x[:64], router, k)
-    for T in (1, 8, 40, 64):
+    whole = ops.moe_route(x, router, k)
+    for T in (1, 8, 37, 40, 64, 256):
         part = ops.moe_route(x[:T], router, k)
         assert torch.equal(part[0], whole[0][:T])
         assert torch.equal(part[1], whole[1][:T])
@@ -1235,11 +1236,14 @@ def test_flash_backward_matches_plain_autograd_on_the_card(
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,d", [(37, 96), (1000, 128), (300, 960),
-                                    (64, 4096), (5, 33)])
+                                    (64, 4096), (5, 33), (20000, 960),
+                                    (1000, 4096)])
 def test_rmsnorm_backward_matches_plain_autograd_on_the_card(rows, d):
     """On the H100: the RMSNorm backward kernel's dx (bf16, 2e-2) and dw
     (f32, within 1e-4 of its largest magnitude) against autograd through
-    the plain version; two runs bitwise equal."""
+    the plain version; two runs bitwise equal. (20,000, 960) has more rows
+    than one run of the wrapper's rule; (1,000, 4,096) a last run of 8
+    rows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = "cuda"
