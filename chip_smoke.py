@@ -71,9 +71,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    tokens are held against the CPU plain path teacher-forced on them
    (each within 0.05 of the CPU's top logit);
 4. per model — full-width, full-depth ``qwen3-8b``, then ``falcon-mamba-7b``
-   (Mamba1), then ``zamba2-1.2b`` (Mamba2 + shared attention), then
-   ``deepseek-moe-16b`` (MoE: a dense layer, 27 MoE layers of 64 routed
-   experts, top-6, and 2 shared), each with seeded random weights, freed
+   (Mamba1; its depth cut to 16 of 64 layers), then ``zamba2-1.2b`` (Mamba2
+   + shared attention), then ``deepseek-moe-16b`` (MoE: a dense layer, then
+   MoE layers of 64 routed experts, top-6, and 2 shared; its depth cut to 8
+   of 28 layers), each with seeded random weights, freed
    before the next, through phases a-e (and f-h and k for qwen3-8b, i
    for deepseek-moe-16b); then ``granite-moe-1b-a400m`` (a short serve: 8
    requests of 16 new tokens on 4 slots, and phase c), ``phi4-mini-3.8b``
@@ -216,8 +217,21 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    c, qwen3-8b at published widths with its depth cut to 8 of 36 layers:
    3 steps at B 2, S 2048, twice from seed 0: finite losses, the two runs
    bitwise equal (losses, grad norms, an exact digest of every leaf); step
-   ms and peak memory. Sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (unless
-   set) before CUDA starts, for the whole run.
+   ms and peak memory; d, the recurrent families: the scan's forward
+   (saving its tiles' states: y and hT the same bits) and backward
+   (``csrc/selective_scan_bwd.cu``) at falcon-mamba-7b's B 2, S 2048, Di
+   8192, N 16, the SSD's (keeping its scratch) and backward
+   (``csrc/ssd_bwd.cu``) at zamba2-1.2b's B 2, S 2048, 64 heads of 64, N
+   64, chunk 256, against autograd through the plain versions (each bf16
+   gradient within 1 % in every 64-step tile, each f32 one within 1e-3 of
+   its largest value, two runs bitwise equal, a planted fault caught); then
+   falcon-mamba-7b at published widths, 8 of 64 layers, and zamba2-1.2b at
+   published widths and full depth: each first step within c's limits of
+   the plain step (falcon-mamba at 2 layers, where the plain scan's loop
+   stays in seconds, zamba2 at 7, where rounding alone stays under the
+   leaf limit; a one-ulp control printed beside each gate), then 3 steps
+   at B 2, S 2048 twice from seed 0, as c. Sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (unless set) before CUDA
+   starts, for the whole run.
 
 The MoE models' logits have no bound (random-weight routing is chaotic):
 the kernel-forced check holds the router there (ids equal but at a near
@@ -4052,13 +4066,28 @@ def _print_flash_bwd_parts() -> int:
     ``check_flash_bwd`` draws them, and the device operations one call of
     the RMSNorm backward makes at each of its training shapes
     (``_kernels_us``: per operation, its microseconds and launches a call),
-    printed as one JSON line."""
+    printed as one JSON line; so too the device operations of one call of
+    each SSM backward at its training shape."""
     import torch
 
     from repro_torch.kernels import flash_attention as fk, rmsnorm as rk
+    from repro_torch.kernels import selective_scan as sk, ssd as dk
 
     gen = torch.Generator(device="cuda").manual_seed(24)
     res = {"rmsnorm_bwd_ops": {}}
+    args = _scan_case(gen, SCAN_TRAIN["S"], 0.1, B=SCAN_TRAIN["B"],
+                      Di=SCAN_TRAIN["Di"], N=SCAN_TRAIN["N"])
+    dy = torch.randn_like(args[0], dtype=torch.float32).bfloat16()
+    states = sk.selective_scan(*args, save_states=True)[2]
+    res["scan_bwd_ops"] = _kernels_us(
+        lambda: sk.selective_scan_bwd(*args[:6], states, dy), n=5)
+    args = _ssd_case(gen, SSD_TRAIN["S"], 0.1, B=SSD_TRAIN["B"],
+                     Hs=SSD_TRAIN["Hs"], P=SSD_TRAIN["P"], N=SSD_TRAIN["N"])
+    dy = torch.randn_like(args[0], dtype=torch.float32).bfloat16()
+    scratch = dk._forward(*args, CHUNK)[2]
+    res["ssd_bwd_ops"] = _kernels_us(
+        lambda: dk.ssd_bwd(*args[:6], scratch, dy, chunk=CHUNK), n=5)
+    del args, dy, states, scratch
     for what, shape in RMSNORM_BWD_SHAPES.items():
         x, w = _rmsnorm_case(gen, shape)
         g = torch.randn(shape, generator=gen, device="cuda").to(
@@ -4240,6 +4269,250 @@ def check_rmsnorm_bwd(gen, shape, what: str, ops: dict) -> list[dict]:
     return [fwd, bwd]
 
 
+# the SSM backward kernels' training shapes: falcon-mamba-7b's scan and
+# zamba2-1.2b's SSD (chunk 256), B 2, S 2048
+SCAN_TRAIN = dict(B=2, S=2048, Di=8192, N=16)
+SSD_TRAIN = dict(B=2, S=2048, Hs=64, P=64, N=64)
+# the SSM backward kernels against plain autograd: each bf16 gradient (dx,
+# ddt, dB, dC) per (batch, 64-step tile) within GRAD_TILE_SHARE of the tile's
+# own size in the Frobenius norm (both sides round to bf16 at the end), each
+# f32 one (dA, dD, dh0) within SSM_F32_GRAD_REL of its largest magnitude; a
+# planted fault (the last tile's dx 10 % too large) must land above the tile
+# limit
+SSM_F32_GRAD_REL = 1e-3
+SSM_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+
+
+def _seq_share(got, want, tile: int = 64) -> float:
+    """The largest, over (batch, ``tile`` steps of dim 1) tiles of a
+    (B, S, ...) gradient, of ||got - want|| / ||want|| (Frobenius, f32)."""
+    import torch.nn.functional as F
+
+    B, S = want.shape[:2]
+
+    def sums(t):
+        t = F.pad(t.float().reshape(B, S, -1), (0, 0, 0, -S % tile))
+        return t.square().reshape(B, -1, tile * t.shape[-1]).sum(-1)
+
+    return float((sums(got.float() - want.float()) / sums(want)).max().sqrt())
+
+
+def _ssm_grads_held(what: str, got, again, want) -> dict:
+    """A backward kernel's seven gradients (``SSM_GRADS``) against plain
+    autograd's: two runs bitwise equal, the bf16 ones tile by tile, the f32
+    ones whole, a planted fault caught."""
+    import torch
+
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: two runs differ")
+    if not all(bool(torch.isfinite(g.float()).all()) for g in got):
+        raise AssertionError(f"{what}: a gradient is not finite")
+    tiles = {n: _seq_share(g, w) for n, g, w in zip(SSM_GRADS, got, want)
+             if g.dtype == torch.bfloat16}
+    whole = {n: _rel_err(g, w) for n, g, w in zip(SSM_GRADS, got, want)
+             if g.dtype == torch.float32}
+    if not (all(x <= GRAD_TILE_SHARE for x in tiles.values())
+            and all(x <= SSM_F32_GRAD_REL for x in whole.values())):
+        raise AssertionError(f"{what}: tile shares {tiles} (limit "
+                             f"{GRAD_TILE_SHARE}), f32 {whole} (limit "
+                             f"{SSM_F32_GRAD_REL})")
+    bad = got[0].clone()
+    bad[:, (bad.shape[1] - 1) // 64 * 64:] *= 1.1
+    planted = _seq_share(bad, want[0])
+    if not planted > GRAD_TILE_SHARE:
+        raise AssertionError(f"{what}: a planted fault passes: {planted}")
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want) if g.dtype == torch.bfloat16)
+    return {"max_abs_err": err, "grad_tile_share": tiles,
+            "f32_grad_rel": whole, "planted_tile_share": planted,
+            "bitwise_repeat": True}
+
+
+def _once_ms(fn) -> float:
+    """The device time of one warm call of ``fn``, by CUDA events (for the
+    plain versions' backward, too slow to repeat twenty times)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def _plain_scan_grads(args, dy):
+    """Autograd through the plain scan, one 256-step tile at a time (the
+    whole sequence's graph takes a full-size gradient of its (B, S, Di, N)
+    decays at each of its 2048 steps): each tile from the plain state
+    entering it, the tiles in reverse, hT's gradient carried back. The
+    chain rule makes it the whole sequence's autograd."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    x, dt, A, Bm, C, D, h0 = args
+    S = x.shape[1]
+    starts = [h0]
+    with torch.no_grad():
+        for t0 in range(0, S - CHUNK, CHUNK):
+            sl = slice(t0, t0 + CHUNK)
+            starts.append(ref.selective_scan(x[:, sl], dt[:, sl], A, Bm[:, sl],
+                                             C[:, sl], D, starts[-1])[1])
+    out = [[] for _ in range(4)]      # dx, ddt, dB, dC, tiles in reverse
+    dA, dD, u = 0, 0, torch.zeros_like(h0)
+    for k in reversed(range(len(starts))):
+        sl = slice(k * CHUNK, (k + 1) * CHUNK)
+        ins = [t.detach().requires_grad_() for t in (
+            x[:, sl], dt[:, sl], A, Bm[:, sl], C[:, sl], D, starts[k])]
+        y, hT = ref.selective_scan(*ins)
+        g = torch.autograd.grad((y, hT), ins, (dy[:, sl], u))
+        for i, j in enumerate((0, 1, 3, 4)):
+            out[i].append(g[j])
+        dA, dD, u = dA + g[2], dD + g[5], g[6]
+    dx, ddt, dB, dC = (torch.cat(t[::-1], 1) for t in out)
+    return dx, ddt, dA, dB, dC, dD, u
+
+
+def check_scan_bwd(gen, device_ops: dict) -> list[dict]:
+    """falcon-mamba-7b's scan at its training shape (``SCAN_TRAIN``) from a
+    nonzero state: the forward saving its tiles' states (y and hT the same
+    bits as without), the backward kernel against autograd through the
+    plain scan (``_plain_scan_grads``), twice bitwise. ``device_ops``: the
+    kernels one backward call launches (``_flash_bwd_parts``). Rows:
+    forward, backward."""
+    import torch
+
+    from repro_torch.kernels import ref, selective_scan as sk
+
+    B, S, Di, N = (SCAN_TRAIN[k] for k in ("B", "S", "Di", "N"))
+    args = _scan_case(gen, S, 0.1, B=B, Di=Di, N=N)
+    dy = torch.randn(B, S, Di, generator=gen, device="cuda").bfloat16()
+    y, hT = sk.selective_scan(*args)
+    ys, hs, states = sk.selective_scan(*args, save_states=True)
+    if not (torch.equal(y, ys) and torch.equal(hT, hs)):
+        raise AssertionError("selective_scan: saving the tiles' states "
+                             "changed y or hT")
+    with torch.no_grad():
+        yw, hw = ref.selective_scan(*args)
+    fwd_err = max(_close(y, yw, "selective_scan train"),
+                  _close(hT, hw, "selective_scan train hT", STATE_TOL))
+    del yw, hw
+    got = sk.selective_scan_bwd(*args[:6], states, dy)
+    again = sk.selective_scan_bwd(*args[:6], states, dy)
+    want = _plain_scan_grads(args, dy)
+    held = _ssm_grads_held("selective_scan_bwd", got, again, want)
+    del again, want
+    plain_bwd_ms = _once_ms(lambda: _plain_scan_grads(args, dy))
+    torch.cuda.empty_cache()
+    n_sn = B * S * Di * N
+    tiles = -(-S // CHUNK)
+    io = 2 * B * S * Di * 2 + 2 * B * S * N * 2 + Di * N * 4 + Di * 4
+    shape = {"B": B, "S": S, "Di": Di, "N": N, "h0": 0.1}
+    fwd = {"shape": shape, "max_abs_err": fwd_err, "library_ms": None,
+           "ms": _time_ms(lambda: sk.selective_scan(*args, save_states=True),
+                          flush=True),
+           "plain_ms": _time_ms(lambda: ref.selective_scan(*args), iters=3,
+                                flush=True),
+           # x, dt, B, C, A, D and h0 read; y, hT and the states written
+           **_bound(io + B * S * Di * 2 + (2 + tiles) * B * Di * N * 4,
+                    6 * n_sn + 3 * B * S * Di, F32_FLOPS, exps=n_sn)}
+    # read: x, dt, dy, B, C, A, D and the states; written: dx, ddt, dB, dC,
+    # dA, dD, dh0. Per (t, d, n) the replay's exponential and ~12 f32
+    # operations (the replay's two, the adjoint's and the five sums')
+    bwd = {"shape": shape, **held, "device_ops": device_ops,
+           "library_ms": None,
+           "ms": _time_ms(lambda: sk.selective_scan_bwd(*args[:6], states,
+                                                        dy), flush=True),
+           "plain_ms": plain_bwd_ms,
+           **_bound(io + 3 * B * S * Di * 2 + 2 * B * S * N * 2
+                    + Di * N * 4 + Di * 4 + (tiles + 1) * B * Di * N * 4,
+                    12 * n_sn, F32_FLOPS, exps=n_sn)}
+    for row in (fwd, bwd):
+        row.update(_factors(row))
+    log({"check": "selective_scan_bwd@falcon-mamba-7b", "forward": fwd,
+         "backward": bwd})
+    return [fwd, bwd]
+
+
+def check_ssd_bwd(gen, device_ops: dict) -> list[dict]:
+    """zamba2-1.2b's SSD at its training shape (``SSD_TRAIN``, chunk 256)
+    from a nonzero state: the forward that keeps its scratch (y and hT the
+    same bits as the serving call's), the backward kernel against autograd
+    through the plain SSD over the whole sequence, twice bitwise.
+    ``device_ops``: the kernels one backward call launches. Rows: forward,
+    backward."""
+    import torch
+
+    from repro_torch.kernels import ref, ssd as dk
+
+    B, S, Hs, P, N = (SSD_TRAIN[k] for k in ("B", "S", "Hs", "P", "N"))
+    args = _ssd_case(gen, S, 0.1, B=B, Hs=Hs, P=P, N=N)
+    dy = torch.randn(B, S, Hs, P, generator=gen, device="cuda").bfloat16()
+    y, hT = dk.ssd(*args, chunk=CHUNK)
+    yk, hk, scratch = dk._forward(*args, CHUNK)
+    if not (torch.equal(y, yk) and torch.equal(hT, hk)):
+        raise AssertionError("ssd: the training forward's y or hT differ "
+                             "from serving's")
+    got = dk.ssd_bwd(*args[:6], scratch, dy, chunk=CHUNK)
+    again = dk.ssd_bwd(*args[:6], scratch, dy, chunk=CHUNK)
+    ins = [t.clone().requires_grad_() for t in args]
+    yw, _ = ref.ssd(*ins, chunk=CHUNK)
+    fwd_err = _close(y, yw.detach(), "ssd train")
+
+    def plain_grad():
+        return torch.autograd.grad(yw, ins, dy, retain_graph=True)
+
+    held = _ssm_grads_held("ssd_bwd", got, again, plain_grad())
+    plain_bwd_ms = _once_ms(plain_grad)
+    del again, yw, ins
+    torch.cuda.empty_cache()
+    chunks = [min(CHUNK, S - c0) for c0 in range(0, S, CHUNK)]
+    pairs = sum(n * (n + 1) // 2 for n in chunks)
+    sx, sn = B * S * Hs * P * 2, B * S * N * 2
+    state = B * Hs * P * N * 4
+    scratch_bytes = scratch.numel() * 4
+    shape = {"B": B, "S": S, "Hs": Hs, "P": P, "N": N, "chunk": CHUNK,
+             "h0": 0.1}
+    fwd_flops = B * (2 * pairs * N + Hs * (2 * pairs * P + 3 * pairs
+                                           + 4 * S * P * N))
+    fwd = {"shape": shape, "max_abs_err": fwd_err, "library_ms": None,
+           "ms": _time_ms(lambda: dk._forward(*args, CHUNK), flush=True),
+           "plain_ms": _time_ms(lambda: ref.ssd(*args, chunk=CHUNK),
+                                flush=True),
+           # x, dt, B, C, A, D, h0 read; y, hT and the kept scratch written
+           **_bound(2 * sx + B * S * Hs * 2 + 2 * sn + 2 * Hs * 4 + 2 * state
+                    + scratch_bytes, fwd_flops, BF16_TC_FLOPS,
+                    exps=B * Hs * (pairs + 2 * S))}
+    # per (b, chunk): C B^T on the causal triangle; per head: dy x^T, M^T
+    # dy (P deep), dG^T C, dG B (N deep) on the triangle, and four (c, P, N)
+    # products with the states (the local dH, dHn B, dHn^T x, dy H)
+    flops = B * (2 * pairs * N + Hs * (4 * pairs * P + 4 * pairs * N
+                                       + 8 * S * P * N))
+    # read: x, dy, dt, B, C, A, D and the scratch; written: dx, ddt, dB,
+    # dC, dA, dD, dh0
+    nbytes = (3 * sx + 2 * B * S * Hs * 2 + 4 * sn + 4 * Hs * 4 + state
+              + scratch_bytes)
+    exps = B * Hs * (2 * pairs + 2 * S)
+    # the least time on the tensor cores (bf16 peak), and the same work on
+    # the f32 units outside them, where this kernel runs it
+    f32 = _bound(nbytes, flops, F32_FLOPS, exps=exps)
+    bwd = {"shape": shape, **held, "device_ops": device_ops,
+           "library_ms": None,
+           "ms": _time_ms(lambda: dk.ssd_bwd(*args[:6], scratch, dy,
+                                             chunk=CHUNK), flush=True),
+           "plain_ms": plain_bwd_ms,
+           **_bound(nbytes, flops, BF16_TC_FLOPS, exps=exps),
+           "bound_f32_ms": f32["bound_ms"], "bound_f32_by": f32["bound_by"]}
+    for row in (fwd, bwd):
+        row.update(_factors(row))
+    log({"check": "ssd_bwd@zamba2-1.2b", "forward": fwd, "backward": bwd})
+    return [fwd, bwd]
+
+
 def _rss_gb() -> dict:
     """The process's resident host memory (``/proc``) and its peak so far
     (``getrusage``), GB."""
@@ -4376,12 +4649,18 @@ def _leaf_shares(got, want, prefix: str = "") -> dict:
     return out
 
 
-def _first_step(card: str) -> dict:
-    """The first step of the smoke's run (seed 0, step 0's batch) under the
-    kernels and under the plain versions, from one initial state: the loss,
-    the grad norm and every gradient leaf, layer by layer, held together;
-    a planted fault (the last layer's attention-norm gradient 20 % too
-    large) must read above the leaves' limit."""
+def _first_step(cfg, B: int, S: int, plant: tuple[str, ...],
+                profile: bool = False) -> dict:
+    """The first step of a training run of ``cfg`` (seed 0, step 0's batch
+    of B rows of S tokens) under the kernels and under the plain versions,
+    from one initial state: the loss, the grad norm and every gradient leaf,
+    layer by layer, held together; a planted fault (the last layer's slice
+    of the leaf at ``plant`` 20 % too large) must read above the leaves'
+    limit. Beside them a control, not a gate: the plain step with one bf16
+    ulp added to one embedding value (the first token's first), whose
+    leaf shares against the plain step say how far rounding alone moves
+    the gradient at this depth. With ``profile``, a second kernel step is
+    profiled."""
     import torch
 
     from repro_torch.config import RunConfig
@@ -4393,19 +4672,21 @@ def _first_step(card: str) -> dict:
     from repro_torch.training.state import init_train_state
     from repro_torch.training.step import make_train_step
 
-    cfg = get("smollm-360m")
     model = get_model(cfg)
     step = make_train_step(model, RunConfig(arch=cfg.arch_id))
     batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticDataset(
-        cfg, TRAIN["S"], TRAIN["B"], 0).batch(0).items()}
+        cfg, S, B, 0).batch(0).items()}
     out, mu = {}, {}
-    for name in ("kernel", "plain"):
+    for name in ("kernel", "plain", "control"):
         state = init_train_state(model, 0, "cuda")
-        with ops.use_backend(name):
+        if name == "control":
+            t0 = int(batch["tokens"][0, 0])
+            state["params"]["embedding"][t0, 0] *= 1 + 2 ** -7
+        with ops.use_backend("kernel" if name == "kernel" else "plain"):
             state, m = step(state, batch)
         out[name] = {k: float(m[k]) for k in ("loss", "grad_norm", "ce")}
         mu[name] = tree_map(torch.clone, state["opt"]["mu"])
-        if name == "kernel":
+        if name == "kernel" and profile:
             out["profile"] = _profile_step(step, state, batch)
         del state, m
     gc.collect()
@@ -4417,9 +4698,14 @@ def _first_step(card: str) -> dict:
     leaves = {n: max(float("inf") if x != x else x for x in v)
               for n, v in by_layer.items()}
     worst = max(leaves, key=leaves.get)
-    mu["kernel"]["layers"]["attn"]["ln"][-1] *= 1.2
+    control = {n: max(v) for n, v in _leaf_shares(mu["control"],
+                                                  mu["plain"]).items()}
+    leaf = mu["kernel"]
+    for k in plant:
+        leaf = leaf[k]
+    leaf[-1] *= 1.2
     planted = _leaf_shares(mu["kernel"], mu["plain"])[
-        "/layers/attn/ln"][-1]
+        "/" + "/".join(plant)][-1]
     del mu
     gc.collect()
     torch.cuda.empty_cache()
@@ -4429,14 +4715,16 @@ def _first_step(card: str) -> dict:
                leaf_shares=leaves, worst_leaf=worst,
                worst_leaf_by_layer=by_layer[worst],
                leaf_share_limit=FIRST_STEP_LEAF_SHARE,
-               planted_leaf_share=planted)
+               planted_leaf_share=planted,
+               control_leaf_share=max(control.values()),
+               control_worst_leaf=max(control, key=control.get))
     if (d_loss > FIRST_STEP_LOSS_ATOL or d_norm > FIRST_STEP_NORM_REL
             or not leaves[worst] <= FIRST_STEP_LEAF_SHARE):
-        raise AssertionError(f"train: the first step's kernel and plain "
-                             f"runs disagree: {out}")
+        raise AssertionError(f"train {cfg.arch_id}: the first step's kernel "
+                             f"and plain runs disagree: {out}")
     if not planted > FIRST_STEP_LEAF_SHARE:
-        raise AssertionError(f"train: a planted gradient fault passes the "
-                             f"leaf check: {planted}")
+        raise AssertionError(f"train {cfg.arch_id}: a planted gradient fault "
+                             f"passes the leaf check: {planted}")
     return out
 
 
@@ -4450,8 +4738,11 @@ def phase_train_run(card: str) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_cli
 
+    from repro_torch.configs import get
+
     want = _rehearsed_counters()
-    first = _first_step(card)
+    first = _first_step(get("smollm-360m"), TRAIN["B"], TRAIN["S"],
+                        ("layers", "attn", "ln"), profile=True)
     out = {"phase": "train", "arch": "smollm-360m", "card": card,
            "seq": TRAIN["S"], "batch": TRAIN["B"], **TRAIN_RUN,
            "first_step": first, "rehearsed": want}
@@ -4534,25 +4825,47 @@ def _digest(state) -> list:
     return out
 
 
-def phase_train_qwen(card: str) -> dict:
-    """c. qwen3-8b at published widths, its depth cut to 8 of 36 layers:
-    3 steps at B 2, S 2048, twice from one seed; finite losses, the two
-    runs bitwise equal (losses, grad norms, every leaf's digest)."""
-    from dataclasses import replace
+# the kernels each training path launches (forward and backward)
+TRAIN_PATH = {
+    "qwen3-8b": ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                 "flash_attention_bwd"),
+    "falcon-mamba-7b": ("rmsnorm", "rmsnorm_bwd", "selective_scan",
+                        "selective_scan_bwd"),
+    "zamba2-1.2b": ("rmsnorm", "rmsnorm_bwd", "ssd", "ssd_bwd",
+                    "flash_attention", "flash_attention_bwd"),
+}
+# the recurrent families' training runs: published widths, B 2, S 2048, 3
+# steps twice; falcon-mamba-7b at 8 of 64 layers (its full depth's f32
+# state, ~7.2 B parameters x 16 bytes, does not fit one card), zamba2-1.2b
+# at full depth. The first-step gates against the plain step run at
+# ``gate_layers``: falcon-mamba at 2, where the plain scan's per-step
+# Python loop takes seconds; zamba2 at 7 (two of its seven shared-block
+# applications), where rounding alone stays under the leaf limit: at 38
+# and 14 layers one bf16 ulp on one embedding value moves a leaf as far
+# as the kernels do (a random-weight stack whose gradient norm is ~344
+# amplifies rounding). Readings: tools/train_gate_floor.py (PERF.md
+# section 6).
+SSM_TRAIN = {
+    "falcon-mamba-7b": dict(B=2, S=2048, layers=8, steps=3, gate_layers=2),
+    "zamba2-1.2b": dict(B=2, S=2048, layers=None, steps=3, gate_layers=7),
+}
 
+
+def _train_twice(cfg, q: dict, what: str) -> dict:
+    """``cfg`` trained ``q["steps"]`` steps at B ``q["B"]``, S ``q["S"]``,
+    twice from seed 0: finite losses, the two runs bitwise equal (losses,
+    grad norms, every leaf's digest), every kernel of its path
+    (``TRAIN_PATH``) launched and no plain version."""
     import numpy as np
     import torch
 
     from repro_torch.config import RunConfig
-    from repro_torch.configs import get
     from repro_torch.data.synthetic import SyntheticDataset
     from repro_torch.kernels import ops
     from repro_torch.models import get_model
     from repro_torch.training.state import init_train_state
     from repro_torch.training.step import make_train_step
 
-    q = QWEN_TRAIN
-    cfg = replace(get("qwen3-8b"), n_layers=q["layers"])
     model = get_model(cfg)
     step = make_train_step(model, RunConfig(arch=cfg.arch_id))
     data = SyntheticDataset(cfg, q["S"], q["B"], 0)
@@ -4575,31 +4888,71 @@ def phase_train_qwen(card: str) -> dict:
                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                      "launches": {k: v["launches"]
                                   for k, v in ops.counts().items()}})
-        _check_counts(ops.counts(), ("rmsnorm", "rmsnorm_bwd",
-                                     "flash_attention", "flash_attention_bwd"),
-                      "train qwen3-8b")
+        _check_counts(ops.counts(), TRAIN_PATH[cfg.arch_id], f"train {what}")
         del state, m
         gc.collect()
         torch.cuda.empty_cache()
     a, b = runs
     if not all(np.isfinite(m["loss"]) for m in a["metrics"]):
-        raise AssertionError(f"train qwen3-8b: a loss is not finite: "
+        raise AssertionError(f"train {what}: a loss is not finite: "
                              f"{a['metrics']}")
     if a["metrics"] != b["metrics"] or a["digest"] != b["digest"]:
-        raise AssertionError("train qwen3-8b: two runs from one state "
-                             "differ")
-    out = {"phase": "train_qwen3", "card": card, "arch": "qwen3-8b",
-           "reduced": {"n_layers": f"{q['layers']} of 36"},
-           "params": cfg.param_count(), "B": q["B"], "S": q["S"],
-           "metrics": a["metrics"], "step_ms": a["step_ms"],
+        raise AssertionError(f"train {what}: two runs from one state differ")
+    out = {"arch": cfg.arch_id, "params": cfg.param_count(), "B": q["B"],
+           "S": q["S"], "metrics": a["metrics"], "step_ms": a["step_ms"],
            "step_ms_second_run": b["step_ms"],
            "tokens_per_s": q["B"] * q["S"] / (statistics.median(
                a["step_ms"][1:]) / 1e3),
            "peak_gb": a["peak_gb"], "runs_bitwise_equal": True,
-           "launches": a["launches"]}
+           "launches": a["launches"],
+           "launches_per_step": {k: v / q["steps"]
+                                 for k, v in a["launches"].items()}}
     del model, runs
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_qwen(card: str) -> dict:
+    """c. qwen3-8b at published widths, its depth cut to 8 of 36 layers:
+    3 steps at B 2, S 2048, twice from one seed (``_train_twice``)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get
+
+    q = QWEN_TRAIN
+    cfg = replace(get("qwen3-8b"), n_layers=q["layers"])
+    out = {"phase": "train_qwen3", "card": card,
+           "reduced": {"n_layers": f"{q['layers']} of 36"},
+           **_train_twice(cfg, q, "qwen3-8b")}
+    log(out)
+    return out
+
+
+def phase_train_ssm(card: str, arch: str) -> dict:
+    """d. falcon-mamba-7b or zamba2-1.2b at published widths (``SSM_TRAIN``):
+    the first step against the plain step (``_first_step``'s limits) at
+    the gate's depth, then 3 steps at B 2, S 2048, twice from one seed
+    (``_train_twice``)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get
+
+    q = SSM_TRAIN[arch]
+    full = get(arch)
+
+    def cut(n):
+        return full if n is None else replace(full, n_layers=n)
+
+    gate = cut(q["gate_layers"])
+    first = _first_step(gate, q["B"], q["S"], ("layers", "ln"))
+    cfg = cut(q["layers"])
+    out = {"phase": "train_ssm", "card": card,
+           "reduced": ({} if q["layers"] is None else
+                       {"n_layers": f"{q['layers']} of {full.n_layers}"}),
+           "first_step": {"n_layers": f"{gate.n_layers} of {full.n_layers}",
+                          **first},
+           **_train_twice(cfg, q, arch)}
     log(out)
     return out
 
@@ -4608,7 +4961,8 @@ def phase_train(card: str) -> dict:
     """5. Training: a, the backward kernels (and the forwards they pair
     with) at the training shapes against plain autograd; b, smollm-360m
     trained through ``launch/train.py`` with a failure and without; c,
-    qwen3-8b at published widths, 8 of 36 layers."""
+    qwen3-8b at published widths, 8 of 36 layers; d, falcon-mamba-7b (8 of
+    64 layers) and zamba2-1.2b (full depth) at published widths."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(24)
@@ -4627,6 +4981,8 @@ def phase_train(card: str) -> dict:
            for key, what in (("rmsnorm@smollm", "smollm-360m block"),
                              ("rmsnorm@qwen3-qk", "qwen3-8b qk"),
                              ("rmsnorm@qwen3", "qwen3-8b block"))},
+        "scan@falcon": check_scan_bwd(gen, parts["scan_bwd_ops"]),
+        "ssd@zamba2": check_ssd_bwd(gen, parts["ssd_bwd_ops"]),
     }
     # K-a at a serving shape: lse on leaves the output's bits
     from repro_torch.kernels import flash_attention as fk
@@ -4645,11 +5001,16 @@ def phase_train(card: str) -> dict:
     run = phase_train_run(card)
     t2 = time.perf_counter()
     qwen = phase_train_qwen(card)
-    log({"phase_seconds": {"train_kernels": round(t1 - t0, 3),
-                           "train_smollm": round(t2 - t1, 3),
-                           "train_qwen3": round(time.perf_counter() - t2, 3)},
-         "arch": "train"})
-    return {"checks": checks, "run": run, "qwen": qwen}
+    seconds = {"train_kernels": round(t1 - t0, 3),
+               "train_smollm": round(t2 - t1, 3),
+               "train_qwen3": round(time.perf_counter() - t2, 3)}
+    ssm = {}
+    for arch in SSM_TRAIN:
+        t = time.perf_counter()
+        ssm[arch] = phase_train_ssm(card, arch)
+        seconds[f"train_{arch}"] = round(time.perf_counter() - t, 3)
+    log({"phase_seconds": seconds, "arch": "train"})
+    return {"checks": checks, "run": run, "qwen": qwen, **ssm}
 
 
 # ---------------------------------------------------------------------------
@@ -4692,6 +5053,13 @@ ROUTES = {
     "rmsnorm_bwd": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:48 (its backward: XLA's "
                     "autodiff of repro/kernels/ops.py:35)"),
+    "selective_scan_bwd": (
+        "cuda", "src/repro_torch/csrc/selective_scan_bwd.cu",
+        "src/repro/kernels/selective_scan.py:111 (its backward: XLA's "
+        "autodiff of repro/kernels/ops.py:434-485)"),
+    "ssd_bwd": ("cuda", "src/repro_torch/csrc/ssd_bwd.cu",
+                "src/repro/kernels/ssd.py:112 (its backward: XLA's autodiff "
+                "of repro/kernels/ops.py:534-585)"),
 }
 # the training path's rows: (kernel, check, row, model, whose launches)
 TRAIN_ROWS = [
@@ -4704,7 +5072,17 @@ TRAIN_ROWS = [
     ("rmsnorm", "rmsnorm@qwen3", 0, "qwen3-8b", "qwen"),
     ("rmsnorm_bwd", "rmsnorm@qwen3", 1, "qwen3-8b", "qwen"),
     ("rmsnorm_bwd", "rmsnorm@qwen3-qk", 1, "qwen3-8b", "qwen"),
+    ("selective_scan", "scan@falcon", 0, "falcon-mamba-7b",
+     "falcon-mamba-7b"),
+    ("selective_scan_bwd", "scan@falcon", 1, "falcon-mamba-7b",
+     "falcon-mamba-7b"),
+    ("ssd", "ssd@zamba2", 0, "zamba2-1.2b", "zamba2-1.2b"),
+    ("ssd_bwd", "ssd@zamba2", 1, "zamba2-1.2b", "zamba2-1.2b"),
 ]
+# each training row's path: the model and the depth it trains at
+TRAIN_PATH_NAME = {"smollm-360m": "train", "qwen3-8b": "train (8 of 36 layers)",
+                   "falcon-mamba-7b": "train (8 of 64 layers)",
+                   "zamba2-1.2b": "train"}
 # the check row that stands for each (kernel, model) in the summary line:
 # the decode step's block norm (d 4096, or zamba2's d 2048), the paged and
 # the dense decode cases, the longest prefill chunk (q_offset 1280), the SSM
@@ -4814,24 +5192,39 @@ CELL_SUMMARY_ROW = {"rmsnorm": ("rmsnorm", 0),
                     "gemm_rows": ("gemm_rows", -2)}
 
 
+# the serving paths whose depth is cut, so that the smoke with its training
+# runs stays within its time limit (widths are never cut): falcon-mamba-7b's
+# phases took 156 s at 64 layers (its logits phase's plain scan 59 s),
+# deepseek-moe-16b's 95 s at 28 (PERF.md section 4)
+SERVE_LAYERS = {"falcon-mamba-7b": 16, "deepseek-moe-16b": 8}
+
+
 def run_model(arch: str, card: str) -> dict:
     """Serve, profile, logits, dense and continuity phases of one model of
-    ``FULL_RUN`` at full width, for qwen3-8b the spill, spec and batch
+    ``FULL_RUN`` at full width (``SERVE_LAYERS`` cuts the depth of two of
+    them), for qwen3-8b the spill, spec and batch
     phases, for deepseek-moe-16b the self-draft spec phase, for
     whisper-medium the cross spill (their numbers printed beside ``card``,
     the card's name and power limit); a short paged serve of any other
     model, and granite-moe's logits. Its weights and caches are freed
     before returning."""
+    from dataclasses import replace
+
     import torch
 
     from repro_torch.configs import get
     from repro_torch.models import get_model
 
-    model = get_model(get(arch))
+    cfg = get(arch)
+    depth = cfg.n_layers
+    if arch in SERVE_LAYERS:
+        cfg = replace(cfg, n_layers=SERVE_LAYERS[arch])
+    model = get_model(cfg)
     t0 = time.perf_counter()
     params = model.init(0, device="cuda")
     torch.cuda.synchronize()
     log({"phase": "init", "arch": arch, "seconds": time.perf_counter() - t0,
+         "n_layers": f"{cfg.n_layers} of {depth}",
          "weights_gb": sum(p.numel() * p.element_size()
                            for p in params.parameters()) / 1e9})
     full = arch in FULL_RUN
@@ -4922,7 +5315,8 @@ def main() -> int:
                                    "x_library", "x_bound", "shape")},
             **{k: row[k] for k in ("bound_f32_ms", "one_row_ms",
                                    "grad_tile_share", "dw_rel", "parts_ms",
-                                   "executed_flop_per_pair")
+                                   "executed_flop_per_pair", "f32_grad_rel",
+                                   "device_ops")
                if k in row}})
 
     for arch, rows in SUMMARY_ROW.items():
@@ -4955,8 +5349,11 @@ def main() -> int:
     train = phase_train(device["smi"])
     checks.update(train["checks"])
     for name, check, i, arch, whose in TRAIN_ROWS:
-        path = "train" if arch == "smollm-360m" else "train (8 of 36 layers)"
-        row_of(name, check, i, arch, path, train[whose]["launches"][name])
+        per_step = train[whose].get("launches_per_step", {}).get(name)
+        row_of(name, check, i, arch, TRAIN_PATH_NAME[arch],
+               train[whose]["launches"][name],
+               **({} if per_step is None else
+                  {"launches_per_step": per_step}))
     log({"phase_seconds": {"train": round(time.perf_counter() - t2, 3)}})
     log({"kernels": kernels})
     log(device["smi"])

@@ -68,6 +68,11 @@
 //   register file full at ~126 registers a thread); 213 KB at N = 64 (one
 //   block). A Di that is not a multiple of 8, or an x, dt or y off 16
 //   bytes, takes a scalar staging path with the same arithmetic.
+// - For training, the call may also save the f32 state entering each tile,
+//   (B, tiles, Di, N), tile 0's being h0 (hsave; null when serving). It is
+//   the carried value the next tile starts from, stored while the tile is
+//   staged; no operation of the scan changes, so y and hT keep their bits.
+//   selective_scan_bwd.cu replays each tile from it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -193,6 +198,7 @@ __global__ void __launch_bounds__(THREADS, N <= 16 ? 2 : 1) selective_scan_kerne
     const float* __restrict__ h0,          // (B, Di, N)
     __nv_bfloat16* __restrict__ y,         // (B, S, Di)
     float* __restrict__ hT,                // (B, Di, N)
+    float* __restrict__ hsave,             // (B, tiles, Di, N) or null
     int S, int Di) {
     extern __shared__ __align__(16) unsigned char smem[];
     // bf16 tiles held as their 16-bit patterns
@@ -254,6 +260,12 @@ __global__ void __launch_bounds__(THREADS, N <= 16 ? 2 : 1) selective_scan_kerne
             }
         }
         store_bc<N>(bw, cw, BT, CTs);
+        // the state entering this tile (no thread writes hs until the
+        // barrier below)
+        if (hsave)
+            for (int i = tid; i < CT * N; i += THREADS)
+                if (c0 + i / N < Di)
+                    hsave[(((size_t)b * ntiles + k) * Di + c0) * N + i] = hs[i];
         __syncthreads();
         if (VEC && k + 1 < ntiles)
             issue_tile(xr, dr, x, dt, b, S, Di, c0, t0 + TT,
@@ -377,7 +389,8 @@ __global__ void __launch_bounds__(THREADS, N <= 16 ? 2 : 1) selective_scan_kerne
 template <int N, bool VEC>
 static int launch(const void* x, const void* dt, const void* A, const void* Bm,
                   const void* C, const void* D, const void* h0, void* y,
-                  void* hT, int B, int S, int Di, cudaStream_t stream) {
+                  void* hT, void* hsave, int B, int S, int Di,
+                  cudaStream_t stream) {
     const size_t bytes = Smem<N>::bytes(VEC);
     static bool ready = false;  // the shared-memory limit, set once
     if (!ready) {
@@ -391,34 +404,37 @@ static int launch(const void* x, const void* dt, const void* A, const void* Bm,
     selective_scan_kernel<N, VEC><<<grid, THREADS, bytes, stream>>>(
         (const __nv_bfloat16*)x, (const __nv_bfloat16*)dt, (const float*)A,
         (const __nv_bfloat16*)Bm, (const __nv_bfloat16*)C, (const float*)D,
-        (const float*)h0, (__nv_bfloat16*)y, (float*)hT, S, Di);
+        (const float*)h0, (__nv_bfloat16*)y, (float*)hT, (float*)hsave, S,
+        Di);
     return (int)cudaGetLastError();
 }
 
 template <int N>
 static int launch_n(const void* x, const void* dt, const void* A,
                     const void* Bm, const void* C, const void* D,
-                    const void* h0, void* y, void* hT, int B, int S, int Di,
-                    int vec, cudaStream_t st) {
-    return vec ? launch<N, true>(x, dt, A, Bm, C, D, h0, y, hT, B, S, Di, st)
-               : launch<N, false>(x, dt, A, Bm, C, D, h0, y, hT, B, S, Di, st);
+                    const void* h0, void* y, void* hT, void* hs, int B,
+                    int S, int Di, int vec, cudaStream_t st) {
+    return vec ? launch<N, true>(x, dt, A, Bm, C, D, h0, y, hT, hs, B, S, Di, st)
+               : launch<N, false>(x, dt, A, Bm, C, D, h0, y, hT, hs, B, S, Di, st);
 }
 
 // vec: Di is a multiple of 8 and x, dt and y are 16-byte aligned (16-byte
-// staging and stores); else the scalar path. Returns cudaGetLastError()
+// staging and stores); else the scalar path. hsave: null, or (B,
+// ceil(S / 256), Di, N) f32 for the state entering each tile. Returns
+// cudaGetLastError()
 // after the launch; cudaErrorInvalidValue for a state size the kernel has
 // no instance for.
 extern "C" int selective_scan_bf16(
     const void* x, const void* dt, const void* A, const void* Bm,
     const void* C, const void* D, const void* h0, void* y, void* hT,
-    int B, int S, int Di, int N, int vec, void* stream) {
+    void* hsave, int B, int S, int Di, int N, int vec, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     switch (N) {
-        case 4: return launch_n<4>(x, dt, A, Bm, C, D, h0, y, hT, B, S, Di, vec, st);
-        case 8: return launch_n<8>(x, dt, A, Bm, C, D, h0, y, hT, B, S, Di, vec, st);
-        case 16: return launch_n<16>(x, dt, A, Bm, C, D, h0, y, hT, B, S, Di, vec, st);
-        case 32: return launch_n<32>(x, dt, A, Bm, C, D, h0, y, hT, B, S, Di, vec, st);
-        case 64: return launch_n<64>(x, dt, A, Bm, C, D, h0, y, hT, B, S, Di, vec, st);
+        case 4: return launch_n<4>(x, dt, A, Bm, C, D, h0, y, hT, hsave, B, S, Di, vec, st);
+        case 8: return launch_n<8>(x, dt, A, Bm, C, D, h0, y, hT, hsave, B, S, Di, vec, st);
+        case 16: return launch_n<16>(x, dt, A, Bm, C, D, h0, y, hT, hsave, B, S, Di, vec, st);
+        case 32: return launch_n<32>(x, dt, A, Bm, C, D, h0, y, hT, hsave, B, S, Di, vec, st);
+        case 64: return launch_n<64>(x, dt, A, Bm, C, D, h0, y, hT, hsave, B, S, Di, vec, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -29,8 +29,8 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 SOURCES = ("rmsnorm", "paged_decode_attention", "decode_attention",
-           "flash_attention", "flash_attention_bwd", "selective_scan", "ssd",
-           "gemm_rows", "moe_route")
+           "flash_attention", "flash_attention_bwd", "selective_scan",
+           "selective_scan_bwd", "ssd", "ssd_bwd", "gemm_rows", "moe_route")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -22,11 +22,13 @@ all experts of an MoE layer, and ``moe_route``, the MoE router
 ``ssd_step`` have no TPU kernel (the JAX package runs them through XLA on
 every backend): they are plain code on every device, and not counted.
 
-Training differentiates ``attention`` and ``rmsnorm``. When an input needs
-a gradient, a CUDA tensor goes through the ``torch.autograd.Function``
-of the kernel (``flash_attention.FlashAttention``, ``rmsnorm.RMSNorm``),
-whose backward is a hand-written kernel too (``flash_attention_bwd``,
-``rmsnorm_bwd``, counted in ``counts()``); a CPU tensor, or any under
+Training differentiates ``attention``, ``rmsnorm``, ``selective_scan`` and
+``ssd``. When an input needs a gradient, a CUDA tensor goes through the
+``torch.autograd.Function`` of the kernel (``flash_attention.
+FlashAttention``, ``rmsnorm.RMSNorm``, ``selective_scan.SelectiveScan``,
+``ssd.SSD``), whose backward is a hand-written kernel too
+(``flash_attention_bwd``, ``rmsnorm_bwd``, ``selective_scan_bwd``,
+``ssd_bwd``, counted in ``counts()``); a CPU tensor, or any under
 ``use_backend("plain")``, goes to the plain version and autograd
 differentiates that: the oracle of the backward kernels. Such a call counts
 a plain call of the backward too. A call that needs no gradient (serving)
@@ -67,6 +69,8 @@ KERNELS = {
     "gemm_rows_grouped": _gemm.gemm_rows_grouped,
     "flash_attention_bwd": _flash.flash_attention_bwd,
     "rmsnorm_bwd": _rmsnorm.rmsnorm_bwd,
+    "selective_scan_bwd": _scan.selective_scan_bwd,
+    "ssd_bwd": _ssd.ssd_bwd,
 }
 plain_calls = {name: 0 for name in KERNELS}
 
@@ -107,8 +111,9 @@ def _plain(x: torch.Tensor, name: str) -> bool:
     return False
 
 
-def _needs_grad(*ts: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+def _needs_grad(*ts: torch.Tensor | None) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -296,8 +301,13 @@ def selective_scan(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mamba1 scan, f32 inside whatever the model's ``ssm_dtype`` (the TPU
     kernel ignores it too, ``repro/kernels/ops.py:423-429``)."""
+    grad = _needs_grad(x, dt, A, Bm, C, D, h0)
     if _plain(x, "selective_scan"):
+        if grad:
+            plain_calls["selective_scan_bwd"] += 1
         return ref.selective_scan(x, dt, A, Bm, C, D, h0)
+    if grad:
+        return _scan.SelectiveScan.apply(x, dt, A, Bm, C, D, h0)
     return _scan.selective_scan(x, dt, A, Bm, C, D, h0)
 
 
@@ -312,8 +322,13 @@ def ssd(
     *,
     chunk: int = 256,
 ) -> tuple[torch.Tensor, torch.Tensor]:
+    grad = _needs_grad(x, dt, A, Bm, C, D, h0)
     if _plain(x, "ssd"):
+        if grad:
+            plain_calls["ssd_bwd"] += 1
         return ref.ssd(x, dt, A, Bm, C, D, h0, chunk=chunk)
+    if grad:
+        return _ssd.SSD.apply(x, dt, A, Bm, C, D, h0, chunk)
     return _ssd.ssd(x, dt, A, Bm, C, D, h0, chunk=chunk)
 
 

@@ -273,6 +273,59 @@ def selective_scan(
     return y.to(x.dtype), h
 
 
+SCAN_TILE = 256  # the steps of one tile of the scan's kernels
+
+
+def selective_scan_bwd(x, dt, A, Bm, C, D, h0, dy, dhT=None):
+    """The gradients of :func:`selective_scan` for ``dy`` (y's gradient)
+    and ``dhT`` (hT's, or None), in closed form: the adjoint of the state,
+    ``g_t = dy_t C_t + exp(dt_{t+1} A) g_{t+1}``, walked back from ``dhT``
+    tile by tile (``SCAN_TILE`` steps), each tile's states replayed from the
+    state entering it, as the backward kernel does. Returns ``(dx, ddt, dA,
+    dB, dC, dD, dh0)`` in the types of ``x, dt, A, Bm, C, D`` and f32."""
+    b, s, di = x.shape
+    n = A.shape[1]
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf, Cf, dyf = Bm.float(), C.float(), dy.float()
+    h = (torch.zeros(b, di, n, dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+
+    def step(t, h):
+        return (torch.exp(dtf[:, t, :, None] * Af) * h
+                + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :])
+
+    starts = []   # the state entering each tile
+    for t0 in range(0, s, SCAN_TILE):
+        starts.append(h)
+        for t in range(t0, min(t0 + SCAN_TILE, s)):
+            h = step(t, h)
+    # u: the adjoint reaching the state entering the step after t
+    u = torch.zeros_like(h) if dhT is None else dhT.float()
+    dx, ddt = torch.zeros_like(xf), torch.zeros_like(dtf)
+    dB, dC = torch.zeros_like(Bf), torch.zeros_like(Cf)
+    dA = torch.zeros_like(Af)
+    for k in reversed(range(len(starts))):
+        t0 = k * SCAN_TILE
+        hs = [starts[k]]
+        for t in range(t0, min(t0 + SCAN_TILE, s)):
+            hs.append(step(t, hs[-1]))
+        for t in reversed(range(t0, min(t0 + SCAN_TILE, s))):
+            a = torch.exp(dtf[:, t, :, None] * Af)
+            g = dyf[:, t, :, None] * Cf[:, t, None, :] + u
+            dC[:, t] = torch.einsum("bd,bdn->bn", dyf[:, t], hs[t - t0 + 1])
+            dB[:, t] = torch.einsum("bdn,bd->bn", g, dtf[:, t] * xf[:, t])
+            s1 = torch.einsum("bdn,bn->bd", g, Bf[:, t])
+            w = g * a * hs[t - t0]
+            dA += (w * dtf[:, t, :, None]).sum(0)
+            dx[:, t] = dtf[:, t] * s1
+            ddt[:, t] = xf[:, t] * s1 + (w * Af).sum(-1)
+            u = a * g
+    dx = dx + D.float() * dyf
+    dD = (dyf * xf).sum((0, 1))
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+            dB.to(Bm.dtype), dC.to(C.dtype), dD.to(D.dtype), u)
+
+
 def selective_scan_step(x, dt, A, Bm, C, D, h):
     """One decode step of the Mamba1 recurrence: x, dt (B, Di), Bm, C
     (B, N), h (B, Di, N) f32 -> (y (B, Di) in ``x.dtype``, new h)."""
@@ -283,6 +336,17 @@ def selective_scan_step(x, dt, A, Bm, C, D, h):
     y = torch.einsum("bdn,bn->bd", h_new, C.float())
     y = y + D.float()[None] * xf
     return y.to(x.dtype), h_new
+
+
+def _causal_decay(l: torch.Tensor, causal: torch.Tensor) -> torch.Tensor:
+    """``exp(l_i - l_j)`` for ``j <= i``, zero above the diagonal: the
+    exponent is masked to ``-inf`` before ``exp`` (as the kernel forms only
+    ``j <= i``), so a long chunk's ``exp(l_i - l_j)``, ``i < j``, never
+    overflows to ``inf``, whose product with the mask's zero gradient
+    would be NaN under autograd. l (B, c, Hs) -> (B, i, j, Hs)."""
+    ldiff = l[:, :, None, :] - l[:, None, :, :]
+    return torch.exp(ldiff.masked_fill(~causal[None, :, :, None],
+                                       float("-inf")))
 
 
 def ssd(
@@ -321,9 +385,7 @@ def ssd(
         Bc, Cc = Bf[:, c0:c0 + c], Cf[:, c0:c0 + c]
         l = torch.cumsum(dtc * Af[None, None], dim=1)         # (B,c,Hs)
         g = torch.einsum("bin,bjn->bij", Cc, Bc)               # (B,c,c)
-        ldiff = l[:, :, None, :] - l[:, None, :, :]            # (B,i,j,Hs)
-        decay = torch.where(causal[None, :, :, None], torch.exp(ldiff),
-                            torch.zeros((), device=x.device))
+        decay = _causal_decay(l, causal)                       # (B,i,j,Hs)
         m = g[..., None] * decay * dtc[:, None]                # (B,i,j,Hs)
         y_intra = torch.einsum("bijh,bjhp->bihp", m, xc)
         y_inter = torch.einsum("bin,bhpn,bih->bihp", Cc, h, torch.exp(l))
@@ -334,6 +396,91 @@ def ssd(
     y = torch.cat(ys, dim=1)[:, :s]
     y = y + D.float()[None, None, :, None] * xf[:, :s]
     return y.to(x.dtype), h
+
+
+def ssd_bwd(x, dt, A, Bm, C, D, h0, dy, dhT=None, *, chunk: int = 256):
+    """The gradients of :func:`ssd` for ``dy`` and ``dhT`` (or None), as
+    the transposes of its chunked form, the chunks in reverse order: the
+    state's gradient ``dH_c = exp(L_c) dH_{c+1} + sum_i exp(l_i) dy_i^T
+    C_i`` (L_c the chunk's last ``l``), and per chunk and head the
+    products' transposes (``dx`` from ``M^T dy`` and the exiting state's
+    gradient, ``dM = dy x^T`` on the causal triangle giving ``dG`` and so
+    ``dB``, ``dC``), ``d(dt)`` through the weights and through ``l``'s
+    reverse cumsum, ``dA`` and ``dD``. Returns ``(dx, ddt, dA, dB, dC, dD,
+    dh0)`` in the types of ``x, dt, A, Bm, C, D`` and f32."""
+    b, s, hs, p = x.shape
+    n = Bm.shape[-1]
+    c = max(1, min(chunk, s))
+    pad = (-s) % c
+    F = torch.nn.functional
+    xf = F.pad(x.float(), (0, 0, 0, 0, 0, pad))
+    dyf = F.pad(dy.float(), (0, 0, 0, 0, 0, pad))
+    dtf = F.pad(dt.float(), (0, 0, 0, pad))
+    Bf = F.pad(Bm.float(), (0, 0, 0, pad))
+    Cf = F.pad(C.float(), (0, 0, 0, pad))
+    Af = A.float()
+    h = (torch.zeros(b, hs, p, n, dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    causal = torch.ones(c, c, dtype=torch.bool, device=x.device).tril()
+    ls, states = [], []   # each chunk's l and entering state
+    for c0 in range(0, s + pad, c):
+        dtc, Bc, xc = dtf[:, c0:c0 + c], Bf[:, c0:c0 + c], xf[:, c0:c0 + c]
+        l = torch.cumsum(dtc * Af[None, None], dim=1)
+        ls.append(l)
+        states.append(h)
+        rev = torch.exp(l[:, -1:, :] - l)
+        h = (torch.exp(l[:, -1])[:, :, None, None] * h
+             + torch.einsum("bjh,bjn,bjhp->bhpn", rev * dtc, Bc, xc))
+    dH = torch.zeros_like(h) if dhT is None else dhT.float()
+    dx, ddt = torch.zeros_like(xf), torch.zeros_like(dtf)
+    dB, dC = torch.zeros_like(Bf), torch.zeros_like(Cf)
+    dA = torch.zeros_like(Af)
+    for k in reversed(range(len(ls))):
+        c0 = k * c
+        sl = slice(c0, c0 + c)
+        xc, dyc, dtc = xf[:, sl], dyf[:, sl], dtf[:, sl]
+        Bc, Cc, l, H = Bf[:, sl], Cf[:, sl], ls[k], states[k]
+        L = l[:, -1]                                            # (B,Hs)
+        g = torch.einsum("bin,bjn->bij", Cc, Bc)
+        E = _causal_decay(l, causal)                            # (B,i,j,Hs)
+        dM = torch.einsum("bihp,bjhp->bijh", dyc, xc)
+        M = g[..., None] * E * dtc[:, None]
+        dG = dM * E * dtc[:, None]
+        R = dM * M
+        # the masked product y_i += sum_j M_ij x_j
+        dxc = torch.einsum("bijh,bihp->bjhp", M, dyc)
+        dCc = torch.einsum("bijh,bjn->bin", dG, Bc)
+        dBc = torch.einsum("bijh,bin->bjn", dG, Cc)
+        ddtc = torch.einsum("bijh,bij,bijh->bjh", dM, g, E)
+        dl = R.sum(2) - R.sum(1)
+        # the carried state's read y_i += exp(l_i) C_i H^T
+        eL = torch.exp(l)
+        q = torch.einsum("bihp,bhpn,bih->bihn", dyc, H, eL)
+        dCc = dCc + q.sum(2)
+        dl = dl + torch.einsum("bihn,bin->bih", q, Cc)
+        dH_in = torch.einsum("bihp,bin,bih->bhpn", dyc, Cc, eL)
+        # the state's update H' = exp(L) H + sum_j w_j x_j B_j^T
+        decay = torch.exp(L[:, None] - l)
+        w = decay * dtc
+        v = torch.einsum("bhpn,bjn->bjhp", dH, Bc)
+        dxc = dxc + w[..., None] * v
+        dw = (xc * v).sum(-1)
+        dBc = dBc + torch.einsum("bjh,bhpn,bjhp->bjn", w, dH, xc)
+        ddtc = ddtc + dw * decay
+        dl = dl - dw * w
+        dl[:, -1] += (dw * w).sum(1) + torch.exp(L) * (dH * H).sum((-1, -2))
+        dH = dH_in + torch.exp(L)[:, :, None, None] * dH
+        # l = cumsum(dt A): its gradient summed from each step to the end
+        rc = torch.flip(torch.cumsum(torch.flip(dl, (1,)), 1), (1,))
+        ddt[:, sl] = ddtc + rc * Af
+        dA += (rc * dtc).sum((0, 1))
+        dx[:, sl], dB[:, sl], dC[:, sl] = dxc, dBc, dCc
+    xs = xf[:, :s]
+    dx = dx[:, :s] + D.float()[None, None, :, None] * dyf[:, :s]
+    dD = (dyf[:, :s] * xs).sum((0, 1, 3))
+    return (dx.to(x.dtype), ddt[:, :s].to(dt.dtype), dA.to(A.dtype),
+            dB[:, :s].to(Bm.dtype), dC[:, :s].to(C.dtype), dD.to(D.dtype),
+            dH)
 
 
 def ssd_step(x, dt, A, Bm, C, D, h):

@@ -15,6 +15,17 @@ wrapper allocates the scratch between them (l, the per-chunk states and
 decays) as one f32 buffer per call; the per-head arrival counters are the
 device's shared zeroed buffer (``_flash_decode.counters``), which the
 kernel leaves at zero.
+
+Training needs the gradient: :class:`SSD` is the
+``torch.autograd.Function`` whose forward is this kernel, keeping its
+scratch buffer (each chunk's ``l``, entering state and decay: what the
+backward reads, so nothing is recomputed, and serving's bits are those of
+the same launches), and whose backward is the hand-written kernel of
+``csrc/ssd_bwd.cu`` (:func:`ssd_bwd`, three launches: the state's gradient
+passed over the chunks in reverse, the transposed products per (chunk,
+head), the sums over heads, chunks and batch rows in one fixed order). Its
+plain version is ``ref.ssd_bwd``. A backward call counts one in
+``ssd_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -32,12 +43,22 @@ MAX_N = 64      # N: a multiple of 8 up to 64
 MAX_CHUNK = 256
 
 _ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p]
 
 
 @functools.cache
 def _lib():
     fn = _build.load("ssd").ssd_bf16
     fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_lib():
+    fn = _build.load("ssd_bwd").ssd_bwd_bf16
+    fn.argtypes = _BWD_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -74,6 +95,13 @@ def ssd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on CUDA tensors; returns ``y`` (B, S, Hs, P) bf16
     and ``hT`` (B, Hs, P, N) f32."""
+    return _forward(x, dt, A, Bm, C, D, h0, chunk)[:2]
+
+
+def _forward(x, dt, A, Bm, C, D, h0, chunk):
+    """:func:`ssd`'s launches: ``(y, hT, scratch)``, the scratch the f32
+    buffer of l, the entering states and the decays (None without a step
+    or a launch)."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"ssd kernel needs CUDA, got {dev}")
@@ -97,8 +125,9 @@ def ssd(
     h0 = _check(h0, "h0", (B, Hs, P, N), f32, dev)
     y = torch.empty_like(x)
     if not S:  # no step: the state passes through
-        return y, h0.clone()
+        return y, h0.clone(), None
     hT = torch.empty_like(h0)
+    buf = None
     if B and Hs:
         n_l, n_s, n_d = scratch_sizes(B, S, Hs, P, N, c)
         buf = torch.empty(n_l + n_s + n_d, dtype=f32, device=dev)
@@ -112,7 +141,83 @@ def ssd(
                      _build.stream(dev))
         _build.check(err, "ssd")
         ssd.launches += 1
-    return y, hT
+    return y, hT, buf
 
 
 ssd.launches = 0
+
+
+def ssd_bwd(x, dt, A, Bm, C, D, scratch, dy, dhT=None, *, chunk: int = 256):
+    """The backward kernel on CUDA tensors: the gradients of :func:`ssd`
+    for ``dy`` (y's gradient, bf16) and ``dhT`` (hT's, f32, or None), from
+    the forward's inputs and ``scratch``, the buffer its launches filled
+    (:func:`_forward`). Returns ``(dx, ddt, dA, dB, dC, dD, dh0)``: bf16,
+    bf16, f32, bf16, bf16, f32, f32."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"ssd_bwd kernel needs CUDA, got {dev}")
+    B, S, Hs, P = x.shape
+    N = Bm.shape[-1]
+    c = max(1, min(chunk, S))
+    bf, f32 = torch.bfloat16, torch.float32
+    x = _check(x, "x", (B, S, Hs, P), bf, dev)
+    dt = _check(dt, "dt", (B, S, Hs), bf, dev)
+    A = _check(A, "A", (Hs,), f32, dev)
+    Bm = _check(Bm, "Bm", (B, S, N), bf, dev)
+    C = _check(C, "C", (B, S, N), bf, dev)
+    D = _check(D, "D", (Hs,), f32, dev)
+    dy = _check(dy, "dy", (B, S, Hs, P), bf, dev)
+    if dhT is not None:
+        dhT = _check(dhT, "dhT", (B, Hs, P, N), f32, dev)
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dA, dD = torch.empty_like(A), torch.empty_like(D)
+    dB, dC = torch.empty_like(Bm), torch.empty_like(C)
+    dh0 = torch.empty(B, Hs, P, N, dtype=f32, device=dev)
+    if scratch is None:   # no step or no head: zeros, dh0 = dhT
+        for t in (dx, ddt, dA, dD, dB, dC):
+            t.zero_()
+        dh0.copy_(dhT if dhT is not None else torch.zeros_like(dh0))
+        return dx, ddt, dA, dB, dC, dD, dh0
+    n_l, n_s, n_d = scratch_sizes(B, S, Hs, P, N, c)
+    if scratch.dtype != f32 or scratch.numel() != n_l + n_s + n_d:
+        raise ValueError("ssd_bwd kernel: scratch is not this call's")
+    chunks = -(-S // c)
+    dHn = torch.empty(B, Hs, chunks, P, N, dtype=f32, device=dev)
+    pBC = torch.empty(2, B, Hs, S, N, dtype=f32, device=dev)
+    pAD = torch.empty(2, B, Hs, chunks, dtype=f32, device=dev)
+    base = scratch.data_ptr()
+    ptr = (lambda t: t.data_ptr() if t is not None else None)
+    err = _bwd_lib()(*map(ptr, (x, dt, A, Bm, C, D, dy, dhT)), base,
+                     base + 4 * n_l, base + 4 * (n_l + n_s),
+                     *map(ptr, (dHn, dx, ddt, dA, dB, dC, dD, dh0, pBC[0],
+                                pBC[1], pAD[0], pAD[1])),
+                     B, S, Hs, P, N, c, _build.stream(dev))
+    _build.check(err, "ssd_bwd")
+    ssd_bwd.launches += 1
+    return dx, ddt, dA, dB, dC, dD, dh0
+
+
+ssd_bwd.launches = 0
+
+
+class SSD(torch.autograd.Function):
+    """The SSD with its gradient: the forward kernel keeping its scratch,
+    the backward kernel. ``h0`` may be None (zeros); ``chunk`` is not
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, C, D, h0, chunk: int):
+        y, hT, buf = _forward(x, dt, A, Bm, C, D, h0, chunk)
+        ctx.save_for_backward(x, dt, A, Bm, C, D, buf)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        x, dt, A, Bm, C, D, buf = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype)
+        grads = ssd_bwd(x, dt, A, Bm, C, D, buf, dy, dhT, chunk=ctx.chunk)
+        return (*(g.to(t.dtype) if need else None for g, t, need in zip(
+            grads, (x, dt, A, Bm, C, D, grads[6]), ctx.needs_input_grad)),
+            None)

@@ -7,7 +7,8 @@ injected failures exercise the §III-D restore path. The reference's flags
 given). REDUCED configs run the whole loop on the CPU; ``--full`` (the
 published widths and depth) is for the card. The families with a ported
 loss train: the dense decoders (``qwen3-8b``, ``smollm-360m``,
-``phi4-mini-3.8b``, ``minitron-4b``) and ``llava-next-mistral-7b``.
+``phi4-mini-3.8b``, ``minitron-4b``), ``llava-next-mistral-7b``, the SSM
+family (``falcon-mamba-7b``) and the hybrid (``zamba2-1.2b``).
 
 Sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (unless set) before CUDA starts:
 the step runs in torch's deterministic mode, which needs it for cuBLAS

@@ -10,11 +10,19 @@ application — dense ``att_k``/``att_v`` (n_apps, n_slots, max_seq, K, dh),
 or page pools ``att_k_pages``/``att_v_pages`` (n_apps, n_pages, P, K, dh);
 the Mamba2 ``conv`` (L, n_slots, W-1, Di+2N) bf16 and ``ssm`` (L, n_slots,
 Hs, P, N) f32 states stay dense per slot in both and are updated in place.
+
+Training: :func:`loss_fn` follows the reference's segments
+(``repro/models/hybrid.py:205-225``): the shared block before each
+segment, recomputed in the backward (the reference's ``jax.checkpoint``),
+then the segment's Mamba2 layers (:func:`_mix`, the body :func:`_block`
+serves with, from zero states), each rematerialized per ``remat_policy``;
+the SSD's gradient is the backward kernel on the card (``ops.ssd``).
 """
 
 from __future__ import annotations
 
 import functools
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +34,7 @@ from repro_torch.models import layers as ll
 from repro_torch.models.mamba import new_conv_state, silu, slot_state
 from repro_torch.models.model_api import (ModelFns, Params, PSpec, Tree,
                                           zeros_from_specs)
+from repro_torch.models.transformer import _cast, _remat
 
 
 def mamba2_block_specs(cfg: ModelConfig, layers: int) -> dict:
@@ -118,11 +127,14 @@ def _gate_out(lp: nn.Module, x: torch.Tensor, y: torch.Tensor,
     return x + y @ lp.out_proj
 
 
-def _block(lp: nn.Module, x: torch.Tensor, cfg: ModelConfig,
-           conv_state: torch.Tensor, ssm_state: torch.Tensor, valid: int):
-    """A prompt chunk through one Mamba2 block (``hybrid.py:68-118``); pads
-    past ``valid`` get ``dt = 0``, an identity step of the SSD recurrence.
-    Returns ``(out, new conv state, new ssm state (B, Hs, P, N))``."""
+def _mix(lp, x: torch.Tensor, cfg: ModelConfig,
+         conv_state: torch.Tensor | None = None,
+         ssm_state: torch.Tensor | None = None, valid: int | None = None):
+    """The Mamba2 block over a sequence (``hybrid.py:68-118``): ``x`` plus
+    its mixing, from ``conv_state`` and ``ssm_state`` (zeros when None, as
+    the training loss runs it). With ``valid``, pads past the ``valid``
+    leading tokens get ``dt = 0``, an identity step of the SSD recurrence.
+    Returns ``(out, the conv's input, new ssm state (B, Hs, P, N))``."""
     B, S, _ = x.shape
     h = ops.rmsnorm(x, lp.ln, cfg.norm_eps)
     z = h @ lp.wz
@@ -131,13 +143,23 @@ def _block(lp: nn.Module, x: torch.Tensor, cfg: ModelConfig,
     xbc = silu(ops.causal_conv1d(xbc, lp.conv_w, lp.conv_b, state=conv_state))
     xin, Bm, C = _split_xbc(xbc, cfg)
     dt = _dt(lp, h)
-    real = torch.arange(S, device=x.device)[None, :, None] < valid
-    dt = torch.where(real, dt, torch.zeros((), device=x.device))
+    if valid is not None:
+        real = torch.arange(S, device=x.device)[None, :, None] < valid
+        dt = torch.where(real, dt, torch.zeros((), device=x.device))
     A = -torch.exp(lp.A_log.float())
     xh = xin.reshape(B, S, cfg.n_ssm_heads, cfg.ssm_head_dim)
     y, hT = ops.ssd(xh, dt.to(xh.dtype), A, Bm, C, lp.D.float(),
                     h0=ssm_state, chunk=cfg.ssm_chunk)
     out = _gate_out(lp, x, y.reshape(B, S, cfg.d_inner), z, cfg)
+    return out, pre_conv, hT
+
+
+def _block(lp: nn.Module, x: torch.Tensor, cfg: ModelConfig,
+           conv_state: torch.Tensor, ssm_state: torch.Tensor, valid: int):
+    """A prompt chunk through one Mamba2 block; pads past ``valid`` get
+    ``dt = 0``, an identity step of the SSD recurrence. Returns ``(out, new
+    conv state, new ssm state (B, Hs, P, N))``."""
+    out, pre_conv, hT = _mix(lp, x, cfg, conv_state, ssm_state, valid)
     return out, new_conv_state(conv_state, pre_conv, valid), hT
 
 
@@ -177,14 +199,14 @@ def _decode_layers(params: HybridLM, cache: Tree, x: torch.Tensor, a: int,
 # ---------------------------------------------------------------------------
 
 
-def _shared_block(params: HybridLM, app: int, x: torch.Tensor,
+def _shared_block(sp, proj: torch.Tensor, x: torch.Tensor,
                   x0: torch.Tensor, cfg: ModelConfig, attend) -> torch.Tensor:
-    """Application ``app`` of the weight-shared attention + MLP block
-    (``hybrid.py:158-196``): ``attend(p, h)`` is the attention of this
-    call (a whole-prompt prefill, a prefill chunk or a decode step) on the
+    """An application of the weight-shared attention + MLP block ``sp``
+    (``hybrid.py:158-196``) through its input projection ``proj`` (its
+    ``app_proj`` row): ``attend(p, h)`` is the attention of this call (a
+    whole-prompt prefill, a prefill chunk or a decode step) on the
     application's cache."""
-    sp = params.shared
-    inp = torch.cat([x, x0], dim=-1) @ params.app_proj[app]
+    inp = torch.cat([x, x0], dim=-1) @ proj
     h = ops.rmsnorm(inp, sp.attn.ln, cfg.norm_eps)
     inp = inp + attend(sp.attn, h)
     h = ops.rmsnorm(inp, sp.mlp.ln, cfg.norm_eps)
@@ -242,7 +264,8 @@ def prefill_fn(params: HybridLM, batch: dict, cfg: ModelConfig):
         return out
 
     for app, a, b in segments(cfg):
-        x = _shared_block(params, app, x, x0, cfg, attend)
+        x = _shared_block(params.shared, params.app_proj[app], x, x0, cfg,
+                          attend)
         for i in range(a, b):
             x, cs, ss = _block(params.layers[i], x, cfg, state["conv"][i],
                                state["ssm"][i], S)
@@ -264,9 +287,11 @@ def decode_fn(params: HybridLM, cache: Tree, batch: dict,
     x = ll.embed_lookup(params, batch["tokens"])          # (B, 1, d)
     x0 = x
     for app, a, b in segments(cfg):
-        x = _shared_block(params, app, x, x0, cfg, lambda p, h: (
-            ll.attn_decode(p, h, cfg, rows, lengths, cache["att_k"][app],
-                           cache["att_v"][app])))
+        x = _shared_block(
+            params.shared, params.app_proj[app], x, x0, cfg,
+            lambda p, h: ll.attn_decode(p, h, cfg, rows, lengths,
+                                        cache["att_k"][app],
+                                        cache["att_v"][app]))
         x = _decode_layers(params, cache, x, a, b, cfg)
     x = ops.rmsnorm(x, params.final_ln, cfg.norm_eps)
     return ll.logits_last(params, x[:, 0], cfg)
@@ -307,9 +332,10 @@ def prefill_chunk_fn(params: HybridLM, cache: Tree, batch: dict,
     n_ctx = min((offset + x.shape[1] + P - 1) // P, table.shape[0])
     ctx = table[:n_ctx].long()
     for app, a, b in segments(cfg):
-        x = _shared_block(params, app, x, x0, cfg, lambda p, h: (
-            ll.attn_prefill_chunk(p, h, cfg, offset, rows, ctx, kp[app],
-                                  vp[app])))
+        x = _shared_block(
+            params.shared, params.app_proj[app], x, x0, cfg,
+            lambda p, h: ll.attn_prefill_chunk(p, h, cfg, offset, rows, ctx,
+                                               kp[app], vp[app]))
         for i in range(a, b):
             cs = slot_state(cache, "conv", i, slot, offset)
             ss = slot_state(cache, "ssm", i, slot, offset)
@@ -332,12 +358,64 @@ def decode_paged_fn(params: HybridLM, cache: Tree, batch: dict,
     rows = ll.decode_rows(cfg, positions, table, kp.shape[2])
     lengths = (positions + 1).to(torch.int32)
     for app, a, b in segments(cfg):
-        x = _shared_block(params, app, x, x0, cfg, lambda p, h: (
-            ll.attn_decode_paged(p, h, cfg, rows, lengths, kp[app], vp[app],
-                                 table)))
+        x = _shared_block(
+            params.shared, params.app_proj[app], x, x0, cfg,
+            lambda p, h: ll.attn_decode_paged(p, h, cfg, rows, lengths,
+                                              kp[app], vp[app], table))
         x = _decode_layers(params, cache, x, a, b, cfg)
     x = ops.rmsnorm(x, params.final_ln, cfg.norm_eps)
     return ll.logits_last(params, x[:, 0], cfg)
+
+
+# ---------------------------------------------------------------------------
+# Training: the loss over a layer-stacked f32 tree
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(tree: Tree, batch: dict, cfg: ModelConfig):
+    """The language-model loss of ``batch`` (``tokens``, ``labels`` (B, S)
+    int) under the layer-stacked f32 tree ``tree`` (``hybrid.py:205-225``):
+    before each segment the shared block, its weights and ``app_proj`` row
+    cast as the reference's ``ll.cast`` casts them, recomputed whole in the
+    backward; then the segment's Mamba2 layers (:func:`_mix` from zero
+    states) over views of their slices of the stacked leaves, each
+    rematerialized per ``cfg.remat_policy``. Returns (loss, {"ce",
+    "z_loss", "tokens"})."""
+    specs = build_specs(cfg)
+    top = SimpleNamespace(**{k: _cast(v, specs[k]) for k, v in tree.items()
+                             if k not in ("layers", "shared", "app_proj")})
+    x = ll.embed_lookup(top, batch["tokens"])
+    x0 = x
+    rows = ll.dense_rows(cfg, torch.arange(x.shape[1], device=x.device))
+    shared_names = [(g, k) for g in ("attn", "mlp")
+                    for k in sorted(tree["shared"][g])]
+    names = sorted(tree["layers"])
+    per_layer = list(zip(*(torch.unbind(tree["layers"][k]) for k in names)))
+    projs = torch.unbind(tree["app_proj"])
+
+    def shared(x, x0, proj, *leaves):
+        groups = {"attn": {}, "mlp": {}}
+        for (g, k), t in zip(shared_names, leaves):
+            groups[g][k] = _cast(t, specs["shared"][g][k])
+        sp = SimpleNamespace(attn=SimpleNamespace(**groups["attn"]),
+                             mlp=SimpleNamespace(**groups["mlp"]))
+        return _shared_block(sp, _cast(proj, specs["app_proj"]), x, x0, cfg,
+                             lambda p, h: ll.attn_forward(p, h, cfg, rows)[0])
+
+    def layer(x, *leaves):
+        lp = SimpleNamespace(**{k: _cast(t, specs["layers"][k])
+                                for k, t in zip(names, leaves)})
+        return _mix(lp, x, cfg)[0]
+
+    shared_body = _remat(shared, cfg, "full")
+    body = _remat(layer, cfg)
+    shared_leaves = [tree["shared"][g][k] for g, k in shared_names]
+    for app, a, b in segments(cfg):
+        x = shared_body(x, x0, projs[app], *shared_leaves)
+        for leaves in per_layer[a:b]:
+            x = body(x, *leaves)
+    x = ops.rmsnorm(x, tree["final_ln"], cfg.norm_eps)
+    return ll.lm_loss(top, x, batch["labels"], cfg)
 
 
 def make_model(cfg: ModelConfig) -> ModelFns:
@@ -354,4 +432,5 @@ def make_model(cfg: ModelConfig) -> ModelFns:
         # attention K/V pages could be shared, but the Mamba2 recurrent
         # state cannot be skipped: prefix sharing is bookkeeping only
         paged_state=True,
+        loss=functools.partial(loss_fn, cfg=cfg),
     )

@@ -10,11 +10,18 @@ through one scan per layer from a zero state; chunked prefill writes the
 slot's rows in place; decode is the ordinary batched step over every slot,
 for both engines (``mamba.py:257,261``). Layer ``l`` updates
 ``cache[...][l]`` in place, as the dense family updates its page pools.
+
+Training: :func:`loss_fn` runs the blocks' mixing (:func:`_mix`, the body
+:func:`_block` serves with) from zero states over views of the
+layer-stacked f32 tree, each layer rematerialized per ``remat_policy``
+(``repro/models/mamba.py:149-160``); the scan's gradient is the backward
+kernel on the card (``ops.selective_scan``).
 """
 
 from __future__ import annotations
 
 import functools
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +32,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as ll
 from repro_torch.models.model_api import (ModelFns, Params, PSpec, Tree,
                                           zeros_from_specs)
+from repro_torch.models.transformer import _cast, _remat
 
 
 def mamba_block_specs(cfg: ModelConfig, layers: int) -> dict:
@@ -108,12 +116,14 @@ def new_conv_state(conv_state: torch.Tensor, pre_conv: torch.Tensor,
     return ext[:, valid:valid + W1].to(torch.bfloat16)
 
 
-def _block(lp: nn.Module, x: torch.Tensor, cfg: ModelConfig,
-           conv_state: torch.Tensor, ssm_state: torch.Tensor, valid: int):
-    """A prompt chunk through one Mamba1 block. ``valid`` leading tokens
-    are real: pads get ``dt = 0``, an identity step of the recurrence, so
-    the carried state is exactly the state after ``valid`` tokens. Returns
-    ``(out, new conv state (B, W-1, Di) bf16, new ssm state (B, Di, N))``."""
+def _mix(lp, x: torch.Tensor, cfg: ModelConfig,
+         conv_state: torch.Tensor | None = None,
+         ssm_state: torch.Tensor | None = None, valid: int | None = None):
+    """The Mamba1 block over a sequence (``mamba.py:82-113``): ``x`` plus
+    its mixing, from ``conv_state`` and ``ssm_state`` (zeros when None, as
+    the training loss runs it). With ``valid``, pads past the ``valid``
+    leading tokens get ``dt = 0``, an identity step of the recurrence.
+    Returns ``(out, the conv's input (B, S, Di), new ssm state)``."""
     S = x.shape[1]
     h = ops.rmsnorm(x, lp.ln, cfg.norm_eps)
     xin = h @ lp.wx
@@ -121,12 +131,22 @@ def _block(lp: nn.Module, x: torch.Tensor, cfg: ModelConfig,
     pre_conv = xin
     xin = silu(ops.causal_conv1d(xin, lp.conv_w, lp.conv_b, state=conv_state))
     dt, Bm, C, A, D = _ssm_inputs(lp, xin)
-    real = torch.arange(S, device=x.device)[None, :, None] < valid
-    dt = torch.where(real, dt, torch.zeros((), device=x.device))
+    if valid is not None:
+        real = torch.arange(S, device=x.device)[None, :, None] < valid
+        dt = torch.where(real, dt, torch.zeros((), device=x.device))
     y, hT = ops.selective_scan(xin, dt.to(xin.dtype), A, Bm, C, D,
                                h0=ssm_state)
     y = y * silu(z)
-    out = x + y @ lp.out_proj
+    return x + y @ lp.out_proj, pre_conv, hT
+
+
+def _block(lp: nn.Module, x: torch.Tensor, cfg: ModelConfig,
+           conv_state: torch.Tensor, ssm_state: torch.Tensor, valid: int):
+    """A prompt chunk through one Mamba1 block. ``valid`` leading tokens
+    are real: pads get ``dt = 0``, an identity step of the recurrence, so
+    the carried state is exactly the state after ``valid`` tokens. Returns
+    ``(out, new conv state (B, W-1, Di) bf16, new ssm state (B, Di, N))``."""
+    out, pre_conv, hT = _mix(lp, x, cfg, conv_state, ssm_state, valid)
     return out, new_conv_state(conv_state, pre_conv, valid), hT
 
 
@@ -218,6 +238,39 @@ def decode_fn(params: MambaLM, cache: Tree, batch: dict,
     return ll.logits_last(params, x[:, 0], cfg)
 
 
+# ---------------------------------------------------------------------------
+# Training: the loss over a layer-stacked f32 tree
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(tree: Tree, batch: dict, cfg: ModelConfig):
+    """The language-model loss of ``batch`` (``tokens``, ``labels`` (B, S)
+    int) under the layer-stacked f32 tree ``tree`` (``mamba.py:149-160``):
+    each layer runs :func:`_mix` from zero states over views of its slice
+    of the stacked leaves, the ``cast`` ones in bf16 (the reference's
+    ``ll.cast`` at each use), rematerialized per ``cfg.remat_policy`` as the
+    dense family's layers are. Returns (loss, {"ce", "z_loss",
+    "tokens"})."""
+    specs = build_specs(cfg)
+    top = SimpleNamespace(**{k: _cast(v, specs[k]) for k, v in tree.items()
+                             if k != "layers"})
+    x = ll.embed_lookup(top, batch["tokens"])
+    names = sorted(tree["layers"])
+    # one unbind a leaf: its backward stacks the layers' gradients at once
+    per_layer = list(zip(*(torch.unbind(tree["layers"][k]) for k in names)))
+
+    def layer(x, *leaves):
+        lp = SimpleNamespace(**{k: _cast(t, specs["layers"][k])
+                                for k, t in zip(names, leaves)})
+        return _mix(lp, x, cfg)[0]
+
+    body = _remat(layer, cfg)
+    for leaves in per_layer:
+        x = body(x, *leaves)
+    x = ops.rmsnorm(x, tree["final_ln"], cfg.norm_eps)
+    return ll.lm_loss(top, x, batch["labels"], cfg)
+
+
 def make_model(cfg: ModelConfig) -> ModelFns:
     return ModelFns(
         cfg=cfg,
@@ -232,4 +285,5 @@ def make_model(cfg: ModelConfig) -> ModelFns:
         # recurrent state is not page-addressable: prefix sharing falls
         # back to trie bookkeeping only
         paged_state=True,
+        loss=functools.partial(loss_fn, cfg=cfg),
     )

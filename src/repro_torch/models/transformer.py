@@ -280,19 +280,21 @@ def _recompute(ctx, backend: str):
         yield
 
 
-def _remat(fn, cfg: ModelConfig):
-    """Wrap a layer function per ``cfg.remat_policy`` (``transformer.py:
-    93-101``): ``full`` recomputes the whole layer in the backward, ``dots``
-    keeps the matrix products' outputs and recomputes the rest, ``none``
-    keeps everything. The recompute runs under the kernel backend the
-    forward ran under (``ops.use_backend``): autograd runs a CUDA backward
-    on a thread of its own, which the scope does not reach."""
+def _remat(fn, cfg: ModelConfig, policy: str | None = None):
+    """Wrap a layer function per ``cfg.remat_policy``, or ``policy`` where
+    given (``transformer.py:93-101``): ``full`` recomputes the whole layer
+    in the backward, ``dots`` keeps the matrix products' outputs and
+    recomputes the rest, ``none`` keeps everything. The recompute runs
+    under the kernel backend the forward ran under (``ops.use_backend``):
+    autograd runs a CUDA backward on a thread of its own, which the scope
+    does not reach."""
     from torch.utils.checkpoint import (
         checkpoint,
         create_selective_checkpoint_contexts,
     )
 
-    if cfg.remat_policy == "none":
+    policy = policy or cfg.remat_policy
+    if policy == "none":
         return fn
 
     def run(*args):
@@ -300,7 +302,7 @@ def _remat(fn, cfg: ModelConfig):
 
         def contexts():
             fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
-            if cfg.remat_policy == "dots":
+            if policy == "dots":
                 fwd, rec = create_selective_checkpoint_contexts(
                     [torch.ops.aten.mm.default, torch.ops.aten.bmm.default])
             return fwd, _recompute(rec, backend)

@@ -61,7 +61,8 @@ def make_train_step(model: ModelFns, run: RunConfig):
     if model.loss is None:
         raise NotImplementedError(
             f"{model.cfg.arch_id}: the {model.cfg.family} family's loss is "
-            f"not ported yet (ROADMAP Queue 1)")
+            f"not ported yet (ROADMAP Queue 1); the dense, VLM, SSM and "
+            f"hybrid families train")
 
     def one_micro(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)

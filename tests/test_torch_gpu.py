@@ -1350,3 +1350,195 @@ def test_train_step_under_the_plain_backend_on_the_card():
             assert all(c["plain"] == 0 for c in counts.values())
             assert counts["rmsnorm_bwd"]["launches"] > 0
     assert abs(losses["plain"] - losses["kernel"]) <= 2e-2
+
+
+# the SSM backward kernels' limits: the bf16 gradients (dx, ddt, dB, dC)
+# per (batch, 64-step tile) within GRAD_TILE_SHARE of the tile's own size
+# in the Frobenius norm (both sides round to bf16 at the end: ~0.3 %); the
+# f32 ones (dA, dD, dh0) within F32_GRAD_REL of their largest magnitude
+GRAD_TILE_SHARE = 1e-2
+F32_GRAD_REL = 1e-3
+
+
+def _seq_share(got, want, tile: int = 64) -> float:
+    """The largest, over (batch, ``tile`` steps of dim 1) tiles of a
+    (B, S, ...) gradient, of ||got - want|| / ||want|| (Frobenius, f32).
+    NaN where a tile of ``want`` is all zero."""
+    import torch.nn.functional as F
+
+    B, S = want.shape[:2]
+
+    def sums(t):
+        t = F.pad(t.float().reshape(B, S, -1), (0, 0, 0, -S % tile))
+        return t.square().reshape(B, -1, tile * t.shape[-1]).sum(-1)
+
+    return float((sums(got.float() - want.float()) / sums(want)).max().sqrt())
+
+
+def _ssm_grads(fn, ins, douts, plain: bool):
+    """``fn(*ins)``'s outputs and the gradients of every input for
+    ``douts``, through the kernels or under the plain backend."""
+    leaves = [t.clone().requires_grad_() for t in ins]
+    with ops.use_backend("plain" if plain else "kernel"):
+        out = fn(*leaves)
+    return [o.detach() for o in out], torch.autograd.grad(out, leaves, douts)
+
+
+def _check_ssm_grads(got, again, want, seq: int) -> None:
+    """The first ``seq`` gradients are (B, S, ...) and bf16; the rest
+    f32."""
+    for i, (a, b, w) in enumerate(zip(got, again, want)):
+        assert a.dtype == w.dtype and a.shape == w.shape, i
+        assert torch.equal(a, b), f"gradient {i} differs between two runs"
+        if i < seq:
+            share = _seq_share(a, w)
+            assert share <= GRAD_TILE_SHARE, (i, share)
+            bad = a.clone()
+            bad[:, (a.shape[1] - 1) // 64 * 64:] *= 1.1
+            assert _seq_share(bad, w) > GRAD_TILE_SHARE, i
+        else:
+            assert _rel(a, w) <= F32_GRAD_REL, (i, _rel(a, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,Di,N,h0_scale", [
+    (2, 37, 200, 16, 0.1), (2, 300, 96, 8, 0.0), (2, 520, 64, 4, 0.1),
+    (1, 256, 37, 16, 0.1), (1, 2048, 512, 16, 0.1)])
+def test_scan_backward_matches_plain_autograd_on_the_card(B, S, Di, N,
+                                                         h0_scale):
+    """On the H100: the selective-scan backward kernel's gradients of
+    every input (x, dt, B, C bf16; A, D, h0 f32) for y's and hT's
+    gradients against autograd through the plain scan, per 64-step tile;
+    two runs bitwise equal; the forward's y and hT the same bits with its
+    tiles' states saved. Lengths below 256, off 256 and 2048; channels off
+    the 64-channel block (37)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import selective_scan as sk
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(S + Di + N)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=dev)
+
+    ins = [rnd(B, S, Di, scale=0.5).bfloat16(),
+           (rnd(B, S, Di).abs() * 0.1).bfloat16(),
+           -(rnd(Di, N).abs() + 0.1),
+           rnd(B, S, N, scale=0.5).bfloat16(), rnd(B, S, N, scale=0.5).bfloat16(),
+           rnd(Di), rnd(B, Di, N, scale=h0_scale)]
+    douts = (rnd(B, S, Di).bfloat16(), rnd(B, Di, N, scale=0.1))
+    y, hT = sk.selective_scan(*ins)
+    ys, hs, states = sk.selective_scan(*ins, save_states=True)
+    assert torch.equal(y, ys) and torch.equal(hT, hs)
+    assert torch.equal(states[:, 0], ins[6])
+    _, want = _ssm_grads(ops.selective_scan, ins, douts, True)
+    before = sk.selective_scan_bwd.launches
+    out, got = _ssm_grads(ops.selective_scan, ins, douts, False)
+    _, again = _ssm_grads(ops.selective_scan, ins, douts, False)
+    torch.cuda.synchronize()
+    assert sk.selective_scan_bwd.launches == before + 2
+    assert torch.equal(out[0], y) and torch.equal(out[1], hT)
+    # x, dt, B, C by tile; A, D, h0 whole
+    order = (0, 1, 3, 4, 2, 5, 6)
+    _check_ssm_grads(*([t[i] for i in order] for t in (got, again, want)),
+                     seq=4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,Hs,P,N,chunk,h0_scale", [
+    (2, 37, 4, 16, 8, 256, 0.1), (2, 300, 4, 48, 64, 256, 0.1),
+    (2, 100, 3, 16, 16, 16, 0.0), (2, 200, 2, 64, 32, 64, 0.1),
+    (1, 257, 2, 8, 8, 128, 0.1), (1, 2048, 8, 64, 64, 256, 0.1)])
+def test_ssd_backward_matches_plain_autograd_on_the_card(B, S, Hs, P, N,
+                                                        chunk, h0_scale):
+    """On the H100: the SSD backward kernel's gradients of every input
+    against autograd through the plain (chunked) SSD, per 64-step tile;
+    two runs bitwise equal; the forward's y and hT the same bits when its
+    scratch is kept. Ragged tails, one to eight chunks, chunk 16 (REDUCED
+    configs), 64, 128 and 256, several (P, N)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ssd as dk
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(S + P + N + chunk)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=dev)
+
+    ins = [rnd(B, S, Hs, P, scale=0.5).bfloat16(),
+           (rnd(B, S, Hs).abs() * 0.1).bfloat16(),
+           -(rnd(Hs).abs() + 0.1),
+           rnd(B, S, N, scale=0.5).bfloat16(), rnd(B, S, N, scale=0.5).bfloat16(),
+           rnd(Hs), rnd(B, Hs, P, N, scale=h0_scale)]
+    douts = (rnd(B, S, Hs, P).bfloat16(), rnd(B, Hs, P, N, scale=0.1))
+
+    def fn(*a):
+        return ops.ssd(*a, chunk=chunk)
+
+    y, hT = dk.ssd(*ins, chunk=chunk)
+    _, want = _ssm_grads(fn, ins, douts, True)
+    before = dk.ssd_bwd.launches
+    out, got = _ssm_grads(fn, ins, douts, False)
+    _, again = _ssm_grads(fn, ins, douts, False)
+    torch.cuda.synchronize()
+    assert dk.ssd_bwd.launches == before + 2
+    assert torch.equal(out[0], y) and torch.equal(out[1], hT)
+    order = (0, 1, 3, 4, 2, 5, 6)
+    _check_ssm_grads(*([t[i] for i in order] for t in (got, again, want)),
+                     seq=4)
+
+
+SSM_TRAIN_KERNELS = {
+    "falcon-mamba-7b": ("rmsnorm", "rmsnorm_bwd", "selective_scan",
+                        "selective_scan_bwd"),
+    "zamba2-1.2b": ("rmsnorm", "rmsnorm_bwd", "ssd", "ssd_bwd",
+                    "flash_attention", "flash_attention_bwd"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", sorted(SSM_TRAIN_KERNELS))
+def test_reduced_ssm_losses_on_the_card(arch):
+    """On the H100: a REDUCED falcon-mamba-7b / zamba2-1.2b train step
+    launches every kernel of its path, forward and backward, and no plain
+    version; its loss is within 2e-2 of the same step under the plain
+    backend, and its gradient norm within 5 %; a second step from the same
+    state gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.config import RunConfig
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import SyntheticDataset
+    from repro_torch.models import get_model
+    from repro_torch.models.model_api import tree_leaves
+    from repro_torch.training.state import init_train_state
+    from repro_torch.training.step import make_train_step
+
+    cfg = get(arch, reduced=True)
+    model = get_model(cfg)
+    step = make_train_step(model, RunConfig(arch=cfg.arch_id))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             SyntheticDataset(cfg, 300, 2).batch(0).items()}
+    metrics, states = {}, {}
+    for name in ("plain", "kernel", "again"):
+        ops.reset_counts()
+        with ops.use_backend("plain" if name == "plain" else "kernel"):
+            states[name], m = step(init_train_state(model, 0), batch)
+        metrics[name] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        counts = ops.counts()
+        if name == "plain":
+            assert all(c["launches"] == 0 for c in counts.values())
+        else:
+            assert all(c["plain"] == 0 for c in counts.values()), counts
+            for k in SSM_TRAIN_KERNELS[arch]:
+                assert counts[k]["launches"] > 0, k
+    assert abs(metrics["plain"]["loss"] - metrics["kernel"]["loss"]) <= 2e-2
+    assert abs(metrics["kernel"]["grad_norm"]
+               / metrics["plain"]["grad_norm"] - 1) <= 5e-2
+    assert metrics["kernel"] == metrics["again"]
+    for a, b in zip(tree_leaves(states["kernel"]),
+                    tree_leaves(states["again"])):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)

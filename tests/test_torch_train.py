@@ -441,9 +441,9 @@ class TestOptimizer:
 
 
 def test_a_family_without_a_loss_refuses_to_train():
-    model = get_model(get("falcon-mamba-7b", reduced=True))
+    model = get_model(get("deepseek-moe-16b", reduced=True))
     with pytest.raises(NotImplementedError, match="not ported"):
-        make_train_step(model, RunConfig(arch="falcon-mamba-7b"))
+        make_train_step(model, RunConfig(arch="deepseek-moe-16b"))
 
 
 def _policy_run(policy: str):

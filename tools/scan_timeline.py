@@ -148,7 +148,7 @@ def main() -> int:
     lib.tl_read.restype = lib.tl_clear.restype = ctypes.c_int
     lib.tl_clear.argtypes = []
     for fn in (lib.selective_scan_bf16, plain_lib.selective_scan_bf16):
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
@@ -162,7 +162,7 @@ def main() -> int:
     def call(fn):
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                  C.data_ptr(), D.data_ptr(), h0.data_ptr(), y.data_ptr(),
-                 hT.data_ptr(), B, S, Di, N, 1, _build.stream(dev))
+                 hT.data_ptr(), None, B, S, Di, N, 1, _build.stream(dev))
         _build.check(err, "selective_scan")
 
     t_probed = cs._time_ms(lambda: call(lib.selective_scan_bf16), flush=True)

@@ -103,7 +103,10 @@ def main() -> int:
         print("READ case", (D, H, K, S, causal),
               [c._tile_share(x, y) for x, y in zip(a, w)], flush=True)
     torch.cuda.empty_cache()
-    first = c._first_step("readings")
+    from repro_torch.configs import get
+
+    first = c._first_step(get("smollm-360m"), c.TRAIN["B"], c.TRAIN["S"],
+                          ("layers", "attn", "ln"))
     print("READ first", json.dumps({k: first[k] for k in (
         "loss_diff", "grad_norm_rel", "leaf_shares", "worst_leaf",
         "worst_leaf_by_layer", "planted_leaf_share")}), flush=True)
