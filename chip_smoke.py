@@ -226,11 +226,17 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    gradient within 1 % in every 64-step tile, each f32 one within 1e-3 of
    its largest value, two runs bitwise equal, a planted fault caught); then
    falcon-mamba-7b at published widths, 8 of 64 layers, and zamba2-1.2b at
-   published widths and full depth: each first step within c's limits of
-   the plain step (falcon-mamba at 2 layers, where the plain scan's loop
-   stays in seconds, zamba2 at 7, where rounding alone stays under the
-   leaf limit; a one-ulp control printed beside each gate), then 3 steps
-   at B 2, S 2048 twice from seed 0, as c. Sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (unless set) before CUDA
+   published widths and full depth: each first step within c's loss and
+   grad-norm limits of the plain step, and its leaves held: falcon-mamba
+   at 2 layers (the plain scan's loop stays in seconds) within b's leaf
+   limit; zamba2 at full depth for seeds 0 and 1, each leaf within its
+   share under a control of rounding (the plain step with every embedding
+   value one bf16 ulp up or down); the backward kernels of the first
+   seed's kernel step run again on the same inputs against plain versions
+   (forced: every SSD, scan, flash and RMSNorm backward call, per tile);
+   then 3 steps at B 2, S 2048 twice from seed 0, as c. The scan and SSD
+   backward checks also run at the decay the models start from (dt about
+   0.8, A about -1). Sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (unless set) before CUDA
    starts, for the whole run.
 
 The MoE models' logits have no bound (random-weight routing is chaotic):
@@ -867,16 +873,37 @@ def check_flash(gen, *, H=32, K=8, D=128) -> list[dict]:
     return rows
 
 
-def _scan_case(gen, S: int, h0_scale: float, *, B=1, Di=8192, N=16):
-    """falcon-mamba's scan inputs over S steps: x, dt, A, Bm, C, D, h0."""
+def _init_decay(gen, dt_shape, a_shape):
+    """dt and A as the recurrent families' initial weights draw them: dt
+    the softplus of a unit normal (about 0.8 on average; the projections
+    into it are fan-in scaled and ``dt_bias`` is zero), A = -exp(A_log)
+    with A_log at the ``small`` scale (1e-4), so about -1. The decay's
+    exponent falls by about 200 over 256 steps."""
+    import torch
+    import torch.nn.functional as F
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    return (F.softplus(rnd(*dt_shape)).bfloat16(),
+            -torch.exp(1e-4 * rnd(*a_shape)))
+
+
+def _scan_case(gen, S: int, h0_scale: float, *, B=1, Di=8192, N=16,
+               init_decay: bool = False):
+    """falcon-mamba's scan inputs over S steps: x, dt, A, Bm, C, D, h0;
+    dt and A mild (dt about 0.08), or with ``init_decay`` as the model's
+    initial weights draw them (``_init_decay``)."""
     import torch
 
     def rnd(*shape, scale=1.0):
         return scale * torch.randn(*shape, generator=gen, device="cuda")
 
-    return ((rnd(B, S, Di, scale=0.5)).bfloat16(),
-            (0.1 * rnd(B, S, Di).abs()).bfloat16(),
-            -(rnd(Di, N).abs() + 0.1),
+    x = rnd(B, S, Di, scale=0.5).bfloat16()
+    dt, A = (_init_decay(gen, (B, S, Di), (Di, N)) if init_decay else
+             ((0.1 * rnd(B, S, Di).abs()).bfloat16(),
+              -(rnd(Di, N).abs() + 0.1)))
+    return (x, dt, A,
             rnd(B, S, N, scale=0.5).bfloat16(),
             rnd(B, S, N, scale=0.5).bfloat16(),
             rnd(Di), rnd(B, Di, N, scale=h0_scale))
@@ -935,16 +962,20 @@ def check_selective_scan(gen) -> list[dict]:
     return rows
 
 
-def _ssd_case(gen, S: int, h0_scale: float, *, B=1, Hs=64, P=64, N=64):
-    """zamba2's SSD inputs over S steps: x, dt, A, Bm, C, D, h0."""
+def _ssd_case(gen, S: int, h0_scale: float, *, B=1, Hs=64, P=64, N=64,
+              init_decay: bool = False):
+    """zamba2's SSD inputs over S steps: x, dt, A, Bm, C, D, h0; dt and A
+    mild, or with ``init_decay`` as the model's initial weights draw them
+    (``_init_decay``)."""
     import torch
 
     def rnd(*shape, scale=1.0):
         return scale * torch.randn(*shape, generator=gen, device="cuda")
 
-    return ((rnd(B, S, Hs, P, scale=0.5)).bfloat16(),
-            (0.1 * rnd(B, S, Hs).abs()).bfloat16(),
-            -(rnd(Hs).abs() + 0.1),
+    x = rnd(B, S, Hs, P, scale=0.5).bfloat16()
+    dt, A = (_init_decay(gen, (B, S, Hs), (Hs,)) if init_decay else
+             ((0.1 * rnd(B, S, Hs).abs()).bfloat16(), -(rnd(Hs).abs() + 0.1)))
+    return (x, dt, A,
             rnd(B, S, N, scale=0.5).bfloat16(),
             rnd(B, S, N, scale=0.5).bfloat16(),
             rnd(Hs), rnd(B, Hs, P, N, scale=h0_scale))
@@ -4277,8 +4308,8 @@ SSD_TRAIN = dict(B=2, S=2048, Hs=64, P=64, N=64)
 # ddt, dB, dC) per (batch, 64-step tile) within GRAD_TILE_SHARE of the tile's
 # own size in the Frobenius norm (both sides round to bf16 at the end), each
 # f32 one (dA, dD, dh0) within SSM_F32_GRAD_REL of its largest magnitude; a
-# planted fault (the last tile's dx 10 % too large) must land above the tile
-# limit
+# planted fault (a bf16 gradient's last tile 10 % too large) must land above
+# the tile limit
 SSM_F32_GRAD_REL = 1e-3
 SSM_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
 
@@ -4300,7 +4331,8 @@ def _seq_share(got, want, tile: int = 64) -> float:
 def _ssm_grads_held(what: str, got, again, want) -> dict:
     """A backward kernel's seven gradients (``SSM_GRADS``) against plain
     autograd's: two runs bitwise equal, the bf16 ones tile by tile, the f32
-    ones whole, a planted fault caught."""
+    ones whole, a fault planted in each bf16 one's last tile caught (the
+    least of those readings returned)."""
     import torch
 
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -4316,9 +4348,13 @@ def _ssm_grads_held(what: str, got, again, want) -> dict:
         raise AssertionError(f"{what}: tile shares {tiles} (limit "
                              f"{GRAD_TILE_SHARE}), f32 {whole} (limit "
                              f"{SSM_F32_GRAD_REL})")
-    bad = got[0].clone()
-    bad[:, (bad.shape[1] - 1) // 64 * 64:] *= 1.1
-    planted = _seq_share(bad, want[0])
+    planted = {}
+    for n, g, w in zip(SSM_GRADS, got, want):
+        if g.dtype == torch.bfloat16:
+            bad = g.clone()
+            bad[:, (bad.shape[1] - 1) // 64 * 64:] *= 1.1
+            planted[n] = _seq_share(bad, w)
+    planted = min(planted.values())
     if not planted > GRAD_TILE_SHARE:
         raise AssertionError(f"{what}: a planted fault passes: {planted}")
     err = max(float((g.float() - w.float()).abs().max())
@@ -4389,23 +4425,31 @@ def check_scan_bwd(gen, device_ops: dict) -> list[dict]:
     from repro_torch.kernels import ref, selective_scan as sk
 
     B, S, Di, N = (SCAN_TRAIN[k] for k in ("B", "S", "Di", "N"))
-    args = _scan_case(gen, S, 0.1, B=B, Di=Di, N=N)
-    dy = torch.randn(B, S, Di, generator=gen, device="cuda").bfloat16()
-    y, hT = sk.selective_scan(*args)
-    ys, hs, states = sk.selective_scan(*args, save_states=True)
-    if not (torch.equal(y, ys) and torch.equal(hT, hs)):
-        raise AssertionError("selective_scan: saving the tiles' states "
-                             "changed y or hT")
-    with torch.no_grad():
-        yw, hw = ref.selective_scan(*args)
-    fwd_err = max(_close(y, yw, "selective_scan train"),
-                  _close(hT, hw, "selective_scan train hT", STATE_TOL))
-    del yw, hw
-    got = sk.selective_scan_bwd(*args[:6], states, dy)
-    again = sk.selective_scan_bwd(*args[:6], states, dy)
-    want = _plain_scan_grads(args, dy)
-    held = _ssm_grads_held("selective_scan_bwd", got, again, want)
-    del again, want
+
+    def held_at(init_decay: bool):
+        what = "selective_scan" + (" init decay" if init_decay else "")
+        args = _scan_case(gen, S, 0.1, B=B, Di=Di, N=N, init_decay=init_decay)
+        dy = torch.randn(B, S, Di, generator=gen, device="cuda").bfloat16()
+        y, hT = sk.selective_scan(*args)
+        ys, hs, states = sk.selective_scan(*args, save_states=True)
+        if not (torch.equal(y, ys) and torch.equal(hT, hs)):
+            raise AssertionError(f"{what}: saving the tiles' states changed "
+                                 f"y or hT")
+        with torch.no_grad():
+            yw, hw = ref.selective_scan(*args)
+        fwd_err = max(_close(y, yw, what + " train"),
+                      _close(hT, hw, what + " train hT", STATE_TOL))
+        del yw, hw
+        got = sk.selective_scan_bwd(*args[:6], states, dy)
+        again = sk.selective_scan_bwd(*args[:6], states, dy)
+        want = _plain_scan_grads(args, dy)
+        return (args, dy, states, fwd_err,
+                _ssm_grads_held(what + "_bwd", got, again, want))
+
+    args, dy, states, fwd_err, held = held_at(False)
+    # the decay the models start from (dt about 0.8, A about -1): held, not
+    # timed
+    init = held_at(True)[-2:]
     plain_bwd_ms = _once_ms(lambda: _plain_scan_grads(args, dy))
     torch.cuda.empty_cache()
     n_sn = B * S * Di * N
@@ -4424,6 +4468,7 @@ def check_scan_bwd(gen, device_ops: dict) -> list[dict]:
     # dA, dD, dh0. Per (t, d, n) the replay's exponential and ~12 f32
     # operations (the replay's two, the adjoint's and the five sums')
     bwd = {"shape": shape, **held, "device_ops": device_ops,
+           "init_decay": {"forward_max_abs_err": init[0], **init[1]},
            "library_ms": None,
            "ms": _time_ms(lambda: sk.selective_scan_bwd(*args[:6], states,
                                                         dy), flush=True),
@@ -4450,25 +4495,36 @@ def check_ssd_bwd(gen, device_ops: dict) -> list[dict]:
     from repro_torch.kernels import ref, ssd as dk
 
     B, S, Hs, P, N = (SSD_TRAIN[k] for k in ("B", "S", "Hs", "P", "N"))
-    args = _ssd_case(gen, S, 0.1, B=B, Hs=Hs, P=P, N=N)
-    dy = torch.randn(B, S, Hs, P, generator=gen, device="cuda").bfloat16()
-    y, hT = dk.ssd(*args, chunk=CHUNK)
-    yk, hk, scratch = dk._forward(*args, CHUNK)
-    if not (torch.equal(y, yk) and torch.equal(hT, hk)):
-        raise AssertionError("ssd: the training forward's y or hT differ "
-                             "from serving's")
-    got = dk.ssd_bwd(*args[:6], scratch, dy, chunk=CHUNK)
-    again = dk.ssd_bwd(*args[:6], scratch, dy, chunk=CHUNK)
-    ins = [t.clone().requires_grad_() for t in args]
-    yw, _ = ref.ssd(*ins, chunk=CHUNK)
-    fwd_err = _close(y, yw.detach(), "ssd train")
 
-    def plain_grad():
-        return torch.autograd.grad(yw, ins, dy, retain_graph=True)
+    def held_at(init_decay: bool):
+        what = "ssd" + (" init decay" if init_decay else "")
+        args = _ssd_case(gen, S, 0.1, B=B, Hs=Hs, P=P, N=N,
+                         init_decay=init_decay)
+        dy = torch.randn(B, S, Hs, P, generator=gen,
+                         device="cuda").bfloat16()
+        y, hT = dk.ssd(*args, chunk=CHUNK)
+        yk, hk, scratch = dk._forward(*args, CHUNK)
+        if not (torch.equal(y, yk) and torch.equal(hT, hk)):
+            raise AssertionError(f"{what}: the training forward's y or hT "
+                                 f"differ from serving's")
+        got = dk.ssd_bwd(*args[:6], scratch, dy, chunk=CHUNK)
+        again = dk.ssd_bwd(*args[:6], scratch, dy, chunk=CHUNK)
+        ins = [t.clone().requires_grad_() for t in args]
+        yw, _ = ref.ssd(*ins, chunk=CHUNK)
+        fwd_err = _close(y, yw.detach(), what + " train")
 
-    held = _ssm_grads_held("ssd_bwd", got, again, plain_grad())
+        def plain_grad():
+            return torch.autograd.grad(yw, ins, dy, retain_graph=True)
+
+        held = _ssm_grads_held(what + "_bwd", got, again, plain_grad())
+        return args, dy, scratch, fwd_err, held, plain_grad
+
+    args, dy, scratch, fwd_err, held, plain_grad = held_at(False)
     plain_bwd_ms = _once_ms(plain_grad)
-    del again, yw, ins
+    del plain_grad
+    # the decay the models start from (dt about 0.8, A about -1): held, not
+    # timed
+    init = held_at(True)[3:5]
     torch.cuda.empty_cache()
     chunks = [min(CHUNK, S - c0) for c0 in range(0, S, CHUNK)]
     pairs = sum(n * (n + 1) // 2 for n in chunks)
@@ -4501,6 +4557,7 @@ def check_ssd_bwd(gen, device_ops: dict) -> list[dict]:
     # the f32 units outside them, where this kernel runs it
     f32 = _bound(nbytes, flops, F32_FLOPS, exps=exps)
     bwd = {"shape": shape, **held, "device_ops": device_ops,
+           "init_decay": {"forward_max_abs_err": init[0], **init[1]},
            "library_ms": None,
            "ms": _time_ms(lambda: dk.ssd_bwd(*args[:6], scratch, dy,
                                              chunk=CHUNK), flush=True),
@@ -4649,22 +4706,180 @@ def _leaf_shares(got, want, prefix: str = "") -> dict:
     return out
 
 
-def _first_step(cfg, B: int, S: int, plant: tuple[str, ...],
-                profile: bool = False) -> dict:
-    """The first step of a training run of ``cfg`` (seed 0, step 0's batch
-    of B rows of S tokens) under the kernels and under the plain versions,
-    from one initial state: the loss, the grad norm and every gradient leaf,
-    layer by layer, held together; a planted fault (the last layer's slice
-    of the leaf at ``plant`` 20 % too large) must read above the leaves'
-    limit. Beside them a control, not a gate: the plain step with one bf16
-    ulp added to one embedding value (the first token's first), whose
-    leaf shares against the plain step say how far rounding alone moves
-    the gradient at this depth. With ``profile``, a second kernel step is
-    profiled."""
+class _KeptBackward:
+    """While entered, keeps every call of the backward kernels that the
+    autograd Functions make (``ssd_bwd``, ``selective_scan_bwd``,
+    ``flash_attention_bwd``, ``rmsnorm_bwd``): clones of the tensor
+    arguments, and the keywords."""
+
+    def __init__(self):
+        from repro_torch.kernels import flash_attention as fk
+        from repro_torch.kernels import rmsnorm as rk
+        from repro_torch.kernels import selective_scan as sk
+        from repro_torch.kernels import ssd as dk
+
+        self.mods = {"ssd": (dk, "ssd_bwd"),
+                     "selective_scan": (sk, "selective_scan_bwd"),
+                     "flash_attention": (fk, "flash_attention_bwd"),
+                     "rmsnorm": (rk, "rmsnorm_bwd")}
+        self.calls = {name: [] for name in self.mods}
+        self.orig = {name: getattr(mod, attr)
+                     for name, (mod, attr) in self.mods.items()}
+
+    def __enter__(self):
+        import torch
+
+        for name, (mod, attr) in self.mods.items():
+            f = self.orig[name]
+
+            def kept(*args, _name=name, _f=f, **kw):
+                self.calls[_name].append((
+                    [a.detach().clone() if isinstance(a, torch.Tensor) else a
+                     for a in args], kw))
+                return _f(*args, **kw)
+
+            kept.launches = f.launches
+            setattr(mod, attr, kept)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, attr) in self.mods.items():
+            self.orig[name].launches = getattr(mod, attr).launches
+            setattr(mod, attr, self.orig[name])
+
+
+def _flash_bwd_rounded(q, k, v, o, dout, lse, *, causal, q_offset):
+    """The flash backward's arithmetic as ``csrc/flash_attention_bwd.cu``
+    states it, in plain torch (H = K): delta from the bf16 output, P and
+    dS rounded to bf16 before the products that take them, f32 sums.
+    Returns (dq, dk, dv) bf16."""
+    import torch
+
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, of, df = (t.float() for t in (q, k, v, o, dout))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        keep = (torch.arange(k.shape[1], device=q.device)[None, :]
+                <= torch.arange(q.shape[1], device=q.device)[:, None]
+                + q_offset)
+        s = s.masked_fill(~keep, float("-inf"))
+    p = torch.exp(s - lse[..., None])
+    del s
+    delta = (df * of).sum(-1).transpose(1, 2)
+    ds = torch.einsum("bqhd,bkhd->bhqk", df, vf).sub_(delta[..., None])
+    ds = ds.mul_(p).bfloat16().float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    del ds
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), df)
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+def _forced_backward(kept: _KeptBackward) -> dict:
+    """Each backward kernel call kept from a train step (``_KeptBackward``)
+    run again, twice, against a plain version on the same inputs: the SSD
+    and the scan against autograd through their plain versions
+    (``_ssm_grads_held``: bf16 gradients per 64-step tile within
+    GRAD_TILE_SHARE, f32 within SSM_F32_GRAD_REL); RMSNorm's dx per 64-row
+    tile within GRAD_TILE_SHARE, dw within DW_REL of its largest value,
+    against autograd through the plain RMSNorm; flash attention's dq, dk,
+    dv per (64-row tile, head) within GRAD_TILE_SHARE of
+    ``_flash_bwd_rounded``, the kernel's own rounding points in plain
+    torch. (Against autograd through the plain f32 attention, the bf16 dS
+    alone moves dq's tiles by up to 1.4 % at zamba2's activations:
+    ``_flash_bwd_rounded`` differs from it by as much as the kernel does.)
+    Two runs must give the same bits, every gradient must be finite, and a
+    fault planted in the last tile (x 1.1) must read above the tile limit.
+    Returns, per kernel, the worst reading of each gradient over the calls
+    and the least planted reading."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    calls, orig = kept.calls, kept.orig
+    out = {kind: {"calls": len(c)} for kind, c in calls.items() if c}
+
+    def note(kind, readings: dict, planted: float):
+        r = out[kind]
+        for n, v in readings.items():
+            r[n] = max(r.get(n, 0.0), v)
+        r["planted_min"] = min(r.get("planted_min", float("inf")), planted)
+
+    def held(kind, names, got, again, want, share):
+        """bf16 gradients of a kernel other than the SSMs', by ``share``;
+        the fault planted in the first one's last tile."""
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"forced {kind}: two runs differ")
+        if not all(bool(torch.isfinite(g.float()).all()) for g in got):
+            raise AssertionError(f"forced {kind}: a gradient is not finite")
+        bad = got[0].clone()
+        bad[:, (bad.shape[1] - 1) // 64 * 64:] *= 1.1
+        note(kind, {n: share(g, w) for n, g, w in zip(names, got, want)},
+             share(bad, want[0]))
+
+    for kind in ("ssd", "selective_scan"):
+        for a, kw in calls[kind]:
+            x, dt, A, Bm, C, D, saved, dy = a[:8]
+            got, again = orig[kind](*a, **kw), orig[kind](*a, **kw)
+            if kind == "ssd":
+                h0 = torch.zeros(x.shape[0], *x.shape[2:], Bm.shape[-1],
+                                 device=x.device)
+                ins = [t.clone().requires_grad_()
+                       for t in (x, dt, A, Bm, C, D, h0)]
+                want = torch.autograd.grad(
+                    ref.ssd(*ins, chunk=kw["chunk"])[0], ins, dy)
+            else:
+                want = _plain_scan_grads((x, dt, A, Bm, C, D, saved[:, 0]),
+                                         dy)
+            r = _ssm_grads_held(f"forced {kind}_bwd", got, again, want)
+            note(kind, {**r["grad_tile_share"], **r["f32_grad_rel"]},
+                 r["planted_tile_share"])
+            del got, again, want
+    for a, kw in calls["flash_attention"]:
+        fn = orig["flash_attention"]
+        held("flash_attention", ("dq", "dk", "dv"), fn(*a, **kw),
+             fn(*a, **kw), _flash_bwd_rounded(*a, **kw), _tile_share)
+    for a, kw in calls["rmsnorm"]:
+        x, w, g = a[:3]
+        got, again = orig["rmsnorm"](*a, **kw), orig["rmsnorm"](*a, **kw)
+        ins = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+        want = torch.autograd.grad(ref.rmsnorm(*ins, *a[3:], **kw), ins, g)
+        rows = (1, -1, x.shape[-1])
+        held("rmsnorm", ("dx",), [got[0].reshape(rows)],
+             [again[0].reshape(rows)], [want[0].reshape(rows)], _seq_share)
+        if not torch.equal(got[1], again[1]):
+            raise AssertionError("forced rmsnorm: two runs' dw differ")
+        note("rmsnorm", {"dw": _rel_err(got[1], want[1])}, float("inf"))
+    for kind, r in out.items():
+        over = {n: v for n, v in r.items() if n not in ("calls", "planted_min")
+                and not v <= (DW_REL if n == "dw" else SSM_F32_GRAD_REL
+                              if n in ("dA", "dD", "dh0") else
+                              GRAD_TILE_SHARE)}
+        if over or not r["planted_min"] > GRAD_TILE_SHARE:
+            raise AssertionError(f"forced {kind}: {r}")
+    return out
+
+
+def _first_step(cfg, B: int, S: int, plant: tuple[str, ...] | None,
+                profile: bool = False, seed: int = 0,
+                forced: bool = False) -> dict:
+    """The first step of a training run of ``cfg`` (init seed ``seed``,
+    batch ``seed`` of B rows of S tokens from data seed ``seed``) under the
+    kernels and under the plain versions, from one initial state: the loss
+    and the grad norm within FIRST_STEP_LOSS_ATOL and FIRST_STEP_NORM_REL,
+    and every gradient leaf, layer by layer, held. With ``plant`` (a
+    leaf's path) each leaf within FIRST_STEP_LEAF_SHARE, and a planted
+    fault (the last layer's slice of that leaf 20 % too large) must read
+    above it. Without, each leaf within its share under a control of
+    rounding: the plain step with every embedding value one bf16 ulp up or
+    down at random, a rounding at every input value, as the kernels round
+    differently at every activation. With ``forced``, every backward
+    kernel call of the kernel step is also run again against a plain
+    version on the same inputs (``_forced_backward``). With ``profile``, a
+    second kernel step is profiled."""
     import torch
 
     from repro_torch.config import RunConfig
-    from repro_torch.configs import get
     from repro_torch.data.synthetic import SyntheticDataset
     from repro_torch.kernels import ops
     from repro_torch.models import get_model
@@ -4675,22 +4890,31 @@ def _first_step(cfg, B: int, S: int, plant: tuple[str, ...],
     model = get_model(cfg)
     step = make_train_step(model, RunConfig(arch=cfg.arch_id))
     batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticDataset(
-        cfg, S, B, 0).batch(0).items()}
-    out, mu = {}, {}
-    for name in ("kernel", "plain", "control"):
-        state = init_train_state(model, 0, "cuda")
+        cfg, S, B, seed).batch(seed).items()}
+    out, mu = {"seed": seed}, {}
+    kept = _KeptBackward()
+    for name in ("kernel", "plain") + (() if plant else ("control",)):
+        state = init_train_state(model, seed, "cuda")
         if name == "control":
-            t0 = int(batch["tokens"][0, 0])
-            state["params"]["embedding"][t0, 0] *= 1 + 2 ** -7
+            emb = state["params"]["embedding"]
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            sign = torch.randint(0, 2, emb.shape, generator=gen,
+                                 device="cuda") * 2 - 1
+            emb.mul_(1 + sign * 2.0 ** -7)
+            del sign
         with ops.use_backend("kernel" if name == "kernel" else "plain"):
-            state, m = step(state, batch)
+            if name == "kernel" and forced:
+                with kept:
+                    state, m = step(state, batch)
+            else:
+                state, m = step(state, batch)
         out[name] = {k: float(m[k]) for k in ("loss", "grad_norm", "ce")}
         mu[name] = tree_map(torch.clone, state["opt"]["mu"])
         if name == "kernel" and profile:
             out["profile"] = _profile_step(step, state, batch)
         del state, m
-    gc.collect()
-    torch.cuda.empty_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
     d_loss = abs(out["kernel"]["loss"] - out["plain"]["loss"])
     d_norm = abs(out["kernel"]["grad_norm"] / out["plain"]["grad_norm"] - 1)
     by_layer = _leaf_shares(mu["kernel"], mu["plain"])
@@ -4698,31 +4922,45 @@ def _first_step(cfg, B: int, S: int, plant: tuple[str, ...],
     leaves = {n: max(float("inf") if x != x else x for x in v)
               for n, v in by_layer.items()}
     worst = max(leaves, key=leaves.get)
-    control = {n: max(v) for n, v in _leaf_shares(mu["control"],
-                                                  mu["plain"]).items()}
-    leaf = mu["kernel"]
-    for k in plant:
-        leaf = leaf[k]
-    leaf[-1] *= 1.2
-    planted = _leaf_shares(mu["kernel"], mu["plain"])[
-        "/" + "/".join(plant)][-1]
+    if plant:
+        limits = dict.fromkeys(leaves, FIRST_STEP_LEAF_SHARE)
+        leaf = mu["kernel"]
+        for k in plant:
+            leaf = leaf[k]
+        leaf[-1] *= 1.2
+        planted = _leaf_shares(mu["kernel"], mu["plain"])[
+            "/" + "/".join(plant)][-1]
+    else:
+        limits = {n: max(v) for n, v in _leaf_shares(
+            mu["control"], mu["plain"]).items()}
+        planted = None
     del mu
     gc.collect()
     torch.cuda.empty_cache()
+    ratio = {n: leaves[n] / limits[n] for n in leaves}
     out.update(loss_diff=d_loss, grad_norm_rel=d_norm,
                loss_atol=FIRST_STEP_LOSS_ATOL,
                grad_norm_rel_tol=FIRST_STEP_NORM_REL,
                leaf_shares=leaves, worst_leaf=worst,
                worst_leaf_by_layer=by_layer[worst],
-               leaf_share_limit=FIRST_STEP_LEAF_SHARE,
-               planted_leaf_share=planted,
-               control_leaf_share=max(control.values()),
-               control_worst_leaf=max(control, key=control.get))
+               leaf_share_limit=(FIRST_STEP_LEAF_SHARE if plant else
+                                 "the control's share of the same leaf"),
+               worst_share_over_limit=max(ratio.values()),
+               worst_leaf_over_limit=max(ratio, key=ratio.get))
+    if plant:
+        out["planted_leaf_share"] = planted
+    else:
+        out["control_leaf_shares"] = limits
+    if forced:
+        out["forced_backward"] = _forced_backward(kept)
+        del kept
+        gc.collect()
+        torch.cuda.empty_cache()
     if (d_loss > FIRST_STEP_LOSS_ATOL or d_norm > FIRST_STEP_NORM_REL
-            or not leaves[worst] <= FIRST_STEP_LEAF_SHARE):
+            or not out["worst_share_over_limit"] <= 1):
         raise AssertionError(f"train {cfg.arch_id}: the first step's kernel "
                              f"and plain runs disagree: {out}")
-    if not planted > FIRST_STEP_LEAF_SHARE:
+    if plant and not planted > FIRST_STEP_LEAF_SHARE:
         raise AssertionError(f"train {cfg.arch_id}: a planted gradient fault "
                              f"passes the leaf check: {planted}")
     return out
@@ -4837,17 +5075,24 @@ TRAIN_PATH = {
 # the recurrent families' training runs: published widths, B 2, S 2048, 3
 # steps twice; falcon-mamba-7b at 8 of 64 layers (its full depth's f32
 # state, ~7.2 B parameters x 16 bytes, does not fit one card), zamba2-1.2b
-# at full depth. The first-step gates against the plain step run at
-# ``gate_layers``: falcon-mamba at 2, where the plain scan's per-step
-# Python loop takes seconds; zamba2 at 7 (two of its seven shared-block
-# applications), where rounding alone stays under the leaf limit: at 38
-# and 14 layers one bf16 ulp on one embedding value moves a leaf as far
-# as the kernels do (a random-weight stack whose gradient norm is ~344
-# amplifies rounding). Readings: tools/train_gate_floor.py (PERF.md
-# section 6).
+# at full depth. The first-step gates against the plain step
+# (``_first_step``) run at ``gate_layers`` (None: full depth) for each of
+# ``gate_seeds``, the backward kernels of the first seed's kernel step also
+# run again against plain versions (``_forced_backward``). falcon-mamba:
+# 2 layers, where the plain scan's per-step Python loop stays in seconds,
+# each leaf within FIRST_STEP_LEAF_SHARE (``plant``: the planted fault's
+# leaf). zamba2: full depth, where rounding alone moves its leaves far
+# (random weights, gradient norm 78-344): each leaf within its share under
+# the every-value control. Swapping one kernel at a time into the plain
+# step (tools/train_gate_swap.py; PERF.md section 6) puts all of the
+# kernel step's difference on the flash forward's bf16 probabilities;
+# at seeds 0, 1, 2 the kernel step's leaves read 0.57, 0.63 and 0.67 of
+# the control's at most.
 SSM_TRAIN = {
-    "falcon-mamba-7b": dict(B=2, S=2048, layers=8, steps=3, gate_layers=2),
-    "zamba2-1.2b": dict(B=2, S=2048, layers=None, steps=3, gate_layers=7),
+    "falcon-mamba-7b": dict(B=2, S=2048, layers=8, steps=3, gate_layers=2,
+                            gate_seeds=(0,), plant=("layers", "ln")),
+    "zamba2-1.2b": dict(B=2, S=2048, layers=None, steps=3, gate_layers=None,
+                        gate_seeds=(0, 1), plant=None),
 }
 
 
@@ -4932,8 +5177,9 @@ def phase_train_qwen(card: str) -> dict:
 def phase_train_ssm(card: str, arch: str) -> dict:
     """d. falcon-mamba-7b or zamba2-1.2b at published widths (``SSM_TRAIN``):
     the first step against the plain step (``_first_step``'s limits) at
-    the gate's depth, then 3 steps at B 2, S 2048, twice from one seed
-    (``_train_twice``)."""
+    the gate's depth and seeds, the first seed's backward kernel calls
+    run again against plain versions, then 3 steps at B 2, S 2048, twice
+    from one seed (``_train_twice``)."""
     from dataclasses import replace
 
     from repro_torch.configs import get
@@ -4945,13 +5191,15 @@ def phase_train_ssm(card: str, arch: str) -> dict:
         return full if n is None else replace(full, n_layers=n)
 
     gate = cut(q["gate_layers"])
-    first = _first_step(gate, q["B"], q["S"], ("layers", "ln"))
+    first = [_first_step(gate, q["B"], q["S"], q["plant"], seed=seed,
+                         forced=seed == q["gate_seeds"][0])
+             for seed in q["gate_seeds"]]
     cfg = cut(q["layers"])
     out = {"phase": "train_ssm", "card": card,
            "reduced": ({} if q["layers"] is None else
                        {"n_layers": f"{q['layers']} of {full.n_layers}"}),
            "first_step": {"n_layers": f"{gate.n_layers} of {full.n_layers}",
-                          **first},
+                          "seeds": first},
            **_train_twice(cfg, q, arch)}
     log(out)
     return out

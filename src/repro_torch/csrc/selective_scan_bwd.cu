@@ -62,6 +62,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fixed_sum.cuh"
+
 #define THREADS 256
 #define TT 256               // steps of a tile: 16 lanes x 16
 #define GC 16                // channels of a group: one a half-warp
@@ -313,39 +315,6 @@ __global__ void __launch_bounds__(THREADS, 1) scan_bwd_kernel(
         if (c0 + c < Di) pD[(size_t)b * Di + c0 + c] = dDs[c];
 }
 
-// dB and dC: the blocks' partials added in block order, rounded to bf16;
-// dA and dD: the batch rows added in order
-__global__ void scan_bwd_sum_kernel(
-    const float* __restrict__ pB, const float* __restrict__ pC,
-    const float* __restrict__ pA, const float* __restrict__ pD,
-    bf16* __restrict__ dB, bf16* __restrict__ dC, float* __restrict__ dA,
-    float* __restrict__ dD, int blocks, int B, int S, int Di, int N) {
-    const size_t nbc = (size_t)B * S * N, na = (size_t)Di * N;
-    const size_t total = nbc + na + Di;
-    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-         i += (size_t)gridDim.x * blockDim.x) {
-        if (i < nbc) {
-            float sb = 0.f, sc = 0.f;
-            for (int k = 0; k < blocks; ++k) {
-                sb += pB[k * nbc + i];
-                sc += pC[k * nbc + i];
-            }
-            dB[i] = __float2bfloat16(sb);
-            dC[i] = __float2bfloat16(sc);
-        } else if (i < nbc + na) {
-            const size_t e = i - nbc;
-            float s = 0.f;
-            for (int r = 0; r < B; ++r) s += pA[r * na + e];
-            dA[e] = s;
-        } else {
-            const size_t e = i - nbc - na;
-            float s = 0.f;
-            for (int r = 0; r < B; ++r) s += pD[r * (size_t)Di + e];
-            dD[e] = s;
-        }
-    }
-}
-
 template <int N>
 static int launch(const void* x, const void* dt, const void* A,
                   const void* Bm, const void* C, const void* D,
@@ -392,10 +361,13 @@ extern "C" int selective_scan_bwd_bf16(
         default: return (int)cudaErrorInvalidValue;
     }
     if (e) return e;
+    // dB and dC: the blocks' partials added in block order, rounded to
+    // bf16; dA and dD: the batch rows added in order
     const int blocks = (Di + CT - 1) / CT;
-    scan_bwd_sum_kernel<<<264, 256, 0, st>>>(
-        (const float*)pB, (const float*)pC, (const float*)pA,
-        (const float*)pD, (bf16*)dB, (bf16*)dC, (float*)dA, (float*)dD,
-        blocks, B, S, Di, N);
+    const size_t nbc = (size_t)B * S * N, na = (size_t)Di * N;
+    const Layout bc{nbc, nbc, 0, 0, nbc, 1, blocks};
+    const Layout a{na, na, 0, 0, na, 1, B};
+    const Layout d{(size_t)Di, (size_t)Di, 0, 0, (size_t)Di, 1, B};
+    launch_fixed_sum(bc, a, d, pB, pC, pA, pD, dB, dC, dA, dD, st);
     return (int)cudaGetLastError();
 }

@@ -52,9 +52,9 @@
 //   a 64 x 64 x 64 f32 multiply-add over shared memory, a thread holding a
 //   4 x 4 tile of the result (rows ty + 16a, columns tx + 16b). Then the
 //   reverse cumsum of dl, one thread, in step order.
-// - (c) ssd_bwd_sum_kernel: dB and dC are per-head partials (B, Hs, S, N),
-//   added in head order and rounded to bf16; dA and dD per (batch row,
-//   head, chunk), added in batch-row then chunk order.
+// - (c) fixed_sum_kernel (fixed_sum.cuh): dB and dC are per-head partials
+//   (B, Hs, S, N), added in head order and rounded to bf16; dA and dD per
+//   (batch row, head, chunk), added in batch-row then chunk order.
 // - No atomics: every sum has one order, so the same inputs give the same
 //   bits on every run.
 // - Ragged tail: rows past the chunk's real steps are zeros in every staged
@@ -64,6 +64,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fixed_sum.cuh"
 
 #define THREADS 256
 #define TT 64          // rows (steps) of a tile
@@ -493,44 +495,6 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_bwd_kernel(
     }
 }
 
-// ---------------------------------------------------------------------------
-// (c) the fixed-order sums
-// ---------------------------------------------------------------------------
-
-__global__ void ssd_bwd_sum_kernel(
-    const float* __restrict__ pB, const float* __restrict__ pC,
-    const float* __restrict__ pA, const float* __restrict__ pD,
-    bf16* __restrict__ dB, bf16* __restrict__ dC, float* __restrict__ dA,
-    float* __restrict__ dD, int B, int S, int Hs, int N, int n_chunks) {
-    const size_t row = (size_t)S * N, nbc = (size_t)B * row;
-    const size_t total = nbc + Hs;
-    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-         i += (size_t)gridDim.x * blockDim.x) {
-        if (i < nbc) {
-            const size_t b = i / row, e = i - b * row;
-            const float* qb = pB + b * Hs * row + e;
-            const float* qc = pC + b * Hs * row + e;
-            float sb = 0.f, sc = 0.f;
-            for (int h = 0; h < Hs; ++h) {
-                sb += qb[h * row];
-                sc += qc[h * row];
-            }
-            dB[i] = __float2bfloat16(sb);
-            dC[i] = __float2bfloat16(sc);
-        } else {
-            const int h = (int)(i - nbc);
-            float sa = 0.f, sd = 0.f;
-            for (int b = 0; b < B; ++b)
-                for (int k = 0; k < n_chunks; ++k) {
-                    sa += pA[((size_t)b * Hs + h) * n_chunks + k];
-                    sd += pD[((size_t)b * Hs + h) * n_chunks + k];
-                }
-            dA[h] = sa;
-            dD[h] = sd;
-        }
-    }
-}
-
 static int set_smem(const void* fn, size_t bytes) {
     if (bytes <= 48 * 1024) return 0;
     return (int)cudaFuncSetAttribute(
@@ -572,9 +536,11 @@ extern "C" int ssd_bwd_bf16(
         (bf16*)dx, (bf16*)ddt, (float*)pB, (float*)pC, (float*)pA,
         (float*)pD, S, Hs, P, N, c);
     if ((e = (int)cudaGetLastError())) return e;
-    ssd_bwd_sum_kernel<<<264, 256, 0, st>>>(
-        (const float*)pB, (const float*)pC, (const float*)pA,
-        (const float*)pD, (bf16*)dB, (bf16*)dC, (float*)dA, (float*)dD, B, S,
-        Hs, N, n_chunks);
+    // (c) dB, dC: element (b, e) adds its Hs heads' partials; dA, dD:
+    // head h adds (b, h, k) over b, then k
+    const size_t row = (size_t)S * N, nc = n_chunks;
+    const Layout bc{B * row, row, Hs * row, 0, row, 1, Hs};
+    const Layout ad{(size_t)Hs, 1, nc, Hs * nc, 1, B, n_chunks};
+    launch_fixed_sum(bc, ad, ad, pB, pC, pA, pD, dB, dC, dA, dD, st);
     return (int)cudaGetLastError();
 }

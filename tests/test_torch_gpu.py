@@ -2,8 +2,9 @@
 
 Marked ``gpu``: each test skips without a CUDA device (decided inside the
 test). On the H100: ``PYTHONPATH=src python -m pytest -m gpu
-tests/test_torch_gpu.py``. This file imports only torch and the port, so it
-runs where JAX is not installed. ``chip_smoke.py`` covers the main path's
+tests/test_torch_gpu.py``. This file imports only torch and the port (and,
+on the card, ``chip_smoke.py``, which imports nothing else), so it runs
+where JAX is not installed. ``chip_smoke.py`` covers the main path's
 full shapes; these are small shapes, bf16, atol = rtol = 2e-2.
 """
 
@@ -1352,27 +1353,18 @@ def test_train_step_under_the_plain_backend_on_the_card():
     assert abs(losses["plain"] - losses["kernel"]) <= 2e-2
 
 
-# the SSM backward kernels' limits: the bf16 gradients (dx, ddt, dB, dC)
-# per (batch, 64-step tile) within GRAD_TILE_SHARE of the tile's own size
-# in the Frobenius norm (both sides round to bf16 at the end: ~0.3 %); the
-# f32 ones (dA, dD, dh0) within F32_GRAD_REL of their largest magnitude
-GRAD_TILE_SHARE = 1e-2
-F32_GRAD_REL = 1e-3
+def _smoke():
+    """``chip_smoke.py`` (at the repo's root), whose metrics these tests
+    share: imported only on the card."""
+    import sys
+    from pathlib import Path
 
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
 
-def _seq_share(got, want, tile: int = 64) -> float:
-    """The largest, over (batch, ``tile`` steps of dim 1) tiles of a
-    (B, S, ...) gradient, of ||got - want|| / ||want|| (Frobenius, f32).
-    NaN where a tile of ``want`` is all zero."""
-    import torch.nn.functional as F
-
-    B, S = want.shape[:2]
-
-    def sums(t):
-        t = F.pad(t.float().reshape(B, S, -1), (0, 0, 0, -S % tile))
-        return t.square().reshape(B, -1, tile * t.shape[-1]).sum(-1)
-
-    return float((sums(got.float() - want.float()) / sums(want)).max().sqrt())
+    return chip_smoke
 
 
 def _ssm_grads(fn, ins, douts, plain: bool):
@@ -1384,34 +1376,36 @@ def _ssm_grads(fn, ins, douts, plain: bool):
     return [o.detach() for o in out], torch.autograd.grad(out, leaves, douts)
 
 
-def _check_ssm_grads(got, again, want, seq: int) -> None:
-    """The first ``seq`` gradients are (B, S, ...) and bf16; the rest
-    f32."""
-    for i, (a, b, w) in enumerate(zip(got, again, want)):
+def _check_ssm_grads(what, got, again, want) -> None:
+    """The seven gradients (x, dt, A, B, C, D, h0) each of its input's
+    type and shape, held by ``chip_smoke._ssm_grads_held``: two runs
+    bitwise equal, each bf16 gradient per (batch, 64-step tile) within
+    ``GRAD_TILE_SHARE`` (1 %) of the tile's own size in the Frobenius norm
+    (both sides round to bf16 at the end: ~0.3 %), each f32 one within
+    ``SSM_F32_GRAD_REL`` (1e-3) of its largest magnitude, a fault planted
+    in each bf16 one's last tile caught."""
+    for i, (a, w) in enumerate(zip(got, want)):
         assert a.dtype == w.dtype and a.shape == w.shape, i
-        assert torch.equal(a, b), f"gradient {i} differs between two runs"
-        if i < seq:
-            share = _seq_share(a, w)
-            assert share <= GRAD_TILE_SHARE, (i, share)
-            bad = a.clone()
-            bad[:, (a.shape[1] - 1) // 64 * 64:] *= 1.1
-            assert _seq_share(bad, w) > GRAD_TILE_SHARE, i
-        else:
-            assert _rel(a, w) <= F32_GRAD_REL, (i, _rel(a, w))
+    _smoke()._ssm_grads_held(what, got, again, want)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,Di,N,h0_scale", [
-    (2, 37, 200, 16, 0.1), (2, 300, 96, 8, 0.0), (2, 520, 64, 4, 0.1),
-    (1, 256, 37, 16, 0.1), (1, 2048, 512, 16, 0.1)])
+@pytest.mark.parametrize("B,S,Di,N,h0_scale,init_decay", [
+    (2, 37, 200, 16, 0.1, False), (2, 300, 96, 8, 0.0, False),
+    (2, 520, 64, 4, 0.1, False), (1, 256, 37, 16, 0.1, False),
+    (1, 2048, 512, 16, 0.1, False), (2, 2048, 256, 16, 0.1, True),
+    (2, 300, 96, 4, 0.0, True)])
 def test_scan_backward_matches_plain_autograd_on_the_card(B, S, Di, N,
-                                                         h0_scale):
+                                                         h0_scale,
+                                                         init_decay):
     """On the H100: the selective-scan backward kernel's gradients of
     every input (x, dt, B, C bf16; A, D, h0 f32) for y's and hT's
     gradients against autograd through the plain scan, per 64-step tile;
     two runs bitwise equal; the forward's y and hT the same bits with its
     tiles' states saved. Lengths below 256, off 256 and 2048; channels off
-    the 64-channel block (37)."""
+    the 64-channel block (37); dt and A mild (dt about 0.08) or, with
+    ``init_decay``, as the models' initial weights draw them (dt about
+    0.8, A about -1: ``chip_smoke._init_decay``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import selective_scan as sk
@@ -1422,9 +1416,11 @@ def test_scan_backward_matches_plain_autograd_on_the_card(B, S, Di, N,
     def rnd(*shape, scale=1.0):
         return scale * torch.randn(*shape, generator=g, device=dev)
 
-    ins = [rnd(B, S, Di, scale=0.5).bfloat16(),
-           (rnd(B, S, Di).abs() * 0.1).bfloat16(),
-           -(rnd(Di, N).abs() + 0.1),
+    x = rnd(B, S, Di, scale=0.5).bfloat16()
+    dt, A = (_smoke()._init_decay(g, (B, S, Di), (Di, N)) if init_decay else
+             ((rnd(B, S, Di).abs() * 0.1).bfloat16(),
+              -(rnd(Di, N).abs() + 0.1)))
+    ins = [x, dt, A,
            rnd(B, S, N, scale=0.5).bfloat16(), rnd(B, S, N, scale=0.5).bfloat16(),
            rnd(Di), rnd(B, Di, N, scale=h0_scale)]
     douts = (rnd(B, S, Di).bfloat16(), rnd(B, Di, N, scale=0.1))
@@ -1439,24 +1435,26 @@ def test_scan_backward_matches_plain_autograd_on_the_card(B, S, Di, N,
     torch.cuda.synchronize()
     assert sk.selective_scan_bwd.launches == before + 2
     assert torch.equal(out[0], y) and torch.equal(out[1], hT)
-    # x, dt, B, C by tile; A, D, h0 whole
-    order = (0, 1, 3, 4, 2, 5, 6)
-    _check_ssm_grads(*([t[i] for i in order] for t in (got, again, want)),
-                     seq=4)
+    _check_ssm_grads("selective_scan_bwd", got, again, want)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,Hs,P,N,chunk,h0_scale", [
-    (2, 37, 4, 16, 8, 256, 0.1), (2, 300, 4, 48, 64, 256, 0.1),
-    (2, 100, 3, 16, 16, 16, 0.0), (2, 200, 2, 64, 32, 64, 0.1),
-    (1, 257, 2, 8, 8, 128, 0.1), (1, 2048, 8, 64, 64, 256, 0.1)])
+@pytest.mark.parametrize("B,S,Hs,P,N,chunk,h0_scale,init_decay", [
+    (2, 37, 4, 16, 8, 256, 0.1, False), (2, 300, 4, 48, 64, 256, 0.1, False),
+    (2, 100, 3, 16, 16, 16, 0.0, False), (2, 200, 2, 64, 32, 64, 0.1, False),
+    (1, 257, 2, 8, 8, 128, 0.1, False), (1, 2048, 8, 64, 64, 256, 0.1, False),
+    (2, 2048, 8, 64, 64, 256, 0.1, True), (2, 100, 3, 16, 16, 16, 0.0, True),
+    (1, 300, 4, 48, 64, 256, 0.1, True)])
 def test_ssd_backward_matches_plain_autograd_on_the_card(B, S, Hs, P, N,
-                                                        chunk, h0_scale):
+                                                        chunk, h0_scale,
+                                                        init_decay):
     """On the H100: the SSD backward kernel's gradients of every input
     against autograd through the plain (chunked) SSD, per 64-step tile;
     two runs bitwise equal; the forward's y and hT the same bits when its
     scratch is kept. Ragged tails, one to eight chunks, chunk 16 (REDUCED
-    configs), 64, 128 and 256, several (P, N)."""
+    configs), 64, 128 and 256, several (P, N); dt and A mild or, with
+    ``init_decay``, as the models' initial weights draw them (the decay's
+    exponent falls by about 200 over a 256-step chunk)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import ssd as dk
@@ -1467,9 +1465,10 @@ def test_ssd_backward_matches_plain_autograd_on_the_card(B, S, Hs, P, N,
     def rnd(*shape, scale=1.0):
         return scale * torch.randn(*shape, generator=g, device=dev)
 
-    ins = [rnd(B, S, Hs, P, scale=0.5).bfloat16(),
-           (rnd(B, S, Hs).abs() * 0.1).bfloat16(),
-           -(rnd(Hs).abs() + 0.1),
+    x = rnd(B, S, Hs, P, scale=0.5).bfloat16()
+    dt, A = (_smoke()._init_decay(g, (B, S, Hs), (Hs,)) if init_decay else
+             ((rnd(B, S, Hs).abs() * 0.1).bfloat16(), -(rnd(Hs).abs() + 0.1)))
+    ins = [x, dt, A,
            rnd(B, S, N, scale=0.5).bfloat16(), rnd(B, S, N, scale=0.5).bfloat16(),
            rnd(Hs), rnd(B, Hs, P, N, scale=h0_scale)]
     douts = (rnd(B, S, Hs, P).bfloat16(), rnd(B, Hs, P, N, scale=0.1))
@@ -1485,9 +1484,7 @@ def test_ssd_backward_matches_plain_autograd_on_the_card(B, S, Hs, P, N,
     torch.cuda.synchronize()
     assert dk.ssd_bwd.launches == before + 2
     assert torch.equal(out[0], y) and torch.equal(out[1], hT)
-    order = (0, 1, 3, 4, 2, 5, 6)
-    _check_ssm_grads(*([t[i] for i in order] for t in (got, again, want)),
-                     seq=4)
+    _check_ssm_grads("ssd_bwd", got, again, want)
 
 
 SSM_TRAIN_KERNELS = {
