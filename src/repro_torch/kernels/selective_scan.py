@@ -20,10 +20,13 @@ state entering each 256-step tile (``save_states``; serving's ``y`` and
 ``hT`` keep their bits), and whose backward is the hand-written kernel of
 ``csrc/selective_scan_bwd.cu`` (:func:`selective_scan_bwd`): each tile
 replayed from its saved state with the forward's own operations, the
-state's adjoint scanned back over the tile, the sums over channels (dB, dC)
-and over batch rows (dA, dD) added in one fixed order by a second launch.
-Its plain version is ``ref.selective_scan_bwd``. A backward call (two
-launches) counts one in ``selective_scan_bwd.launches``.
+state's adjoint scanned back over the tile (64 channels a block in four
+passes of 16, two states a lane at a time), dB and dC summed over a
+block's channels in channel order into one f32 partial a block, then the
+blocks' partials (dB, dC) and the batch rows (dA, dD) added in one fixed
+order by a second launch. Its plain version is ``ref.selective_scan_bwd``.
+A backward call (two launches) counts one in
+``selective_scan_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ BWD_STATES = (4, 8, 16)       # and its backward
 TILE = 256                    # steps of a tile (csrc TT)
 CHANNELS_BWD = 64             # channels of a backward block (csrc CT)
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 4 + [
+_BWD_ARGTYPES = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p]
 
 
@@ -161,10 +164,15 @@ def selective_scan_bwd(x, dt, A, Bm, C, D, hs, dy, dhT=None):
     pB = torch.empty(2, blocks, B, S, N, dtype=f32, device=dev)
     pA = torch.empty(B, Di, N, dtype=f32, device=dev)
     pD = torch.empty(B, Di, dtype=f32, device=dev)
+    # B and C are read as bf16 pairs: 4-byte aligned
+    Bm, C = (t if t.data_ptr() % 4 == 0 else t.clone() for t in (Bm, C))
+    # 16-byte staging of x, dt, dy and 16-byte stores of dx, ddt, else scalar
+    vec = Di % 8 == 0 and not any(t.data_ptr() % 16
+                                  for t in (x, dt, dy, dx, ddt))
     ptr = (lambda t: t.data_ptr() if t is not None else None)
     err = _bwd_lib()(*map(ptr, (x, dt, A, Bm, C, D, hs, dy, dhT, dx, ddt, dA,
                                 dB, dC, dD, dh0, pB[0], pB[1], pA, pD)),
-                     B, S, Di, N, _build.stream(dev))
+                     B, S, Di, N, int(vec), _build.stream(dev))
     _build.check(err, "selective_scan_bwd")
     selective_scan_bwd.launches += 1
     return dx, ddt, dA, dB, dC, dD, dh0

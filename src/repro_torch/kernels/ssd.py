@@ -21,11 +21,13 @@ Training needs the gradient: :class:`SSD` is the
 scratch buffer (each chunk's ``l``, entering state and decay: what the
 backward reads, so nothing is recomputed, and serving's bits are those of
 the same launches), and whose backward is the hand-written kernel of
-``csrc/ssd_bwd.cu`` (:func:`ssd_bwd`, three launches: the state's gradient
-passed over the chunks in reverse, the transposed products per (chunk,
-head), the sums over heads, chunks and batch rows in one fixed order). Its
-plain version is ``ref.ssd_bwd``. A backward call counts one in
-``ssd_bwd.launches``.
+``csrc/ssd_bwd.cu`` (:func:`ssd_bwd`, three launches: the chunks' local
+parts of the state's gradient on the tensor cores, passed over the chunks
+in reverse by each head's last block; the transposed products per (chunk,
+group of ``HEADS_BWD`` heads) on the tensor cores, dB and dC summed over
+the group's heads; the sums over head groups, chunks and batch rows in one
+fixed order). Its plain version is ``ref.ssd_bwd``. A backward call counts
+one in ``ssd_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -41,9 +43,10 @@ from repro_torch.kernels.ref import ssd as plain  # noqa: F401  (beside the kern
 MAX_P = 64      # P: a multiple of 8 up to 64
 MAX_N = 64      # N: a multiple of 8 up to 64
 MAX_CHUNK = 256
+HEADS_BWD = 4   # heads of a backward products block (csrc HG)
 
 _ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 6 + [
+_BWD_ARGTYPES = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 6 + [
     ctypes.c_void_p]
 
 
@@ -182,15 +185,17 @@ def ssd_bwd(x, dt, A, Bm, C, D, scratch, dy, dhT=None, *, chunk: int = 256):
     if scratch.dtype != f32 or scratch.numel() != n_l + n_s + n_d:
         raise ValueError("ssd_bwd kernel: scratch is not this call's")
     chunks = -(-S // c)
+    groups = -(-Hs // HEADS_BWD)
     dHn = torch.empty(B, Hs, chunks, P, N, dtype=f32, device=dev)
-    pBC = torch.empty(2, B, Hs, S, N, dtype=f32, device=dev)
+    pBC = torch.empty(2, B, groups, S, N, dtype=f32, device=dev)
     pAD = torch.empty(2, B, Hs, chunks, dtype=f32, device=dev)
     base = scratch.data_ptr()
     ptr = (lambda t: t.data_ptr() if t is not None else None)
     err = _bwd_lib()(*map(ptr, (x, dt, A, Bm, C, D, dy, dhT)), base,
                      base + 4 * n_l, base + 4 * (n_l + n_s),
                      *map(ptr, (dHn, dx, ddt, dA, dB, dC, dD, dh0, pBC[0],
-                                pBC[1], pAD[0], pAD[1])),
+                                pBC[1], pAD[0], pAD[1],
+                                _flash_decode.counters(B * Hs, dev))),
                      B, S, Hs, P, N, c, _build.stream(dev))
     _build.check(err, "ssd_bwd")
     ssd_bwd.launches += 1

@@ -1394,7 +1394,8 @@ def _check_ssm_grads(what, got, again, want) -> None:
     (2, 37, 200, 16, 0.1, False), (2, 300, 96, 8, 0.0, False),
     (2, 520, 64, 4, 0.1, False), (1, 256, 37, 16, 0.1, False),
     (1, 2048, 512, 16, 0.1, False), (2, 2048, 256, 16, 0.1, True),
-    (2, 300, 96, 4, 0.0, True)])
+    (2, 300, 96, 4, 0.0, True), (1, 700, 72, 8, 0.1, True),
+    (2, 130, 24, 4, 0.1, False), (1, 513, 8200, 16, 0.1, False)])
 def test_scan_backward_matches_plain_autograd_on_the_card(B, S, Di, N,
                                                          h0_scale,
                                                          init_decay):
@@ -1402,10 +1403,12 @@ def test_scan_backward_matches_plain_autograd_on_the_card(B, S, Di, N,
     every input (x, dt, B, C bf16; A, D, h0 f32) for y's and hT's
     gradients against autograd through the plain scan, per 64-step tile;
     two runs bitwise equal; the forward's y and hT the same bits with its
-    tiles' states saved. Lengths below 256, off 256 and 2048; channels off
-    the 64-channel block (37); dt and A mild (dt about 0.08) or, with
-    ``init_decay``, as the models' initial weights draw them (dt about
-    0.8, A about -1: ``chip_smoke._init_decay``)."""
+    tiles' entering states saved, tile 0's being h0. Lengths
+    below 256, off 256 and 2048; channels off the 64-channel block and off
+    its 16-channel pass (37, 200, 72, 24, 8200: a last block of 8), N 4, 8
+    and 16; dt and A mild (dt about 0.08) or, with ``init_decay``, as the
+    models' initial weights draw them (dt about 0.8, A about -1:
+    ``chip_smoke._init_decay``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import selective_scan as sk
@@ -1444,7 +1447,9 @@ def test_scan_backward_matches_plain_autograd_on_the_card(B, S, Di, N,
     (2, 100, 3, 16, 16, 16, 0.0, False), (2, 200, 2, 64, 32, 64, 0.1, False),
     (1, 257, 2, 8, 8, 128, 0.1, False), (1, 2048, 8, 64, 64, 256, 0.1, False),
     (2, 2048, 8, 64, 64, 256, 0.1, True), (2, 100, 3, 16, 16, 16, 0.0, True),
-    (1, 300, 4, 48, 64, 256, 0.1, True)])
+    (1, 300, 4, 48, 64, 256, 0.1, True), (1, 300, 5, 32, 16, 64, 0.1, False),
+    (2, 150, 6, 24, 40, 128, 0.1, True), (2, 50, 7, 8, 8, 64, 0.0, False),
+    (1, 90, 9, 40, 24, 32, 0.1, False)])
 def test_ssd_backward_matches_plain_autograd_on_the_card(B, S, Hs, P, N,
                                                         chunk, h0_scale,
                                                         init_decay):
@@ -1452,9 +1457,11 @@ def test_ssd_backward_matches_plain_autograd_on_the_card(B, S, Hs, P, N,
     against autograd through the plain (chunked) SSD, per 64-step tile;
     two runs bitwise equal; the forward's y and hT the same bits when its
     scratch is kept. Ragged tails, one to eight chunks, chunk 16 (REDUCED
-    configs), 64, 128 and 256, several (P, N); dt and A mild or, with
-    ``init_decay``, as the models' initial weights draw them (the decay's
-    exponent falls by about 200 over a 256-step chunk)."""
+    configs), 32, 64, 128 and 256, S below one chunk, several (P, N) down
+    to 8 (P 24 and 40, N 24 and 40: off the 16-wide product steps), head
+    counts off the backward's 4-head group (3, 5, 6, 7, 9); dt and A mild
+    or, with ``init_decay``, as the models' initial weights draw them (the
+    decay's exponent falls by about 200 over a 256-step chunk)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import ssd as dk
