@@ -79,15 +79,27 @@
 //   off 16 bytes, takes a scalar staging path with the same arithmetic.
 // - Shared memory: 169 KB at N = 16 (one block an SM, 255 registers a
 //   thread). State sizes 4, 8 and 16 (N even: states go in pairs).
+// - Staging goes through registers, not cp.async: the loads of the next
+//   pass are in flight during this one either way, and cp.async would
+//   need a 24 KB landing buffer for the same transpose.
 // - Measured on the H100 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
 //   section 6, row 5b): 1.174 ms a call (tiles 1.133, sums 0.041) against
 //   the first design's 1.602 timed beside it, its outputs bitwise the
-//   first design's (tools/ssm_bwd_digest.py): 1.36x, short of the 2x and
-//   the 0.6 ms asked. Left out (tools/ssm_bwd_variants.py): the channel
-//   sums 0.18 ms, the state loop's barriers 0.07; the recurrences alone
+//   first design's (tools/ssm_bwd_digest.py): 1.36x. It misses both the
+//   2x over the first design and the 0.6 ms that were asked of it. Left
+//   out (tools/ssm_bwd_variants.py): the channel sums 0.18 ms, the state
+//   loop's barriers 0.07; the recurrences alone
 //   (no dB, dC terms, no sums, no barriers) take 0.83 ms: at 8 warps an
 //   SM the lanes' dependent chains (the folds, the two shuffle scans, the
 //   walk) leave the issue slots mostly idle.
+// - What a faster design must cut, counted per step, channel and state
+//   (537 M of them): ~24 issued instructions (~0.45 ms at the card's FP32
+//   issue rate) and ~32 bytes of shared-memory traffic (B and C read
+//   twice each, a dB and a dC term stored and read back; ~0.6 ms at 128
+//   bytes a clock an SM). Every layout tried crosses lanes for one of the
+//   two sums (over states: dx, ddt; over channels: dB, dC). Making the
+//   other sum lane-local takes more live values a lane, and 16 warps an
+//   SM then spill.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

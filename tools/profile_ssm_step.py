@@ -1,21 +1,29 @@
-"""One warm training step of a recurrent-family model, profiled on one H100.
+"""Warm training steps of the recurrent-family models, timed and profiled
+on one H100.
 
 Usage, from the root of this checkout, on a machine with the card:
 
-    python3 tools/profile_ssm_step.py [ARCH ...]
+    python3 tools/profile_ssm_step.py [--src SRC] [--steps K] [ARCH ...]
 
 ``ARCH`` is ``zamba2-1.2b`` (the default; full depth) or ``falcon-mamba-7b``
 (its depth cut as ``chip_smoke.SSM_TRAIN`` cuts it, 8 of 64 layers). Each
 is built at published widths from seed 0 and trained at ``chip_smoke``'s
 training shape (B 2, S 2048) through ``make_train_step``: two steps to
-warm, then one under ``torch.profiler`` (``chip_smoke._profile_step``: the
-device's busy share of the step's wall time, the host's own time, the
-kernels by device time). Prints the card's name and power limit, then one
-JSON line an arch with the two warm steps' milliseconds and the profile.
+warm, ``K`` (default 5) timed, then one under ``torch.profiler``
+(``chip_smoke._profile_step``: the device's busy time over the profiled
+step's own wall, the host's own time, the kernels by device time). ``SRC``
+is a ``src`` directory whose ``repro_torch`` is run: this checkout's (the
+default), or another commit's unpacked under ``build/`` (``git archive
+<commit> src | tar -x -C build/parent``); run two packages in turns (A, B,
+B, A) to compare their steps on one card. Prints the card's name and
+power limit, then one JSON line an arch: the warm-up and timed steps'
+milliseconds, their median, and the profile.
 """
 
+import argparse
 import json
 import os
+import statistics
 import sys
 import time
 from dataclasses import replace
@@ -26,12 +34,23 @@ ROOT = Path(__file__).resolve().parents[1]
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
-def main(archs) -> int:
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("archs", nargs="*", default=["zamba2-1.2b"])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--steps", type=int, default=5)
+    args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
-    sys.path.insert(0, str(ROOT / "src"))
     import chip_smoke as cs
     import torch
 
+    # chip_smoke put this checkout's src first and imported from it: drop
+    # what it imported, so that the package under --src is the one run
+    for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[name]
+    src = Path(args.src).resolve()
+    sys.path.insert(0, str(src))
+    import repro_torch
     from repro_torch.config import RunConfig
     from repro_torch.configs import get
     from repro_torch.data.synthetic import SyntheticDataset
@@ -39,8 +58,10 @@ def main(archs) -> int:
     from repro_torch.training.state import init_train_state
     from repro_torch.training.step import make_train_step
 
+    if Path(repro_torch.__file__).resolve().parents[1] != src:
+        raise SystemExit(f"repro_torch imported from {repro_torch.__file__}")
     cs.phase_device()
-    for arch in archs:
+    for arch in args.archs:
         q = cs.SSM_TRAIN[arch]
         cfg = get(arch)
         if q["layers"] is not None:
@@ -49,20 +70,23 @@ def main(archs) -> int:
         step = make_train_step(model, RunConfig(arch=cfg.arch_id))
         data = SyntheticDataset(cfg, q["S"], q["B"], 0)
         state = init_train_state(model, 0, "cuda")
-        warm = []
-        for i in range(2):
+        times = []
+        for i in range(2 + args.steps):
             batch = {k: torch.from_numpy(v).cuda()
                      for k, v in data.batch(i).items()}
             torch.cuda.synchronize()
             t = time.perf_counter()
             state, _ = step(state, batch)
             torch.cuda.synchronize()
-            warm.append((time.perf_counter() - t) * 1e3)
+            times.append((time.perf_counter() - t) * 1e3)
         batch = {k: torch.from_numpy(v).cuda()
-                 for k, v in data.batch(2).items()}
+                 for k, v in data.batch(2 + args.steps).items()}
         prof = cs._profile_step(step, state, batch)
-        print(json.dumps({"arch": arch, "n_layers": cfg.n_layers,
-                          "B": q["B"], "S": q["S"], "warm_step_ms": warm,
+        print(json.dumps({"arch": arch, "src": str(src),
+                          "n_layers": cfg.n_layers, "B": q["B"], "S": q["S"],
+                          "warm_step_ms": times[:2],
+                          "step_ms": times[2:],
+                          "median_step_ms": statistics.median(times[2:]),
                           "profile": prof}), flush=True)
         del model, step, state, batch
         torch.cuda.empty_cache()
@@ -70,4 +94,4 @@ def main(archs) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:] or ["zamba2-1.2b"]))
+    sys.exit(main())

@@ -6,8 +6,8 @@ Usage, from the root of this checkout, on a machine with the card:
 
 Each variant is this checkout's ``csrc/moe_route.cu`` or ``csrc/rmsnorm.cu``
 with a few lines replaced (``ROUTE`` and ``NORM`` below name them; a
-variant whose lines are missing is refused), built with the package's own
-``nvcc`` flags under ``build/route_norm_variants/`` and called through its C
+variant whose lines are missing is refused), built by
+``tools/cu_variant.py`` and called through its C
 entry at ``chip_smoke.py``'s shapes: the router at deepseek-moe-16b's and
 granite-moe-1b-a400m's (d, E, k) and 8, 40 and 256 tokens, the backward at
 the three training shapes. Prints the card's name and power limit, the
@@ -19,16 +19,15 @@ choices bought.
 """
 
 import ctypes
-import hashlib
-import subprocess
 import sys
 from pathlib import Path
+
+import cu_variant
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-OUT = ROOT / "build" / "route_norm_variants"
 ROUTERS = {"deepseek-moe-16b": (2048, 64, 6),
            "granite-moe-1b-a400m": (1024, 32, 8)}
 NORM_SHAPES = {"smollm-360m block": (16384, 960),
@@ -111,23 +110,7 @@ def build(name: str, subs) -> ctypes.CDLL:
     from repro_torch.kernels import _build
 
     src = (_build.CSRC / f"{name}.cu").read_text()
-    for old, new in subs:
-        if old not in src:
-            raise SystemExit(f"{name}.cu: a variant's line is missing: "
-                             f"{old!r}")
-        src = src.replace(old, new)
-    OUT.mkdir(parents=True, exist_ok=True)
-    tag = hashlib.sha1(src.encode()).hexdigest()[:12]
-    cu, so = OUT / f"{name}-{tag}.cu", OUT / f"{name}-{tag}.so"
-    if not so.exists():
-        cu.write_text(src)
-        run = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                              str(_build.CSRC), "-o", str(so), str(cu)],
-                             capture_output=True, text=True)
-        if run.returncode:
-            raise SystemExit(f"nvcc failed for {cu}:\n{run.stdout}"
-                             f"{run.stderr}")
-    return ctypes.CDLL(str(so))
+    return cu_variant.variant(name, cu_variant.edited(src, subs))
 
 
 def route_row(cs, lib, gen) -> dict:

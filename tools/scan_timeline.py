@@ -5,13 +5,13 @@ Usage, from the root of this checkout, on a machine with the card:
     python3 tools/scan_timeline.py [CU] [--S 256]
 
 ``CU`` is ``src/repro_torch/csrc/selective_scan.cu`` unless given (e.g. an
-edited copy of it under ``build/``). The tool copies it under
-``build/scan_timeline/``, inserts probes at fixed points of the kernel (its
-entry; after its prologue; per 256-step tile after staging, after the scan
-and after y is stored; its end) where thread 0 of each block records
-``%globaltimer``, ``clock64()`` and its SM, builds the copy with ``nvcc``
-and runs it once at falcon-mamba-7b's prefill chunk (B 1, Di 8192, N 16,
-S 256 from a nonzero state; ``--S`` for another length) on the inputs
+edited copy of it under ``build/``). The tool inserts probes at fixed
+points of a copy of the kernel (its entry; after its prologue; per 256-step
+tile after staging, after the scan and after y is stored; its end) where
+thread 0 of each block records ``%globaltimer``, ``clock64()`` and its SM,
+builds the copy and the source as it is (``tools/cu_variant.py``) and runs
+them once at falcon-mamba-7b's prefill chunk (B 1, Di 8192, N 16, S 256
+from a nonzero state; ``--S`` for another length) on the inputs
 ``chip_smoke.py`` draws (``_scan_case``). It prints the card's name and
 power limit, then one JSON line: the kernel's span, each phase's mean per
 block in ns and SM cycles, blocks per SM and how many ran at once, and the
@@ -24,9 +24,10 @@ import argparse
 import ctypes
 import json
 import statistics
-import subprocess
 import sys
 from pathlib import Path
+
+import cu_variant
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -99,30 +100,9 @@ PROBE_POINTS = [
 def instrument(src: str) -> str:
     """The probed copy of ``src``; raises if a probe point is not found
     exactly once (the kernel changed under the tool)."""
-    for i, (anchor, probed) in enumerate(PROBE_POINTS):
-        if src.count(anchor) != 1:
-            raise ValueError(f"probe point {i} found {src.count(anchor)} "
-                             f"times: {anchor!r}")
-        src = src.replace(anchor, probed)
+    src = cu_variant.edited(src, PROBE_POINTS)
     head = src.index("#include <stdint.h>\n") + len("#include <stdint.h>\n")
     return src[:head] + PROBES + src[head:]
-
-
-def build(src: str, name: str) -> ctypes.CDLL:
-    from repro_torch.kernels import _build
-
-    out = ROOT / "build" / "scan_timeline"
-    out.mkdir(parents=True, exist_ok=True)
-    cu = out / f"{name}.cu"
-    cu.write_text(src)
-    # the kernel's own headers (mma.cuh) from this checkout
-    inc = ["-I", str(_build.CSRC)]
-    lib = out / f"lib{name}.so"
-    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *inc, "-o",
-                          str(lib), str(cu)], capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError(f"nvcc failed for {cu}:\n{res.stdout}{res.stderr}")
-    return ctypes.CDLL(str(lib))
 
 
 def main() -> int:
@@ -142,8 +122,8 @@ def main() -> int:
 
     cs.phase_device()
     src = Path(args.cu).read_text()
-    lib = build(instrument(src), "probed")
-    plain_lib = build(src, "plain")
+    lib = cu_variant.variant("scan_timeline probed", instrument(src))
+    plain_lib = cu_variant.variant("scan_timeline plain", src)
     lib.tl_read.argtypes = [ctypes.c_void_p] * 3
     lib.tl_read.restype = lib.tl_clear.restype = ctypes.c_int
     lib.tl_clear.argtypes = []

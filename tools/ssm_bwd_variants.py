@@ -6,8 +6,8 @@ Usage, from the root of this checkout, on a machine with the card:
 
 Each variant is this checkout's ``csrc/selective_scan_bwd.cu`` or
 ``csrc/ssd_bwd.cu`` with a few lines replaced (``SCAN`` and ``SSD`` below
-name them; a variant whose lines are missing is refused), built with the
-package's own ``nvcc`` flags under ``build/ssm_bwd_variants/`` and called
+name them; a variant whose lines are missing is refused), built by
+``tools/cu_variant.py`` and called
 through the wrapper (its C entry swapped for the variant's) at
 ``chip_smoke.py``'s training shapes: the scan at falcon-mamba-7b's (B 2, S
 2048, Di 8192, N 16), the SSD at zamba2-1.2b's (B 2, S 2048, 64 heads of
@@ -21,15 +21,14 @@ results on purpose and none is checked.
 
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
+
+import cu_variant
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
-
-OUT = ROOT / "build" / "ssm_bwd_variants"
 
 # the state loop's two barriers of the scan backward
 ROWS_WRITTEN = "                __syncthreads();  // every channel's rows are written\n"
@@ -52,6 +51,15 @@ SCAN = {
         (TERM_STORES,
          "                        dAl[s] += tb[0] + tb[1] + tb[2] + tb[3]"
          " + tc[0] + tc[1] + tc[2] + tc[3];\n")],
+    # B and C not read in the state loop (a register in their place): what
+    # their four shared-memory reads a step and state cost
+    "no B, C reads": [(f"const float4 {v} = *reinterpret_cast<const float4*>("
+                       f"{t} + {n} * NS + 64 * q + 4 * g);",
+                       f"const float4 {v} = make_float4(ar[s], ar[s], "
+                       f"ar[s], ar[s]);")
+                      for v, t, n in (("v", "BT", "n"), ("v", "CTs", "(n0 + s)"),
+                                      ("bv4", "BT", "(n0 + s)"),
+                                      ("cv4", "CTs", "(n0 + s)"))],
 }
 DC_PHASE = ("                if (32 * hf < N) {\n"
             "                    float* pc = pC")
@@ -84,29 +92,6 @@ SSD = {
 }
 
 
-def edited(source: str, edits) -> str:
-    for old, new in edits:
-        if source.count(old) != 1:
-            raise SystemExit(f"variant refused: {old[:60]!r} is not in the "
-                             f"source once")
-        source = source.replace(old, new)
-    return source
-
-
-def build(name: str, source: str, entry: str):
-    """Start nvcc for one variant; returns (library path, process)."""
-    from repro_torch.kernels import _build
-
-    OUT.mkdir(parents=True, exist_ok=True)
-    cu = OUT / (name.replace(" ", "_").replace(",", "") + ".cu")
-    cu.write_text(source)
-    so = cu.with_suffix(".so")
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-           "-o", str(so), str(cu)]
-    return so, entry, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)
-
-
 def main() -> int:
     import chip_smoke as cs
     import torch
@@ -120,16 +105,13 @@ def main() -> int:
         src = (_build.CSRC / file).read_text()
         for name, edits in table.items():
             key = ("scan " if table is SCAN else "ssd ") + name
-            jobs[key] = build(key, edited(src, edits), entry)
+            jobs[key] = (entry, cu_variant.Build(
+                key, cu_variant.edited(src, edits)))
     fns = {}
-    for key, (so, entry, proc) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for {key}:\n{log}")
-        usage = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+    for key, (entry, job) in jobs.items():
+        lib, usage = job.wait()
         print(key, "|", " | ".join(usage[-4:]), flush=True)
-        fn = getattr(ctypes.CDLL(str(so)), entry)
+        fn = getattr(lib, entry)
         mod = sk if key.startswith("scan") else dk
         fn.argtypes = mod._BWD_ARGTYPES
         fn.restype = ctypes.c_int
