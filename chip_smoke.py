@@ -236,8 +236,19 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    (forced: every SSD, scan, flash and RMSNorm backward call, per tile);
    then 3 steps at B 2, S 2048 twice from seed 0, as c. The scan and SSD
    backward checks also run at the decay the models start from (dt about
-   0.8, A about -1). Sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (unless set) before CUDA
-   starts, for the whole run.
+   0.8, A about -1). e, the MoE and enc-dec families: the router with its
+   softmax out (weights and ids the same bits as without) and its backward
+   (``csrc/moe_route_bwd.cu``) at granite-moe-1b-a400m's and
+   deepseek-moe-16b's 4096 tokens a layer (d_logits against the plain
+   closed form, the route's dx and d_router against plain autograd), the
+   flash backward's non-causal branch at whisper-medium's encoder (B 2,
+   1500 frames, 16 heads of 64) and cross attention (2048 queries over
+   1500 keys); then granite-moe-1b-a400m and whisper-medium at published
+   widths and full depth: each first step at 2 layers within c's limits of
+   the plain step, each leaf within b's, every backward kernel call rerun
+   against plain versions (forced), then 3 steps at B 2, S 2048 twice from
+   seed 0, as c. Sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (unless set)
+   before CUDA starts, for the whole run.
 
 The MoE models' logits have no bound (random-weight routing is chaotic):
 the kernel-forced check holds the router there (ids equal but at a near
@@ -4163,10 +4174,12 @@ def _flash_bwd_parts() -> dict:
 
 
 def check_flash_bwd(gen, *, B, S, H, K, D, what: str,
-                    parts_ms: dict) -> list[dict]:
+                    parts_ms: dict | None, Sk: int | None = None,
+                    causal: bool = True) -> list[dict]:
     """The flash forward (with ``lse``) and backward kernels at a training
-    shape against plain autograd; the forward's bits the same with ``lse``
-    as without; two backward runs bitwise equal. Rows: forward, backward."""
+    shape (S queries over ``Sk`` keys, S where None; causal or not)
+    against plain autograd; the forward's bits the same with ``lse`` as
+    without; two backward runs bitwise equal. Rows: forward, backward."""
     import torch
     import torch.nn.functional as F
 
@@ -4176,18 +4189,19 @@ def check_flash_bwd(gen, *, B, S, H, K, D, what: str,
         return torch.randn(*shape, generator=gen, device="cuda").to(
             torch.bfloat16)
 
-    q, k, v, dout = rnd(B, S, H, D), rnd(B, S, K, D), rnd(B, S, K, D), \
+    Sk = Sk or S
+    q, k, v, dout = rnd(B, S, H, D), rnd(B, Sk, K, D), rnd(B, Sk, K, D), \
         rnd(B, S, H, D)
-    out, lse = fk.flash_attention(q, k, v, causal=True, with_lse=True)
-    if not torch.equal(out, fk.flash_attention(q, k, v, causal=True)):
+    out, lse = fk.flash_attention(q, k, v, causal=causal, with_lse=True)
+    if not torch.equal(out, fk.flash_attention(q, k, v, causal=causal)):
         raise AssertionError(f"flash {what}: the output with lse differs "
                              f"from the output without")
-    got = fk.flash_attention_bwd(q, k, v, out, dout, lse)
-    again = fk.flash_attention_bwd(q, k, v, out, dout, lse)
+    got = fk.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
+    again = fk.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"flash backward {what}: two runs differ")
     ins = [t.clone().requires_grad_() for t in (q, k, v)]
-    plain_out = ref.attention(*ins, causal=True)
+    plain_out = ref.attention(*ins, causal=causal)
     want = torch.autograd.grad(plain_out, ins, dout, retain_graph=True)
     fwd_err = _close(out, plain_out.detach(), f"flash forward {what}")
     shares = {n: _tile_share(a, w) for n, a, w in zip(("dq", "dk", "dv"),
@@ -4201,21 +4215,24 @@ def check_flash_bwd(gen, *, B, S, H, K, D, what: str,
                              f"passes the check: {planted}")
     bwd_err = max(float((a.float() - w.float()).abs().max())
                   for a, w in zip(got, want))
-    pairs = B * H * S * (S + 1) // 2
+    pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * Sk
     io = (q.numel() + k.numel() + v.numel()) * 2
-    shape = {"B": B, "S": S, "H": H, "K": K, "D": D, "causal": True}
+    shape = {"B": B, "S": S, "H": H, "K": K, "D": D, "causal": causal}
+    if Sk != S:
+        shape["Sk"] = Sk
     lib_ins = [t.detach().transpose(1, 2).clone().requires_grad_()
                for t in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(*lib_ins, is_causal=True,
+    lib_out = F.scaled_dot_product_attention(*lib_ins, is_causal=causal,
                                              enable_gqa=True)
     lib_dout = dout.transpose(1, 2)
     fwd = {"shape": shape, "max_abs_err": fwd_err,
            "ms": _time_ms(lambda: fk.flash_attention(
-               q, k, v, causal=True, with_lse=True), flush=True),
-           "plain_ms": _time_ms(lambda: ref.attention(q, k, v, causal=True),
+               q, k, v, causal=causal, with_lse=True), flush=True),
+           "plain_ms": _time_ms(lambda: ref.attention(q, k, v,
+                                                      causal=causal),
                                 flush=True),
            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
-               *(t.detach() for t in lib_ins), is_causal=True,
+               *(t.detach() for t in lib_ins), is_causal=causal,
                enable_gqa=True), flush=True),
            **_bound(io + q.numel() * 2 + lse.numel() * 4, 4 * D * pairs,
                     BF16_TC_FLOPS)}
@@ -4226,16 +4243,17 @@ def check_flash_bwd(gen, *, B, S, H, K, D, what: str,
            "grad_tile_share": shares, "planted_tile_share": planted,
            "bitwise_repeat": True,
            "ms": _time_ms(lambda: fk.flash_attention_bwd(
-               q, k, v, out, dout, lse), flush=True),
-           # each launch of one call (``_flash_bwd_parts``); the kernels
-           # execute 14 D FLOP a pair (S and dP twice: in dK/dV and in dQ)
-           # against the bound's 10 D
-           "parts_ms": parts_ms,
+               q, k, v, out, dout, lse, causal=causal), flush=True),
+           # the kernels execute 14 D FLOP a pair (S and dP twice: in dK/dV
+           # and in dQ) against the bound's 10 D
            "executed_flop_per_pair": 14 * D,
            "plain_ms": _grad_ms(plain_out, ins, dout),
            "library_ms": _grad_ms(lib_out, lib_ins, lib_dout),
            **_bound(2 * io + 2 * q.numel() * 2 + lse.numel() * 4,
                     10 * D * pairs, BF16_TC_FLOPS)}
+    if parts_ms is not None:
+        # each launch of one call (``_flash_bwd_parts``)
+        bwd["parts_ms"] = parts_ms
     for row in (fwd, bwd):
         row["x_library"] = row["ms"] / row["library_ms"]
         row["x_bound"] = row["ms"] / row["bound_ms"]
@@ -4297,6 +4315,104 @@ def check_rmsnorm_bwd(gen, shape, what: str, ops: dict) -> list[dict]:
         row["x_library"] = row["ms"] / row["library_ms"]
         row["x_bound"] = row["ms"] / row["bound_ms"]
     log({"check": f"rmsnorm_bwd@{what}", "forward": fwd, "backward": bwd})
+    return [fwd, bwd]
+
+
+# the router's backward at the MoE configs' training shapes: T = B 2 x S
+# 2048 tokens a layer. d_logits against ref.moe_route_bwd on the same
+# inputs (both f32, sums over k and E in other orders: within ROUTE_BWD_REL
+# of the largest magnitude); the whole route's dx (bf16) and d_router (f32)
+# against autograd through the plain router on the tokens whose picks agree
+# (a near tie may rank either way: those tokens' gradients are zeroed on
+# both sides), dx within ROUTE_DX_REL (bf16 rounding), d_router within
+# ROUTE_DROUTER_REL (f32 sums over 4096 tokens in cuBLAS's order) of their
+# largest magnitudes
+MOE_TRAIN_T = 4096
+ROUTE_BWD_REL = 1e-5
+ROUTE_DX_REL = 1e-2
+ROUTE_DROUTER_REL = 1e-4
+
+
+def check_moe_route_bwd(gen, arch: str) -> list[dict]:
+    """The router kernel with ``probs`` out and its backward kernel
+    (``csrc/moe_route_bwd.cu``) at ``arch``'s (d, E, k) over MOE_TRAIN_T
+    tokens: the forward's weights and ids bitwise the same as without
+    ``probs``; d_logits against the plain closed form and the whole
+    route's gradients (``MoeRoute``) against plain autograd (the limits
+    above); two backward runs bitwise equal. Rows: forward with ``probs``,
+    backward; no single PyTorch call computes either (``library_ms``
+    none)."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import moe_route as rk, ref
+
+    cfg = get(arch)
+    d, E, k, T = cfg.d_model, cfg.n_experts, cfg.moe_top_k, MOE_TRAIN_T
+    x, router = _router(gen, cfg, T)
+    w0, ids0 = rk.moe_route(x, router, k)
+    weights, ids, probs = rk.moe_route(x, router, k, with_probs=True)
+    if not (torch.equal(w0, weights) and torch.equal(ids0, ids)):
+        raise AssertionError(f"moe_route {arch}: probs changed the weights' "
+                             f"or the ids' bits")
+    pw, pids, pprobs = ref.moe_route(x, router, k, with_probs=True)
+    same = (ids == pids).all(-1)
+    dw = torch.randn(T, k, generator=gen, device="cuda") * same[:, None]
+    dprobs = torch.randn(T, E, generator=gen, device="cuda") * same[:, None]
+    got = rk.moe_route_bwd(probs, ids, weights, dw, dprobs)
+    again = rk.moe_route_bwd(probs, ids, weights, dw, dprobs)
+    if not torch.equal(got, again):
+        raise AssertionError(f"moe_route_bwd {arch}: two runs differ")
+    dl_rel = _rel_err(got, ref.moe_route_bwd(probs, ids, weights, dw,
+                                             dprobs))
+    xk, rk_ = x.clone().requires_grad_(), router.clone().requires_grad_()
+    kw, _, kp = rk.MoeRoute.apply(xk, rk_, k)
+    xp, rp = x.clone().requires_grad_(), router.clone().requires_grad_()
+    pw2, _, pp2 = ref.moe_route(xp, rp, k, with_probs=True)
+    dx, dr = torch.autograd.grad((kw, kp), (xk, rk_), (dw, dprobs),
+                                 retain_graph=True)
+    pdx, pdr = torch.autograd.grad((pw2, pp2), (xp, rp), (dw, dprobs),
+                                   retain_graph=True)
+    readings = {"d_logits_rel": dl_rel, "dx_rel": _rel_err(dx, pdx),
+                "d_router_rel": _rel_err(dr, pdr)}
+    limits = {"d_logits_rel": ROUTE_BWD_REL, "dx_rel": ROUTE_DX_REL,
+              "d_router_rel": ROUTE_DROUTER_REL}
+    if not all(readings[n] <= limits[n] for n in limits):
+        raise AssertionError(f"moe_route_bwd {arch}: {readings} over "
+                             f"{limits}")
+    shape = {"T": T, "d": d, "E": E, "k": k, "arch": arch}
+    fwd = {"shape": shape, "max_abs_err": _close(weights[same], pw[same],
+                                                 "moe_route weights",
+                                                 ROUTE_TOL),
+           "probs_max_abs_err": float((probs - pprobs).abs().max()),
+           "ids_differ": int((~same).sum()), "bitwise_without_probs": True,
+           "ms": _time_ms(lambda: rk.moe_route(x, router, k,
+                                               with_probs=True)),
+           "plain_ms": _time_ms(lambda: ref.moe_route(x, router, k,
+                                                      with_probs=True)),
+           "library_ms": None, "library": "none",
+           **_bound(T * d * 2 + d * E * 4 + T * k * 8 + T * E * 4,
+                    2 * T * d * E, F32_FLOPS, exps=T * E)}
+    # probs, dprobs and d_logits (T, E) f32, ids, weights and dw (T, k)
+    bwd = {"shape": shape, "max_abs_err": float(
+               (got - ref.moe_route_bwd(probs, ids, weights, dw,
+                                        dprobs)).abs().max()),
+           **readings, "bitwise_repeat": True,
+           "ms": _time_ms(lambda: rk.moe_route_bwd(probs, ids, weights, dw,
+                                                   dprobs)),
+           "plain_ms": _time_ms(lambda: ref.moe_route_bwd(
+               probs, ids, weights, dw, dprobs)),
+           # the whole route's backward: the kernel and the two f32
+           # products, against autograd through the plain router
+           "route_grad_ms": _grad_ms((kw, kp), (xk, rk_), (dw, dprobs)),
+           "plain_route_grad_ms": _grad_ms((pw2, pp2), (xp, rp),
+                                           (dw, dprobs)),
+           "library_ms": None, "library": "none",
+           **_bound(3 * T * E * 4 + 3 * T * k * 4, 4 * T * E + 4 * T * k,
+                    F32_FLOPS)}
+    for row in (fwd, bwd):
+        row.update(_factors(row))
+    log({"check": f"moe_route_bwd@{arch}", "forward": fwd, "backward": bwd})
     return [fwd, bwd]
 
 
@@ -4690,7 +4806,8 @@ def _profile_step(step, state, batch) -> dict:
 def _leaf_shares(got, want, prefix: str = "") -> dict:
     """For each leaf of two trees of one structure, ||got - want|| /
     ||want|| (Frobenius, f32), as a list: a layer-stacked leaf (under
-    ``layers``) layer by layer, any other whole."""
+    ``layers``, ``moe_layers``, ``enc_layers``...) layer by layer, any
+    other whole."""
     out = {}
     for k, w in want.items():
         name = f"{prefix}/{k}"
@@ -4698,7 +4815,7 @@ def _leaf_shares(got, want, prefix: str = "") -> dict:
             out.update(_leaf_shares(got[k], w, name))
             continue
         d, w = got[k].float() - w.float(), w.float()
-        dims = tuple(range("/layers/" in name, w.dim()))
+        dims = tuple(range("layers/" in name, w.dim()))
         out[name] = (d.square().sum(dims) / w.square().sum(dims)).sqrt() \
             .reshape(-1).tolist()
     return out
@@ -4707,11 +4824,12 @@ def _leaf_shares(got, want, prefix: str = "") -> dict:
 class _KeptBackward:
     """While entered, keeps every call of the backward kernels that the
     autograd Functions make (``ssd_bwd``, ``selective_scan_bwd``,
-    ``flash_attention_bwd``, ``rmsnorm_bwd``): clones of the tensor
-    arguments, and the keywords."""
+    ``flash_attention_bwd``, ``rmsnorm_bwd``, ``moe_route_bwd``): clones of
+    the tensor arguments, and the keywords."""
 
     def __init__(self):
         from repro_torch.kernels import flash_attention as fk
+        from repro_torch.kernels import moe_route as mk
         from repro_torch.kernels import rmsnorm as rk
         from repro_torch.kernels import selective_scan as sk
         from repro_torch.kernels import ssd as dk
@@ -4719,7 +4837,8 @@ class _KeptBackward:
         self.mods = {"ssd": (dk, "ssd_bwd"),
                      "selective_scan": (sk, "selective_scan_bwd"),
                      "flash_attention": (fk, "flash_attention_bwd"),
-                     "rmsnorm": (rk, "rmsnorm_bwd")}
+                     "rmsnorm": (rk, "rmsnorm_bwd"),
+                     "moe_route": (mk, "moe_route_bwd")}
         self.calls = {name: [] for name in self.mods}
         self.orig = {name: getattr(mod, attr)
                      for name, (mod, attr) in self.mods.items()}
@@ -4748,13 +4867,15 @@ class _KeptBackward:
 
 def _flash_bwd_rounded(q, k, v, o, dout, lse, *, causal, q_offset):
     """The flash backward's arithmetic as ``csrc/flash_attention_bwd.cu``
-    states it, in plain torch (H = K): delta from the bf16 output, P and
-    dS rounded to bf16 before the products that take them, f32 sums.
-    Returns (dq, dk, dv) bf16."""
+    states it, in plain torch: delta from the bf16 output, P and dS rounded
+    to bf16 before the products that take them, f32 sums (a kv head's
+    gradients summed over its query heads). Returns (dq, dk, dv) bf16."""
     import torch
 
     scale = q.shape[-1] ** -0.5
-    qf, kf, vf, of, df = (t.float() for t in (q, k, v, o, dout))
+    G = q.shape[2] // k.shape[2]
+    qf, of, df = (t.float() for t in (q, o, dout))
+    kf, vf = (t.float().repeat_interleave(G, dim=2) for t in (k, v))
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     if causal:
         keep = (torch.arange(k.shape[1], device=q.device)[None, :]
@@ -4770,6 +4891,8 @@ def _flash_bwd_rounded(q, k, v, o, dout, lse, *, causal, q_offset):
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
     del ds
     dv = torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), df)
+    B, Sk, K, D = k.shape
+    dk, dv = (t.reshape(B, Sk, K, G, D).sum(3) for t in (dk, dv))
     return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
 
 
@@ -4783,7 +4906,9 @@ def _forced_backward(kept: _KeptBackward) -> dict:
     against autograd through the plain RMSNorm; flash attention's dq, dk,
     dv per (64-row tile, head) within GRAD_TILE_SHARE of
     ``_flash_bwd_rounded``, the kernel's own rounding points in plain
-    torch. (Against autograd through the plain f32 attention, the bf16 dS
+    torch; the router's d_logits within ROUTE_BWD_REL of its largest value
+    against ``ref.moe_route_bwd`` (a planted fault: the last token's row
+    1.1 times). (Against autograd through the plain f32 attention, the bf16 dS
     alone moves dq's tiles by up to 1.4 % at zamba2's activations:
     ``_flash_bwd_rounded`` differs from it by as much as the kernel does.)
     Two runs must give the same bits, every gradient must be finite, and a
@@ -4848,12 +4973,23 @@ def _forced_backward(kept: _KeptBackward) -> dict:
         if not torch.equal(got[1], again[1]):
             raise AssertionError("forced rmsnorm: two runs' dw differ")
         note("rmsnorm", {"dw": _rel_err(got[1], want[1])}, float("inf"))
+    for a, kw in calls["moe_route"]:
+        fn = orig["moe_route"]
+        got, again = fn(*a, **kw), fn(*a, **kw)
+        if not torch.equal(got, again):
+            raise AssertionError("forced moe_route: two runs differ")
+        want = ref.moe_route_bwd(*a, **kw)
+        bad = got.clone()
+        bad[-1] *= 1.1
+        note("moe_route", {"d_logits": _rel_err(got, want)},
+             _rel_err(bad, want))
+    limit = {"dw": DW_REL, "dA": SSM_F32_GRAD_REL, "dD": SSM_F32_GRAD_REL,
+             "dh0": SSM_F32_GRAD_REL, "d_logits": ROUTE_BWD_REL}
     for kind, r in out.items():
         over = {n: v for n, v in r.items() if n not in ("calls", "planted_min")
-                and not v <= (DW_REL if n == "dw" else SSM_F32_GRAD_REL
-                              if n in ("dA", "dD", "dh0") else
-                              GRAD_TILE_SHARE)}
-        if over or not r["planted_min"] > GRAD_TILE_SHARE:
+                and not v <= limit.get(n, GRAD_TILE_SHARE)}
+        floor = ROUTE_BWD_REL if kind == "moe_route" else GRAD_TILE_SHARE
+        if over or not r["planted_min"] > floor:
             raise AssertionError(f"forced {kind}: {r}")
     return out
 
@@ -5069,6 +5205,11 @@ TRAIN_PATH = {
                         "selective_scan_bwd"),
     "zamba2-1.2b": ("rmsnorm", "rmsnorm_bwd", "ssd", "ssd_bwd",
                     "flash_attention", "flash_attention_bwd"),
+    "granite-moe-1b-a400m": ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                             "flash_attention_bwd", "moe_route",
+                             "moe_route_bwd"),
+    "whisper-medium": ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                       "flash_attention_bwd"),
 }
 # the recurrent families' training runs: published widths, B 2, S 2048, 3
 # steps twice; falcon-mamba-7b at 8 of 64 layers (its full depth's f32
@@ -5203,12 +5344,56 @@ def phase_train_ssm(card: str, arch: str) -> dict:
     return out
 
 
+# the MoE and enc-dec families' training runs: published widths and full
+# depth, B 2, S 2048 (whisper's encoder over min(S, 1500) = 1500 frames), 3
+# steps twice from seed 0 (``_train_twice``); each first step gated against
+# the plain step at 2 layers (whisper: 2 encoder and 2 decoder layers), each
+# leaf within FIRST_STEP_LEAF_SHARE, a fault planted in ``plant``, every
+# backward kernel call of the kernel step rerun against plain versions
+# (``_forced_backward``). deepseek-moe-16b does not train on the card: its
+# f32 state (~16.4 B parameters x 16 bytes) does not fit; its code is
+# granite's, its router's backward is checked at its shape
+# (``check_moe_route_bwd``) and its leading dense layer and shared experts
+# on the CPU (tests/test_torch_train_moe.py).
+MOE_ENCDEC_TRAIN = {
+    "granite-moe-1b-a400m": dict(B=2, S=2048, steps=3, gate_layers=2,
+                                 plant=("moe_layers", "attn", "ln")),
+    "whisper-medium": dict(B=2, S=2048, steps=3, gate_layers=2,
+                           plant=("dec_layers", "self_attn", "ln")),
+}
+
+
+def phase_train_moe_encdec(card: str, arch: str) -> dict:
+    """e. granite-moe-1b-a400m or whisper-medium at published widths and
+    full depth (``MOE_ENCDEC_TRAIN``): the first step against the plain
+    step at 2 layers (``_first_step``'s limits, the planted leaf, every
+    backward kernel call rerun against plain versions), then 3 steps at B
+    2, S 2048, twice from one seed (``_train_twice``)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get
+
+    q = MOE_ENCDEC_TRAIN[arch]
+    full = get(arch)
+    n = q["gate_layers"]
+    gate = replace(full, n_layers=n, n_encoder_layers=n) \
+        if full.n_encoder_layers else replace(full, n_layers=n)
+    first = _first_step(gate, q["B"], q["S"], q["plant"], forced=True)
+    out = {"phase": "train_moe_encdec", "card": card, "reduced": {},
+           "first_step": {"n_layers": f"{n} of {full.n_layers}", **first},
+           **_train_twice(full, q, arch)}
+    log(out)
+    return out
+
+
 def phase_train(card: str) -> dict:
     """5. Training: a, the backward kernels (and the forwards they pair
     with) at the training shapes against plain autograd; b, smollm-360m
     trained through ``launch/train.py`` with a failure and without; c,
     qwen3-8b at published widths, 8 of 36 layers; d, falcon-mamba-7b (8 of
-    64 layers) and zamba2-1.2b (full depth) at published widths."""
+    64 layers) and zamba2-1.2b (full depth) at published widths; e,
+    granite-moe-1b-a400m and whisper-medium at published widths and full
+    depth."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(24)
@@ -5229,6 +5414,16 @@ def phase_train(card: str) -> dict:
                              ("rmsnorm@qwen3", "qwen3-8b block"))},
         "scan@falcon": check_scan_bwd(gen, parts["scan_bwd_ops"]),
         "ssd@zamba2": check_ssd_bwd(gen, parts["ssd_bwd_ops"]),
+        "route@granite": check_moe_route_bwd(gen, "granite-moe-1b-a400m"),
+        "route@deepseek": check_moe_route_bwd(gen, "deepseek-moe-16b"),
+        # whisper-medium's encoder (1500 frames) and cross attention (2048
+        # queries over 1500 keys): the non-causal branch, Sq != Sk
+        "flash@whisper-enc": check_flash_bwd(
+            gen, B=2, S=1500, H=16, K=16, D=64, what="whisper-medium "
+            "encoder", parts_ms=None, causal=False),
+        "flash@whisper-cross": check_flash_bwd(
+            gen, B=2, S=2048, Sk=1500, H=16, K=16, D=64,
+            what="whisper-medium cross", parts_ms=None, causal=False),
     }
     # K-a at a serving shape: lse on leaves the output's bits
     from repro_torch.kernels import flash_attention as fk
@@ -5250,13 +5445,17 @@ def phase_train(card: str) -> dict:
     seconds = {"train_kernels": round(t1 - t0, 3),
                "train_smollm": round(t2 - t1, 3),
                "train_qwen3": round(time.perf_counter() - t2, 3)}
-    ssm = {}
+    runs = {}
     for arch in SSM_TRAIN:
         t = time.perf_counter()
-        ssm[arch] = phase_train_ssm(card, arch)
+        runs[arch] = phase_train_ssm(card, arch)
+        seconds[f"train_{arch}"] = round(time.perf_counter() - t, 3)
+    for arch in MOE_ENCDEC_TRAIN:
+        t = time.perf_counter()
+        runs[arch] = phase_train_moe_encdec(card, arch)
         seconds[f"train_{arch}"] = round(time.perf_counter() - t, 3)
     log({"phase_seconds": seconds, "arch": "train"})
-    return {"checks": checks, "run": run, "qwen": qwen, **ssm}
+    return {"checks": checks, "run": run, "qwen": qwen, **runs}
 
 
 # ---------------------------------------------------------------------------
@@ -5306,6 +5505,12 @@ ROUTES = {
     "ssd_bwd": ("cuda", "src/repro_torch/csrc/ssd_bwd.cu",
                 "src/repro/kernels/ssd.py:112 (its backward: XLA's autodiff "
                 "of repro/kernels/ops.py:534-585)"),
+    # the router's backward: no TPU kernel (XLA's autodiff of the routing,
+    # repro/models/moe.py:209-218)
+    "moe_route_bwd": ("cuda", "src/repro_torch/csrc/moe_route_bwd.cu",
+                      "src/repro/models/moe.py:209 (no TPU kernel: XLA's "
+                      "autodiff of the f32 einsum, softmax, top_k and aux "
+                      "loss, repro/models/moe.py:209-218)"),
 }
 # the training path's rows: (kernel, check, row, model, whose launches)
 TRAIN_ROWS = [
@@ -5324,11 +5529,22 @@ TRAIN_ROWS = [
      "falcon-mamba-7b"),
     ("ssd", "ssd@zamba2", 0, "zamba2-1.2b", "zamba2-1.2b"),
     ("ssd_bwd", "ssd@zamba2", 1, "zamba2-1.2b", "zamba2-1.2b"),
+    ("moe_route", "route@granite", 0, "granite-moe-1b-a400m",
+     "granite-moe-1b-a400m"),
+    ("moe_route_bwd", "route@granite", 1, "granite-moe-1b-a400m",
+     "granite-moe-1b-a400m"),
+    ("flash_attention", "flash@whisper-enc", 0, "whisper-medium",
+     "whisper-medium"),
+    ("flash_attention_bwd", "flash@whisper-enc", 1, "whisper-medium",
+     "whisper-medium"),
+    ("flash_attention_bwd", "flash@whisper-cross", 1, "whisper-medium",
+     "whisper-medium"),
 ]
 # each training row's path: the model and the depth it trains at
 TRAIN_PATH_NAME = {"smollm-360m": "train", "qwen3-8b": "train (8 of 36 layers)",
                    "falcon-mamba-7b": "train (8 of 64 layers)",
-                   "zamba2-1.2b": "train"}
+                   "zamba2-1.2b": "train", "granite-moe-1b-a400m": "train",
+                   "whisper-medium": "train"}
 # the check row that stands for each (kernel, model) in the summary line:
 # the decode step's block norm (d 4096, or zamba2's d 2048), the paged and
 # the dense decode cases, the longest prefill chunk (q_offset 1280), the SSM
@@ -5562,7 +5778,8 @@ def main() -> int:
             **{k: row[k] for k in ("bound_f32_ms", "one_row_ms",
                                    "grad_tile_share", "dw_rel", "parts_ms",
                                    "executed_flop_per_pair", "f32_grad_rel",
-                                   "device_ops")
+                                   "device_ops", "d_logits_rel", "dx_rel",
+                                   "d_router_rel", "route_grad_ms")
                if k in row}})
 
     for arch, rows in SUMMARY_ROW.items():

@@ -12,7 +12,11 @@
 // logits l[e] = sum_i x[t, i] * router[i, e], p = softmax(l), the k most
 // probable experts best first (a tie goes to the lower expert id, as
 // lax.top_k breaks it), and their probabilities renormalised by
-// max(sum, 1e-9). Writes weights (T, k) f32 and ids (T, k) int32.
+// max(sum, 1e-9). Writes weights (T, k) f32 and ids (T, k) int32, and,
+// where probs is not null (training: the router's backward and its aux loss
+// read them), the softmax p (T, E) f32 as the ranking warp holds it; a
+// null probs (serving) stores nothing more, so weights and ids keep their
+// bits either way.
 //
 // What bounds it on this card: bytes in principle (the router's d E 4
 // bytes, 512 KB at deepseek's 2048 x 64, and x once; 2 T d E operations
@@ -74,8 +78,9 @@ __device__ __forceinline__ void load_rows(float* r, const float* rows, int i0,
 template <int TT, int NQ>
 __global__ void __launch_bounds__(THREADS, 2) moe_route_kernel(
     const __nv_bfloat16* __restrict__ x, const float* __restrict__ router,
-    float* __restrict__ weights, int* __restrict__ ids, int T, int d, int E,
-    int k, int S, int J, int L) {
+    float* __restrict__ weights, int* __restrict__ ids,
+    float* __restrict__ probs, int T, int d, int E, int k, int S, int J,
+    int L) {
     extern __shared__ __align__(16) float sm[];
     cg::cluster_group cluster = cg::this_cluster();
     const int C = (int)cluster.num_blocks();
@@ -183,6 +188,12 @@ __global__ void __launch_bounds__(THREADS, 2) moe_route_kernel(
     for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
 #pragma unroll
     for (int q = 0; q < NQ; ++q) p[q] = p[q] / s;
+    if (probs) {
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+            if (lane + 32 * q < E)
+                probs[(size_t)(t0 + t) * E + lane + 32 * q] = p[q];
+    }
 
     // top-k: k rounds of a warp argmax over the experts not yet taken (the
     // highest probability, the lowest id on a tie). Probabilities are >= 0,
@@ -223,8 +234,8 @@ __global__ void __launch_bounds__(THREADS, 2) moe_route_kernel(
 
 template <int TT, int NQ>
 static int launch(const void* x, const void* router, void* weights, void* ids,
-                  int T, int d, int E, int k, int C, int S, int J, int L,
-                  cudaStream_t stream) {
+                  void* probs, int T, int d, int E, int k, int C, int S,
+                  int J, int L, cudaStream_t stream) {
     static bool attr_set = false;   // once per instance: it costs host time
     if (!attr_set) {
         const cudaError_t err = cudaFuncSetAttribute(
@@ -250,7 +261,8 @@ static int launch(const void* x, const void* router, void* weights, void* ids,
     cfg.numAttrs = 1;
     const cudaError_t err = cudaLaunchKernelEx(
         &cfg, moe_route_kernel<TT, NQ>, (const __nv_bfloat16*)x,
-        (const float*)router, (float*)weights, (int*)ids, T, d, E, k, S, J, L);
+        (const float*)router, (float*)weights, (int*)ids, (float*)probs, T, d,
+        E, k, S, J, L);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
@@ -258,28 +270,30 @@ static int launch(const void* x, const void* router, void* weights, void* ids,
 // the ranking warp's experts a lane (NQ) by E, then the token tile by T
 template <int TT>
 static int launch_nq(const void* x, const void* router, void* weights,
-                     void* ids, int T, int d, int E, int k, int C, int S,
-                     int J, int L, cudaStream_t st) {
+                     void* ids, void* probs, int T, int d, int E, int k,
+                     int C, int S, int J, int L, cudaStream_t st) {
     if (E <= 32)
-        return launch<TT, 1>(x, router, weights, ids, T, d, E, k, C, S, J, L,
-                             st);
+        return launch<TT, 1>(x, router, weights, ids, probs, T, d, E, k, C, S,
+                             J, L, st);
     if (E <= 64)
-        return launch<TT, 2>(x, router, weights, ids, T, d, E, k, C, S, J, L,
-                             st);
+        return launch<TT, 2>(x, router, weights, ids, probs, T, d, E, k, C, S,
+                             J, L, st);
     if (E <= 128)
-        return launch<TT, 4>(x, router, weights, ids, T, d, E, k, C, S, J, L,
-                             st);
-    return launch<TT, 8>(x, router, weights, ids, T, d, E, k, C, S, J, L, st);
+        return launch<TT, 4>(x, router, weights, ids, probs, T, d, E, k, C, S,
+                             J, L, st);
+    return launch<TT, 8>(x, router, weights, ids, probs, T, d, E, k, C, S, J,
+                         L, st);
 }
 
 // x (T, d) bf16, router (d, E) f32, weights (T, k) f32 and ids (T, k)
-// int32, all contiguous; d at most MAX_D, E at most MAX_E, k at most
-// min(E, MAX_K); (C, S, J, L) the plan of (d, E) (the wrapper's
+// int32, probs (T, E) f32 or null, all contiguous; d at most MAX_D, E at
+// most MAX_E, k at most min(E, MAX_K); (C, S, J, L) the plan of (d, E) (the wrapper's
 // kernels/moe_route.py::plan): C blocks a cluster, slices of S rows, J
 // runs of L rows a slice. One launch; returns its cudaError_t.
 extern "C" int moe_route_fwd(const void* x, const void* router, void* weights,
-                             void* ids, int T, int d, int E, int k, int C,
-                             int S, int J, int L, void* stream) {
+                             void* ids, void* probs, int T, int d, int E,
+                             int k, int C, int S, int J, int L,
+                             void* stream) {
     if (T <= 0 || d <= 0 || d > MAX_D || E < 1 || E > MAX_E || k < 1
         || k > MAX_K || k > E || C < 1 || C > MAX_C || S < 1
         || S > MAX_S || (long)C * S < d || (long)(C - 1) * S >= d
@@ -287,7 +301,8 @@ extern "C" int moe_route_fwd(const void* x, const void* router, void* weights,
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     if (T <= 64)
-        return launch_nq<8>(x, router, weights, ids, T, d, E, k, C, S, J, L,
-                            st);
-    return launch_nq<16>(x, router, weights, ids, T, d, E, k, C, S, J, L, st);
+        return launch_nq<8>(x, router, weights, ids, probs, T, d, E, k, C, S,
+                            J, L, st);
+    return launch_nq<16>(x, router, weights, ids, probs, T, d, E, k, C, S, J,
+                         L, st);
 }

@@ -30,7 +30,8 @@ NVCC_FLAGS = [
 ]
 SOURCES = ("rmsnorm", "paged_decode_attention", "decode_attention",
            "flash_attention", "flash_attention_bwd", "selective_scan",
-           "selective_scan_bwd", "ssd", "ssd_bwd", "gemm_rows", "moe_route")
+           "selective_scan_bwd", "ssd", "ssd_bwd", "gemm_rows", "moe_route",
+           "moe_route_bwd")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

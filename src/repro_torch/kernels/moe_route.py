@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import moe_route as plain  # noqa: F401  (beside the kernel)
+from repro_torch.kernels.ref import moe_route_bwd as plain_bwd  # noqa: F401
 
 MAX_E, MAX_K, MAX_D = 256, 16, 8192   # csrc MAX_E, MAX_K, MAX_D
 THREADS = 512      # csrc THREADS: a block
@@ -92,16 +93,28 @@ def tile(T: int) -> int:
 def _lib():
     lib = _build.load("moe_route")
     fn = lib.moe_route_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def moe_route(x: torch.Tensor, router: torch.Tensor,
-              k: int) -> tuple[torch.Tensor, torch.Tensor]:
+@functools.cache
+def _lib_bwd():
+    lib = _build.load("moe_route_bwd")
+    fn = lib.moe_route_bwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor, k: int, *,
+              with_probs: bool = False):
     """Launch the kernel: ``x (T, d)`` bf16, ``router (d, E)`` f32; returns
-    ``weights (T, k)`` f32 and ``ids (T, k)`` int32, best first."""
+    ``weights (T, k)`` f32 and ``ids (T, k)`` int32, best first, and with
+    ``with_probs`` the softmax ``probs (T, E)`` f32 too (the same launch;
+    weights and ids the same bits either way)."""
     if x.device.type != "cuda" or router.device != x.device:
         raise ValueError(f"moe_route kernel needs CUDA tensors on one "
                          f"device, got {x.device} and {router.device}")
@@ -118,14 +131,97 @@ def moe_route(x: torch.Tensor, router: torch.Tensor,
     router = router.contiguous()
     weights = torch.empty(T, k, dtype=torch.float32, device=x.device)
     ids = torch.empty(T, k, dtype=torch.int32, device=x.device)
+    probs = torch.empty(T, E, dtype=torch.float32, device=x.device) \
+        if with_probs else None
     if T:
         p = plan(d, E)
         err = _lib()(x.data_ptr(), router.data_ptr(), weights.data_ptr(),
-                     ids.data_ptr(), T, d, E, k, p.C, p.S, p.J, p.L,
-                     _build.stream(x.device))
+                     ids.data_ptr(), probs.data_ptr() if with_probs else None,
+                     T, d, E, k, p.C, p.S, p.J, p.L, _build.stream(x.device))
         _build.check(err, "moe_route")
         moe_route.launches += 1
-    return weights, ids
+    return (weights, ids, probs) if with_probs else (weights, ids)
 
 
 moe_route.launches = 0
+
+
+def moe_route_bwd(probs: torch.Tensor, ids: torch.Tensor,
+                  weights: torch.Tensor, dw: torch.Tensor,
+                  dprobs: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the backward kernel: from the forward's ``probs (T, E)`` f32,
+    ``ids (T, k)`` int32 and ``weights (T, k)`` f32, the weights' gradient
+    ``dw (T, k)`` and, optionally, the probabilities' own ``dprobs (T, E)``
+    (f32); returns ``d_logits (T, E)`` f32."""
+    dev = probs.device
+    if dev.type != "cuda" or any(t is not None and t.device != dev
+                                 for t in (ids, weights, dw, dprobs)):
+        raise ValueError("moe_route_bwd kernel needs CUDA tensors on one "
+                         "device")
+    T, E = probs.shape
+    k = ids.shape[-1]
+    if (probs.dtype != torch.float32 or ids.dtype != torch.int32
+            or any(t.dtype != torch.float32 for t in (weights, dw))
+            or (dprobs is not None and dprobs.dtype != torch.float32)):
+        raise TypeError("moe_route_bwd kernel: probs, weights, dw, dprobs "
+                        "f32 and ids int32")
+    if (ids.shape != (T, k) or weights.shape != (T, k) or dw.shape != (T, k)
+            or (dprobs is not None and dprobs.shape != (T, E))
+            or not (1 <= k <= min(E, MAX_K)) or E > MAX_E):
+        raise ValueError(f"moe_route_bwd kernel: probs {tuple(probs.shape)}, "
+                         f"ids {tuple(ids.shape)}, weights "
+                         f"{tuple(weights.shape)}, dw {tuple(dw.shape)}")
+    probs, ids, weights, dw = (t.contiguous()
+                               for t in (probs, ids, weights, dw))
+    if dprobs is not None:
+        dprobs = dprobs.contiguous()
+    d_logits = torch.empty(T, E, dtype=torch.float32, device=dev)
+    if T:
+        err = _lib_bwd()(probs.data_ptr(), ids.data_ptr(), weights.data_ptr(),
+                         dw.data_ptr(),
+                         None if dprobs is None else dprobs.data_ptr(),
+                         d_logits.data_ptr(), T, E, k, _build.stream(dev))
+        _build.check(err, "moe_route_bwd")
+        moe_route_bwd.launches += 1
+    return d_logits
+
+
+moe_route_bwd.launches = 0
+
+
+def _f32_products() -> None:
+    """The router's gradient products are f32 (XLA's einsum): refuse TF32."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("MoeRoute backward: TF32 matmuls are on; the "
+                           "router's products must run in full f32")
+
+
+class MoeRoute(torch.autograd.Function):
+    """Routing with its gradient: the forward kernel with ``probs`` out, the
+    backward kernel for ``d_logits``, then ``dx = d_logits @ router.T`` cast
+    to x's type and ``d_router = x.float().T @ d_logits``, f32 products
+    (``torch.matmul``; the step's deterministic mode fixes cuBLAS's).
+    Returns ``(weights, ids, probs)``; ``ids`` carries no gradient and ``k``
+    is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, router, k: int):
+        weights, ids, probs = moe_route(x, router, k, with_probs=True)
+        ctx.save_for_backward(x, router, probs, ids, weights)
+        ctx.mark_non_differentiable(ids)
+        ctx.set_materialize_grads(False)
+        return weights, ids, probs
+
+    @staticmethod
+    def backward(ctx, dw, _dids, dprobs):
+        x, router, probs, ids, weights = ctx.saved_tensors
+        if dw is None:
+            dw = torch.zeros_like(weights)
+        d_logits = moe_route_bwd(probs, ids, weights, dw.float(),
+                                 None if dprobs is None else dprobs.float())
+        _f32_products()
+        dx = (d_logits @ router.float().t()).to(x.dtype) \
+            if ctx.needs_input_grad[0] else None
+        d_router = (x.float().t() @ d_logits).to(router.dtype) \
+            if ctx.needs_input_grad[1] else None
+        return dx, d_router, None

@@ -22,13 +22,14 @@ all experts of an MoE layer, and ``moe_route``, the MoE router
 ``ssd_step`` have no TPU kernel (the JAX package runs them through XLA on
 every backend): they are plain code on every device, and not counted.
 
-Training differentiates ``attention``, ``rmsnorm``, ``selective_scan`` and
-``ssd``. When an input needs a gradient, a CUDA tensor goes through the
-``torch.autograd.Function`` of the kernel (``flash_attention.
-FlashAttention``, ``rmsnorm.RMSNorm``, ``selective_scan.SelectiveScan``,
-``ssd.SSD``), whose backward is a hand-written kernel too
-(``flash_attention_bwd``, ``rmsnorm_bwd``, ``selective_scan_bwd``,
-``ssd_bwd``, counted in ``counts()``); a CPU tensor, or any under
+Training differentiates ``attention``, ``rmsnorm``, ``selective_scan``,
+``ssd`` and ``moe_route``. When an input needs a gradient, a CUDA tensor
+goes through the ``torch.autograd.Function`` of the kernel
+(``flash_attention.FlashAttention``, ``rmsnorm.RMSNorm``,
+``selective_scan.SelectiveScan``, ``ssd.SSD``, ``moe_route.MoeRoute``),
+whose backward is a hand-written kernel too (``flash_attention_bwd``,
+``rmsnorm_bwd``, ``selective_scan_bwd``, ``ssd_bwd``, ``moe_route_bwd``,
+counted in ``counts()``); a CPU tensor, or any under
 ``use_backend("plain")``, goes to the plain version and autograd
 differentiates that: the oracle of the backward kernels. Such a call counts
 a plain call of the backward too. A call that needs no gradient (serving)
@@ -71,6 +72,7 @@ KERNELS = {
     "rmsnorm_bwd": _rmsnorm.rmsnorm_bwd,
     "selective_scan_bwd": _scan.selective_scan_bwd,
     "ssd_bwd": _ssd.ssd_bwd,
+    "moe_route_bwd": _route.moe_route_bwd,
 }
 plain_calls = {name: 0 for name in KERNELS}
 
@@ -280,14 +282,21 @@ def gemm_rows_grouped(buf: torch.Tensor, w: torch.Tensor,
     return _gemm.gemm_rows_grouped(buf, w, counts)
 
 
-def moe_route(x: torch.Tensor, router: torch.Tensor,
-              k: int) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_route(x: torch.Tensor, router: torch.Tensor, k: int, *,
+              with_probs: bool = False):
     """``x (T, d)`` bf16 through the f32 ``router (d, E)``: ``weights (T,
     k)`` f32 and ``ids (T, k)`` int32 of each token's top-k experts, a
-    token's result independent of the others."""
+    token's result independent of the others; with ``with_probs`` also the
+    softmax ``probs (T, E)`` f32 (training's aux loss)."""
+    grad = _needs_grad(x, router)
     if _plain(x, "moe_route"):
-        return ref.moe_route(x, router, k)
-    return _route.moe_route(x, router, k)
+        if grad:
+            plain_calls["moe_route_bwd"] += 1
+        return ref.moe_route(x, router, k, with_probs=with_probs)
+    if grad:
+        weights, ids, probs = _route.MoeRoute.apply(x, router, k)
+        return (weights, ids, probs) if with_probs else (weights, ids)
+    return _route.moe_route(x, router, k, with_probs=with_probs)
 
 
 def selective_scan(

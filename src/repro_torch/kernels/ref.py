@@ -202,19 +202,46 @@ def gemm_rows_grouped(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def moe_route(x: torch.Tensor, router: torch.Tensor,
-              k: int) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_route(x: torch.Tensor, router: torch.Tensor, k: int, *,
+              with_probs: bool = False):
     """Token-choice top-k routing: f32 logits ``x.float() @ router``, a
     softmax, the ``k`` most probable experts (a tie goes to the lower id, as
     ``lax.top_k`` breaks it), their probabilities renormalised by
     ``max(sum, 1e-9)``. ``x (T, d)``, ``router (d, E)``; returns ``weights
-    (T, k)`` f32 and ``ids (T, k)`` int32, best first."""
+    (T, k)`` f32 and ``ids (T, k)`` int32, best first, and with
+    ``with_probs`` the softmax ``probs (T, E)`` f32 (the aux loss's).
+    Differentiable by autograd: the oracle of ``moe_route_bwd``."""
     probs = torch.softmax(x.float() @ router.float(), dim=-1)
     # a stable descending sort keeps equal probabilities in id order
     weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, ids = weights[:, :k], ids[:, :k]
     weights = weights / weights.sum(-1, keepdim=True).clamp(min=1e-9)
-    return weights, ids.to(torch.int32)
+    ids = ids.to(torch.int32)
+    return (weights, ids, probs) if with_probs else (weights, ids)
+
+
+def moe_route_bwd(probs: torch.Tensor, ids: torch.Tensor,
+                  weights: torch.Tensor, dw: torch.Tensor,
+                  dprobs: torch.Tensor | None = None) -> torch.Tensor:
+    """The gradient of :func:`moe_route`'s logits in closed form, from its
+    ``probs (T, E)``, ``ids (T, k)`` and ``weights (T, k)``, the weights'
+    gradient ``dw (T, k)`` and, optionally, the probabilities' own ``dprobs
+    (T, E)``: the renormalisation's backward through ``max(s, 1e-9)`` (``s``
+    the picks' sum), the picks' gradients scattered into their experts'
+    columns (a token's ids are distinct: a scatter, no adds), the softmax's
+    backward ``p * (dp - sum p dp)``. Returns ``d_logits (T, E)`` f32; the
+    products to ``x`` and the router are the caller's (``dx = d_logits @
+    router.T``, ``d_router = x.float().T @ d_logits``)."""
+    probs = probs.float()
+    ids = ids.long()
+    s = probs.gather(1, ids).sum(-1, keepdim=True)
+    c = (dw.float() * weights.float()).sum(-1, keepdim=True)
+    ds = (dw.float() - torch.where(s > 1e-9, c, torch.zeros_like(c))) \
+        / s.clamp(min=1e-9)
+    dp = torch.zeros_like(probs).scatter(1, ids, ds)
+    if dprobs is not None:
+        dp = dp + dprobs.float()
+    return probs * (dp - (probs * dp).sum(-1, keepdim=True))
 
 
 # ---------------------------------------------------------------------------

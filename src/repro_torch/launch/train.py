@@ -5,10 +5,12 @@ fleet executes the train step, periodic P2P snapshots protect it, and
 injected failures exercise the §III-D restore path. The reference's flags
 (``repro/launch/train.py``), plus ``--device`` (``cuda`` unless ``cpu`` is
 given). REDUCED configs run the whole loop on the CPU; ``--full`` (the
-published widths and depth) is for the card. The families with a ported
-loss train: the dense decoders (``qwen3-8b``, ``smollm-360m``,
-``phi4-mini-3.8b``, ``minitron-4b``), ``llava-next-mistral-7b``, the SSM
-family (``falcon-mamba-7b``) and the hybrid (``zamba2-1.2b``).
+published widths and depth) is for the card. Every family trains: the
+dense decoders (``qwen3-8b``, ``smollm-360m``, ``phi4-mini-3.8b``,
+``minitron-4b``), ``llava-next-mistral-7b``, the SSM family
+(``falcon-mamba-7b``), the hybrid (``zamba2-1.2b``), the MoE family
+(``granite-moe-1b-a400m``, ``deepseek-moe-16b``) and the encoder-decoder
+(``whisper-medium``, on the synthetic data's frames).
 
 Sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (unless set) before CUDA starts:
 the step runs in torch's deterministic mode, which needs it for cuBLAS

@@ -26,11 +26,19 @@ The reference's ``lax.scan`` over layer-stacked parameters becomes a loop
 over per-layer modules (``enc_layers``, and ``dec_layers`` of
 ``self_attn``, ``cross_attn`` and ``mlp``), so ``bridge.params_from_
 reference`` carries the reference's tree as it is.
+
+Training (:func:`loss_fn`, ``encdec.py:60-134``) runs the encoder and the
+decoder over the layer-stacked f32 tree, every layer rematerialized; every
+attention goes through ``ops.attention``, so on the card through the flash
+kernels: the encoder's and the cross attention's non-causal (the cross
+attention's queries over the encoder's ``min(S, 1500)`` keys), the
+decoder's causal.
 """
 
 from __future__ import annotations
 
 import functools
+from types import SimpleNamespace
 
 import torch
 from torch import nn
@@ -38,6 +46,7 @@ from torch import nn
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as ll
+from repro_torch.models import transformer as tf
 from repro_torch.models.model_api import ModelFns, Params, PSpec, Tree
 
 ENC_SEQ = 1500  # whisper: 30 s of audio -> 1500 frames after the conv stem
@@ -308,6 +317,74 @@ def decode_paged_fn(params: EncDecLM, cache: Tree, batch: dict,
     return ll.logits_last(params, x[:, 0], cfg, mm)
 
 
+# ---------------------------------------------------------------------------
+# Training: the loss over a layer-stacked f32 tree
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(tree: Tree, batch: dict, cfg: ModelConfig):
+    """The decoder's language-model loss of ``batch`` (``frames`` (B,
+    S_enc, d) float, ``tokens``, ``labels`` (B, S) int) under the
+    layer-stacked f32 tree ``tree`` (``encdec.py:60-134``): the encoder
+    over the frames plus ``enc_pos`` (non-causal blocks, then
+    ``enc_final_ln``); the decoder over the token embedding plus
+    ``dec_pos``, each block causal self attention, cross attention over its
+    projection of the encoder output, the GELU MLP; the final norm and
+    ``ll.lm_loss`` through the tied embedding. The ``cast`` leaves are read
+    in bf16, each layer rematerialized per ``cfg.remat_policy``
+    (``transformer._remat``). Returns (loss, {"ce", "z_loss",
+    "tokens"})."""
+    specs = build_specs(cfg)
+    groups = ("enc_layers", "dec_layers")
+    top = SimpleNamespace(**{k: tf._cast(v, specs[k]) for k, v in tree.items()
+                             if k not in groups + ("enc_pos", "dec_pos")})
+    (enc_layers, enc_view), (dec_layers, dec_view) = (
+        tf._unstack(tree[g], specs[g]) for g in groups)
+
+    def parts(view, leaves) -> SimpleNamespace:
+        """One layer's parts (``attn``, ``mlp``, ...) as namespaces."""
+        return SimpleNamespace(**{k: SimpleNamespace(**v)
+                                  for k, v in view(leaves).items()})
+
+    frames = batch["frames"]
+    S_enc, S = frames.shape[1], batch["tokens"].shape[1]
+    x = frames.to(torch.bfloat16) + tf._cast(
+        tree["enc_pos"][:S_enc], specs["enc_pos"])[None]
+    enc_rows = ll.dense_rows(cfg, torch.arange(S_enc, device=x.device))
+
+    def enc_layer(x, *leaves):
+        lp = parts(enc_view, leaves)
+        h = ops.rmsnorm(x, lp.attn.ln, cfg.norm_eps)
+        x = x + ll.attn_forward(lp.attn, h, cfg, enc_rows, causal=False)[0]
+        h = ops.rmsnorm(x, lp.mlp.ln, cfg.norm_eps)
+        return x + ll.mlp_forward(lp.mlp, h, cfg)
+
+    body = tf._remat(enc_layer, cfg)
+    for leaves in enc_layers:
+        x = body(x, *leaves)
+    enc_out = ops.rmsnorm(x, tree["enc_final_ln"], cfg.norm_eps)
+
+    x = ll.embed_lookup(top, batch["tokens"]) + tf._cast(
+        tree["dec_pos"][:S], specs["dec_pos"])[None]
+    rows = ll.dense_rows(cfg, torch.arange(S, device=x.device))
+
+    def dec_layer(x, enc_out, *leaves):
+        lp = parts(dec_view, leaves)
+        h = ops.rmsnorm(x, lp.self_attn.ln, cfg.norm_eps)
+        x = x + ll.attn_forward(lp.self_attn, h, cfg, rows)[0]
+        h = ops.rmsnorm(x, lp.cross_attn.ln, cfg.norm_eps)
+        x = x + ll.attn_forward(lp.cross_attn, h, cfg, rows, causal=False,
+                                kv=_cross_kv(lp.cross_attn, enc_out))[0]
+        h = ops.rmsnorm(x, lp.mlp.ln, cfg.norm_eps)
+        return x + ll.mlp_forward(lp.mlp, h, cfg)
+
+    body = tf._remat(dec_layer, cfg)
+    for leaves in dec_layers:
+        x = body(x, enc_out, *leaves)
+    x = ops.rmsnorm(x, tree["final_ln"], cfg.norm_eps)
+    return ll.lm_loss(top, x, batch["labels"], cfg)
+
+
 def make_model(cfg: ModelConfig) -> ModelFns:
     # the whole per-token decoder cache lives in page pools (paged_state
     # False), so decoder prompt prefixes share copy-on-write; the engine
@@ -324,4 +401,5 @@ def make_model(cfg: ModelConfig) -> ModelFns:
         decode_paged=functools.partial(decode_paged_fn, cfg=cfg),
         paged_cross_specs=functools.partial(paged_cross_specs, cfg),
         prefill_cross=functools.partial(prefill_cross_fn, cfg=cfg),
+        loss=functools.partial(loss_fn, cfg=cfg),
     )

@@ -174,10 +174,9 @@ class ModelFns:
       C, VISION_D)`` and the keyword ``mm_len``: positions below ``mm_len``
       read projected image rows, the rest token embeddings.
 
-    Training (the dense family and the VLM, ``repro/models/model_api.py:
-    99-100``): ``loss(tree, batch)`` -> ``(loss, aux)`` over the
-    layer-stacked f32 master tree (:meth:`init_master`), not the serving
-    module; ``None`` where the family's loss is not ported yet.
+    Training (every family, ``repro/models/model_api.py:99-100``):
+    ``loss(tree, batch)`` -> ``(loss, aux)`` over the layer-stacked f32
+    master tree (:meth:`init_master`), not the serving module.
 
     ``paged_state`` is True when the cache carries per-slot recurrent state
     (``repro/models/model_api.py:121-130``): that state is not
@@ -192,6 +191,7 @@ class ModelFns:
     cache_specs: Callable[..., Tree]
     prefill: Callable[..., tuple[torch.Tensor, Tree]]
     decode_step: Callable[..., torch.Tensor]
+    loss: Callable[..., tuple[torch.Tensor, dict]]
     paged_cache_specs: Callable[..., Tree] | None = None
     prefill_chunk: Callable[..., torch.Tensor] | None = None
     decode_paged: Callable[..., torch.Tensor] | None = None
@@ -200,7 +200,6 @@ class ModelFns:
     paged_cross_specs: Callable[..., Tree] | None = None
     prefill_cross: Callable[..., None] | None = None
     paged_mm_inline: bool = False
-    loss: Callable[..., tuple[torch.Tensor, dict]] | None = None
 
     @property
     def supports_paged(self) -> bool:

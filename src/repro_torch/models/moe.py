@@ -1,11 +1,10 @@
 """Token-choice top-k MoE decoders (granite-moe, deepseek-moe): the dense
 and the paged serving paths.
 
-Ported from ``repro/models/moe.py`` (its non-EP path; ``loss_fn`` waits for
-the router's gradient — the port's trainer, ``training/trainer.py``, trains
-the dense family and the VLM so far — and ``moe_mlp_forward_ep`` is expert
-parallelism over many devices). Leading dense layers (``first_k_dense``) come first, then the MoE
-layers; the caches are layer-stacked over all of them in that order, as the
+Ported from ``repro/models/moe.py`` (its non-EP path: ``moe_mlp_forward_ep``
+is expert parallelism over many devices), the training loss too
+(:func:`loss_fn`). Leading dense layers (``first_k_dense``) come first, then
+the MoE layers; the caches are layer-stacked over all of them in that order, as the
 reference concatenates them (``moe.py:309-313``). The attention, the norms
 and every entry point are the dense decoder's (``models/transformer.py``):
 an MoE layer is a block whose ``ffn`` routes through the experts.
@@ -35,14 +34,24 @@ Dispatch is the reference's sort-based capacity scheme (``moe.py:196-254``):
 On the paged decode step the routed experts' products go through
 ``ops.gemm_rows_grouped`` (one launch for all experts, rows independent of
 the capacity and of the other experts, experts no lane chose skipped) and
-every other product through ``ops.gemm_rows``; prefill and the dense engine
-keep ``torch.matmul``/``torch.bmm``.
+every other product through ``ops.gemm_rows``; prefill, the dense engine
+and training keep ``torch.matmul``/``torch.bmm``.
+
+Training (:func:`moe_mlp_train`, :func:`loss_fn`) adds the reference's
+Switch-style aux loss, ``E * sum_e mean_t(probs_e) * counts_e / (T k)``
+(``moe.py:215-218``; the counts carry no gradient), and differentiates the
+route through ``ops.moe_route`` (its backward kernel on the card). A
+dropped pair gets no gradient, as the reference's ``where(keep, ...)``
+gives none; both backwards of the dispatch and the combine are gathers and
+a sort-based ``index_put`` under the step's deterministic mode: no
+``index_add_``, no atomics.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
@@ -180,19 +189,25 @@ def route(p: MoeMLP, xf: torch.Tensor, cfg: ModelConfig, S: int):
     (token, choice) pair, token-major, its expert ``e`` (T k,), its weight
     (T, k) f32, its rank within its expert, whether it is kept; and the
     count of pairs per expert (E,) and the capacity."""
+    return _plan(*ops.moe_route(xf, p.router, cfg.moe_top_k), cfg, S)
+
+
+def _plan(weights: torch.Tensor, sel: torch.Tensor, cfg: ModelConfig,
+          S: int):
+    """:func:`route`'s plan from the router's ``weights`` and ``sel`` (T,
+    k)."""
     E, k = cfg.n_experts, cfg.moe_top_k
-    T = xf.shape[0]
-    weights, sel = ops.moe_route(xf, p.router, k)
+    T = sel.shape[0]
     e = sel.reshape(-1).long()
     # integer adds, exact in any order (``torch.bincount`` would read the
     # largest id back to the host first)
-    counts = torch.zeros(E, dtype=torch.long, device=xf.device).scatter_add_(
+    counts = torch.zeros(E, dtype=torch.long, device=e.device).scatter_add_(
         0, e, torch.ones_like(e))
     cap = capacity(cfg, T, S)
     order = torch.argsort(e, stable=True)
     starts = counts.cumsum(0) - counts
     rank = torch.empty_like(order)
-    rank[order] = torch.arange(T * k, device=xf.device) - starts[e[order]]
+    rank[order] = torch.arange(T * k, device=e.device) - starts[e[order]]
     return e, weights, rank, rank < cap, counts, cap
 
 
@@ -207,23 +222,27 @@ def combine(contrib: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def moe_mlp_forward(p: MoeMLP, x: torch.Tensor, cfg: ModelConfig,
-                    mm: ll.Matmul = torch.matmul,
-                    grouped=None) -> torch.Tensor:
-    """x (B, S, d), normalized -> (B, S, d) (``moe.py:196-254``, without
-    the aux loss). ``grouped(buf, w, counts)`` is the routed experts'
-    product (``ops.gemm_rows_grouped`` on the paged decode step; None for
-    ``torch.bmm``), ``mm`` the shared experts'."""
+def _moe_mlp(p, x: torch.Tensor, cfg: ModelConfig, mm: ll.Matmul,
+             grouped, with_probs: bool):
+    """:func:`moe_mlp_forward`'s body. Returns (y (B, S, d), the dispatch
+    plan's expert counts (E,), and with ``with_probs`` the router's softmax
+    (T, E), else None)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
     T = B * S
     xf = x.reshape(T, d)
-    e, weights, rank, keep, counts, cap = route(p, xf, cfg, S)
+    if with_probs:
+        weights, sel, probs = ops.moe_route(xf, p.router, k, with_probs=True)
+        plan = _plan(weights, sel, cfg, S)
+    else:
+        plan, probs = route(p, xf, cfg, S), None
+    e, weights, rank, keep, counts, cap = plan
     # dispatch: a kept pair into its (expert, rank) slot, a dropped one into
-    # the sink row E * cap, which the buffer leaves out
+    # the sink row E * cap, which the buffer leaves out (each token's k
+    # copies through ``expand``, whose backward is a sum, not index_add_)
     slot = torch.where(keep, e * cap + rank, E * cap)
     flat = torch.zeros(E * cap + 1, d, dtype=x.dtype, device=x.device)
-    flat[slot] = xf.repeat_interleave(k, dim=0)
+    flat[slot] = xf[:, None].expand(T, k, d).reshape(T * k, d)
     buf = flat[:E * cap].view(E, cap, d)
     out = _expert_mlp(p, buf, grouped or _bmm, counts).reshape(E * cap, d)
     # combine: each pair's row (a dropped pair reads slot (e, cap - 1) with
@@ -236,7 +255,98 @@ def moe_mlp_forward(p: MoeMLP, x: torch.Tensor, cfg: ModelConfig,
     y = combine((rows * wt.to(rows.dtype)[:, None]).view(T, k, d))
     if p.shared is not None:
         y = y + ll.mlp_forward(p.shared, xf, cfg, mm)
-    return y.reshape(B, S, d)
+    return y.reshape(B, S, d), counts, probs
+
+
+def moe_mlp_forward(p: MoeMLP, x: torch.Tensor, cfg: ModelConfig,
+                    mm: ll.Matmul = torch.matmul,
+                    grouped=None) -> torch.Tensor:
+    """x (B, S, d), normalized -> (B, S, d) (``moe.py:196-254``, without
+    the aux loss). ``grouped(buf, w, counts)`` is the routed experts'
+    product (``ops.gemm_rows_grouped`` on the paged decode step; None for
+    ``torch.bmm``), ``mm`` the shared experts'."""
+    return _moe_mlp(p, x, cfg, mm, grouped, False)[0]
+
+
+def moe_mlp_train(p, x: torch.Tensor,
+                  cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training form of :func:`moe_mlp_forward` (``moe.py:196-254``):
+    the same output, every product ``torch.matmul``/``torch.bmm``, and the
+    Switch-style aux loss ``E * sum_e mean_t(probs_e) * counts_e / (T k)``
+    (``moe.py:215-218``), its counts without gradient. Returns (y, aux)."""
+    y, counts, probs = _moe_mlp(p, x, cfg, torch.matmul, None, True)
+    frac = counts.float() / (probs.shape[0] * cfg.moe_top_k)
+    return y, cfg.n_experts * torch.sum(probs.mean(0) * frac)
+
+
+# ---------------------------------------------------------------------------
+# Training: the loss over a layer-stacked f32 tree
+# ---------------------------------------------------------------------------
+
+
+class _MoeLayerView(tf._LayerView):
+    """One MoE layer's weights as :func:`transformer._block` reads them, for
+    the loss (``transformer._LayerView``, the shared experts a namespace of
+    their own or None); its ``ffn`` keeps the layer's aux loss in
+    ``aux``."""
+
+    def __init__(self, attn: dict, mlp: dict):
+        super().__init__(attn, {k: v for k, v in mlp.items()
+                                if k != "shared"})
+        self.mlp.shared = SimpleNamespace(**mlp["shared"]) \
+            if "shared" in mlp else None
+        self.aux = None
+
+    def ffn(self, h: torch.Tensor, cfg: ModelConfig, mm: ll.Matmul,
+            grouped=None) -> torch.Tensor:
+        y, self.aux = moe_mlp_train(self.mlp, h, cfg)
+        return y
+
+
+def loss_fn(tree: Tree, batch: dict, cfg: ModelConfig):
+    """The loss of ``batch`` (``tokens``, ``labels`` (B, S) int) under the
+    layer-stacked f32 tree ``tree`` (``moe.py:279-322``): the leading dense
+    layers, then the MoE layers, each rematerialized per
+    ``cfg.remat_policy`` (``transformer._remat``: the recompute routes
+    under the forward's backend, and the router kernel is deterministic, so
+    it picks the same experts), the final norm and ``ll.lm_loss``, plus
+    ``cfg.router_aux_coef`` times the MoE layers' mean aux loss. Returns
+    (loss, {"ce", "z_loss", "tokens", "router_aux"})."""
+    specs = build_specs(cfg)
+    groups = ("dense_layers", "moe_layers")
+    top = SimpleNamespace(**{k: tf._cast(v, specs[k]) for k, v in tree.items()
+                             if k not in groups})
+    x = ll.embed_lookup(top, batch["tokens"])
+    rows = ll.dense_rows(cfg, torch.arange(x.shape[1], device=x.device))
+
+    def attend(p, h):
+        return ll.attn_forward(p, h, cfg, rows)[0]
+
+    def dense_layer(view, x, *leaves):
+        return tf._block(tf._LayerView(**view(leaves)), x, cfg, attend)
+
+    def moe_layer(view, x, *leaves):
+        lp = _MoeLayerView(**view(leaves))
+        return tf._block(lp, x, cfg, attend), lp.aux
+
+    def stack(group, fn):
+        per_layer, view = tf._unstack(tree[group], specs[group])
+        return per_layer, tf._remat(functools.partial(fn, view), cfg)
+
+    if "dense_layers" in tree:
+        per_layer, body = stack("dense_layers", dense_layer)
+        for leaves in per_layer:
+            x = body(x, *leaves)
+    per_layer, body = stack("moe_layers", moe_layer)
+    auxs = []
+    for leaves in per_layer:
+        x, aux = body(x, *leaves)
+        auxs.append(aux)
+    x = ops.rmsnorm(x, tree["final_ln"], cfg.norm_eps)
+    loss, info = ll.lm_loss(top, x, batch["labels"], cfg)
+    aux = torch.stack(auxs).mean()
+    info["router_aux"] = aux
+    return loss + cfg.router_aux_coef * aux, info
 
 
 def make_model(cfg: ModelConfig) -> ModelFns:
@@ -253,4 +363,5 @@ def make_model(cfg: ModelConfig) -> ModelFns:
         verify_paged=functools.partial(tf.verify_paged_fn, cfg=cfg),
         # a pure page-pool cache: prefix sharing, spill and speculation
         paged_state=False,
+        loss=functools.partial(loss_fn, cfg=cfg),
     )

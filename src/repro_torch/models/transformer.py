@@ -274,6 +274,41 @@ def _cast(t: torch.Tensor, spec: PSpec) -> torch.Tensor:
     return t.to(torch.bfloat16) if spec.cast else t
 
 
+def _unstack(group: Tree, specs: dict):
+    """A layer-stacked group of the f32 tree (nested dicts of ``(L, ...)``
+    leaves) cut into layers: the per-layer tuples of its leaves' slices,
+    one ``unbind`` a leaf (its backward stacks the layers' gradients at
+    once), and ``view(leaves)``, the nested dict of one layer's slices, the
+    ``cast`` ones in bf16."""
+    paths = []
+
+    def walk(node, path):
+        for k in sorted(node):
+            if isinstance(node[k], dict):
+                walk(node[k], path + (k,))
+            else:
+                paths.append(path + (k,))
+
+    def at(node, path):
+        for k in path:
+            node = node[k]
+        return node
+
+    walk(group, ())
+    per_layer = list(zip(*(torch.unbind(at(group, p)) for p in paths)))
+
+    def view(leaves) -> dict:
+        out: dict = {}
+        for path, t in zip(paths, leaves):
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = _cast(t, at(specs, path))
+        return out
+
+    return per_layer, view
+
+
 @contextlib.contextmanager
 def _recompute(ctx, backend: str):
     with ctx, ops.use_backend(backend):
@@ -326,19 +361,11 @@ def loss_fn(tree: Tree, batch: dict, cfg: ModelConfig):
                              if k != "layers"})
     x = _embed_inputs(top, cfg, batch)
     rows = ll.dense_rows(cfg, torch.arange(x.shape[1], device=x.device))
-    names = [(g, k) for g in ("attn", "mlp")
-             for k in sorted(tree["layers"][g])]
-    # one unbind a leaf: its backward stacks the layers' gradients at once
-    per_layer = list(zip(*(torch.unbind(tree["layers"][g][k])
-                           for g, k in names)))
+    per_layer, view = _unstack(tree["layers"], specs["layers"])
 
     def layer(x, *leaves):
-        groups = {"attn": {}, "mlp": {}}
-        for (g, k), t in zip(names, leaves):
-            groups[g][k] = _cast(t, specs["layers"][g][k])
-        lp = _LayerView(groups["attn"], groups["mlp"])
-        return _block(lp, x, cfg, lambda p, h: ll.attn_forward(
-            p, h, cfg, rows)[0])
+        return _block(_LayerView(**view(leaves)), x, cfg,
+                      lambda p, h: ll.attn_forward(p, h, cfg, rows)[0])
 
     body = _remat(layer, cfg)
     for leaves in per_layer:

@@ -58,11 +58,6 @@ def split_rng(words: np.ndarray) -> tuple[np.ndarray, int]:
 def make_train_step(model: ModelFns, run: RunConfig):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
     holds tensors on the params' device."""
-    if model.loss is None:
-        raise NotImplementedError(
-            f"{model.cfg.arch_id}: the {model.cfg.family} family's loss is "
-            f"not ported yet (ROADMAP Queue 1); the dense, VLM, SSM and "
-            f"hybrid families train")
 
     def one_micro(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)

@@ -1181,7 +1181,13 @@ FLASH_BWD_CASES = [(16, 6, 2, 100, 100, 0, True, 2),
                    (128, 4, 1, 129, 129, 0, True, 2),
                    (64, 15, 5, 191, 191, 0, True, 2),
                    (64, 15, 5, 2048, 2048, 0, True, 1),
-                   (128, 32, 8, 2048, 2048, 0, True, 1)]
+                   (128, 32, 8, 2048, 2048, 0, True, 1),
+                   # whisper-medium's non-causal shapes (H = K = 16, D 64):
+                   # the encoder at 1500 and 750 frames, the cross
+                   # attention's 2048 queries over 1500 keys
+                   (64, 16, 16, 1500, 1500, 0, False, 1),
+                   (64, 16, 16, 750, 750, 0, False, 2),
+                   (64, 16, 16, 2048, 1500, 0, False, 1)]
 
 
 @pytest.mark.gpu
@@ -1233,6 +1239,34 @@ def test_flash_backward_matches_plain_autograd_on_the_card(
         bad = a.clone()
         bad[:, (a.shape[1] - 1) // 64 * 64:] *= 1.1
         assert _tile_share(bad, w) > FLASH_BWD_TILE_SHARE, name
+
+
+@pytest.mark.gpu
+def test_flash_backward_over_a_single_key_on_the_card():
+    """On the H100: non-causal attention of 37 queries over one key (the
+    edge of the key tiles: 63 of 64 rows masked). Every probability is 1,
+    so dq and dk are zero (the kernel's within 1e-3: its delta and dP are
+    f32 sums of the same products in other orders) and dv is the sum of
+    dO over the queries, held per tile as the other cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v, dout = rnd(2, 37, 16, 64), rnd(2, 1, 16, 64), \
+        rnd(2, 1, 16, 64), rnd(2, 37, 16, 64)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    dq, dk, dv = torch.autograd.grad(ops.attention(*ins, causal=False), ins,
+                                     dout)
+    again = torch.autograd.grad(ops.attention(*ins, causal=False), ins, dout)
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+    assert float(dq.float().abs().max()) <= 1e-3
+    assert float(dk.float().abs().max()) <= 1e-3
+    want = dout.float().sum(1, keepdim=True)
+    assert _tile_share(dv, want) <= FLASH_BWD_TILE_SHARE
 
 
 @pytest.mark.gpu
@@ -1502,16 +1536,12 @@ SSM_TRAIN_KERNELS = {
 }
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("arch", sorted(SSM_TRAIN_KERNELS))
-def test_reduced_ssm_losses_on_the_card(arch):
-    """On the H100: a REDUCED falcon-mamba-7b / zamba2-1.2b train step
-    launches every kernel of its path, forward and backward, and no plain
-    version; its loss is within 2e-2 of the same step under the plain
-    backend, and its gradient norm within 5 %; a second step from the same
-    state gives the same bits."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def _reduced_step_against_plain(arch: str, kernels: tuple) -> None:
+    """A REDUCED train step of ``arch`` launches every kernel of
+    ``kernels``, forward and backward, and no plain version; its loss is
+    within 2e-2 of the same step under the plain backend, and its gradient
+    norm within 5 %; a second step from the same state gives the same
+    bits."""
     from repro_torch.config import RunConfig
     from repro_torch.configs import get
     from repro_torch.data.synthetic import SyntheticDataset
@@ -1536,7 +1566,7 @@ def test_reduced_ssm_losses_on_the_card(arch):
             assert all(c["launches"] == 0 for c in counts.values())
         else:
             assert all(c["plain"] == 0 for c in counts.values()), counts
-            for k in SSM_TRAIN_KERNELS[arch]:
+            for k in kernels:
                 assert counts[k]["launches"] > 0, k
     assert abs(metrics["plain"]["loss"] - metrics["kernel"]["loss"]) <= 2e-2
     assert abs(metrics["kernel"]["grad_norm"]
@@ -1546,3 +1576,109 @@ def test_reduced_ssm_losses_on_the_card(arch):
                     tree_leaves(states["again"])):
         if isinstance(a, torch.Tensor):
             assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", sorted(SSM_TRAIN_KERNELS))
+def test_reduced_ssm_losses_on_the_card(arch):
+    """On the H100: a REDUCED falcon-mamba-7b / zamba2-1.2b train step
+    against the plain step (``_reduced_step_against_plain``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _reduced_step_against_plain(arch, SSM_TRAIN_KERNELS[arch])
+
+
+# ---------------------------------------------------------------------------
+# the MoE and enc-dec training paths: the router's backward, the flash
+# backward at whisper's non-causal shapes, REDUCED train steps
+# ---------------------------------------------------------------------------
+
+# d_logits of the router's backward kernel against its plain version on the
+# same inputs: both f32, sums over k and E in other orders (largest
+# difference within this share of the largest magnitude)
+ROUTE_BWD_REL = 1e-5
+MOE_ENCDEC_TRAIN_KERNELS = {
+    "granite-moe-1b-a400m": ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                             "flash_attention_bwd", "moe_route",
+                             "moe_route_bwd"),
+    "deepseek-moe-16b": ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                         "flash_attention_bwd", "moe_route",
+                         "moe_route_bwd"),
+    "whisper-medium": ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                       "flash_attention_bwd"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,d,E,k", [
+    (1, 1024, 32, 8), (8, 1024, 32, 1), (4096, 1024, 32, 8),
+    (4096, 2048, 64, 6), (37, 512, 64, 16), (8, 256, 256, 16),
+    (300, 64, 4, 2)])
+def test_moe_route_bwd_matches_plain_version_on_the_card(T, d, E, k):
+    """On the H100: the router's backward kernel against
+    ``ref.moe_route_bwd`` on the forward kernel's own probabilities, picks
+    and weights, with and without the probabilities' gradient, within
+    ``ROUTE_BWD_REL``; two runs bitwise equal; ``MoeRoute``'s dx and
+    d_router the f32 products of the plain d_logits. T 1, 8 and 4096, k 1,
+    8 and MAX_K, E up to MAX_E."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import moe_route as rk
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(T + E + k)
+    x, router = _router_case(g, T, d, E)
+    router = router * 100   # probabilities well apart from 1/E
+    weights, ids, probs = rk.moe_route(x, router, k, with_probs=True)
+    dw = torch.randn(T, k, generator=g, device="cuda")
+    dprobs = torch.randn(T, E, generator=g, device="cuda")
+    for dp in (dprobs, None):
+        got = rk.moe_route_bwd(probs, ids, weights, dw, dp)
+        again = rk.moe_route_bwd(probs, ids, weights, dw, dp)
+        want = ref.moe_route_bwd(probs, ids, weights, dw, dp)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        # at k 1 without dprobs every weight is 1 and d_logits is zero
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max()) / (scale or 1.0)
+        print(T, d, E, k, dp is not None, "d_logits rel", err)
+        assert err <= ROUTE_BWD_REL, err
+    xl, rl = x.clone().requires_grad_(), router.clone().requires_grad_()
+    w2, ids2, p2 = rk.MoeRoute.apply(xl, rl, k)
+    assert torch.equal(w2, weights) and torch.equal(ids2, ids)
+    dx, dr = torch.autograd.grad((w2, p2), (xl, rl), (dw, dprobs))
+    dl = ref.moe_route_bwd(probs, ids, weights, dw, dprobs)
+    assert dx.dtype == torch.bfloat16 and dr.dtype == torch.float32
+    assert _rel(dx.float(), (dl @ router.t()).bfloat16().float()) <= 1e-2
+    assert _rel(dr, x.float().t() @ dl) <= ROUTE_BWD_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,E,k", ROUTERS)
+def test_moe_route_probs_leave_weights_and_ids_bitwise_on_the_card(d, E, k):
+    """On the H100: the router kernel with ``probs`` out gives the same
+    weights and ids bits as without, at 1, 8, 37 and 4096 tokens; its
+    probabilities within 1e-6 of the plain softmax's (the kernel's logits
+    are f32 sums in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import moe_route as rk
+
+    g = torch.Generator(device="cuda").manual_seed(d + E)
+    x, router = _router_case(g, 4096, d, E)
+    for T in (1, 8, 37, 4096):
+        w, ids = rk.moe_route(x[:T], router, k)
+        w2, ids2, probs = rk.moe_route(x[:T], router, k, with_probs=True)
+        assert torch.equal(w, w2) and torch.equal(ids, ids2), T
+        want = torch.softmax(x[:T].float() @ router, -1)
+        assert float((probs - want).abs().max()) <= 1e-6, T
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", sorted(MOE_ENCDEC_TRAIN_KERNELS))
+def test_reduced_moe_and_encdec_losses_on_the_card(arch):
+    """On the H100: a REDUCED granite-moe / deepseek-moe / whisper-medium
+    train step against the plain step (``_reduced_step_against_plain``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _reduced_step_against_plain(arch, MOE_ENCDEC_TRAIN_KERNELS[arch])

@@ -191,7 +191,7 @@ def test_cpu_tensors_dispatch_to_the_plain_versions():
         "gemm_rows": 1, "moe_route": 1, "gemm_rows_grouped": 1,
         # no input needs a gradient: no backward is set up
         "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
-        "selective_scan_bwd": 0, "ssd_bwd": 0}
+        "selective_scan_bwd": 0, "ssd_bwd": 0, "moe_route_bwd": 0}
     assert all(c["launches"] == 0 for c in counts.values())
     ops.reset_counts()
     assert all(c == {"launches": 0, "plain": 0} for c in ops.counts().values())

@@ -120,7 +120,7 @@ def route_row(cs, lib, gen) -> dict:
     from repro_torch.kernels.moe_route import plan
 
     fn = lib.moe_route_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     dev = torch.device("cuda")
     row = {}
@@ -134,8 +134,8 @@ def route_row(cs, lib, gen) -> dict:
 
             def call():
                 err = fn(x.data_ptr(), router.data_ptr(), w.data_ptr(),
-                         ids.data_ptr(), T, d, E, k, p.C, p.S, p.J, p.L,
-                         _build.stream(dev))
+                         ids.data_ptr(), None, T, d, E, k, p.C, p.S, p.J,
+                         p.L, _build.stream(dev))
                 if err:
                     raise RuntimeError(f"moe_route variant: error {err}")
 
