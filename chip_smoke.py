@@ -4173,6 +4173,23 @@ def _flash_bwd_parts() -> dict:
     return json.loads(run.stdout.strip().splitlines()[-1])
 
 
+def _sdpa(ins, causal: bool, gqa: bool, backend: str = "FLASH_ATTENTION"):
+    """SDPA over ``ins`` (B, H, S, D) under the one backend ``backend`` (a
+    name of ``SDPBackend``): PyTorch's own choice is cuDNN at the training
+    shapes, whose backward's time moves between calls in one process
+    (PERF.md section 6, PR 29). Deterministic algorithms must be off (they
+    reroute a backend's backward)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    if torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("SDPA timed under deterministic algorithms")
+    with sdpa_kernel(getattr(SDPBackend, backend)):
+        return F.scaled_dot_product_attention(*ins, is_causal=causal,
+                                              enable_gqa=gqa)
+
+
 def check_flash_bwd(gen, *, B, S, H, K, D, what: str,
                     parts_ms: dict | None, Sk: int | None = None,
                     causal: bool = True) -> list[dict]:
@@ -4222,8 +4239,7 @@ def check_flash_bwd(gen, *, B, S, H, K, D, what: str,
         shape["Sk"] = Sk
     lib_ins = [t.detach().transpose(1, 2).clone().requires_grad_()
                for t in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(*lib_ins, is_causal=causal,
-                                             enable_gqa=True)
+    lib_out = _sdpa(lib_ins, causal, gqa=H != K)
     lib_dout = dout.transpose(1, 2)
     fwd = {"shape": shape, "max_abs_err": fwd_err,
            "ms": _time_ms(lambda: fk.flash_attention(
@@ -4231,9 +4247,10 @@ def check_flash_bwd(gen, *, B, S, H, K, D, what: str,
            "plain_ms": _time_ms(lambda: ref.attention(q, k, v,
                                                       causal=causal),
                                 flush=True),
-           "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
-               *(t.detach() for t in lib_ins), is_causal=causal,
-               enable_gqa=True), flush=True),
+           "library_ms": _time_ms(lambda: _sdpa(
+               [t.detach() for t in lib_ins], causal, gqa=H != K),
+               flush=True),
+           "library_backend": "FLASH_ATTENTION",
            **_bound(io + q.numel() * 2 + lse.numel() * 4, 4 * D * pairs,
                     BF16_TC_FLOPS)}
 
@@ -4249,6 +4266,7 @@ def check_flash_bwd(gen, *, B, S, H, K, D, what: str,
            "executed_flop_per_pair": 14 * D,
            "plain_ms": _grad_ms(plain_out, ins, dout),
            "library_ms": _grad_ms(lib_out, lib_ins, lib_dout),
+           "library_backend": "FLASH_ATTENTION",
            **_bound(2 * io + 2 * q.numel() * 2 + lse.numel() * 4,
                     10 * D * pairs, BF16_TC_FLOPS)}
     if parts_ms is not None:
@@ -5211,8 +5229,10 @@ TRAIN_PATH = {
     "whisper-medium": ("rmsnorm", "rmsnorm_bwd", "flash_attention",
                        "flash_attention_bwd"),
 }
-# the recurrent families' training runs: published widths, B 2, S 2048, 3
-# steps twice; falcon-mamba-7b at 8 of 64 layers (its full depth's f32
+# the training runs of the recurrent, MoE and enc-dec families: published
+# widths, B 2, S 2048 (whisper's encoder over min(S, 1500) = 1500 frames),
+# 3 steps twice (``layers``: None is full depth); falcon-mamba-7b at 8 of
+# 64 layers (its full depth's f32
 # state, ~7.2 B parameters x 16 bytes, does not fit one card), zamba2-1.2b
 # at full depth. The first-step gates against the plain step
 # (``_first_step``) run at ``gate_layers`` (None: full depth) for each of
@@ -5227,12 +5247,40 @@ TRAIN_PATH = {
 # kernel step's difference on the flash forward's bf16 probabilities;
 # at seeds 0, 1, 2 the kernel step's leaves read 0.57, 0.63 and 0.67 of
 # the control's at most.
-SSM_TRAIN = {
+# granite-moe-1b-a400m and whisper-medium: full depth, each gate at 2
+# layers (whisper: 2 encoder and 2 decoder layers), each leaf within
+# FIRST_STEP_LEAF_SHARE. deepseek-moe-16b does not train on the card: its
+# f32 state (~16.4 B parameters x 16 bytes) does not fit; its code is
+# granite's, its router's backward is checked at its shape
+# (``check_moe_route_bwd``) and its leading dense layer and shared experts
+# on the CPU (tests/test_torch_train_moe.py).
+TRAIN_RUNS = {
     "falcon-mamba-7b": dict(B=2, S=2048, layers=8, steps=3, gate_layers=2,
                             gate_seeds=(0,), plant=("layers", "ln")),
     "zamba2-1.2b": dict(B=2, S=2048, layers=None, steps=3, gate_layers=None,
                         gate_seeds=(0, 1), plant=None),
+    "granite-moe-1b-a400m": dict(B=2, S=2048, layers=None, steps=3,
+                                 gate_layers=2, gate_seeds=(0,),
+                                 plant=("moe_layers", "attn", "ln")),
+    "whisper-medium": dict(B=2, S=2048, layers=None, steps=3, gate_layers=2,
+                           gate_seeds=(0,),
+                           plant=("dec_layers", "self_attn", "ln")),
 }
+
+
+def train_cfg(arch: str, n: int | None):
+    """``arch``'s published config with its depth cut to ``n`` layers
+    (None: full depth); an encoder's depth is cut with it."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get
+
+    full = get(arch)
+    if n is None:
+        return full
+    if full.n_encoder_layers:
+        return replace(full, n_layers=n, n_encoder_layers=n)
+    return replace(full, n_layers=n)
 
 
 def _train_twice(cfg, q: dict, what: str) -> dict:
@@ -5313,75 +5361,27 @@ def phase_train_qwen(card: str) -> dict:
     return out
 
 
-def phase_train_ssm(card: str, arch: str) -> dict:
-    """d. falcon-mamba-7b or zamba2-1.2b at published widths (``SSM_TRAIN``):
-    the first step against the plain step (``_first_step``'s limits) at
-    the gate's depth and seeds, the first seed's backward kernel calls
-    run again against plain versions, then 3 steps at B 2, S 2048, twice
-    from one seed (``_train_twice``)."""
-    from dataclasses import replace
-
+def phase_train_family(card: str, arch: str) -> dict:
+    """d, e. One of ``TRAIN_RUNS`` at published widths: the first step
+    against the plain step (``_first_step``'s limits) at the gate's depth
+    and seeds, the first seed's backward kernel calls run again against
+    plain versions, then 3 steps at B 2, S 2048, twice from one seed
+    (``_train_twice``)."""
     from repro_torch.configs import get
 
-    q = SSM_TRAIN[arch]
+    q = TRAIN_RUNS[arch]
     full = get(arch)
-
-    def cut(n):
-        return full if n is None else replace(full, n_layers=n)
-
-    gate = cut(q["gate_layers"])
+    gate = train_cfg(arch, q["gate_layers"])
     first = [_first_step(gate, q["B"], q["S"], q["plant"], seed=seed,
                          forced=seed == q["gate_seeds"][0])
              for seed in q["gate_seeds"]]
-    cfg = cut(q["layers"])
-    out = {"phase": "train_ssm", "card": card,
+    cfg = train_cfg(arch, q["layers"])
+    out = {"phase": f"train_{arch}", "card": card,
            "reduced": ({} if q["layers"] is None else
                        {"n_layers": f"{q['layers']} of {full.n_layers}"}),
            "first_step": {"n_layers": f"{gate.n_layers} of {full.n_layers}",
                           "seeds": first},
            **_train_twice(cfg, q, arch)}
-    log(out)
-    return out
-
-
-# the MoE and enc-dec families' training runs: published widths and full
-# depth, B 2, S 2048 (whisper's encoder over min(S, 1500) = 1500 frames), 3
-# steps twice from seed 0 (``_train_twice``); each first step gated against
-# the plain step at 2 layers (whisper: 2 encoder and 2 decoder layers), each
-# leaf within FIRST_STEP_LEAF_SHARE, a fault planted in ``plant``, every
-# backward kernel call of the kernel step rerun against plain versions
-# (``_forced_backward``). deepseek-moe-16b does not train on the card: its
-# f32 state (~16.4 B parameters x 16 bytes) does not fit; its code is
-# granite's, its router's backward is checked at its shape
-# (``check_moe_route_bwd``) and its leading dense layer and shared experts
-# on the CPU (tests/test_torch_train_moe.py).
-MOE_ENCDEC_TRAIN = {
-    "granite-moe-1b-a400m": dict(B=2, S=2048, steps=3, gate_layers=2,
-                                 plant=("moe_layers", "attn", "ln")),
-    "whisper-medium": dict(B=2, S=2048, steps=3, gate_layers=2,
-                           plant=("dec_layers", "self_attn", "ln")),
-}
-
-
-def phase_train_moe_encdec(card: str, arch: str) -> dict:
-    """e. granite-moe-1b-a400m or whisper-medium at published widths and
-    full depth (``MOE_ENCDEC_TRAIN``): the first step against the plain
-    step at 2 layers (``_first_step``'s limits, the planted leaf, every
-    backward kernel call rerun against plain versions), then 3 steps at B
-    2, S 2048, twice from one seed (``_train_twice``)."""
-    from dataclasses import replace
-
-    from repro_torch.configs import get
-
-    q = MOE_ENCDEC_TRAIN[arch]
-    full = get(arch)
-    n = q["gate_layers"]
-    gate = replace(full, n_layers=n, n_encoder_layers=n) \
-        if full.n_encoder_layers else replace(full, n_layers=n)
-    first = _first_step(gate, q["B"], q["S"], q["plant"], forced=True)
-    out = {"phase": "train_moe_encdec", "card": card, "reduced": {},
-           "first_step": {"n_layers": f"{n} of {full.n_layers}", **first},
-           **_train_twice(full, q, arch)}
     log(out)
     return out
 
@@ -5446,13 +5446,9 @@ def phase_train(card: str) -> dict:
                "train_smollm": round(t2 - t1, 3),
                "train_qwen3": round(time.perf_counter() - t2, 3)}
     runs = {}
-    for arch in SSM_TRAIN:
+    for arch in TRAIN_RUNS:
         t = time.perf_counter()
-        runs[arch] = phase_train_ssm(card, arch)
-        seconds[f"train_{arch}"] = round(time.perf_counter() - t, 3)
-    for arch in MOE_ENCDEC_TRAIN:
-        t = time.perf_counter()
-        runs[arch] = phase_train_moe_encdec(card, arch)
+        runs[arch] = phase_train_family(card, arch)
         seconds[f"train_{arch}"] = round(time.perf_counter() - t, 3)
     log({"phase_seconds": seconds, "arch": "train"})
     return {"checks": checks, "run": run, "qwen": qwen, **runs}

@@ -231,12 +231,9 @@ def _moe_mlp(p, x: torch.Tensor, cfg: ModelConfig, mm: ll.Matmul,
     E, k = cfg.n_experts, cfg.moe_top_k
     T = B * S
     xf = x.reshape(T, d)
-    if with_probs:
-        weights, sel, probs = ops.moe_route(xf, p.router, k, with_probs=True)
-        plan = _plan(weights, sel, cfg, S)
-    else:
-        plan, probs = route(p, xf, cfg, S), None
-    e, weights, rank, keep, counts, cap = plan
+    routed = ops.moe_route(xf, p.router, k, with_probs=with_probs)
+    e, weights, rank, keep, counts, cap = _plan(routed[0], routed[1], cfg, S)
+    probs = routed[2] if with_probs else None
     # dispatch: a kept pair into its (expert, rank) slot, a dropped one into
     # the sink row E * cap, which the buffer leaves out (each token's k
     # copies through ``expand``, whose backward is a sum, not index_add_)

@@ -6,7 +6,7 @@ Usage, from the root of this checkout, on a machine with the card:
     python3 tools/profile_ssm_step.py [--src SRC] [--steps K] [ARCH ...]
 
 ``ARCH`` is ``zamba2-1.2b`` (the default; full depth) or ``falcon-mamba-7b``
-(its depth cut as ``chip_smoke.SSM_TRAIN`` cuts it, 8 of 64 layers). Each
+(its depth cut as ``chip_smoke.TRAIN_RUNS`` cuts it, 8 of 64 layers). Each
 is built at published widths from seed 0 and trained at ``chip_smoke``'s
 training shape (B 2, S 2048) through ``make_train_step``: two steps to
 warm, ``K`` (default 5) timed, then one under ``torch.profiler``
@@ -26,7 +26,6 @@ import os
 import statistics
 import sys
 import time
-from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -52,7 +51,6 @@ def main() -> int:
     sys.path.insert(0, str(src))
     import repro_torch
     from repro_torch.config import RunConfig
-    from repro_torch.configs import get
     from repro_torch.data.synthetic import SyntheticDataset
     from repro_torch.models import get_model
     from repro_torch.training.state import init_train_state
@@ -62,10 +60,8 @@ def main() -> int:
         raise SystemExit(f"repro_torch imported from {repro_torch.__file__}")
     cs.phase_device()
     for arch in args.archs:
-        q = cs.SSM_TRAIN[arch]
-        cfg = get(arch)
-        if q["layers"] is not None:
-            cfg = replace(cfg, n_layers=q["layers"])
+        q = cs.TRAIN_RUNS[arch]
+        cfg = cs.train_cfg(arch, q["layers"])
         model = get_model(cfg)
         step = make_train_step(model, RunConfig(arch=cfg.arch_id))
         data = SyntheticDataset(cfg, q["S"], q["B"], 0)
