@@ -238,9 +238,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    backward checks also run at the decay the models start from (dt about
    0.8, A about -1). e, the MoE and enc-dec families: the router with its
    softmax out (weights and ids the same bits as without) and its backward
-   (``csrc/moe_route_bwd.cu``) at granite-moe-1b-a400m's and
-   deepseek-moe-16b's 4096 tokens a layer (d_logits against the plain
-   closed form, the route's dx and d_router against plain autograd), the
+   (``csrc/moe_route_bwd.cu``: d_logits, then dx and d_router, two
+   launches) at granite-moe-1b-a400m's and deepseek-moe-16b's 4096 tokens
+   a layer (d_logits against the plain closed form, dx and d_router
+   against the plain version summed in the kernel's order and the route's
+   against plain autograd; its device time and launches beside the
+   parent's design rebuilt on the same inputs), the
    flash backward's non-causal branch at whisper-medium's encoder (B 2,
    1500 frames, 16 heads of 64) and cross attention (2048 queries over
    1500 keys); then granite-moe-1b-a400m and whisper-medium at published
@@ -4109,10 +4112,14 @@ def _print_flash_bwd_parts() -> int:
     the RMSNorm backward makes at each of its training shapes
     (``_kernels_us``: per operation, its microseconds and launches a call),
     printed as one JSON line; so too the device operations of one call of
-    each SSM backward at its training shape."""
+    each SSM backward at its training shape, and of the router's backward
+    and of its parent's design (``_route_bwd_parent``) at both MoE
+    configs' (``route_bwd_ops``)."""
     import torch
 
+    from repro_torch.configs import get
     from repro_torch.kernels import flash_attention as fk, rmsnorm as rk
+    from repro_torch.kernels import moe_route as mk
     from repro_torch.kernels import selective_scan as sk, ssd as dk
 
     gen = torch.Generator(device="cuda").manual_seed(24)
@@ -4147,6 +4154,19 @@ def _print_flash_bwd_parts() -> int:
         res[what] = _parts_ms(
             lambda: fk.flash_attention_bwd(q, k, v, out, dout, lse),
             FLASH_BWD_PARTS)
+        del q, k, v, dout, out, lse
+    res["route_bwd_ops"] = {}
+    for arch in MOE_ARCHS_TRAIN:
+        cfg = get(arch)
+        T, E, k = MOE_TRAIN_T, cfg.n_experts, cfg.moe_top_k
+        x, router = _router(gen, cfg, T)
+        weights, ids, probs = mk.moe_route(x, router, k, with_probs=True)
+        args = (x, router, probs, ids, weights,
+                torch.randn(T, k, generator=gen, device="cuda"),
+                torch.randn(T, E, generator=gen, device="cuda"))
+        res["route_bwd_ops"][arch] = {
+            "ops": _kernels_us(lambda: mk.moe_route_bwd(*args)),
+            "parent_ops": _kernels_us(lambda: _route_bwd_parent(args))}
     log(res)
     return 0
 
@@ -4337,29 +4357,67 @@ def check_rmsnorm_bwd(gen, shape, what: str, ops: dict) -> list[dict]:
 
 
 # the router's backward at the MoE configs' training shapes: T = B 2 x S
-# 2048 tokens a layer. d_logits against ref.moe_route_bwd on the same
-# inputs (both f32, sums over k and E in other orders: within ROUTE_BWD_REL
-# of the largest magnitude); the whole route's dx (bf16) and d_router (f32)
-# against autograd through the plain router on the tokens whose picks agree
-# (a near tie may rank either way: those tokens' gradients are zeroed on
-# both sides), dx within ROUTE_DX_REL (bf16 rounding), d_router within
-# ROUTE_DROUTER_REL (f32 sums over 4096 tokens in cuBLAS's order) of their
-# largest magnitudes
+# 2048 tokens a layer. d_logits (the first launch's scratch) against
+# ref.moe_route_bwd on the same inputs (both f32, sums over k and E in other
+# orders: within ROUTE_BWD_REL of the largest magnitude); the kernels' dx
+# (bf16) and d_router (f32) against ref.moe_route_grads on the same inputs
+# (d_router summed in the kernel's order), and the whole route's dx and
+# d_router (``MoeRoute``) against autograd through the plain router on the
+# tokens whose picks agree (a near tie may rank either way: those tokens'
+# gradients are zeroed on both sides), dx within ROUTE_DX_REL (bf16
+# rounding), d_router within ROUTE_DROUTER_REL (f32 sums over 4096 tokens
+# in another order) of their largest magnitudes
 MOE_TRAIN_T = 4096
 ROUTE_BWD_REL = 1e-5
 ROUTE_DX_REL = 1e-2
 ROUTE_DROUTER_REL = 1e-4
+# the router backward's launches by kernel name (csrc/moe_route_bwd.cu):
+# d_logits, then dx and d_router
+ROUTE_BWD_PARTS = {"moe_route_bwd_kernel": "d_logits",
+                   "moe_route_grads_kernel": "products"}
 
 
-def check_moe_route_bwd(gen, arch: str) -> list[dict]:
-    """The router kernel with ``probs`` out and its backward kernel
+MOE_ARCHS_TRAIN = ("granite-moe-1b-a400m", "deepseek-moe-16b")
+
+
+def _ops_total(ops: dict) -> dict:
+    """A call's device time (ms) and launches from ``_kernels_us``'s
+    operations, with the operations themselves."""
+    return {"device_ms": sum(o["us"] * o["per_call"] for o in ops.values())
+            / 1e3,
+            "launches_per_call": sum(o["per_call"] for o in ops.values()),
+            "ops": ops}
+
+
+def _route_bwd_parent(args):
+    """The parent's design of the router's backward on ``args`` (x, router,
+    probs, ids, weights, dw, dprobs): d_logits (this design's first
+    launch), then x in f32, the two f32 products (cuBLAS), dx cast to
+    bf16."""
+    from repro_torch.kernels import moe_route as rk
+
+    x, router = args[:2]
+    dl = rk.moe_route_bwd(*args, need_dx=False, need_drouter=False,
+                          with_d_logits=True)[2]
+    return ((dl @ router.t()).to(x.dtype), x.float().t() @ dl)
+
+
+def check_moe_route_bwd(gen, arch: str, device_ops: dict) -> list[dict]:
+    """The router kernel with ``probs`` out and its backward kernels
     (``csrc/moe_route_bwd.cu``) at ``arch``'s (d, E, k) over MOE_TRAIN_T
     tokens: the forward's weights and ids bitwise the same as without
-    ``probs``; d_logits against the plain closed form and the whole
-    route's gradients (``MoeRoute``) against plain autograd (the limits
-    above); two backward runs bitwise equal. Rows: forward with ``probs``,
-    backward; no single PyTorch call computes either (``library_ms``
-    none)."""
+    ``probs``; d_logits against the plain closed form, dx and d_router
+    against ``ref.moe_route_grads`` and the whole route's gradients
+    (``MoeRoute``) against plain autograd (the limits above); two backward
+    runs bitwise equal. The backward's row: its ms by CUDA events; from
+    ``device_ops`` (``_print_flash_bwd_parts``'s ``route_bwd_ops``, traced
+    in a fresh process), each launch's device ms (``parts_ms``), the device
+    ms and launches of the whole route backward, and those of the parent's
+    design rebuilt on inputs of the same shapes (``_route_bwd_parent``);
+    bounds
+    on the f32 basis (``bound_ms``) and on bytes alone
+    (``bound_bytes_ms``). Rows: forward with ``probs``, backward; no single
+    PyTorch call computes either (``library_ms`` none)."""
     import torch
 
     from repro_torch.configs import get
@@ -4377,12 +4435,15 @@ def check_moe_route_bwd(gen, arch: str) -> list[dict]:
     same = (ids == pids).all(-1)
     dw = torch.randn(T, k, generator=gen, device="cuda") * same[:, None]
     dprobs = torch.randn(T, E, generator=gen, device="cuda") * same[:, None]
-    got = rk.moe_route_bwd(probs, ids, weights, dw, dprobs)
-    again = rk.moe_route_bwd(probs, ids, weights, dw, dprobs)
-    if not torch.equal(got, again):
+    args = (x, router, probs, ids, weights, dw, dprobs)
+    got = rk.moe_route_bwd(*args, with_d_logits=True)
+    again = rk.moe_route_bwd(*args, with_d_logits=True)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"moe_route_bwd {arch}: two runs differ")
-    dl_rel = _rel_err(got, ref.moe_route_bwd(probs, ids, weights, dw,
-                                             dprobs))
+    kdx, kdr, kdl = got
+    want_dl = ref.moe_route_bwd(probs, ids, weights, dw, dprobs)
+    plan = rk.grads_plan(d, E)
+    pdx_same, pdr_same = ref.moe_route_grads(*args, **plan.order())
     xk, rk_ = x.clone().requires_grad_(), router.clone().requires_grad_()
     kw, _, kp = rk.MoeRoute.apply(xk, rk_, k)
     xp, rp = x.clone().requires_grad_(), router.clone().requires_grad_()
@@ -4391,10 +4452,16 @@ def check_moe_route_bwd(gen, arch: str) -> list[dict]:
                                  retain_graph=True)
     pdx, pdr = torch.autograd.grad((pw2, pp2), (xp, rp), (dw, dprobs),
                                    retain_graph=True)
-    readings = {"d_logits_rel": dl_rel, "dx_rel": _rel_err(dx, pdx),
-                "d_router_rel": _rel_err(dr, pdr)}
-    limits = {"d_logits_rel": ROUTE_BWD_REL, "dx_rel": ROUTE_DX_REL,
-              "d_router_rel": ROUTE_DROUTER_REL}
+    if not (torch.equal(dx, kdx) and torch.equal(dr, kdr)):
+        raise AssertionError(f"moe_route_bwd {arch}: MoeRoute's gradients "
+                             f"are not the kernels'")
+    readings = {"d_logits_rel": _rel_err(kdl, want_dl),
+                "kernel_dx_rel": _rel_err(kdx, pdx_same),
+                "kernel_d_router_rel": _rel_err(kdr, pdr_same),
+                "dx_rel": _rel_err(dx, pdx), "d_router_rel": _rel_err(dr, pdr)}
+    limits = {"d_logits_rel": ROUTE_BWD_REL, "kernel_dx_rel": ROUTE_DX_REL,
+              "kernel_d_router_rel": ROUTE_DROUTER_REL,
+              "dx_rel": ROUTE_DX_REL, "d_router_rel": ROUTE_DROUTER_REL}
     if not all(readings[n] <= limits[n] for n in limits):
         raise AssertionError(f"moe_route_bwd {arch}: {readings} over "
                              f"{limits}")
@@ -4411,23 +4478,46 @@ def check_moe_route_bwd(gen, arch: str) -> list[dict]:
            "library_ms": None, "library": "none",
            **_bound(T * d * 2 + d * E * 4 + T * k * 8 + T * E * 4,
                     2 * T * d * E, F32_FLOPS, exps=T * E)}
-    # probs, dprobs and d_logits (T, E) f32, ids, weights and dw (T, k)
-    bwd = {"shape": shape, "max_abs_err": float(
-               (got - ref.moe_route_bwd(probs, ids, weights, dw,
-                                        dprobs)).abs().max()),
+
+    # x read and dx written (bf16), probs, dprobs (T, E), ids, weights, dw
+    # (T, k), the router read and d_router written (f32); 4 T d E f32
+    # operations for the two products (and d_logits' few a token)
+    nbytes = 4 * T * d + 8 * T * E + 12 * T * k + 8 * d * E
+    # the whole backward (what MoeRoute's backward calls, which launches
+    # nothing else: its gradients are the wrapper's bits above): its device
+    # time and launches, each kernel of ROUTE_BWD_PARTS' time a call
+    whole = _ops_total(device_ops["ops"])
+    old = _ops_total(device_ops["parent_ops"])
+    bwd = {"shape": shape, "plan": plan._asdict(),
+           "max_abs_err": max(float((kdx.float() - pdx_same.float()).abs()
+                                    .max()),
+                              float((kdr - pdr_same).abs().max())),
+           "d_logits_max_abs_err": float((kdl - want_dl).abs().max()),
            **readings, "bitwise_repeat": True,
-           "ms": _time_ms(lambda: rk.moe_route_bwd(probs, ids, weights, dw,
-                                                   dprobs)),
-           "plain_ms": _time_ms(lambda: ref.moe_route_bwd(
-               probs, ids, weights, dw, dprobs)),
-           # the whole route's backward: the kernel and the two f32
-           # products, against autograd through the plain router
+           "ms": _time_ms(lambda: rk.moe_route_bwd(*args)),
+           "parts_ms": {part: sum(o["us"] * o["per_call"]
+                                  for key, o in whole["ops"].items()
+                                  if name in key) / 1e3
+                        for name, part in ROUTE_BWD_PARTS.items()},
+           "device_ms": whole["device_ms"],
+           "launches_per_call": whole["launches_per_call"],
+           "device_ops": whole["ops"],
+           "parent_ms": _time_ms(lambda: _route_bwd_parent(args)),
+           "parent_device_ms": old["device_ms"],
+           "parent_launches_per_call": old["launches_per_call"],
+           "parent_device_ops": old["ops"],
+           "plain_ms": _time_ms(lambda: ref.moe_route_grads(
+               *args, **plan.order())),
+           # the whole route's backward through autograd, against autograd
+           # through the plain router
            "route_grad_ms": _grad_ms((kw, kp), (xk, rk_), (dw, dprobs)),
            "plain_route_grad_ms": _grad_ms((pw2, pp2), (xp, rp),
                                            (dw, dprobs)),
            "library_ms": None, "library": "none",
-           **_bound(3 * T * E * 4 + 3 * T * k * 4, 4 * T * E + 4 * T * k,
+           "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           **_bound(nbytes, 4 * T * d * E + 4 * T * E + 4 * T * k,
                     F32_FLOPS)}
+    bwd["device_x_bound"] = bwd["device_ms"] / bwd["bound_ms"]
     for row in (fwd, bwd):
         row.update(_factors(row))
     log({"check": f"moe_route_bwd@{arch}", "forward": fwd, "backward": bwd})
@@ -4791,10 +4881,25 @@ def _timed_guest(timing: dict):
     return lambda: [setattr(tr.TrainingGuest, n, f) for n, f in orig.items()]
 
 
-def _profile_step(step, state, batch) -> dict:
+def _node_ops(prof, node: str, busy_ms: float) -> dict:
+    """The kernels that the autograd nodes named ``node`` (a Function's
+    backward, as ``MoeRouteBackward``) launched in a profile, with those of
+    the operations they called: the calls, their device ms, its share of
+    ``busy_ms``, and their launches."""
+    def kernels(e) -> int:
+        return len(e.kernels) + sum(kernels(c) for c in e.cpu_children)
+
+    calls = [e for e in prof.events() if e.name == node]
+    ms = sum(e.device_time_total for e in calls) / 1e3
+    return {"calls": len(calls), "device_ms": ms, "share": ms / busy_ms,
+            "launches": sum(kernels(e) for e in calls)}
+
+
+def _profile_step(step, state, batch, nodes=()) -> dict:
     """One warm train step under ``torch.profiler``: the device's busy
     share of the step's wall time, the kernels by device time, the host's
-    own time."""
+    own time, and for each autograd node named in ``nodes`` its share
+    (``_node_ops``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4818,7 +4923,8 @@ def _profile_step(step, state, batch) -> dict:
             "top_kernels": [{"name": e.key[:70], "calls": e.count,
                              "ms": e.self_device_time_total / 1e3,
                              "share": e.self_device_time_total / 1e3 / busy}
-                            for e in top]}
+                            for e in top],
+            "nodes": {n: _node_ops(prof, n, busy) for n in nodes}}
 
 
 def _leaf_shares(got, want, prefix: str = "") -> dict:
@@ -4926,7 +5032,9 @@ def _forced_backward(kept: _KeptBackward) -> dict:
     ``_flash_bwd_rounded``, the kernel's own rounding points in plain
     torch; the router's d_logits within ROUTE_BWD_REL of its largest value
     against ``ref.moe_route_bwd`` (a planted fault: the last token's row
-    1.1 times). (Against autograd through the plain f32 attention, the bf16 dS
+    1.1 times), its dx within ROUTE_DX_REL and d_router within
+    ROUTE_DROUTER_REL of ``ref.moe_route_grads`` on the same inputs.
+    (Against autograd through the plain f32 attention, the bf16 dS
     alone moves dq's tiles by up to 1.4 % at zamba2's activations:
     ``_flash_bwd_rounded`` differs from it by as much as the kernel does.)
     Two runs must give the same bits, every gradient must be finite, and a
@@ -4935,7 +5043,7 @@ def _forced_backward(kept: _KeptBackward) -> dict:
     and the least planted reading."""
     import torch
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import moe_route as mk, ref
 
     calls, orig = kept.calls, kept.orig
     out = {kind: {"calls": len(c)} for kind, c in calls.items() if c}
@@ -4993,16 +5101,26 @@ def _forced_backward(kept: _KeptBackward) -> dict:
         note("rmsnorm", {"dw": _rel_err(got[1], want[1])}, float("inf"))
     for a, kw in calls["moe_route"]:
         fn = orig["moe_route"]
-        got, again = fn(*a, **kw), fn(*a, **kw)
-        if not torch.equal(got, again):
+        got = fn(*a, **kw, with_d_logits=True)
+        again = fn(*a, **kw, with_d_logits=True)
+        if not all(g is None and h is None or torch.equal(g, h)
+                   for g, h in zip(got, again)):
             raise AssertionError("forced moe_route: two runs differ")
-        want = ref.moe_route_bwd(*a, **kw)
-        bad = got.clone()
+        want = ref.moe_route_bwd(*a[2:])
+        dx, dr, dl = got
+        pdx, pdr = ref.moe_route_grads(
+            *a, **mk.grads_plan(a[0].shape[1], a[1].shape[1]).order())
+        bad = dl.clone()
         bad[-1] *= 1.1
-        note("moe_route", {"d_logits": _rel_err(got, want)},
+        note("moe_route", {"d_logits": _rel_err(dl, want),
+                           **({} if dx is None else
+                              {"route_dx": _rel_err(dx, pdx)}),
+                           **({} if dr is None else
+                              {"d_router": _rel_err(dr, pdr)})},
              _rel_err(bad, want))
     limit = {"dw": DW_REL, "dA": SSM_F32_GRAD_REL, "dD": SSM_F32_GRAD_REL,
-             "dh0": SSM_F32_GRAD_REL, "d_logits": ROUTE_BWD_REL}
+             "dh0": SSM_F32_GRAD_REL, "d_logits": ROUTE_BWD_REL,
+             "route_dx": ROUTE_DX_REL, "d_router": ROUTE_DROUTER_REL}
     for kind, r in out.items():
         over = {n: v for n, v in r.items() if n not in ("calls", "planted_min")
                 and not v <= limit.get(n, GRAD_TILE_SHARE)}
@@ -5414,8 +5532,12 @@ def phase_train(card: str) -> dict:
                              ("rmsnorm@qwen3", "qwen3-8b block"))},
         "scan@falcon": check_scan_bwd(gen, parts["scan_bwd_ops"]),
         "ssd@zamba2": check_ssd_bwd(gen, parts["ssd_bwd_ops"]),
-        "route@granite": check_moe_route_bwd(gen, "granite-moe-1b-a400m"),
-        "route@deepseek": check_moe_route_bwd(gen, "deepseek-moe-16b"),
+        "route@granite": check_moe_route_bwd(
+            gen, "granite-moe-1b-a400m",
+            parts["route_bwd_ops"]["granite-moe-1b-a400m"]),
+        "route@deepseek": check_moe_route_bwd(
+            gen, "deepseek-moe-16b",
+            parts["route_bwd_ops"]["deepseek-moe-16b"]),
         # whisper-medium's encoder (1500 frames) and cross attention (2048
         # queries over 1500 keys): the non-causal branch, Sq != Sk
         "flash@whisper-enc": check_flash_bwd(
@@ -5501,12 +5623,14 @@ ROUTES = {
     "ssd_bwd": ("cuda", "src/repro_torch/csrc/ssd_bwd.cu",
                 "src/repro/kernels/ssd.py:112 (its backward: XLA's autodiff "
                 "of repro/kernels/ops.py:534-585)"),
-    # the router's backward: no TPU kernel (XLA's autodiff of the routing,
+    # the router's backward, d_logits and the einsum's two products (dx,
+    # d_router): no TPU kernel (XLA's autodiff of the routing,
     # repro/models/moe.py:209-218)
     "moe_route_bwd": ("cuda", "src/repro_torch/csrc/moe_route_bwd.cu",
                       "src/repro/models/moe.py:209 (no TPU kernel: XLA's "
                       "autodiff of the f32 einsum, softmax, top_k and aux "
-                      "loss, repro/models/moe.py:209-218)"),
+                      "loss, repro/models/moe.py:209-218; two launches, "
+                      "moe_route_bwd_kernel and moe_route_grads_kernel)"),
 }
 # the training path's rows: (kernel, check, row, model, whose launches)
 TRAIN_ROWS = [
@@ -5775,7 +5899,12 @@ def main() -> int:
                                    "grad_tile_share", "dw_rel", "parts_ms",
                                    "executed_flop_per_pair", "f32_grad_rel",
                                    "device_ops", "d_logits_rel", "dx_rel",
-                                   "d_router_rel", "route_grad_ms")
+                                   "d_router_rel", "route_grad_ms",
+                                   "plain_route_grad_ms", "kernel_dx_rel",
+                                   "kernel_d_router_rel", "device_ms",
+                                   "launches_per_call", "bound_bytes_ms",
+                                   "parent_device_ms",
+                                   "parent_launches_per_call")
                if k in row}})
 
     for arch, rows in SUMMARY_ROW.items():

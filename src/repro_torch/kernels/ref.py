@@ -229,9 +229,9 @@ def moe_route_bwd(probs: torch.Tensor, ids: torch.Tensor,
     (T, E)``: the renormalisation's backward through ``max(s, 1e-9)`` (``s``
     the picks' sum), the picks' gradients scattered into their experts'
     columns (a token's ids are distinct: a scatter, no adds), the softmax's
-    backward ``p * (dp - sum p dp)``. Returns ``d_logits (T, E)`` f32; the
-    products to ``x`` and the router are the caller's (``dx = d_logits @
-    router.T``, ``d_router = x.float().T @ d_logits``)."""
+    backward ``p * (dp - sum p dp)``. Returns ``d_logits (T, E)`` f32, the
+    backward kernel's first launch; the products to ``x`` and the router
+    follow in :func:`moe_route_grads`."""
     probs = probs.float()
     ids = ids.long()
     s = probs.gather(1, ids).sum(-1, keepdim=True)
@@ -242,6 +242,47 @@ def moe_route_bwd(probs: torch.Tensor, ids: torch.Tensor,
     if dprobs is not None:
         dp = dp + dprobs.float()
     return probs * (dp - (probs * dp).sum(-1, keepdim=True))
+
+
+def moe_route_grads(x: torch.Tensor, router: torch.Tensor,
+                    probs: torch.Tensor, ids: torch.Tensor,
+                    weights: torch.Tensor, dw: torch.Tensor,
+                    dprobs: torch.Tensor | None = None, *, tile: int = 16,
+                    ranks: int = 1,
+                    groups: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients of :func:`moe_route`'s inputs from the same arguments
+    as :func:`moe_route_bwd` and the forward's ``x (T, d)`` and ``router
+    (d, E)``: ``dx = d_logits @ router.T`` in f32, cast to x's type, and
+    ``d_router = x.float().T @ d_logits`` (f32) summed over the tokens in
+    the backward kernel's order: in steps of 16 tokens (one product a step),
+    tiles of ``tile`` tokens dealt to ``ranks`` in turn, each rank's steps
+    dealt to ``groups`` in turn; a group adds its steps in ascending order,
+    a rank its groups' sums in group order, and the ranks' sums are added in
+    rank order (``tile``, ``ranks`` and ``groups`` are ``TT``, ``C`` and
+    ``G`` of ``kernels/moe_route.py::grads_plan(d, E)``; the defaults add
+    the steps in order)."""
+    dl = moe_route_bwd(probs, ids, weights, dw, dprobs)
+    dx = (dl @ router.float().t()).to(x.dtype)
+    (T, d), E = x.shape, dl.shape[1]
+    span = tile * ranks
+    pad = -T % span
+    # (rounds, ranks, steps a group, groups, 16, width)
+    shape = (-1, ranks, tile // 16 // groups, groups, 16)
+    xs = torch.nn.functional.pad(x.float(), (0, 0, 0, pad)).reshape(
+        *shape, d)
+    ds = torch.nn.functional.pad(dl, (0, 0, 0, pad)).reshape(*shape, E)
+    part = torch.zeros(ranks, groups, d, E, dtype=torch.float32,
+                       device=x.device)
+    for n in range(xs.shape[0]):
+        for i in range(xs.shape[2]):
+            part += xs[n, :, i].transpose(-1, -2) @ ds[n, :, i]
+    d_router = torch.zeros(d, E, dtype=torch.float32, device=x.device)
+    for r in range(ranks):
+        rank = torch.zeros(d, E, dtype=torch.float32, device=x.device)
+        for g in range(groups):
+            rank += part[r, g]
+        d_router += rank
+    return dx, d_router
 
 
 # ---------------------------------------------------------------------------

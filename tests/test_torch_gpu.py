@@ -1613,18 +1613,29 @@ MOE_ENCDEC_TRAIN_KERNELS = {
 @pytest.mark.parametrize("T,d,E,k", [
     (1, 1024, 32, 8), (8, 1024, 32, 1), (4096, 1024, 32, 8),
     (4096, 2048, 64, 6), (37, 512, 64, 16), (8, 256, 256, 16),
-    (300, 64, 4, 2)])
+    (300, 64, 4, 2), (37, 64, 4, 1), (1, 2048, 64, 6), (37, 2048, 64, 6),
+    (300, 1024, 32, 8), (1000, 2048, 64, 6), (4096, 64, 256, 16),
+    (300, 1024, 256, 16), (4096, 1024, 4, 1), (37, 64, 6, 2),
+    (37, 2056, 64, 6), (129, 8192, 32, 8), (129, 8192, 256, 16)])
 def test_moe_route_bwd_matches_plain_version_on_the_card(T, d, E, k):
-    """On the H100: the router's backward kernel against
-    ``ref.moe_route_bwd`` on the forward kernel's own probabilities, picks
-    and weights, with and without the probabilities' gradient, within
-    ``ROUTE_BWD_REL``; two runs bitwise equal; ``MoeRoute``'s dx and
-    d_router the f32 products of the plain d_logits. T 1, 8 and 4096, k 1,
-    8 and MAX_K, E up to MAX_E."""
+    """On the H100: the router's backward kernels (d_logits, then dx and
+    d_router) on the forward kernel's own probabilities, picks and weights,
+    with and without the probabilities' gradient: d_logits against
+    ``ref.moe_route_bwd`` within ``ROUTE_BWD_REL``; dx (bf16) within 1e-2
+    and d_router within ``ROUTE_BWD_REL`` of ``ref.moe_route_grads`` (summed
+    in the kernel's order) and of ``x.float().T @ d_logits``; two runs
+    bitwise equal; ``MoeRoute``'s dx and d_router the kernels', also when
+    only one of x and the router needs a gradient. T 1 to 4096 (37, 300 and
+    1000 off the kernel's token tile), k 1 to MAX_K, E 4 to MAX_E (6: rows
+    padded to 4), d 64 to 8192 (2056: a block's slice past d)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import moe_route as rk
     from repro_torch.kernels import ref
+
+    def rel(got, want):
+        scale = float(want.float().abs().max())
+        return float((got.float() - want.float()).abs().max()) / (scale or 1.0)
 
     g = torch.Generator(device="cuda").manual_seed(T + E + k)
     x, router = _router_case(g, T, d, E)
@@ -1632,25 +1643,43 @@ def test_moe_route_bwd_matches_plain_version_on_the_card(T, d, E, k):
     weights, ids, probs = rk.moe_route(x, router, k, with_probs=True)
     dw = torch.randn(T, k, generator=g, device="cuda")
     dprobs = torch.randn(T, E, generator=g, device="cuda")
+    order = rk.grads_plan(d, E).order()
     for dp in (dprobs, None):
-        got = rk.moe_route_bwd(probs, ids, weights, dw, dp)
-        again = rk.moe_route_bwd(probs, ids, weights, dw, dp)
+        args = (x, router, probs, ids, weights, dw, dp)
+        got = rk.moe_route_bwd(*args, with_d_logits=True)
+        again = rk.moe_route_bwd(*args, with_d_logits=True)
         want = ref.moe_route_bwd(probs, ids, weights, dw, dp)
+        pdx, pdr = ref.moe_route_grads(*args, **order)
         torch.cuda.synchronize()
-        assert torch.equal(got, again)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        dx, dr, dl = got
+        assert dx.dtype == torch.bfloat16 and dx.shape == (T, d)
+        assert dr.dtype == torch.float32 and dr.shape == (d, E)
         # at k 1 without dprobs every weight is 1 and d_logits is zero
-        scale = float(want.abs().max())
-        err = float((got - want).abs().max()) / (scale or 1.0)
-        print(T, d, E, k, dp is not None, "d_logits rel", err)
-        assert err <= ROUTE_BWD_REL, err
+        errs = {"d_logits": rel(dl, want), "dx": rel(dx, pdx),
+                "d_router": rel(dr, pdr),
+                "d_router_matmul": rel(dr, x.float().t() @ want)}
+        print(T, d, E, k, dp is not None, errs)
+        assert errs["d_logits"] <= ROUTE_BWD_REL, errs
+        assert errs["dx"] <= 1e-2, errs
+        assert errs["d_router"] <= ROUTE_BWD_REL, errs
+        assert errs["d_router_matmul"] <= ROUTE_BWD_REL, errs
     xl, rl = x.clone().requires_grad_(), router.clone().requires_grad_()
     w2, ids2, p2 = rk.MoeRoute.apply(xl, rl, k)
     assert torch.equal(w2, weights) and torch.equal(ids2, ids)
     dx, dr = torch.autograd.grad((w2, p2), (xl, rl), (dw, dprobs))
+    kdx, kdr = rk.moe_route_bwd(x, router, probs, ids, weights, dw, dprobs)
+    assert torch.equal(dx, kdx) and torch.equal(dr, kdr)
     dl = ref.moe_route_bwd(probs, ids, weights, dw, dprobs)
-    assert dx.dtype == torch.bfloat16 and dr.dtype == torch.float32
     assert _rel(dx.float(), (dl @ router.t()).bfloat16().float()) <= 1e-2
     assert _rel(dr, x.float().t() @ dl) <= ROUTE_BWD_REL
+    # one input wanting a gradient: the other product is not formed
+    for which in (0, 1):
+        ins = [x.clone(), router.clone()]
+        ins[which].requires_grad_()
+        w3, _, p3 = rk.MoeRoute.apply(*ins, k)
+        (one,) = torch.autograd.grad((w3, p3), (ins[which],), (dw, dprobs))
+        assert torch.equal(one, (kdx, kdr)[which])
 
 
 @pytest.mark.gpu

@@ -33,21 +33,19 @@ ROOT = Path(__file__).resolve().parents[1]
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("archs", nargs="*", default=["zamba2-1.2b"])
-    ap.add_argument("--src", default=str(ROOT / "src"))
-    ap.add_argument("--steps", type=int, default=5)
-    args = ap.parse_args()
+def profile_steps(archs, src: str, steps: int, nodes=()) -> None:
+    """Each arch of ``chip_smoke.TRAIN_RUNS`` in turn, under the package at
+    ``src``: two warm steps, ``steps`` timed, one profiled
+    (``chip_smoke._profile_step`` with ``nodes``), one JSON line each."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     import torch
 
     # chip_smoke put this checkout's src first and imported from it: drop
-    # what it imported, so that the package under --src is the one run
+    # what it imported, so that the package under src is the one run
     for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
         del sys.modules[name]
-    src = Path(args.src).resolve()
+    src = Path(src).resolve()
     sys.path.insert(0, str(src))
     import repro_torch
     from repro_torch.config import RunConfig
@@ -59,7 +57,7 @@ def main() -> int:
     if Path(repro_torch.__file__).resolve().parents[1] != src:
         raise SystemExit(f"repro_torch imported from {repro_torch.__file__}")
     cs.phase_device()
-    for arch in args.archs:
+    for arch in archs:
         q = cs.TRAIN_RUNS[arch]
         cfg = cs.train_cfg(arch, q["layers"])
         model = get_model(cfg)
@@ -67,7 +65,7 @@ def main() -> int:
         data = SyntheticDataset(cfg, q["S"], q["B"], 0)
         state = init_train_state(model, 0, "cuda")
         times = []
-        for i in range(2 + args.steps):
+        for i in range(2 + steps):
             batch = {k: torch.from_numpy(v).cuda()
                      for k, v in data.batch(i).items()}
             torch.cuda.synchronize()
@@ -76,8 +74,8 @@ def main() -> int:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
         batch = {k: torch.from_numpy(v).cuda()
-                 for k, v in data.batch(2 + args.steps).items()}
-        prof = cs._profile_step(step, state, batch)
+                 for k, v in data.batch(2 + steps).items()}
+        prof = cs._profile_step(step, state, batch, nodes)
         print(json.dumps({"arch": arch, "src": str(src),
                           "n_layers": cfg.n_layers, "B": q["B"], "S": q["S"],
                           "warm_step_ms": times[:2],
@@ -86,6 +84,15 @@ def main() -> int:
                           "profile": prof}), flush=True)
         del model, step, state, batch
         torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("archs", nargs="*", default=["zamba2-1.2b"])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--steps", type=int, default=5)
+    args = ap.parse_args()
+    profile_steps(args.archs, args.src, args.steps)
     return 0
 
 
