@@ -4112,9 +4112,9 @@ def _print_flash_bwd_parts() -> int:
     the RMSNorm backward makes at each of its training shapes
     (``_kernels_us``: per operation, its microseconds and launches a call),
     printed as one JSON line; so too the device operations of one call of
-    each SSM backward at its training shape, and of the router's backward
-    and of its parent's design (``_route_bwd_parent``) at both MoE
-    configs' (``route_bwd_ops``)."""
+    each SSM backward at its training shape, and of the router's whole
+    backward (``MoeRoute``'s, through autograd) and of its parent's design
+    (``_route_bwd_parent``) at both MoE configs' (``route_bwd_ops``)."""
     import torch
 
     from repro_torch.configs import get
@@ -4164,8 +4164,12 @@ def _print_flash_bwd_parts() -> int:
         args = (x, router, probs, ids, weights,
                 torch.randn(T, k, generator=gen, device="cuda"),
                 torch.randn(T, E, generator=gen, device="cuda"))
+        # the whole backward as training runs it: MoeRoute's, by autograd
+        xk, rk_ = x.clone().requires_grad_(), router.clone().requires_grad_()
+        kw, _, kp = mk.MoeRoute.apply(xk, rk_, k)
         res["route_bwd_ops"][arch] = {
-            "ops": _kernels_us(lambda: mk.moe_route_bwd(*args)),
+            "ops": _kernels_us(lambda: torch.autograd.grad(
+                (kw, kp), (xk, rk_), args[5:], retain_graph=True)),
             "parent_ops": _kernels_us(lambda: _route_bwd_parent(args))}
     log(res)
     return 0
@@ -4413,11 +4417,15 @@ def check_moe_route_bwd(gen, arch: str, device_ops: dict) -> list[dict]:
     ``device_ops`` (``_print_flash_bwd_parts``'s ``route_bwd_ops``, traced
     in a fresh process), each launch's device ms (``parts_ms``), the device
     ms and launches of the whole route backward, and those of the parent's
-    design rebuilt on inputs of the same shapes (``_route_bwd_parent``);
-    bounds
-    on the f32 basis (``bound_ms``) and on bytes alone
-    (``bound_bytes_ms``). Rows: forward with ``probs``, backward; no single
-    PyTorch call computes either (``library_ms`` none)."""
+    design rebuilt on inputs of the same shapes (``_route_bwd_parent``),
+    which must hold the two launches of ROUTE_BWD_PARTS and nothing else
+    (and the parent's some); dx element by element within one bf16
+    rounding of the f32 product (``ref.moe_route_dx_excess`` at most 1,
+    a product of bf16-rounded operands over 1); the bound where its
+    products run, on the tensor cores (``bound_ms``: three bf16 products
+    each), and on the f32 units (``bound_f32_ms``). Rows: forward with
+    ``probs``, backward; no single PyTorch call computes either
+    (``library_ms`` none)."""
     import torch
 
     from repro_torch.configs import get
@@ -4462,9 +4470,16 @@ def check_moe_route_bwd(gen, arch: str, device_ops: dict) -> list[dict]:
     limits = {"d_logits_rel": ROUTE_BWD_REL, "kernel_dx_rel": ROUTE_DX_REL,
               "kernel_d_router_rel": ROUTE_DROUTER_REL,
               "dx_rel": ROUTE_DX_REL, "d_router_rel": ROUTE_DROUTER_REL}
-    if not all(readings[n] <= limits[n] for n in limits):
+    # dx element by element (one rounding of an f32-accurate product), and
+    # a control that keeps less (bf16 operands) and must fail it
+    readings["dx_excess"] = ref.moe_route_dx_excess(kdx, kdl, router)
+    limits["dx_excess"] = 1.0
+    control = ref.moe_route_dx_excess(
+        (kdl.bfloat16().float() @ router.bfloat16().float().t()).bfloat16(),
+        kdl, router)
+    if not all(readings[n] <= limits[n] for n in limits) or control <= 1:
         raise AssertionError(f"moe_route_bwd {arch}: {readings} over "
-                             f"{limits}")
+                             f"{limits}, or the control {control} within")
     shape = {"T": T, "d": d, "E": E, "k": k, "arch": arch}
     fwd = {"shape": shape, "max_abs_err": _close(weights[same], pw[same],
                                                  "moe_route weights",
@@ -4480,20 +4495,32 @@ def check_moe_route_bwd(gen, arch: str, device_ops: dict) -> list[dict]:
                     2 * T * d * E, F32_FLOPS, exps=T * E)}
 
     # x read and dx written (bf16), probs, dprobs (T, E), ids, weights, dw
-    # (T, k), the router read and d_router written (f32); 4 T d E f32
-    # operations for the two products (and d_logits' few a token)
+    # (T, k), the router read and d_router written (f32); the two products'
+    # 4 T d E operations, three times over on the tensor cores (bf16 splits
+    # under the f32 contract), once on the f32 units (and d_logits' few a
+    # token)
     nbytes = 4 * T * d + 8 * T * E + 12 * T * k + 8 * d * E
-    # the whole backward (what MoeRoute's backward calls, which launches
-    # nothing else: its gradients are the wrapper's bits above): its device
-    # time and launches, each kernel of ROUTE_BWD_PARTS' time a call
+    # the whole backward (MoeRoute's, through autograd): its device time
+    # and launches, each kernel of ROUTE_BWD_PARTS' time a call; it must
+    # hold those two launches, once a call, and nothing else
     whole = _ops_total(device_ops["ops"])
     old = _ops_total(device_ops["parent_ops"])
+    found = {part for key in whole["ops"]
+             for name, part in ROUTE_BWD_PARTS.items() if name in key}
+    if (len(whole["ops"]) != 2 or found != set(ROUTE_BWD_PARTS.values())
+            or any(o["per_call"] != 1 or o["us"] <= 0
+                   for o in whole["ops"].values())
+            or old["launches_per_call"] <= 0 or old["device_ms"] <= 0):
+        raise AssertionError(f"moe_route_bwd {arch}: the traces hold "
+                             f"{whole['ops']} and the parent's "
+                             f"{old['ops']}, not ROUTE_BWD_PARTS' two "
+                             f"launches a call")
     bwd = {"shape": shape, "plan": plan._asdict(),
            "max_abs_err": max(float((kdx.float() - pdx_same.float()).abs()
                                     .max()),
                               float((kdr - pdr_same).abs().max())),
            "d_logits_max_abs_err": float((kdl - want_dl).abs().max()),
-           **readings, "bitwise_repeat": True,
+           **readings, "dx_excess_control": control, "bitwise_repeat": True,
            "ms": _time_ms(lambda: rk.moe_route_bwd(*args)),
            "parts_ms": {part: sum(o["us"] * o["per_call"]
                                   for key, o in whole["ops"].items()
@@ -4514,10 +4541,11 @@ def check_moe_route_bwd(gen, arch: str, device_ops: dict) -> list[dict]:
            "plain_route_grad_ms": _grad_ms((pw2, pp2), (xp, rp),
                                            (dw, dprobs)),
            "library_ms": None, "library": "none",
-           "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-           **_bound(nbytes, 4 * T * d * E + 4 * T * E + 4 * T * k,
-                    F32_FLOPS)}
+           "bound_f32_ms": _bound(nbytes, 4 * T * d * E + 4 * T * E
+                                  + 4 * T * k, F32_FLOPS)["bound_ms"],
+           **_bound(nbytes, 3 * 4 * T * d * E, BF16_TC_FLOPS)}
     bwd["device_x_bound"] = bwd["device_ms"] / bwd["bound_ms"]
+    bwd["device_x_bound_f32"] = bwd["device_ms"] / bwd["bound_f32_ms"]
     for row in (fwd, bwd):
         row.update(_factors(row))
     log({"check": f"moe_route_bwd@{arch}", "forward": fwd, "backward": bwd})
@@ -5902,7 +5930,7 @@ def main() -> int:
                                    "d_router_rel", "route_grad_ms",
                                    "plain_route_grad_ms", "kernel_dx_rel",
                                    "kernel_d_router_rel", "device_ms",
-                                   "launches_per_call", "bound_bytes_ms",
+                                   "launches_per_call", "dx_excess",
                                    "parent_device_ms",
                                    "parent_launches_per_call")
                if k in row}})

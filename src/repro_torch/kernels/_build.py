@@ -34,6 +34,7 @@ SOURCES = ("rmsnorm", "paged_decode_attention", "decode_attention",
            "moe_route_bwd")
 
 _libs: dict[str, ctypes.CDLL] = {}
+_scratches: dict[tuple, torch.Tensor] = {}
 
 
 def _nvcc() -> str:
@@ -102,6 +103,20 @@ def stream(device) -> int:
     index = torch.cuda.current_device() if device.index is None \
         else device.index
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def scratch(name: str, n: int, dtype: torch.dtype,
+            device: torch.device) -> torch.Tensor:
+    """The device's scratch ``name``: at least ``n`` elements, uninitialised,
+    grown on demand and kept between calls, so that no call allocates it
+    anew (under deterministic mode a new tensor is filled first). A kernel
+    writes what it reads of it, and launches run in stream order."""
+    key = (name, device)
+    buf = _scratches.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(n, dtype=dtype, device=device)
+        _scratches[key] = buf
+    return buf
 
 
 def check(err: int, what: str) -> None:

@@ -190,8 +190,6 @@ def _n_sm(index: int) -> int:
 # the life of a serve) and the plan's numbers a launch passes
 _launches: dict[tuple, tuple] = {}
 MAX_RECORDS = 4096
-# per device, the f32 partials of split products, grown on demand
-_partials: dict[torch.device, torch.Tensor] = {}
 
 
 def _record(w: torch.Tensor, K: int, N: int, ld: int, nk: int, p: Plan,
@@ -262,14 +260,6 @@ def forget() -> None:
     _launches.clear()
 
 
-def _scratch(n: int, device: torch.device) -> torch.Tensor:
-    buf = _partials.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.empty(max(n, 1 << 20), dtype=torch.float32, device=device)
-        _partials[device] = buf
-    return buf
-
-
 def gemm_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the kernel: ``x (..., K) @ w (K, N)`` in bf16 with f32 sums.
     ``w`` is contiguous, or the transpose of a contiguous ``(N, K)`` tensor
@@ -296,7 +286,9 @@ def gemm_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if M:
         part = cnt = None
         if scratch_a_row:  # the plan splits K
-            part = _scratch(M * scratch_a_row, dev).data_ptr()
+            # the f32 partials of split products
+            part = _build.scratch("gemm_rows", max(M * scratch_a_row, 1 << 20),
+                                  torch.float32, dev).data_ptr()
             cnt = counters(-(-M // ROWS) * n_tiles, dev).data_ptr()
         err = _lib().gemm_rows_bf16(x2.data_ptr(), rec, out.data_ptr(), part,
                                     cnt, M, grid, _build.stream(dev))

@@ -15,9 +15,12 @@ it.
 
 Training differentiates it through :class:`MoeRoute`, whose backward is
 ``csrc/moe_route_bwd.cu`` (its own design note): two launches, d_logits a
-warp a token, then ``dx`` and ``d_router`` on the f32 units, each block a
-slice of ``d`` over every token; :func:`grads_plan` fixes that cut, and so
-every summation order, from ``(d, E)`` alone. Its plain version,
+warp a token (written as bf16 hi, mid and lo parts), then ``dx`` and
+``d_router`` on the tensor cores (``mma.sync`` on those parts and R's hi
+and lo, three products each: the f32 contract), each slice of ``d`` taken
+by 8 blocks (its ranks), rank ``r`` every eighth token tile from ``r``;
+:func:`grads_plan` fixes that cut, and so every summation order, from
+``(d, E)`` alone. Its plain version,
 ``ref.moe_route_grads``, sums ``d_router`` in the kernel's order.
 """
 
@@ -159,23 +162,6 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, k: int, *,
 moe_route.launches = 0
 
 
-_scratches: dict = {}
-
-
-def _scratch(name: str, n: int, dtype: torch.dtype,
-             device: torch.device) -> torch.Tensor:
-    """The device's scratch ``name`` of at least ``n`` elements, kept
-    between calls (each call writes what it reads, and the backward's
-    launches run in stream order), so that no call allocates it anew: under
-    the train step's deterministic mode a new tensor is filled first."""
-    key = (name, device)
-    buf = _scratches.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.empty(n, dtype=dtype, device=device)
-        _scratches[key] = buf
-    return buf
-
-
 class GradsPlan(NamedTuple):
     """How the backward's second launch cuts ``(d, E)``: ``E`` rounded up
     to ``EP`` (32, 64, 128 or 256; the first launch writes d_logits' bf16
@@ -272,14 +258,15 @@ def moe_route_bwd(x: torch.Tensor, router: torch.Tensor, probs: torch.Tensor,
         if with_d_logits else None
     # d_logits' bf16 parts (hi, mid, lo) for the second launch, and the
     # blocks' partials of d_router: scratch the device keeps
-    parts = _scratch("parts", 3 * T * (p.EP + 8), torch.bfloat16, dev)
+    parts = _build.scratch("route_parts", 3 * T * (p.EP + 8), torch.bfloat16,
+                           dev)
     dx = torch.empty(T, d, dtype=torch.bfloat16, device=dev) \
         if need_dx else None
     # every element written by the kernel; none at all without tokens
     d_router = (torch.empty if T else torch.zeros)(
         d, E, dtype=torch.float32, device=dev) if need_drouter else None
-    part = _scratch("part", p.blocks * p.S * E, torch.float32, dev) \
-        if need_drouter else None
+    part = _build.scratch("route_partials", p.blocks * p.S * E,
+                          torch.float32, dev) if need_drouter else None
     if T:
         err = _lib_bwd()(
             x.data_ptr(), router.data_ptr(), probs.data_ptr(), ids.data_ptr(),
@@ -303,8 +290,8 @@ moe_route_bwd.launches = 0
 class MoeRoute(torch.autograd.Function):
     """Routing with its gradient: the forward kernel with ``probs`` out;
     the backward kernels (:func:`moe_route_bwd`) for ``dx`` (x's type) and
-    ``d_router`` (f32), the einsum's products on the f32 units in a fixed
-    order. Returns ``(weights, ids, probs)``; ``ids`` carries no gradient
+    ``d_router`` (f32), the einsum's products on the tensor cores under
+    the f32 contract (bf16 hi, mid and lo splits), in a fixed order. Returns ``(weights, ids, probs)``; ``ids`` carries no gradient
     and ``k`` is not differentiable."""
 
     @staticmethod

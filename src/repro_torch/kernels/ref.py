@@ -285,6 +285,30 @@ def moe_route_grads(x: torch.Tensor, router: torch.Tensor,
     return dx, d_router
 
 
+# dx under the f32 contract, element by element: an f32-accurate product
+# rounded once to bf16 lies within DX_ROUNDING of its value plus DX_SPLIT of
+# the magnitudes it sums (the kernel's three split products drop terms of
+# at most 3 2^-16 of each product's size; its f32 sums add less)
+DX_ROUNDING = 2.0 ** -8
+DX_SPLIT = 2.0 ** -13
+
+
+def moe_route_dx_excess(dx: torch.Tensor, d_logits: torch.Tensor,
+                        router: torch.Tensor) -> float:
+    """The largest ratio, over the elements of ``dx (T, d)``, of its
+    distance from ``d_logits @ router.T`` (in f64) to what one rounding of
+    an f32-accurate product allows there: ``DX_ROUNDING |want| + DX_SPLIT
+    (|d_logits| @ |router|.T)``. At most 1 when dx keeps the f32 contract;
+    a product of bf16-rounded operands reads ~10-40."""
+    dl, r = d_logits.double(), router.double()
+    want = dl @ r.t()
+    allow = DX_ROUNDING * want.abs() + DX_SPLIT * (dl.abs() @ r.abs().t())
+    err = (dx.double() - want).abs()
+    ratio = torch.where(allow > 0, err / allow.clamp(min=1e-300),
+                        torch.where(err > 0, torch.inf, 0.0))
+    return float(ratio.max()) if ratio.numel() else 0.0
+
+
 # ---------------------------------------------------------------------------
 # Mamba: causal depthwise conv, selective scan (Mamba1), SSD (Mamba2)
 # ---------------------------------------------------------------------------

@@ -1623,7 +1623,10 @@ def test_moe_route_bwd_matches_plain_version_on_the_card(T, d, E, k):
     with and without the probabilities' gradient: d_logits against
     ``ref.moe_route_bwd`` within ``ROUTE_BWD_REL``; dx (bf16) within 1e-2
     and d_router within ``ROUTE_BWD_REL`` of ``ref.moe_route_grads`` (summed
-    in the kernel's order) and of ``x.float().T @ d_logits``; two runs
+    in the kernel's order) and of ``x.float().T @ d_logits``; dx element by
+    element within one bf16 rounding of the f32 product
+    (``ref.moe_route_dx_excess`` at most 1), where a product of
+    bf16-rounded operands reads over 1; two runs
     bitwise equal; ``MoeRoute``'s dx and d_router the kernels', also when
     only one of x and the router needs a gradient. T 1 to 4096 (37, 300 and
     1000 off the kernel's token tile), k 1 to MAX_K, E 4 to MAX_E (6: rows
@@ -1664,6 +1667,13 @@ def test_moe_route_bwd_matches_plain_version_on_the_card(T, d, E, k):
         assert errs["dx"] <= 1e-2, errs
         assert errs["d_router"] <= ROUTE_BWD_REL, errs
         assert errs["d_router_matmul"] <= ROUTE_BWD_REL, errs
+        # dx element by element: one bf16 rounding of an f32-accurate
+        # product; the control (bf16 operands) fails the same check
+        assert ref.moe_route_dx_excess(dx, dl, router) <= 1.0
+        if dp is not None:
+            control = (dl.bfloat16().float()
+                       @ router.bfloat16().float().t()).bfloat16()
+            assert ref.moe_route_dx_excess(control, dl, router) > 1.0
     xl, rl = x.clone().requires_grad_(), router.clone().requires_grad_()
     w2, ids2, p2 = rk.MoeRoute.apply(xl, rl, k)
     assert torch.equal(w2, weights) and torch.equal(ids2, ids)

@@ -24,6 +24,9 @@ version, ``ref.moe_route_grads``, which sums in that order, and shows:
   within ``ORDER_REL`` (1e-5) relative, at REDUCED and at both MoE
   configs' full (d, E) over their 4096 training tokens (measured <=
   7.9e-7);
+- ``ref.moe_route_dx_excess``, the card's element-by-element check of dx
+  (one bf16 rounding of an f32-accurate product), passes the plain dx and
+  the card's three split products and fails each product left out;
 - the mirror's order is the one the plan describes, step by step;
 - ``grads_plan`` reads no token count, covers ``d`` once, fits a block's
   shared memory and its registers' column groups, fills one wave of the
@@ -168,6 +171,48 @@ def test_d_router_in_the_kernels_order_equals_the_product(T, d, E, k):
     dl = ref.moe_route_bwd(probs, ids, weights, dw, dprobs)
     assert _rel(dr.numpy(), (x.float().t() @ dl).numpy()) <= ORDER_REL
     assert torch.equal(dx, (dl @ router.t()).bfloat16())
+
+
+def _split_dx(dl: torch.Tensor, router: torch.Tensor, drop: str | None):
+    """dx as the card forms it (``csrc/moe_route_bwd.cu``): d_logits' bf16
+    parts hi and mid, R's bf16 hi and lo, the products hi hi, hi lo and mid
+    hi summed in f32 and rounded once to bf16; ``drop`` leaves out
+    ``"hi_lo"`` or ``"mid_hi"``, and ``"bf16"`` keeps hi hi alone (the
+    product of bf16-rounded operands)."""
+    hi = dl.bfloat16().float()
+    mid = (dl - hi).bfloat16().float()
+    rhi = router.bfloat16().float()
+    rlo = (router - rhi).bfloat16().float()
+    terms = {"hi_hi": hi @ rhi.t(), "hi_lo": hi @ rlo.t(),
+             "mid_hi": mid @ rhi.t()}
+    if drop == "bf16":
+        return terms["hi_hi"].bfloat16()
+    return sum(v for n, v in terms.items() if n != drop).bfloat16()
+
+
+@pytest.mark.parametrize("drop", [None, "hi_lo", "mid_hi", "bf16"])
+@pytest.mark.parametrize("T,d,E,k", [
+    (300, 64, 4, 2), (37, 64, 6, 2), (300, 1024, 32, 8), (300, 2048, 64, 6),
+    (37, 512, 256, 16)])
+def test_dx_check_reads_the_f32_contract(T, d, E, k, drop):
+    """``ref.moe_route_dx_excess`` (the card's element-by-element check of
+    dx) is at most 1 for the plain dx and for the card's three split
+    products, and over 1 when one product is left out or the operands are
+    rounded to bf16 first: the check sees each product. Measured: the
+    contract <= 0.96, a dropped product >= 8.3."""
+    g = torch.Generator().manual_seed(T + d + E)
+    x = torch.randn(T, d, generator=g).bfloat16()
+    router = torch.randn(d, E, generator=g) * 0.05
+    weights, ids, probs = ref.moe_route(x, router, k, with_probs=True)
+    dl = ref.moe_route_bwd(probs, ids, weights, torch.randn(T, k, generator=g),
+                           torch.randn(T, E, generator=g))
+    dx = _split_dx(dl, router, drop)
+    if drop is None:
+        assert ref.moe_route_dx_excess(dx, dl, router) <= 1.0
+        assert ref.moe_route_dx_excess((dl @ router.t()).bfloat16(), dl,
+                                       router) <= 1.0
+    else:
+        assert ref.moe_route_dx_excess(dx, dl, router) > 1.0
 
 
 @pytest.mark.parametrize("tile,ranks,groups", [

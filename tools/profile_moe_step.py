@@ -1,48 +1,18 @@
-"""Warm training steps of granite-moe-1b-a400m, timed and profiled on one
-H100, with the router's backward's share.
+"""granite-moe-1b-a400m's warm training steps, timed and profiled on one
+H100, with the router's backward's share: ``tools/profile_ssm_step.py
+granite-moe-1b-a400m --nodes MoeRouteBackward``.
 
 Usage, from the root of this checkout, on a machine with the card:
 
     python3 tools/profile_moe_step.py [--src SRC] [--steps K]
-
-granite-moe-1b-a400m at published widths and full depth (24 layers), from
-seed 0, trained at ``chip_smoke``'s training shape (B 2, S 2048) through
-``make_train_step``, as ``tools/profile_ssm_step.py`` runs the recurrent
-families: two steps to warm, ``K`` (default 5) timed, then one under
-``torch.profiler`` (``chip_smoke._profile_step``: the device's busy time
-over the profiled step's own wall, the host's own time, the kernels by
-device time), and of that step the router's backward: every call of the
-``MoeRouteBackward`` autograd node, the device ms and launches of the
-kernels it made and their share of the busy time (``chip_smoke.
-_node_ops``). ``SRC`` is a ``src`` directory whose ``repro_torch`` is
-run: this checkout's (the default), or another commit's unpacked under
-``build/`` (``git archive <commit> src | tar -x -C build/parent``); run two
-packages in turns (A, B, B, A) to compare their steps on one card. Prints
-the card's name and power limit, then one JSON line.
 """
 
-import argparse
-import os
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-# the step's deterministic mode needs this before CUDA starts
-os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-ARCH = "granite-moe-1b-a400m"
-
-
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--src", default=str(ROOT / "src"))
-    ap.add_argument("--steps", type=int, default=5)
-    args = ap.parse_args()
-    sys.path.insert(0, str(ROOT / "tools"))
-    from profile_ssm_step import profile_steps
-
-    profile_steps([ARCH], args.src, args.steps, nodes=("MoeRouteBackward",))
-    return 0
-
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import profile_ssm_step  # noqa: E402
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(profile_ssm_step.main(["granite-moe-1b-a400m", "--nodes",
+                                    "MoeRouteBackward", *sys.argv[1:]]))

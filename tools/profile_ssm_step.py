@@ -1,12 +1,19 @@
-"""Warm training steps of the recurrent-family models, timed and profiled
-on one H100.
+"""Warm training steps of the families ``chip_smoke`` trains, timed and
+profiled on one H100.
 
 Usage, from the root of this checkout, on a machine with the card:
 
-    python3 tools/profile_ssm_step.py [--src SRC] [--steps K] [ARCH ...]
+    python3 tools/profile_ssm_step.py [--src SRC] [--steps K]
+        [--nodes NODE ...] [ARCH ...]
 
-``ARCH`` is ``zamba2-1.2b`` (the default; full depth) or ``falcon-mamba-7b``
-(its depth cut as ``chip_smoke.TRAIN_RUNS`` cuts it, 8 of 64 layers). Each
+``ARCH`` is an arch of ``chip_smoke.TRAIN_RUNS``, its depth cut as that
+table cuts it: ``zamba2-1.2b`` (the default; full depth),
+``falcon-mamba-7b`` (8 of 64 layers), ``granite-moe-1b-a400m`` (full
+depth), ``deepseek-moe-16b`` or ``whisper-medium``. ``--nodes`` names
+autograd nodes (``MoeRouteBackward``: the router's backward) whose calls
+in the profiled step are reported with the device ms and launches of the
+kernels they made and their share of the busy time
+(``chip_smoke._node_ops``). Each
 is built at published widths from seed 0 and trained at ``chip_smoke``'s
 training shape (B 2, S 2048) through ``make_train_step``: two steps to
 warm, ``K`` (default 5) timed, then one under ``torch.profiler``
@@ -86,13 +93,14 @@ def profile_steps(archs, src: str, steps: int, nodes=()) -> None:
         torch.cuda.empty_cache()
 
 
-def main() -> int:
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("archs", nargs="*", default=["zamba2-1.2b"])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--steps", type=int, default=5)
-    args = ap.parse_args()
-    profile_steps(args.archs, args.src, args.steps)
+    ap.add_argument("--nodes", nargs="*", default=[])
+    args = ap.parse_args(argv)
+    profile_steps(args.archs, args.src, args.steps, tuple(args.nodes))
     return 0
 
 
