@@ -252,6 +252,29 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    against plain versions (forced), then 3 steps at B 2, S 2048 twice from
    seed 0, as c. Sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (unless set)
    before CUDA starts, for the whole run.
+6. examples (``phase_examples``): ``examples/torch_adhoc_serving.py`` on
+   the card in a fresh process (its failure drills assert identical
+   continuations);
+7. roofline (``phase_roofline``): six cells of ``launch/cells.py`` at
+   published widths and depth (qwen3-8b decode, B 8 over a 2048-position
+   cache, and prefill, B 2 x 2048; falcon-mamba-7b's and zamba2-1.2b's
+   prefill, B 1 x 2048; smollm-360m's train step, B 8 x 2048, and
+   granite-moe-1b-a400m's, B 2 x 2048), each first through the meta pass
+   (product FLOPs, each kernel's ``cost``, bytes, peak live bytes), then on
+   the card with seeded weights: the median of 5 calls after 3 to warm
+   (CUDA events), ``t_compute_ms``, ``t_memory_ms`` and the bound on the
+   H100's peaks (``launch/roofline.py``), ``x_roofline`` (measured over
+   the larger term; under 0.95 fails: the count would overstate the work),
+   ``mfu`` (model FLOPs over measured time over the bf16 peak; train and
+   prefill), the temp bytes predicted and measured (``max_memory_allocated``
+   over what was allocated before one warm call; more than 25 % apart
+   fails), and each kernel's wrapper calls from the meta pass and from
+   ``ops.counts()`` (any difference fails), with the device launches a
+   call makes.
+
+Every bound (``bound_ms``) is ``launch/roofline.py::bound`` of the
+kernel's ``cost`` (``kernels/*.py``) at the check's shape: the card's peaks
+and each kernel's work are kept in one place each.
 
 The MoE models' logits have no bound (random-weight routing is chaotic):
 the kernel-forced check holds the router there (ids equal but at a near
@@ -288,12 +311,10 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-BF16_TC_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
-F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
-# exponentials per second of the special-function units: 16 per SM per
-# clock (4 per SM sub-partition, Hopper white paper), 132 SMs, 1.98 GHz
-SFU_EXP_PER_S = 16 * 132 * 1.98e9
+# the card's peaks and a call's least time: one source for every bound of
+# this script (launch/roofline.py); each kernel's work is its module's cost
+from repro_torch.launch.roofline import bound  # noqa: E402
+
 TOL = dict(atol=2e-2, rtol=2e-2)  # bf16, as tests/test_kernels.py:28-30
 STATE_TOL = dict(atol=5e-3, rtol=5e-3)  # f32 SSM state, test_kernels.py:106
 # the SSD's f32 contract (every f32 operand of a bf16 product split into
@@ -351,17 +372,6 @@ def _kernels_us(fn, n: int = 20) -> dict:
                                   "per_call": e.count / n}
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA}
-
-
-def _bound(nbytes: float, flops: float, flop_rate: float,
-           exps: float = 0.0) -> dict:
-    """The least time of one call: bytes over HBM's rate against
-    operations over their units' peak (FLOPs, and exponentials on the
-    special-function units where the kernel is made of them)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(flops / flop_rate, exps / SFU_EXP_PER_S)
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def _time_ms(fn, *, iters: int = 20, flush: bool = False) -> float:
@@ -533,7 +543,6 @@ def check_rmsnorm(gen, shapes=RMSNORM_SHAPES) -> list[dict]:
             if not torch.equal(rk.rmsnorm(x[sl].clone(), w, 1e-6), got[sl]):
                 raise AssertionError(f"rmsnorm {shape}: rows {sl} differ "
                                      f"from the same rows in the batch")
-        nbytes = 2 * x.numel() * x.element_size() + w.numel() * 4
         wl = w.to(x.dtype)
         rows.append({
             "shape": list(shape), "max_abs_err": err,
@@ -541,7 +550,8 @@ def check_rmsnorm(gen, shapes=RMSNORM_SHAPES) -> list[dict]:
             "plain_ms": _time_ms(lambda: ref.rmsnorm(x, w, 1e-6)),
             "library_ms": _time_ms(
                 lambda: F.rms_norm(x, (shape[-1],), wl, 1e-6)),
-            **_bound(nbytes, 0, F32_FLOPS),
+            **bound(rk.cost(x.numel() // shape[-1], shape[-1],
+                            x.element_size(), w.element_size())),
         })
     return rows
 
@@ -605,9 +615,6 @@ def check_paged_decode(gen, *, n_heads=32, n_kv=8, d=128) -> dict:
                              "lanes or with the table's width")
     K, D = kp.shape[2], kp.shape[3]
     n_keys = int(lens.sum())
-    nbytes = (n_keys * K * D * 2 * 2 + 2 * q.numel() * 2
-              + table.numel() * 4 + lens.numel() * 4)
-    flops = 4 * n_keys * q.shape[1] * D
     return {
         "shape": {"B": len(lengths), "H": q.shape[1], "K": K, "D": D,
                   "P": PAGE, "lengths": lengths},
@@ -616,7 +623,8 @@ def check_paged_decode(gen, *, n_heads=32, n_kv=8, d=128) -> dict:
                                                          lens), flush=True),
         "plain_ms": _time_ms(lambda: pk.plain(q, kp, vp, table, lens),
                              flush=True),
-        "library_ms": None, **_bound(nbytes, flops, F32_FLOPS),
+        "library_ms": None, **bound(pk.cost(len(lengths), q.shape[1], K, D,
+                                            table.numel(), n_keys)),
     }
 
 
@@ -663,8 +671,6 @@ def check_paged_decode_pool(gen, lengths, engine: dict, what: str) -> dict:
             raise AssertionError(f"paged decode ({what}): lane {i} changed "
                                  f"with its batch")
     n_keys = int(lens.sum())
-    nbytes = (n_keys * K * D * 2 * 2 + 2 * q.numel() * 2
-              + table.numel() * 4 + lens.numel() * 4)
     return {
         "shape": {"B": B, "H": H, "K": K, "D": D, "P": PAGE,
                   "pages": n_pages, "table": width, "lengths": lengths},
@@ -673,7 +679,8 @@ def check_paged_decode_pool(gen, lengths, engine: dict, what: str) -> dict:
                                                          lens), flush=True),
         "plain_ms": _time_ms(lambda: pk.plain(q, kp, vp, table, lens),
                              flush=True),
-        "library_ms": None, **_bound(nbytes, 4 * n_keys * H * D, F32_FLOPS),
+        "library_ms": None,
+        **bound(pk.cost(B, H, K, D, table.numel(), n_keys)),
     }
 
 
@@ -685,6 +692,7 @@ def check_paged_verify(gen, k: int = 4) -> dict:
     import torch
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_decode_attention as pk
 
     W = k + 1
     lengths = [1, 63, 64, 65, 2047 - W, 700, 1300, 0]
@@ -700,11 +708,6 @@ def check_paged_verify(gen, k: int = 4) -> dict:
         if not torch.equal(step, got[:, j]):
             raise AssertionError(f"paged verify: query {j} differs from a "
                                  f"decode at its length")
-    # each lane's pages once (its window reads the same keys), q and out
-    n_keys = int(lens.sum()) + B * W
-    nbytes = (n_keys * K * D * 2 * 2 + 2 * q.numel() * 2
-              + table.numel() * 4 + B * 4)
-    flops = 4 * H * D * sum(int(n) * W + W * (W + 1) // 2 for n in lengths)
     return {
         "shape": {"B": B, "W": W, "H": H, "K": K, "D": D, "P": PAGE,
                   "positions": lengths},
@@ -713,7 +716,8 @@ def check_paged_verify(gen, k: int = 4) -> dict:
             q, kp, vp, table, lens), flush=True),
         "plain_ms": _time_ms(lambda: ref.paged_verify_attention(
             q, kp, vp, table, lens), flush=True),
-        "library_ms": None, **_bound(nbytes, flops, F32_FLOPS),
+        "library_ms": None,
+        **bound(pk.verify_cost(B, W, H, K, D, table.numel(), lengths)),
     }
 
 
@@ -737,8 +741,8 @@ def check_gemm_rows(gen, arch: str = "qwen3-8b",
     cfg = get(arch)
     rows, steps = [], {}
     for M in Ms:
-        step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-                "flops": 0, "max_abs_err": 0.0}
+        step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                "cost": None, "max_abs_err": 0.0}
         for name, K, N, nk, times in gk.step_products(cfg):
             w = (torch.randn(N, K, generator=gen, device="cuda")
                  * K ** -0.5).bfloat16()
@@ -748,7 +752,7 @@ def check_gemm_rows(gen, arch: str = "qwen3-8b",
             with ops.use_backend("plain"):
                 want = ops.gemm_rows(x, w)
             err = _close(got, want, f"gemm_rows {name} M={M}")
-            nbytes = 2 * (K * N + M * K + M * N)
+            cost = gk.cost(M, K, N)
             p = gk.plan(K, N, nk, gk._n_sm(torch.cuda.current_device()))
             row = {"shape": {"M": M, "K": K, "N": N, "product": name,
                              "arch": arch},
@@ -761,12 +765,12 @@ def check_gemm_rows(gen, arch: str = "qwen3-8b",
                    "plain_ms": _time_ms(lambda: gk.plain(x, w), flush=True),
                    "library_ms": _time_ms(lambda: torch.matmul(x, w),
                                           flush=True),
-                   **_bound(nbytes, 2 * M * K * N, BF16_TC_FLOPS)}
+                   **bound(cost)}
             rows.append(row)
             for key in ("ms", "plain_ms", "library_ms"):
                 step[key] += times * row[key]
-            step["bytes"] += times * nbytes
-            step["flops"] += times * 2 * M * K * N
+            step["cost"] = times * cost if step["cost"] is None \
+                else step["cost"] + times * cost
             step["max_abs_err"] = max(step["max_abs_err"], err)
             del w, x
         steps[M] = step
@@ -776,7 +780,7 @@ def check_gemm_rows(gen, arch: str = "qwen3-8b",
                      "max_abs_err": step["max_abs_err"], "ms": step["ms"],
                      "plain_ms": step["plain_ms"],
                      "library_ms": step["library_ms"],
-                     **_bound(step["bytes"], step["flops"], BF16_TC_FLOPS)})
+                     **bound(step["cost"])})
     return rows
 
 
@@ -821,10 +825,6 @@ def check_decode(gen, *, n_heads=32, n_kv=8, d=128, S=MAX_SEQ,
     if not (torch.equal(longer[5], got[5]) and torch.equal(other_s[0], got[5])):
         raise AssertionError("decode: lane 5 changed among longer lanes or "
                              "with the cache's S")
-    n_keys = int(lens.sum())
-    nbytes = (n_keys * n_kv * d * 2 * 2 + 2 * q.numel() * 2
-              + lens.numel() * 4)
-    flops = 4 * n_keys * n_heads * d
     # the yardstick: SDPA over the same cache, a boolean key mask and GQA
     # (NaN on the empty lane; only its time is used)
     qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
@@ -840,7 +840,7 @@ def check_decode(gen, *, n_heads=32, n_kv=8, d=128, S=MAX_SEQ,
         "library_ms": _time_ms(
             lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True), flush=True),
-        **_bound(nbytes, flops, F32_FLOPS),
+        **bound(dk.cost(B, n_heads, n_kv, d, S, lengths)),
     }
 
 
@@ -865,9 +865,6 @@ def check_flash(gen, *, H=32, K=8, D=128) -> list[dict]:
         err = _close(got, want, f"flash_attention sq={sq} off={off} sk={sk}")
         qpos = torch.arange(sq, device="cuda")[:, None] + off
         mask = torch.arange(sk, device="cuda")[None, :] <= qpos
-        keys = int(mask.sum())
-        flops = 4 * D * H * keys
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         rows.append({
             "shape": {"Sq": sq, "Sk": sk, "q_offset": off, "H": H, "K": K,
@@ -882,7 +879,7 @@ def check_flash(gen, *, H=32, K=8, D=128) -> list[dict]:
                 lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=mask, enable_gqa=True),
                 flush=True),
-            **_bound(nbytes, flops, BF16_TC_FLOPS),
+            **bound(fk.cost(1, sq, sk, H, K, D, causal=True, q_offset=off)),
         })
     return rows
 
@@ -959,11 +956,6 @@ def check_selective_scan(gen) -> list[dict]:
             if not chained:
                 raise AssertionError(f"{what}: one call and chained "
                                      f"{CHUNK}-step calls differ bitwise")
-        nbytes = (3 * B * S * Di * 2 + 2 * B * S * N * 2 + Di * N * 4 + Di * 4
-                  + 2 * B * Di * N * 4)
-        # per (t, d, n): dt*A, exp, two products and an add for h, an FMA
-        # into y; per (t, d): dt*x and D*x + y
-        n_sn = B * S * Di * N
         rows.append({
             "shape": {"B": B, "S": S, "Di": Di, "N": N, "h0": h0_scale},
             "max_abs_err": err, "hT_rel_err": rel, "chained_equal": chained,
@@ -971,7 +963,7 @@ def check_selective_scan(gen) -> list[dict]:
             "plain_ms": _time_ms(lambda: sk.plain(*args), iters=3,
                                  flush=True),
             "library_ms": None,
-            **_bound(nbytes, 6 * n_sn + 3 * B * S * Di, F32_FLOPS, exps=n_sn),
+            **bound(sk.cost(B, S, Di, N)),
         })
     return rows
 
@@ -1044,19 +1036,9 @@ def check_ssd(gen) -> list[dict]:
             if not chained:
                 raise AssertionError(f"{what}: one call and chained "
                                      f"{CHUNK}-step calls differ bitwise")
-        nbytes = (2 * B * S * Hs * P * 2 + B * S * Hs * 2 + 2 * B * S * N * 2
-                  + 2 * Hs * 4 + 2 * B * Hs * P * N * 4)
-        # per chunk of n steps: C B^T once for all heads (n(n+1)/2 pairs x
-        # N FMAs); per head the masked product with x (pairs x P), the
-        # carried state's read and update (2 n P N), the decay mask
-        chunks = [min(CHUNK, S - c0) for c0 in range(0, S, CHUNK)]
-        pairs = sum(n * (n + 1) // 2 for n in chunks)
-        flops = B * (2 * pairs * N + Hs * (2 * pairs * P + 3 * pairs
-                                           + 4 * S * P * N))
-        exps = B * Hs * (pairs + 2 * S)
         # the least time on the tensor cores (bf16 peak), and the same work
         # on the f32 units outside them (``bound_f32_ms``)
-        f32 = _bound(nbytes, flops, F32_FLOPS, exps=exps)
+        f32 = bound(dk.cost(B, S, Hs, P, N, chunk=CHUNK, unit="f32"))
         rows.append({
             "shape": {"B": B, "S": S, "Hs": Hs, "P": P, "N": N,
                       "chunk": CHUNK, "h0": h0_scale},
@@ -1066,7 +1048,7 @@ def check_ssd(gen) -> list[dict]:
             "plain_ms": _time_ms(lambda: dk.plain(*args, chunk=CHUNK),
                                  flush=True),
             "library_ms": None,
-            **_bound(nbytes, flops, BF16_TC_FLOPS, exps=exps),
+            **bound(dk.cost(B, S, Hs, P, N, chunk=CHUNK)),
             "bound_f32_ms": f32["bound_ms"], "bound_f32_by": f32["bound_by"],
         })
     return rows
@@ -1149,7 +1131,6 @@ def check_moe_route(gen, empty_ms: float, arch: str = "deepseek-moe-16b",
         err = _route_agrees(rk.moe_route(xt, router, k),
                             ref.moe_route(xt, router, k), xt, router, k,
                             tally)
-        nbytes = T * d * 2 + d * E * 4 + T * k * 8
         plain_ms = _time_ms(lambda: ref.moe_route(xt, router, k))
         rows.append({"shape": {"T": T, "d": d, "E": E, "k": k, "arch": arch},
                      "max_abs_err": err,
@@ -1158,8 +1139,7 @@ def check_moe_route(gen, empty_ms: float, arch: str = "deepseek-moe-16b",
                      "ms": _time_ms(lambda: rk.moe_route(xt, router, k)),
                      "plain_ms": plain_ms, "library_ms": None,
                      "library": "none", "composite_ms": plain_ms,
-                     **_bound(nbytes, 2 * T * d * E, F32_FLOPS,
-                              exps=T * E)})
+                     **bound(rk.cost(T, d, E, k))})
         rows[-1]["empty_kernel_ms"] = empty_ms
         rows[-1]["x_empty"] = rows[-1]["ms"] / empty_ms
     whole = rk.moe_route(x, router, k)
@@ -1207,8 +1187,8 @@ def check_gemm_rows_grouped(gen, arch: str = "deepseek-moe-16b",
         active = int((counts > 0).sum())
         n_rows = int(counts.sum())
         keep = torch.arange(C, device="cuda")[None] < counts[:, None]
-        step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-                "flops": 0, "max_abs_err": 0.0}
+        step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                "cost": None, "max_abs_err": 0.0}
         for name, _, K, N in gk.grouped_products(cfg):
             w = (torch.randn(E, K, N, generator=gen, device="cuda")
                  * K ** -0.5).bfloat16()
@@ -1219,7 +1199,7 @@ def check_gemm_rows_grouped(gen, arch: str = "deepseek-moe-16b",
                 want = ops.gemm_rows_grouped(buf, w, counts)
             err = _close(got[keep], want[keep],
                          f"gemm_rows_grouped {arch} {name} C={C}")
-            nbytes = 2 * (active * K * N + n_rows * (K + N))
+            cost = gk.grouped_cost(E, C, K, N, counts.tolist())
             p = gk.plan_grouped(E, K, N, gk._n_sm(torch.cuda.current_device()))
             row = {"shape": {"E": E, "C": C, "K": K, "N": N, "product": name,
                              "arch": arch, "experts_active": active,
@@ -1233,12 +1213,12 @@ def check_gemm_rows_grouped(gen, arch: str = "deepseek-moe-16b",
                                         flush=True),
                    "library_ms": _time_ms(lambda: torch.bmm(buf, w),
                                           flush=True),
-                   **_bound(nbytes, 2 * n_rows * K * N, BF16_TC_FLOPS)}
+                   **bound(cost)}
             rows.append(row)
             for key in ("ms", "plain_ms", "library_ms"):
                 step[key] += n_moe * row[key]
-            step["bytes"] += n_moe * nbytes
-            step["flops"] += n_moe * 2 * n_rows * K * N
+            step["cost"] = n_moe * cost if step["cost"] is None \
+                else step["cost"] + n_moe * cost
             step["max_abs_err"] = max(step["max_abs_err"], err)
             del w, buf
         rows.append({"shape": {"C": C, "products": "one step", "arch": arch,
@@ -1246,7 +1226,7 @@ def check_gemm_rows_grouped(gen, arch: str = "deepseek-moe-16b",
                      "max_abs_err": step["max_abs_err"], "ms": step["ms"],
                      "plain_ms": step["plain_ms"],
                      "library_ms": step["library_ms"],
-                     **_bound(step["bytes"], step["flops"], BF16_TC_FLOPS)})
+                     **bound(step["cost"])})
     return rows
 
 
@@ -1379,8 +1359,7 @@ def check_flash_encoder(gen) -> list[dict]:
             "library_ms": _time_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt),
                 flush=True),
-            **_bound(4 * q.numel() * 2, 4 * W_D * W_HEADS * S * S,
-                     BF16_TC_FLOPS)})
+            **bound(fk.cost(1, S, S, W_HEADS, W_HEADS, W_D, causal=False))})
     return rows
 
 
@@ -1416,6 +1395,7 @@ def check_cross_fold(gen) -> list[dict]:
     import torch
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_decode_attention as pk
 
     rows = []
     for lengths, C in (([ENC_SEQ, ENC_SEQ // 2] * 4, 1), ([ENC_SEQ], CHUNK),
@@ -1434,13 +1414,11 @@ def check_cross_fold(gen) -> list[dict]:
                                          f"{c}) differs from a one-lane "
                                          f"decode at its length")
         n_keys = int(lens.sum())
-        # each lane's region once (every folded query reads the same keys)
-        nbytes = (n_keys * W_HEADS * W_D * 2 * 2 + 2 * q.numel() * 2
-                  + table.numel() * 4 + lens.numel() * 4)
         # Q K^T and P V on bf16 operands: the tensor cores' rate; the same
         # work on the f32 units outside them (``bound_f32_ms``)
-        flops = 4 * C * n_keys * W_HEADS * W_D
-        f32 = _bound(nbytes, flops, F32_FLOPS)
+        cross = functools.partial(pk.cross_cost, len(lengths), C, W_HEADS,
+                                  W_HEADS, W_D, table.numel(), n_keys)
+        f32 = bound(cross(unit="f32"))
         one_row = (q, kp, vp, table, lens[:, None].expand(len(lengths), C))
         rows.append({
             "shape": {"B": len(lengths), "C": C, "H": W_HEADS, "K": W_HEADS,
@@ -1453,7 +1431,7 @@ def check_cross_fold(gen) -> list[dict]:
             "plain_ms": _time_ms(lambda: ref.paged_cross_attention(
                 q, kp, vp, table, lens), flush=True),
             "library_ms": None,
-            **_bound(nbytes, flops, BF16_TC_FLOPS),
+            **bound(cross()),
             "bound_f32_ms": f32["bound_ms"], "bound_f32_by": f32["bound_by"]})
     return rows
 
@@ -4256,8 +4234,6 @@ def check_flash_bwd(gen, *, B, S, H, K, D, what: str,
                              f"passes the check: {planted}")
     bwd_err = max(float((a.float() - w.float()).abs().max())
                   for a, w in zip(got, want))
-    pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * Sk
-    io = (q.numel() + k.numel() + v.numel()) * 2
     shape = {"B": B, "S": S, "H": H, "K": K, "D": D, "causal": causal}
     if Sk != S:
         shape["Sk"] = Sk
@@ -4275,8 +4251,8 @@ def check_flash_bwd(gen, *, B, S, H, K, D, what: str,
                [t.detach() for t in lib_ins], causal, gqa=H != K),
                flush=True),
            "library_backend": "FLASH_ATTENTION",
-           **_bound(io + q.numel() * 2 + lse.numel() * 4, 4 * D * pairs,
-                    BF16_TC_FLOPS)}
+           **bound(fk.cost(B, S, Sk, H, K, D, causal=causal,
+                           with_lse=True))}
 
     # the backward's work: five products of D-deep dots a pair (S, dP, dV,
     # dK, dQ); q, k, v, o, dO and lse read once, dq, dk, dv written once
@@ -4291,8 +4267,7 @@ def check_flash_bwd(gen, *, B, S, H, K, D, what: str,
            "plain_ms": _grad_ms(plain_out, ins, dout),
            "library_ms": _grad_ms(lib_out, lib_ins, lib_dout),
            "library_backend": "FLASH_ATTENTION",
-           **_bound(2 * io + 2 * q.numel() * 2 + lse.numel() * 4,
-                    10 * D * pairs, BF16_TC_FLOPS)}
+           **bound(fk.bwd_cost(B, S, Sk, H, K, D, causal=causal))}
     if parts_ms is not None:
         # each launch of one call (``_flash_bwd_parts``)
         bwd["parts_ms"] = parts_ms
@@ -4338,13 +4313,13 @@ def check_rmsnorm_bwd(gen, shape, what: str, ops: dict) -> list[dict]:
                      f"rmsnorm forward {what}")
     xl, wl = x.clone().requires_grad_(), w.to(x.dtype).requires_grad_()
     yl = F.rms_norm(xl, (shape[-1],), wl, eps)
-    nx = x.numel() * 2
+    rows, d = x.numel() // shape[-1], shape[-1]
     fwd = {"shape": list(shape), "max_abs_err": fwd_err,
            "ms": _time_ms(lambda: rk.rmsnorm(x, w, eps)),
            "plain_ms": _time_ms(lambda: ref.rmsnorm(x, w, eps)),
            "library_ms": _time_ms(lambda: F.rms_norm(
                x, (shape[-1],), wl.detach(), eps)),
-           **_bound(2 * nx + w.numel() * 4, 0, F32_FLOPS)}
+           **bound(rk.cost(rows, d, x.element_size(), w.element_size()))}
     bwd = {"shape": list(shape), "max_abs_err": err, "dw_rel": dw_rel,
            "bitwise_repeat": True, "device_ops": ops,
            "ms": _time_ms(lambda: rk.rmsnorm_bwd(x, w, g, eps)),
@@ -4352,7 +4327,7 @@ def check_rmsnorm_bwd(gen, shape, what: str, ops: dict) -> list[dict]:
                y, (xp, wp), g, retain_graph=True)),
            "library_ms": _time_ms(lambda: torch.autograd.grad(
                yl, (xl, wl), g, retain_graph=True)),
-           **_bound(3 * nx + 2 * w.numel() * 4, 0, F32_FLOPS)}
+           **bound(rk.bwd_cost(rows, d, x.element_size(), w.element_size()))}
     for row in (fwd, bwd):
         row["x_library"] = row["ms"] / row["library_ms"]
         row["x_bound"] = row["ms"] / row["bound_ms"]
@@ -4491,15 +4466,13 @@ def check_moe_route_bwd(gen, arch: str, device_ops: dict) -> list[dict]:
            "plain_ms": _time_ms(lambda: ref.moe_route(x, router, k,
                                                       with_probs=True)),
            "library_ms": None, "library": "none",
-           **_bound(T * d * 2 + d * E * 4 + T * k * 8 + T * E * 4,
-                    2 * T * d * E, F32_FLOPS, exps=T * E)}
+           **bound(rk.cost(T, d, E, k, with_probs=True))}
 
     # x read and dx written (bf16), probs, dprobs (T, E), ids, weights, dw
     # (T, k), the router read and d_router written (f32); the two products'
     # 4 T d E operations, three times over on the tensor cores (bf16 splits
     # under the f32 contract), once on the f32 units (and d_logits' few a
     # token)
-    nbytes = 4 * T * d + 8 * T * E + 12 * T * k + 8 * d * E
     # the whole backward (MoeRoute's, through autograd): its device time
     # and launches, each kernel of ROUTE_BWD_PARTS' time a call; it must
     # hold those two launches, once a call, and nothing else
@@ -4541,9 +4514,9 @@ def check_moe_route_bwd(gen, arch: str, device_ops: dict) -> list[dict]:
            "plain_route_grad_ms": _grad_ms((pw2, pp2), (xp, rp),
                                            (dw, dprobs)),
            "library_ms": None, "library": "none",
-           "bound_f32_ms": _bound(nbytes, 4 * T * d * E + 4 * T * E
-                                  + 4 * T * k, F32_FLOPS)["bound_ms"],
-           **_bound(nbytes, 3 * 4 * T * d * E, BF16_TC_FLOPS)}
+           "bound_f32_ms": bound(rk.bwd_cost(T, d, E, k,
+                                             basis="f32"))["bound_ms"],
+           **bound(rk.bwd_cost(T, d, E, k))}
     bwd["device_x_bound"] = bwd["device_ms"] / bwd["bound_ms"]
     bwd["device_x_bound_f32"] = bwd["device_ms"] / bwd["bound_f32_ms"]
     for row in (fwd, bwd):
@@ -4704,9 +4677,6 @@ def check_scan_bwd(gen, device_ops: dict) -> list[dict]:
     init = held_at(True)[-2:]
     plain_bwd_ms = _once_ms(lambda: _plain_scan_grads(args, dy))
     torch.cuda.empty_cache()
-    n_sn = B * S * Di * N
-    tiles = -(-S // CHUNK)
-    io = 2 * B * S * Di * 2 + 2 * B * S * N * 2 + Di * N * 4 + Di * 4
     shape = {"B": B, "S": S, "Di": Di, "N": N, "h0": 0.1}
     fwd = {"shape": shape, "max_abs_err": fwd_err, "library_ms": None,
            "ms": _time_ms(lambda: sk.selective_scan(*args, save_states=True),
@@ -4714,8 +4684,7 @@ def check_scan_bwd(gen, device_ops: dict) -> list[dict]:
            "plain_ms": _time_ms(lambda: ref.selective_scan(*args), iters=3,
                                 flush=True),
            # x, dt, B, C, A, D and h0 read; y, hT and the states written
-           **_bound(io + B * S * Di * 2 + (2 + tiles) * B * Di * N * 4,
-                    6 * n_sn + 3 * B * S * Di, F32_FLOPS, exps=n_sn)}
+           **bound(sk.cost(B, S, Di, N, save_states=True))}
     # read: x, dt, dy, B, C, A, D and the states; written: dx, ddt, dB, dC,
     # dA, dD, dh0. Per (t, d, n) the replay's exponential and ~12 f32
     # operations (the replay's two, the adjoint's and the five sums')
@@ -4725,9 +4694,7 @@ def check_scan_bwd(gen, device_ops: dict) -> list[dict]:
            "ms": _time_ms(lambda: sk.selective_scan_bwd(*args[:6], states,
                                                         dy), flush=True),
            "plain_ms": plain_bwd_ms,
-           **_bound(io + 3 * B * S * Di * 2 + 2 * B * S * N * 2
-                    + Di * N * 4 + Di * 4 + (tiles + 1) * B * Di * N * 4,
-                    12 * n_sn, F32_FLOPS, exps=n_sn)}
+           **bound(sk.bwd_cost(B, S, Di, N))}
     for row in (fwd, bwd):
         row.update(_factors(row))
     log({"check": "selective_scan_bwd@falcon-mamba-7b", "forward": fwd,
@@ -4778,33 +4745,14 @@ def check_ssd_bwd(gen, device_ops: dict) -> list[dict]:
     # timed
     init = held_at(True)[3:5]
     torch.cuda.empty_cache()
-    chunks = [min(CHUNK, S - c0) for c0 in range(0, S, CHUNK)]
-    pairs = sum(n * (n + 1) // 2 for n in chunks)
-    sx, sn = B * S * Hs * P * 2, B * S * N * 2
-    state = B * Hs * P * N * 4
-    scratch_bytes = scratch.numel() * 4
     shape = {"B": B, "S": S, "Hs": Hs, "P": P, "N": N, "chunk": CHUNK,
              "h0": 0.1}
-    fwd_flops = B * (2 * pairs * N + Hs * (2 * pairs * P + 3 * pairs
-                                           + 4 * S * P * N))
     fwd = {"shape": shape, "max_abs_err": fwd_err, "library_ms": None,
            "ms": _time_ms(lambda: dk._forward(*args, CHUNK), flush=True),
            "plain_ms": _time_ms(lambda: ref.ssd(*args, chunk=CHUNK),
                                 flush=True),
            # x, dt, B, C, A, D, h0 read; y, hT and the kept scratch written
-           **_bound(2 * sx + B * S * Hs * 2 + 2 * sn + 2 * Hs * 4 + 2 * state
-                    + scratch_bytes, fwd_flops, BF16_TC_FLOPS,
-                    exps=B * Hs * (pairs + 2 * S))}
-    # per (b, chunk): C B^T on the causal triangle; per head: dy x^T, M^T
-    # dy (P deep), dG^T C, dG B (N deep) on the triangle, and four (c, P, N)
-    # products with the states (the local dH, dHn B, dHn^T x, dy H)
-    flops = B * (2 * pairs * N + Hs * (4 * pairs * P + 4 * pairs * N
-                                       + 8 * S * P * N))
-    # read: x, dy, dt, B, C, A, D and the scratch; written: dx, ddt, dB,
-    # dC, dA, dD, dh0
-    nbytes = (3 * sx + 2 * B * S * Hs * 2 + 4 * sn + 4 * Hs * 4 + state
-              + scratch_bytes)
-    exps = B * Hs * (2 * pairs + 2 * S)
+           **bound(dk.cost(B, S, Hs, P, N, chunk=CHUNK, keep_scratch=True))}
     bwd = {"shape": shape, **held, "device_ops": device_ops,
            "init_decay": {"forward_max_abs_err": init[0], **init[1]},
            "library_ms": None,
@@ -4813,7 +4761,7 @@ def check_ssd_bwd(gen, device_ops: dict) -> list[dict]:
            "plain_ms": plain_bwd_ms,
            # the least time on the tensor cores (bf16 peak), where its
            # products run
-           **_bound(nbytes, flops, BF16_TC_FLOPS, exps=exps)}
+           **bound(dk.bwd_cost(B, S, Hs, P, N, chunk=CHUNK))}
     for row in (fwd, bwd):
         row.update(_factors(row))
     log({"check": "ssd_bwd@zamba2-1.2b", "forward": fwd, "backward": bwd})
@@ -5806,6 +5754,168 @@ CELL_SUMMARY_ROW = {"rmsnorm": ("rmsnorm", 0),
 # runs stays within its time limit (widths are never cut): falcon-mamba-7b's
 # phases took 156 s at 64 layers (its logits phase's plain scan 59 s),
 # deepseek-moe-16b's 95 s at 28 (PERF.md section 4)
+# ---------------------------------------------------------------------------
+# whole steps against the H100 roofline (launch/roofline.py)
+# ---------------------------------------------------------------------------
+
+# the cells: (arch, seq_len, global batch, kind), at full width and depth
+ROOFLINE_CELLS = (("qwen3-8b", 2048, 8, "decode"),
+                  ("qwen3-8b", 2048, 2, "prefill"),
+                  ("falcon-mamba-7b", 2048, 1, "prefill"),
+                  ("zamba2-1.2b", 2048, 1, "prefill"),
+                  ("smollm-360m", 2048, 8, "train"),
+                  ("granite-moe-1b-a400m", 2048, 2, "train"))
+# a measured step under this share of its roofline bound means the meta
+# pass counts work the card did not do
+ROOFLINE_X_MIN = 0.95
+# the meta pass's peak of live bytes against the card's, relative
+TEMP_REL = 0.25
+
+
+def _cell_args(prog, seed: int) -> tuple:
+    """The cell's inputs on the card: seeded weights (a train state for a
+    train cell), random tokens, and for decode a zeroed cache of seq_len
+    positions with every lane at its last one (the meta pass counts every
+    position of the cache)."""
+    import torch
+
+    from repro_torch.training.state import init_train_state
+
+    model, shape = prog.model, prog.shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    B, S, V = shape.global_batch, shape.seq_len, model.cfg.vocab_size
+
+    def tokens(*size):
+        return torch.randint(0, V, size, generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    if shape.kind == "train":
+        return (init_train_state(model, seed, "cuda"),
+                {"tokens": tokens(B, S), "labels": tokens(B, S)})
+    params = model.init(seed, "cuda")
+    if shape.kind == "prefill":
+        return params, {"tokens": tokens(B, S)}
+    cache = model.init_cache(B, S, device="cuda")
+    return params, cache, {
+        "tokens": tokens(B, 1),
+        "positions": torch.full((B,), S - 1, dtype=torch.int32,
+                                device="cuda")}
+
+
+def roofline_cell(arch: str, S: int, B: int, kind: str, card: str) -> dict:
+    """One cell: the meta pass (``launch/cells.py``), then the same
+    program on the card, 3 calls to warm and the median of 5 by CUDA
+    events (``_time_ms``); the first call's kernel calls against the meta
+    pass's, the peak of bytes allocated above the inputs during one warm
+    call against the meta pass's peak of live bytes."""
+    import torch
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops
+    from repro_torch.launch.cells import build_cell, lower_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.roofline import (PEAK_FLOPS_BF16, RooflineTerms,
+                                             model_flops_for)
+
+    cfg = get(arch)
+    shape = ShapeConfig(f"card_{kind}", S, B, kind)
+    t0 = time.perf_counter()
+    prog = build_cell(cfg, shape, make_host_mesh(1, 1))
+    meta = lower_cell(prog)
+    meta_s = time.perf_counter() - t0
+    args = _cell_args(prog, seed=0)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    prog.fn(*args)
+    torch.cuda.synchronize()
+    counts = ops.counts()
+    calls = {name: {"meta": meta["kernels"].get(name, {}).get("calls", 0),
+                    "card": c["launches"],
+                    "device_launches_a_call":
+                        meta["kernels"][name]["launches"]
+                        // meta["kernels"][name]["calls"]
+                        if name in meta["kernels"] else 0}
+             for name, c in counts.items()
+             if c["launches"] or name in meta["kernels"]}
+    plain = {name: c["plain"] for name, c in counts.items() if c["plain"]}
+    for _ in range(2):
+        prog.fn(*args)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = prog.fn(*args)
+    torch.cuda.synchronize()
+    temp = torch.cuda.max_memory_allocated() - base
+    del out
+    ms = _time_ms(lambda: prog.fn(*args), iters=5)
+    terms = RooflineTerms(arch, shape.name, "one card", 1, meta["flops"],
+                          meta["bytes"], 0.0, {}, model_flops_for(cfg, shape),
+                          meta["compute_s"])
+    row = {"cell": f"{arch} {kind}", "S": S, "B": B, "card": card,
+           "ms": ms,
+           "t_compute_ms": terms.t_compute * 1e3,
+           "t_memory_ms": terms.t_memory * 1e3,
+           "bound": terms.bound,
+           "x_roofline": ms / 1e3 / terms.t_bound,
+           "mfu": (terms.model_flops / (ms / 1e3) / PEAK_FLOPS_BF16
+                   if kind != "decode" else None),
+           "model_flops": terms.model_flops, "flops": meta["flops"],
+           "bytes": meta["bytes"],
+           "temp_bytes_predicted": meta["peak_bytes"],
+           "temp_bytes_measured": temp,
+           "temp_rel": (meta["peak_bytes"] - temp) / temp,
+           "argument_bytes": meta["argument_bytes"],
+           "kernel_calls": calls, "plain_calls": plain,
+           "meta_pass_s": meta_s}
+    log({"roofline": row})
+    bad = {n: c for n, c in calls.items() if c["meta"] != c["card"]}
+    if bad or plain:
+        raise AssertionError(f"roofline {arch} {kind}: kernel calls differ "
+                             f"between the meta pass and the card {bad}, "
+                             f"or plain versions ran {plain}")
+    if not row["x_roofline"] >= ROOFLINE_X_MIN:
+        raise AssertionError(f"roofline {arch} {kind}: {ms:.3f} ms is "
+                             f"{row['x_roofline']:.3f} of the bound, under "
+                             f"{ROOFLINE_X_MIN}: the count overstates")
+    if not abs(row["temp_rel"]) <= TEMP_REL:
+        raise AssertionError(f"roofline {arch} {kind}: temp bytes predicted "
+                             f"{meta['peak_bytes']}, measured {temp}")
+    del args, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_roofline(card: str) -> list[dict]:
+    """Each of ``ROOFLINE_CELLS`` through ``roofline_cell``; any failure
+    fails the run."""
+    t0 = time.perf_counter()
+    rows = [roofline_cell(*cell, card) for cell in ROOFLINE_CELLS]
+    log({"phase_seconds": {"roofline": round(time.perf_counter() - t0, 3)}})
+    return rows
+
+
+def phase_examples() -> dict:
+    """``examples/torch_adhoc_serving.py`` on the card (its failure drills
+    assert identical continuations); a fresh process."""
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    done = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_adhoc_serving.py")],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    lines = done.stdout.strip().splitlines()
+    ok = done.returncode == 0 and sum(
+        "failure-free host: True" in ln for ln in lines) == 2
+    log({"example": "torch_adhoc_serving.py", "rc": done.returncode,
+         "seconds": round(time.perf_counter() - t0, 3), "tail": lines[-3:],
+         "stderr": done.stderr.strip().splitlines()[-3:]})
+    if not ok:
+        raise AssertionError("examples/torch_adhoc_serving.py failed on the "
+                             "card")
+    return {"rc": done.returncode}
+
+
 SERVE_LAYERS = {"falcon-mamba-7b": 16, "deepseek-moe-16b": 8}
 
 
@@ -5971,6 +6081,8 @@ def main() -> int:
                **({} if per_step is None else
                   {"launches_per_step": per_step}))
     log({"phase_seconds": {"train": round(time.perf_counter() - t2, 3)}})
+    phase_examples()
+    phase_roofline(device["smi"])
     log({"kernels": kernels})
     log(device["smi"])
     log({"ok": True, "device": {"platform": device["platform"],

@@ -3,14 +3,24 @@
 A copy of the JAX package's ``ModelConfig``, ``ShapeConfig``, ``SHAPES``,
 ``OptimConfig`` and ``RunConfig`` (``repro/config.py``): the port imports
 nothing of that package, so the field sets and defaults are repeated here
-verbatim (the two packages' configs compare equal field by field); of the
-derived quantities only what the port uses is kept.
+verbatim (the two packages' configs compare equal field by field), with the
+derived quantities and the cell enumeration the port uses (``iter_cells``
+with the reference's skip rule: ``long_500k`` only for the sub-quadratic
+families).
+
+Two parameter counts: ``param_counts`` is the reference's analytic count
+(``repro/config.py:128-195``, verbatim), total and active a token, which
+``launch/roofline.py::model_flops_for`` reads; ``param_count`` counts the
+serving families' leaves as their specs declare them, norm weights
+included, which the analytic count leaves out.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
+from typing import Any, Iterator
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
@@ -109,6 +119,87 @@ class ModelConfig:
     def uses_attention(self) -> bool:
         return self.family != "ssm"
 
+    @property
+    def uses_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if the arch can run the 500k-token decode shape."""
+        return self.family in ("ssm", "hybrid")
+
+    def param_counts(self) -> dict[str, float]:
+        """The reference's analytic parameter counts, total and active a
+        token (``repro/config.py:128-195``): the projections, experts and
+        embeddings, without norm weights or biases (``param_count`` counts
+        every leaf)."""
+        d, L = self.d_model, self.n_layers
+        emb = self.vocab_size * d
+        unemb = 0 if self.tie_embeddings else self.vocab_size * d
+        per_layer_attn = 0.0
+        if self.uses_attention:
+            qkv = d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head
+            out = self.n_heads * self.d_head * d
+            per_layer_attn = qkv + out
+
+        def mlp_params(width: int) -> float:
+            return (3 if self.gated_mlp else 2) * d * width
+
+        total = emb + unemb
+        active = emb + unemb
+        if self.family == "ssm" or self.family == "hybrid":
+            di = self.d_inner
+            # Mamba block params (in_proj (x,z), conv, ssm params, out_proj)
+            if self.mamba_version == 1:
+                ssm = (
+                    d * 2 * di
+                    + di * self.d_conv
+                    + di * (self.dt_rank + 2 * self.ssm_state)
+                    + self.dt_rank * di
+                    + di * self.ssm_state  # A
+                    + di  # D
+                    + di * d
+                )
+            else:
+                nh = self.n_ssm_heads
+                ssm = (
+                    d * (2 * di + 2 * self.ssm_state * nh // max(nh, 1) * nh + nh)
+                    + di * self.d_conv
+                    + di * d
+                )
+            if self.family == "ssm":
+                total += L * ssm
+                active += L * ssm
+            else:
+                # hybrid: mamba blocks every layer + one SHARED attention+MLP
+                # block applied every `attn_every` layers (zamba2: weights shared)
+                shared = per_layer_attn + mlp_params(self.d_ff)
+                total += L * ssm + shared
+                n_apps = len(self.hybrid_attention_layers())
+                active += L * ssm + n_apps * shared
+        elif self.uses_moe:
+            dense_layers = self.first_k_dense
+            moe_layers = L - dense_layers
+            router = self.n_experts * d
+            experts_total = self.n_experts * mlp_params(self.d_expert)
+            experts_active = self.moe_top_k * mlp_params(self.d_expert)
+            shared = self.n_shared_experts * mlp_params(self.d_expert)
+            dense_ff = mlp_params(self.d_ff_dense or self.d_ff)
+            total += moe_layers * (per_layer_attn + router + experts_total + shared)
+            total += dense_layers * (per_layer_attn + dense_ff)
+            active += moe_layers * (per_layer_attn + router + experts_active + shared)
+            active += dense_layers * (per_layer_attn + dense_ff)
+        elif self.family == "encdec":
+            enc = self.n_encoder_layers * (per_layer_attn + mlp_params(self.d_ff))
+            dec = L * (2 * per_layer_attn + mlp_params(self.d_ff))  # self+cross attn
+            total += enc + dec
+            active += enc + dec
+        else:  # dense, vlm
+            per_layer = per_layer_attn + mlp_params(self.d_ff)
+            total += L * per_layer
+            active += L * per_layer
+        return {"total": float(total), "active": float(active)}
+
     def hybrid_attention_layers(self) -> list[int]:
         """Layer indices at which the shared attention block is applied."""
         if self.family != "hybrid" or self.attn_every <= 0:
@@ -117,7 +208,8 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Parameters of the serving families the port carries, leaf for
-        leaf as their specs declare them (norm weights included)."""
+        leaf as their specs declare them (norm weights included; the
+        analytic :meth:`param_counts` leaves them out)."""
         d, L, V = self.d_model, self.n_layers, self.vocab_size
         emb = V * d * (1 if self.tie_embeddings else 2) + d  # + final norm
         attn = d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head \
@@ -173,6 +265,26 @@ SHAPES: dict[str, ShapeConfig] = {
 }
 
 
+def cell_is_valid(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """The reference's skip rule (``repro/config.py:225-229``). Returns
+    (valid, reason_if_skipped)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "long_500k needs sub-quadratic attention (skip per assignment)"
+    return True, ""
+
+
+def iter_cells(arch_ids: list[str] | None = None) -> Iterator[tuple[str, str]]:
+    """Yield every valid (arch_id, shape_name) cell."""
+    from repro_torch.configs import ARCHS
+
+    for arch_id in arch_ids or list(ARCHS):
+        cfg = ARCHS[arch_id]
+        for shape in SHAPES.values():
+            ok, _ = cell_is_valid(cfg, shape)
+            if ok:
+                yield arch_id, shape.name
+
+
 # ---------------------------------------------------------------------------
 # Run configuration (training/serving hyper-parameters)
 # ---------------------------------------------------------------------------
@@ -217,3 +329,11 @@ class RunConfig:
 
     def shape_config(self) -> ShapeConfig:
         return SHAPES[self.shape]
+
+
+def asdict(cfg: Any) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def with_overrides(cfg, **kw):
+    return replace(cfg, **kw)

@@ -33,6 +33,10 @@ SOURCES = ("rmsnorm", "paged_decode_attention", "decode_attention",
            "selective_scan_bwd", "ssd", "ssd_bwd", "gemm_rows", "moe_route",
            "moe_route_bwd")
 
+# where a wrapper takes its tensors: the card, or the meta device, where it
+# records the call's cost at its launch (``_cost.record``)
+DEVICES = ("cuda", "meta")
+
 _libs: dict[str, ctypes.CDLL] = {}
 _scratches: dict[tuple, torch.Tensor] = {}
 
@@ -110,7 +114,11 @@ def scratch(name: str, n: int, dtype: torch.dtype,
     """The device's scratch ``name``: at least ``n`` elements, uninitialised,
     grown on demand and kept between calls, so that no call allocates it
     anew (under deterministic mode a new tensor is filled first). A kernel
-    writes what it reads of it, and launches run in stream order."""
+    writes what it reads of it, and launches run in stream order. On the
+    meta device (a meta pass) an empty tensor: a warm process already holds
+    the scratch, so a call allocates none of it."""
+    if device.type == "meta":
+        return torch.empty(0, dtype=dtype, device=device)
     key = (name, device)
     buf = _scratches.get(key)
     if buf is None or buf.numel() < n:

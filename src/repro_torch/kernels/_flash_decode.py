@@ -35,7 +35,10 @@ def counters(n: int, device: torch.device) -> torch.Tensor:
     """The device's counters (at least ``n``, zero). Every kernel that
     counts arrivals in them (the decode kernels, the SSD's state pass,
     ``gemm_rows``' split tiles) leaves them at zero, and their launches run
-    in stream order, so they share one buffer."""
+    in stream order, so they share one buffer. On the meta device an
+    empty tensor, as ``_build.scratch`` gives."""
+    if device.type == "meta":
+        return torch.empty(0, dtype=torch.int32, device=device)
     cnt = _counters.get(device)
     if cnt is None or cnt.numel() < n:
         cnt = torch.zeros(max(n, 256), dtype=torch.int32, device=device)

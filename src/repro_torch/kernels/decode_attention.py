@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, _flash_decode, _pad
+from repro_torch.kernels._cost import Cost, record
 from repro_torch.kernels.ref import decode_attention as plain  # noqa: F401  (beside the kernel)
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float,
@@ -52,7 +53,7 @@ def decode_attention(
     D 64 and 128 run on the tensors as they are; a narrower D on padded
     copies of q, k and v (one per call)."""
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type not in _build.DEVICES:
         raise ValueError(f"decode_attention kernel needs CUDA, got {dev}")
     B, H, D = q.shape
     Bk, S, K, Dk = k.shape
@@ -78,13 +79,28 @@ def _launch(q, k, v, lengths, *, scale: float):
     out = torch.empty_like(q)
     if B:
         part, cnt = _flash_decode.scratch(B, K, H // K, D, S, q.device)
-        err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
-                     cnt.data_ptr(), B, S, H, K, D,
-                     scale, _build.stream(q.device))
-        _build.check(err, "decode_attention")
-        decode_attention.launches += 1
+        if q.is_meta:   # no lengths to read: every position of the cache
+            record("decode_attention", cost(B, H, K, D, S))
+        else:
+            err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
+                         cnt.data_ptr(), B, S, H, K, D,
+                         scale, _build.stream(q.device))
+            _build.check(err, "decode_attention")
+            decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+
+
+def cost(B: int, H: int, K: int, D: int, S: int, lengths=None) -> Cost:
+    """One call: each lane's keys and values read once (``lengths``' sum,
+    or every position of the cache without lengths), q read and the output
+    written, the lengths read; Q K^T and P V, 4 D FLOP a key and query
+    head, on the f32 units."""
+    n_keys = B * S if lengths is None else int(sum(int(n) for n in lengths))
+    w = _pad.width(D)
+    return Cost(4 * n_keys * H * w,
+                n_keys * K * w * 2 * 2 + 2 * B * H * w * 2 + B * 4,
+                unit="f32")

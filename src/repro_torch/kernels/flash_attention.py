@@ -29,6 +29,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build, _pad
+from repro_torch.kernels._cost import Cost, record
 from repro_torch.kernels.ref import attention as plain  # noqa: F401  (beside the kernel)
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float,
@@ -56,7 +57,7 @@ def _lib_bwd():
 
 def _check(q, k, v, what: str) -> None:
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type not in _build.DEVICES:
         raise ValueError(f"{what} kernel needs CUDA, got {dev}")
     B, Sq, H, D = q.shape
     if (k.shape[0] != B or k.shape[3] != D or v.shape != k.shape
@@ -111,7 +112,10 @@ def _launch(q, k, v, *, scale: float, causal: bool, q_offset: int,
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
-    if B and Sq:
+    if B and Sq and q.is_meta:
+        record("flash_attention", cost(B, Sq, Sk, H, K, D, causal=causal,
+                                       q_offset=q_offset, with_lse=with_lse))
+    elif B and Sq:
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      lse.data_ptr() if with_lse else None,
                      B, Sq, Sk, H, K, D, int(causal), int(q_offset),
@@ -151,13 +155,18 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     Sk, K = k.shape[1], k.shape[2]
     if B and Sq and Sk:
         delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-        err = _lib_bwd()(pq.data_ptr(), pk.data_ptr(), pv.data_ptr(),
-                         po.data_ptr(), pdo.data_ptr(), lse.data_ptr(),
-                         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                         dv.data_ptr(), B, Sq, Sk, H, K, w, int(causal),
-                         int(q_offset), d ** -0.5, _build.stream(q.device))
-        _build.check(err, "flash_attention_bwd")
-        flash_attention_bwd.launches += 1
+        if q.is_meta:
+            record("flash_attention_bwd", bwd_cost(
+                B, Sq, Sk, H, K, d, causal=causal, q_offset=q_offset))
+        else:
+            err = _lib_bwd()(pq.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+                             po.data_ptr(), pdo.data_ptr(), lse.data_ptr(),
+                             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                             dv.data_ptr(), B, Sq, Sk, H, K, w, int(causal),
+                             int(q_offset), d ** -0.5,
+                             _build.stream(q.device))
+            _build.check(err, "flash_attention_bwd")
+            flash_attention_bwd.launches += 1
     else:  # nothing attended: every gradient is zero
         for t in (dq, dk, dv):
             t.zero_()
@@ -167,6 +176,46 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
 
 
 flash_attention_bwd.launches = 0
+
+
+def pairs(B: int, Sq: int, Sk: int, H: int, *, causal: bool = True,
+          q_offset: int = 0) -> int:
+    """(query, key) pairs the kernel scores: every pair without a mask,
+    else query row i's first ``min(Sk, i + q_offset + 1)`` keys (the tiles
+    above the diagonal are skipped), over B and the H query heads."""
+    if not causal:
+        return B * H * Sq * Sk
+    a = q_offset + 1                        # the first row's keys
+    n1 = min(max(Sk - a + 1, 0), Sq)        # rows short of Sk keys
+    return B * H * (n1 * a + n1 * (n1 - 1) // 2 + (Sq - n1) * Sk)
+
+
+def cost(B: int, Sq: int, Sk: int, H: int, K: int, D: int, *,
+         causal: bool = True, q_offset: int = 0,
+         with_lse: bool = False) -> Cost:
+    """One forward call: Q K^T and P V, 4 D FLOP a scored pair on the
+    tensor cores; q, k, v read and the output written (bf16), ``lse``
+    (f32) written when asked. A head narrower than 64 counts at its padded
+    width, as the card runs it (``_pad``)."""
+    w = _pad.width(D)
+    n = pairs(B, Sq, Sk, H, causal=causal, q_offset=q_offset)
+    q = B * Sq * H * w
+    kv = B * Sk * K * w
+    nbytes = (2 * q + 2 * kv) * 2 + (B * H * Sq * 4 if with_lse else 0)
+    return Cost(4 * w * n, nbytes, unit="bf16")
+
+
+def bwd_cost(B: int, Sq: int, Sk: int, H: int, K: int, D: int, *,
+             causal: bool = True, q_offset: int = 0) -> Cost:
+    """One backward call (two launches): five products of D-deep dots a
+    pair (S, dP, dV, dK, dQ), 10 D FLOP (the kernels execute 14 D, S and dP
+    twice); q, k, v, o, dO and lse read once, dq, dk, dv written once."""
+    w = _pad.width(D)
+    n = pairs(B, Sq, Sk, H, causal=causal, q_offset=q_offset)
+    q = B * Sq * H * w
+    io = (q + 2 * B * Sk * K * w) * 2
+    return Cost(10 * w * n, 2 * io + 2 * q * 2 + B * H * Sq * 4,
+                unit="bf16", launches=2)
 
 
 class FlashAttention(torch.autograd.Function):

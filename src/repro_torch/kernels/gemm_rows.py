@@ -36,9 +36,11 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import _build
+from repro_torch.kernels._cost import Cost, record
 from repro_torch.kernels._flash_decode import counters
 from repro_torch.kernels.ref import gemm_rows as plain  # noqa: F401  (beside the kernel)
 from repro_torch.kernels.ref import gemm_rows_grouped as plain_grouped  # noqa: F401
+from repro_torch.launch.roofline import SMS
 
 SUB_N = 64                # columns of a consumer warpgroup: SUB_N
 ROWS = 64                 # rows of a pass: XROWS
@@ -185,6 +187,12 @@ def _n_sm(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _sms(device: torch.device) -> int:
+    """The SMs a plan is cut for: the card's, or on the meta device the
+    H100 SXM's."""
+    return SMS if device.type == "meta" else _n_sm(device.index)
+
+
 # per weight (pointer, shape, strides, dtype, device): its launch record
 # (w's tensor map and plan, encoded once: a weight keeps its address for
 # the life of a serve) and the plan's numbers a launch passes
@@ -193,8 +201,11 @@ MAX_RECORDS = 4096
 
 
 def _record(w: torch.Tensor, K: int, N: int, ld: int, nk: int, p: Plan,
-            n_exp: int) -> int:
-    """Encode w's tensor map and ``p`` into a launch record."""
+            n_exp: int) -> int | None:
+    """Encode w's tensor map and ``p`` into a launch record (none on the
+    meta device)."""
+    if w.is_meta:
+        return None
     lib = _lib()
     if len(_launches) >= MAX_RECORDS:
         forget()
@@ -207,7 +218,7 @@ def _record(w: torch.Tensor, K: int, N: int, ld: int, nk: int, p: Plan,
 
 
 def _check_device(x: torch.Tensor, w: torch.Tensor) -> None:
-    if x.device.type != "cuda" or w.device != x.device:
+    if x.device.type not in _build.DEVICES or w.device != x.device:
         raise ValueError(f"gemm_rows kernel needs CUDA tensors on one "
                          f"device, got {x.device} and {w.device}")
     if w.dtype != torch.bfloat16:
@@ -224,7 +235,8 @@ def _prepare(x: torch.Tensor, w: torch.Tensor, key: tuple) -> tuple:
     a weak reference to w: the map's row pitch must be a multiple of 16
     bytes. The copy is taken when the record is made, as the tensor map is:
     a weight keeps its values for the life of a serve, and another tensor
-    at w's address is copied anew."""
+    at w's address is copied anew. On the meta device, where every tensor
+    is at address 0, nothing is cached, copied or encoded."""
     _check_device(x, w)
     if w.ndim != 2:
         raise TypeError(f"gemm_rows kernel: w must be a matrix, got "
@@ -241,14 +253,16 @@ def _prepare(x: torch.Tensor, w: torch.Tensor, key: tuple) -> tuple:
         raise ValueError(f"gemm_rows kernel: K {K} must be a multiple of 8 "
                          f"and w 16-byte aligned")
     src, ld, pad = w, N, None
-    if not nk and N % 8:
+    if not nk and N % 8 and not w.is_meta:
         ld = -(-N // 8) * 8
         src = torch.zeros(K, ld, dtype=w.dtype, device=w.device)
         src[:, :N] = w
         pad = (src, weakref.ref(w))
-    p = plan(K, N, nk, _n_sm(x.device.index))
-    launch = _launches[key] = (K, N, _record(src, K, N, ld, nk, p, 0),
-                               p.grid, p.scratch_floats(1), p.n_tiles, pad)
+    p = plan(K, N, nk, _sms(x.device))
+    launch = (K, N, _record(src, K, N, ld, nk, p, 0), p.grid,
+              p.scratch_floats(1), p.n_tiles, pad)
+    if not w.is_meta:
+        _launches[key] = launch
     return launch
 
 
@@ -283,7 +297,9 @@ def gemm_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError("gemm_rows kernel: x is not 16-byte aligned")
     M = x2.shape[0]
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-    if M:
+    if M and dev.type == "meta":
+        record("gemm_rows", cost(M, K, N))
+    elif M:
         part = cnt = None
         if scratch_a_row:  # the plan splits K
             # the f32 partials of split products
@@ -310,9 +326,10 @@ def _prepare_grouped(buf: torch.Tensor, w: torch.Tensor, key: tuple) -> tuple:
     if K % 8 or N % 8 or w.data_ptr() % 16:
         raise ValueError(f"gemm_rows_grouped kernel: K {K} and N {N} must "
                          f"be multiples of 8 and w 16-byte aligned")
-    p = plan_grouped(E, K, N, _n_sm(buf.device.index))
-    launch = _launches[key] = (K, N, _record(w, K, N, N, 0, p, E), p.grid,
-                               0, p.n_tiles, None)
+    p = plan_grouped(E, K, N, _sms(buf.device))
+    launch = (K, N, _record(w, K, N, N, 0, p, E), p.grid, 0, p.n_tiles, None)
+    if not w.is_meta:
+        _launches[key] = launch
     return launch
 
 
@@ -343,7 +360,9 @@ def gemm_rows_grouped(buf: torch.Tensor, w: torch.Tensor,
                          "aligned")
     C = buf.shape[1]
     out = torch.empty((E, C, N), dtype=torch.bfloat16, device=dev)
-    if C:
+    if C and dev.type == "meta":   # no counts to read: the whole capacity
+        record("gemm_rows_grouped", grouped_cost(E, C, K, N))
+    elif C:
         err = _lib().gemm_rows_grouped_bf16(
             buf.data_ptr(), rec, out.data_ptr(),
             None if counts is None else counts.data_ptr(), C, grid,
@@ -354,6 +373,29 @@ def gemm_rows_grouped(buf: torch.Tensor, w: torch.Tensor,
 
 
 gemm_rows_grouped.launches = 0
+
+
+def cost(M: int, K: int, N: int) -> Cost:
+    """One call, ``(M, K) @ (K, N)``: w, x read and the output written
+    (bf16), 2 M K N FLOP on the tensor cores. One launch whatever the plan
+    (the K segments' partials merge in it); the plan, which the SM count
+    sets (``plan``), moves no byte that counts here."""
+    return Cost(2 * M * K * N, 2 * (K * N + M * K + M * N), unit="bf16")
+
+
+def grouped_cost(E: int, C: int, K: int, N: int, counts=None) -> Cost:
+    """One grouped call, ``(E, C, K) @ (E, K, N)``: with ``counts`` (the
+    routing's rows an expert) the experts some lane reached and their rows,
+    as the kernel skips the rest; without (a meta pass) the capacity's
+    whole buffer, every expert's C rows, as XLA counts the reference's
+    dispatch (the capacity comes from the config, ``models/moe.py``)."""
+    if counts is None:
+        active, n_rows = E, E * C
+    else:
+        counts = [int(c) for c in counts]
+        active, n_rows = sum(c > 0 for c in counts), sum(counts)
+    return Cost(2 * n_rows * K * N, 2 * (active * K * N + n_rows * (K + N)),
+                unit="bf16")
 
 
 def decode_products(cfg: ModelConfig) -> list[tuple[str, int, int, bool]]:

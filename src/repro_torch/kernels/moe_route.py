@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build, _flash_decode
+from repro_torch.kernels._cost import Cost, record
 from repro_torch.kernels.ref import moe_route as plain  # noqa: F401  (beside the kernel)
 from repro_torch.kernels.ref import moe_route_bwd as plain_bwd  # noqa: F401
 from repro_torch.kernels.ref import moe_route_grads as plain_grads  # noqa: F401
@@ -131,7 +132,7 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, k: int, *,
     ``weights (T, k)`` f32 and ``ids (T, k)`` int32, best first, and with
     ``with_probs`` the softmax ``probs (T, E)`` f32 too (the same launch;
     weights and ids the same bits either way)."""
-    if x.device.type != "cuda" or router.device != x.device:
+    if x.device.type not in _build.DEVICES or router.device != x.device:
         raise ValueError(f"moe_route kernel needs CUDA tensors on one "
                          f"device, got {x.device} and {router.device}")
     if x.dtype != torch.bfloat16 or router.dtype != torch.float32:
@@ -149,7 +150,9 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, k: int, *,
     ids = torch.empty(T, k, dtype=torch.int32, device=x.device)
     probs = torch.empty(T, E, dtype=torch.float32, device=x.device) \
         if with_probs else None
-    if T:
+    if T and x.is_meta:
+        record("moe_route", cost(T, d, E, k, with_probs=with_probs))
+    elif T:
         p = plan(d, E)
         err = _lib()(x.data_ptr(), router.data_ptr(), weights.data_ptr(),
                      ids.data_ptr(), probs.data_ptr() if with_probs else None,
@@ -160,6 +163,31 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, k: int, *,
 
 
 moe_route.launches = 0
+
+
+def cost(T: int, d: int, E: int, k: int, *,
+         with_probs: bool = False) -> Cost:
+    """One call: x (bf16) and the router (f32) read, weights and ids (T, k)
+    written, with ``with_probs`` the softmax (T, E) f32 too; the f32
+    product's 2 T d E FLOP and an exponential a logit."""
+    nbytes = T * d * 2 + d * E * 4 + T * k * 8 + (T * E * 4 if with_probs
+                                                    else 0)
+    return Cost(2 * T * d * E, nbytes, exps=T * E, unit="f32")
+
+
+def bwd_cost(T: int, d: int, E: int, k: int, *,
+             basis: str = "bf16") -> Cost:
+    """One backward call (two launches): x read and dx written (bf16),
+    probs, dprobs (T, E), ids, weights, dw (T, k), the router read and
+    d_router written (f32). The two products' 4 T d E operations run three
+    times over on the tensor cores (bf16 splits under the f32 contract);
+    ``basis`` "f32" counts them once on the f32 units, with d_logits' few
+    a token."""
+    nbytes = 4 * T * d + 8 * T * E + 12 * T * k + 8 * d * E
+    if basis == "f32":
+        return Cost(4 * T * d * E + 4 * T * E + 4 * T * k, nbytes,
+                    unit="f32", launches=2)
+    return Cost(3 * 4 * T * d * E, nbytes, unit="bf16", launches=2)
 
 
 class GradsPlan(NamedTuple):
@@ -222,9 +250,9 @@ def moe_route_bwd(x: torch.Tensor, router: torch.Tensor, probs: torch.Tensor,
     (T, E)`` f32. Two launches; one alone when neither gradient is
     wanted."""
     dev = probs.device
-    if dev.type != "cuda" or any(t is not None and t.device != dev
-                                 for t in (x, router, ids, weights, dw,
-                                           dprobs)):
+    if dev.type not in _build.DEVICES or any(
+            t is not None and t.device != dev
+            for t in (x, router, ids, weights, dw, dprobs)):
         raise ValueError("moe_route_bwd kernel needs CUDA tensors on one "
                          "device")
     T, E = probs.shape
@@ -267,7 +295,9 @@ def moe_route_bwd(x: torch.Tensor, router: torch.Tensor, probs: torch.Tensor,
         d, E, dtype=torch.float32, device=dev) if need_drouter else None
     part = _build.scratch("route_partials", p.blocks * p.S * E,
                           torch.float32, dev) if need_drouter else None
-    if T:
+    if T and dev.type == "meta":
+        record("moe_route_bwd", bwd_cost(T, d, E, k))
+    elif T:
         err = _lib_bwd()(
             x.data_ptr(), router.data_ptr(), probs.data_ptr(), ids.data_ptr(),
             weights.data_ptr(), dw.data_ptr(),

@@ -34,6 +34,13 @@ counted in ``counts()``); a CPU tensor, or any under
 differentiates that: the oracle of the backward kernels. Such a call counts
 a plain call of the backward too. A call that needs no gradient (serving)
 takes the path it always took.
+
+A meta tensor (the dry-run's pass, ``launch/counter.py``) takes the
+card's path under the kernel backend, autograd Functions included: each
+wrapper checks it and allocates as on the card, and at its launch records
+the call's cost (``kernels/_cost.py``) in place of the launch, with no
+``ctypes`` call and no launch counted. Under ``use_backend("plain")`` it
+goes to the plain version like a CPU tensor.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import contextvars
 
 import torch
 
+from repro_torch.kernels import _cost
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gemm_rows as _gemm
@@ -113,6 +121,14 @@ def _plain(x: torch.Tensor, name: str) -> bool:
     return False
 
 
+def _note_grad(x: torch.Tensor, name: str) -> None:
+    """A kernel call that needs a gradient: on meta tensors, its backward
+    ``name`` noted for the meta pass (the tally ``plain_calls`` keeps for
+    a plain call)."""
+    if x.is_meta:
+        _cost.note_grad(name)
+
+
 def _needs_grad(*ts: torch.Tensor | None) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in ts)
@@ -125,6 +141,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
             plain_calls["rmsnorm_bwd"] += 1
         return ref.rmsnorm(x, w, eps)
     if grad:
+        _note_grad(x, "rmsnorm_bwd")
         return _rmsnorm.RMSNorm.apply(x, w, eps)
     return _rmsnorm.rmsnorm(x, w, eps)
 
@@ -143,6 +160,7 @@ def attention(
             plain_calls["flash_attention_bwd"] += 1
         return ref.attention(q, k, v, causal=causal, q_offset=q_offset)
     if grad:
+        _note_grad(q, "flash_attention_bwd")
         return _flash.FlashAttention.apply(q, k, v, causal, q_offset)
     return _flash.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
 
@@ -175,7 +193,7 @@ def paged_decode_attention(
 
 
 def _fold(q, k_pages, v_pages, page_table, lengths, *, rows: int = 1,
-          run=None) -> torch.Tensor:
+          run=None, meta_cost=None) -> torch.Tensor:
     """``q (B, W, H, D)`` through the paged decode kernel (or ``run``, a
     function of its arguments) as ``B * W / rows`` folded lanes: each
     ``rows`` consecutive query rows of a lane, which share a length, stack
@@ -183,16 +201,18 @@ def _fold(q, k_pages, v_pages, page_table, lengths, *, rows: int = 1,
     block, at most ``_paged.MAX_GROUP``), and each folded lane takes its
     lane's table row. ``lengths (B, W / rows)`` per folded lane; ``W`` a
     multiple of ``rows``. A row's arithmetic is the same wherever it sits in
-    the group, so each is bitwise a one-lane decode at its length."""
+    the group, so each is bitwise a one-lane decode at its length. On meta
+    tensors the kernel records ``meta_cost``, the fold's own."""
     B, W, H, D = q.shape
     K = k_pages.shape[2]
     n = W // rows
     qf = (q.reshape(B, n, rows, K, H // K, D).transpose(2, 3)
           .reshape(B * n, K * rows * (H // K), D))
     table = page_table if n == 1 else page_table.repeat_interleave(n, dim=0)
-    out = (run or _paged.paged_decode_attention)(
-        qf.contiguous(), k_pages, v_pages, table.contiguous(),
-        lengths.reshape(-1).to(torch.int32).contiguous())
+    args = (qf.contiguous(), k_pages, v_pages, table.contiguous(),
+            lengths.reshape(-1).to(torch.int32).contiguous())
+    out = run(*args) if run else _paged.paged_decode_attention(
+        *args, meta_cost=meta_cost)
     return (out.reshape(B, n, K, rows, H // K, D).transpose(2, 3)
             .reshape(B, W, H, D))
 
@@ -212,9 +232,16 @@ def paged_verify_attention(
     if _plain(q, "paged_decode_attention"):
         return ref.paged_verify_attention(q, k_pages, v_pages, page_table,
                                           positions)
-    W = q.shape[1]
+    B, W, H, D = q.shape
+    meta_cost = None
+    if q.is_meta:   # no positions to read: each window at its table's end
+        cap = page_table.shape[1] * k_pages.shape[1]
+        meta_cost = _paged.verify_cost(B, W, H, k_pages.shape[2], D,
+                                       page_table.numel(),
+                                       [max(cap - W, 0)] * B)
     return _fold(q, k_pages, v_pages, page_table,
-                 positions[:, None] + torch.arange(W, device=q.device) + 1)
+                 positions[:, None] + torch.arange(W, device=q.device) + 1,
+                 meta_cost=meta_cost)
 
 
 def cross_rows(C: int, H: int, K: int) -> int:
@@ -228,15 +255,21 @@ def _cross_fold(q, k_pages, v_pages, page_table, lengths,
     """The card's route of :func:`paged_cross_attention`: every row of a
     lane has the lane's length, so ``cross_rows`` of them share a folded
     lane (C padded with zero rows to a multiple). ``run`` stands in for the
-    kernel (a test's plain twin on the CPU)."""
-    B, C, H, _ = q.shape
-    rows = cross_rows(C, H, k_pages.shape[2])
+    kernel (a test's plain twin on the CPU). On meta tensors, which have
+    no lengths, the kernel records ``cross_cost`` over every position of
+    the tables."""
+    B, C, H, D = q.shape
+    K = k_pages.shape[2]
+    meta_cost = _paged.cross_cost(
+        B, C, H, K, D, page_table.numel(),
+        B * page_table.shape[1] * k_pages.shape[1]) if q.is_meta else None
+    rows = cross_rows(C, H, K)
     pad = -C % rows
     if pad:
         q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
     out = _fold(q, k_pages, v_pages, page_table,
                 lengths[:, None].expand(B, (C + pad) // rows), rows=rows,
-                run=run)
+                run=run, meta_cost=meta_cost)
     return out[:, :C] if pad else out
 
 
@@ -294,6 +327,7 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, k: int, *,
             plain_calls["moe_route_bwd"] += 1
         return ref.moe_route(x, router, k, with_probs=with_probs)
     if grad:
+        _note_grad(x, "moe_route_bwd")
         weights, ids, probs = _route.MoeRoute.apply(x, router, k)
         return (weights, ids, probs) if with_probs else (weights, ids)
     return _route.moe_route(x, router, k, with_probs=with_probs)
@@ -316,6 +350,7 @@ def selective_scan(
             plain_calls["selective_scan_bwd"] += 1
         return ref.selective_scan(x, dt, A, Bm, C, D, h0)
     if grad:
+        _note_grad(x, "selective_scan_bwd")
         return _scan.SelectiveScan.apply(x, dt, A, Bm, C, D, h0)
     return _scan.selective_scan(x, dt, A, Bm, C, D, h0)
 
@@ -337,6 +372,7 @@ def ssd(
             plain_calls["ssd_bwd"] += 1
         return ref.ssd(x, dt, A, Bm, C, D, h0, chunk=chunk)
     if grad:
+        _note_grad(x, "ssd_bwd")
         return _ssd.SSD.apply(x, dt, A, Bm, C, D, h0, chunk)
     return _ssd.ssd(x, dt, A, Bm, C, D, h0, chunk=chunk)
 

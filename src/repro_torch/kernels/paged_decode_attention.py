@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, _flash_decode, _pad
+from repro_torch.kernels._cost import Cost, record
 from repro_torch.kernels.ref import paged_decode_attention as plain  # noqa: F401
 
 # the most query heads a kv head's block takes (the rows of its mma tile
@@ -58,10 +59,15 @@ def paged_decode_attention(
     v_pages: torch.Tensor,     # (n_pages, P, K, D) bf16
     page_table: torch.Tensor,  # (B, max_pages) int32
     lengths: torch.Tensor,     # (B,) int32
+    *,
+    meta_cost: Cost | None = None,
 ) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors; returns ``(B, H, D)`` bf16."""
+    """Launch the kernel on CUDA tensors; returns ``(B, H, D)`` bf16. On
+    meta tensors the call records ``meta_cost`` (a fold's own:
+    ``verify_cost``, ``cross_cost``), else its ``cost`` over every position
+    of the tables."""
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type not in _build.DEVICES:
         raise ValueError(f"paged_decode_attention kernel needs CUDA, got {dev}")
     B, H, D = q.shape
     n_pages, P, K, Dk = k_pages.shape
@@ -78,25 +84,75 @@ def paged_decode_attention(
         _check(t, name, torch.bfloat16, dev)
     for t, name in ((page_table, "page_table"), (lengths, "lengths")):
         _check(t, name, torch.int32, dev)
-    return _pad.run_padded(_launch, q, k_pages, v_pages, page_table, lengths)
+    return _pad.run_padded(_launch, q, k_pages, v_pages, page_table, lengths,
+                           meta_cost=meta_cost)
 
 
-def _launch(q, k_pages, v_pages, page_table, lengths, *, scale: float):
+def _launch(q, k_pages, v_pages, page_table, lengths, *, scale: float,
+            meta_cost: Cost | None):
     """The launch at a built width (64 or 128), softmax scale given."""
     B, H, D = q.shape
     _, P, K, _ = k_pages.shape
     out = torch.empty_like(q)
     if B:
-        part, cnt = _flash_decode.scratch(B, K, H // K, D,
-                                          page_table.shape[1] * P, q.device)
-        err = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                     page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                     part.data_ptr(), cnt.data_ptr(),
-                     B, H, K, D, P, page_table.shape[1], scale,
-                     _build.stream(q.device))
-        _build.check(err, "paged_decode_attention")
-        paged_decode_attention.launches += 1
+        cap = page_table.shape[1] * P
+        part, cnt = _flash_decode.scratch(B, K, H // K, D, cap, q.device)
+        if q.is_meta:
+            record("paged_decode_attention", meta_cost or cost(
+                B, H, K, D, page_table.numel(), B * cap))
+        else:
+            err = _lib()(q.data_ptr(), k_pages.data_ptr(),
+                         v_pages.data_ptr(), page_table.data_ptr(),
+                         lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
+                         cnt.data_ptr(), B, H, K, D, P, page_table.shape[1],
+                         scale, _build.stream(q.device))
+            _build.check(err, "paged_decode_attention")
+            paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+
+
+def _io(n_keys: int, K: int, w: int, q_numel: int, table_numel: int,
+        lanes: int) -> int:
+    """Each key and value read once, q read and the output written, the
+    page table and a length a lane read."""
+    return (n_keys * K * w * 2 * 2 + 2 * q_numel * 2 + table_numel * 4
+            + lanes * 4)
+
+
+def cost(B: int, H: int, K: int, D: int, table_numel: int,
+         n_keys: int) -> Cost:
+    """One decode call over ``n_keys`` keys in all (the lanes' lengths'
+    sum; a meta pass, which has no lengths, counts every position of the
+    tables): 4 D FLOP a key and query head on the f32 units."""
+    w = _pad.width(D)
+    return Cost(4 * n_keys * H * w, _io(n_keys, K, w, B * H * w,
+                                        table_numel, B), unit="f32")
+
+
+def verify_cost(B: int, W: int, H: int, K: int, D: int, table_numel: int,
+                positions) -> Cost:
+    """One verify call (``ops.paged_verify_attention``: a window of W
+    queries a lane folded into the decode kernel): each lane's pages read
+    once, as its window's queries read the same keys; query j of a lane at
+    position n scores ``n + j + 1`` keys."""
+    w = _pad.width(D)
+    pos = [int(n) for n in positions]
+    n_keys = sum(pos) + B * W
+    flops = 4 * H * w * sum(n * W + W * (W + 1) // 2 for n in pos)
+    return Cost(flops, _io(n_keys, K, w, B * W * H * w, table_numel, B),
+                unit="f32")
+
+
+def cross_cost(B: int, C: int, H: int, K: int, D: int, table_numel: int,
+               n_keys: int, unit: str = "bf16") -> Cost:
+    """One cross read (``ops.paged_cross_attention``: C query rows a lane
+    folded into the decode kernel) over ``n_keys`` region keys in all: each
+    lane's region read once, as every folded query reads the same keys; Q
+    K^T and P V on bf16 operands, so the tensor cores' rate (``unit``
+    "f32": the same work on the units outside them)."""
+    w = _pad.width(D)
+    return Cost(4 * C * n_keys * H * w,
+                _io(n_keys, K, w, B * C * H * w, table_numel, B), unit=unit)

@@ -30,6 +30,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._cost import Cost, record
 from repro_torch.kernels.ref import rmsnorm as plain  # noqa: F401  (beside the kernel)
 
 _TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -57,7 +58,7 @@ def _lib():
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Launch the kernel on a CUDA tensor: RMS-normalize the trailing dim of
     ``x`` (any leading shape) and scale by ``w``."""
-    if x.device.type != "cuda" or w.device != x.device:
+    if x.device.type not in _build.DEVICES or w.device != x.device:
         raise ValueError(f"rmsnorm kernel needs CUDA tensors on one device, "
                          f"got {x.device} and {w.device}")
     xtype, wtype = _TYPES.get(x.dtype), _TYPES.get(w.dtype)
@@ -72,7 +73,9 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     x2 = x.reshape(-1, d).contiguous()
     out = torch.empty_like(x2)
     rows = x2.shape[0]
-    if rows and d:
+    if rows and d and x.is_meta:
+        record("rmsnorm", cost(rows, d, x.element_size(), w.element_size()))
+    elif rows and d:
         fn, _, _ = _lib()
         err = fn(x2.data_ptr(), w.contiguous().data_ptr(), out.data_ptr(),
                  rows, d, xtype, wtype, eps,
@@ -93,6 +96,13 @@ def empty_launch(device: torch.device) -> None:
                  "empty kernel")
 
 
+def cost(rows: int, d: int, x_bytes: int = 2, w_bytes: int = 4) -> Cost:
+    """One call over ``rows`` rows of ``d``: x read and the output written
+    (``x_bytes`` each), w read; its few operations a row count for
+    nothing."""
+    return Cost(0, 2 * rows * d * x_bytes + d * w_bytes, unit="f32")
+
+
 MIN_CHUNK, MAX_RUNS_BWD = 32, 256
 
 
@@ -109,7 +119,7 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     """The backward kernel on CUDA tensors: ``(dx, dw)`` of
     ``rmsnorm(x, w, eps)`` for the output's gradient ``g`` (x's shape and
     type): dx of x's shape and type, dw f32 of w's shape."""
-    if x.device.type != "cuda" or w.device != x.device \
+    if x.device.type not in _build.DEVICES or w.device != x.device \
             or g.device != x.device:
         raise ValueError(f"rmsnorm_bwd kernel needs CUDA tensors on one "
                          f"device, got {x.device}, {w.device}, {g.device}")
@@ -134,6 +144,10 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     chunk = chunk_rows(rows)
     part = torch.empty((-(-rows // chunk), d), dtype=torch.float32,
                        device=x.device)
+    if x.is_meta:
+        record("rmsnorm_bwd", bwd_cost(rows, d, x.element_size(),
+                                       w.element_size()))
+        return dx.reshape(x.shape), dw
     _, _, bwd = _lib()
     err = bwd(x2.data_ptr(), w.contiguous().data_ptr(), g2.data_ptr(),
               dx.data_ptr(), part.data_ptr(), dw.data_ptr(), rows, d,
@@ -144,6 +158,14 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
 
 
 rmsnorm_bwd.launches = 0
+
+
+def bwd_cost(rows: int, d: int, x_bytes: int = 2, w_bytes: int = 4) -> Cost:
+    """One backward call (two launches): x and g read and dx written
+    (``x_bytes`` each), w read and dw written (``w_bytes`` each); the
+    partial rows stay in L2 and count nothing."""
+    return Cost(0, 3 * rows * d * x_bytes + 2 * d * w_bytes, unit="f32",
+                launches=2)
 
 
 class RMSNorm(torch.autograd.Function):

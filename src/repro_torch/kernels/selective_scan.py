@@ -37,6 +37,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._cost import Cost, record
 from repro_torch.kernels.ref import selective_scan as plain  # noqa: F401  (beside the kernel)
 
 STATES = (4, 8, 16, 32, 64)   # the state sizes the kernel is built for
@@ -88,7 +89,7 @@ def selective_scan(
     ``hT`` (B, Di, N) f32, and with ``save_states`` also the f32 state
     entering each tile, (B, ceil(S / 256), Di, N), tile 0's being h0."""
     dev = x.device
-    if dev.type != "cuda":
+    if dev.type not in _build.DEVICES:
         raise ValueError(f"selective_scan kernel needs CUDA, got {dev}")
     B, S, Di = x.shape
     N = A.shape[-1]
@@ -111,7 +112,9 @@ def selective_scan(
     hT = torch.empty_like(h0)
     hs = (torch.empty(B, -(-S // TILE), Di, N, dtype=f32, device=dev)
           if save_states else None)
-    if B and Di:
+    if B and Di and dev.type == "meta":
+        record("selective_scan", cost(B, S, Di, N, save_states=save_states))
+    elif B and Di:
         # 16-byte staging of x and dt and 16-byte stores of y, else scalar
         vec = Di % 8 == 0 and not any(t.data_ptr() % 16 for t in (x, dt, y))
         err = _lib()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
@@ -133,7 +136,7 @@ def selective_scan_bwd(x, dt, A, Bm, C, D, hs, dy, dhT=None):
     states. Returns ``(dx, ddt, dA, dB, dC, dD, dh0)``: bf16, bf16, f32,
     bf16, bf16, f32, f32."""
     dev = x.device
-    if dev.type != "cuda":
+    if dev.type not in _build.DEVICES:
         raise ValueError(f"selective_scan_bwd kernel needs CUDA, got {dev}")
     B, S, Di = x.shape
     N = A.shape[-1]
@@ -164,6 +167,9 @@ def selective_scan_bwd(x, dt, A, Bm, C, D, hs, dy, dhT=None):
     pB = torch.empty(2, blocks, B, S, N, dtype=f32, device=dev)
     pA = torch.empty(B, Di, N, dtype=f32, device=dev)
     pD = torch.empty(B, Di, dtype=f32, device=dev)
+    if dev.type == "meta":
+        record("selective_scan_bwd", bwd_cost(B, S, Di, N))
+        return dx, ddt, dA, dB, dC, dD, dh0
     # B and C are read as bf16 pairs: 4-byte aligned
     Bm, C = (t if t.data_ptr() % 4 == 0 else t.clone() for t in (Bm, C))
     # 16-byte staging of x, dt, dy and 16-byte stores of dx, ddt, else scalar
@@ -179,6 +185,37 @@ def selective_scan_bwd(x, dt, A, Bm, C, D, hs, dy, dhT=None):
 
 
 selective_scan_bwd.launches = 0
+
+
+def _io(B: int, S: int, Di: int, N: int) -> int:
+    """x and dt read (bf16), B and C read (bf16), A and D read (f32)."""
+    return 2 * B * S * Di * 2 + 2 * B * S * N * 2 + Di * N * 4 + Di * 4
+
+
+def cost(B: int, S: int, Di: int, N: int, *,
+         save_states: bool = False) -> Cost:
+    """One forward call: per (t, d, n) dt*A, its exponential, two products
+    and an add for h, an FMA into y; per (t, d) dt*x and D*x + y, on the
+    f32 units. The inputs and h0 read, y and hT written, with
+    ``save_states`` also each tile's entering state."""
+    n_sn = B * S * Di * N
+    tiles = -(-S // TILE) if save_states else 0
+    return Cost(6 * n_sn + 3 * B * S * Di,
+                _io(B, S, Di, N) + B * S * Di * 2
+                + (2 + tiles) * B * Di * N * 4, exps=n_sn, unit="f32")
+
+
+def bwd_cost(B: int, S: int, Di: int, N: int) -> Cost:
+    """One backward call (two launches): read x, dt, dy, B, C, A, D and the
+    tiles' states; written dx, ddt, dB, dC, dA, dD, dh0. Per (t, d, n) the
+    replay's exponential and ~12 f32 operations (the replay's two, the
+    adjoint's and the five sums')."""
+    n_sn = B * S * Di * N
+    tiles = -(-S // TILE)
+    return Cost(12 * n_sn,
+                _io(B, S, Di, N) + 3 * B * S * Di * 2 + 2 * B * S * N * 2
+                + Di * N * 4 + Di * 4 + (tiles + 1) * B * Di * N * 4,
+                exps=n_sn, unit="f32", launches=2)
 
 
 class SelectiveScan(torch.autograd.Function):

@@ -38,6 +38,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build, _flash_decode
+from repro_torch.kernels._cost import Cost, record
 from repro_torch.kernels.ref import ssd as plain  # noqa: F401  (beside the kernel)
 
 MAX_P = 64      # P: a multiple of 8 up to 64
@@ -101,12 +102,13 @@ def ssd(
     return _forward(x, dt, A, Bm, C, D, h0, chunk)[:2]
 
 
-def _forward(x, dt, A, Bm, C, D, h0, chunk):
+def _forward(x, dt, A, Bm, C, D, h0, chunk, keep_scratch: bool = False):
     """:func:`ssd`'s launches: ``(y, hT, scratch)``, the scratch the f32
     buffer of l, the entering states and the decays (None without a step
-    or a launch)."""
+    or a launch); ``keep_scratch`` where a backward will read it (its
+    bytes count in the call's cost)."""
     dev = x.device
-    if dev.type != "cuda":
+    if dev.type not in _build.DEVICES:
         raise ValueError(f"ssd kernel needs CUDA, got {dev}")
     B, S, Hs, P = x.shape
     N = Bm.shape[-1]
@@ -134,16 +136,19 @@ def _forward(x, dt, A, Bm, C, D, h0, chunk):
     if B and Hs:
         n_l, n_s, n_d = scratch_sizes(B, S, Hs, P, N, c)
         buf = torch.empty(n_l + n_s + n_d, dtype=f32, device=dev)
-        base = buf.data_ptr()
-        err = _lib()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                     C.data_ptr(), D.data_ptr(), h0.data_ptr(), y.data_ptr(),
-                     hT.data_ptr(), base, base + 4 * n_l,
-                     base + 4 * (n_l + n_s),
-                     _flash_decode.counters(B * Hs, dev).data_ptr(),
-                     B, S, Hs, P, N, c,
-                     _build.stream(dev))
-        _build.check(err, "ssd")
-        ssd.launches += 1
+        if dev.type == "meta":
+            record("ssd", cost(B, S, Hs, P, N, chunk=chunk,
+                               keep_scratch=keep_scratch))
+        else:
+            base = buf.data_ptr()
+            err = _lib()(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                         Bm.data_ptr(), C.data_ptr(), D.data_ptr(),
+                         h0.data_ptr(), y.data_ptr(), hT.data_ptr(), base,
+                         base + 4 * n_l, base + 4 * (n_l + n_s),
+                         _flash_decode.counters(B * Hs, dev).data_ptr(),
+                         B, S, Hs, P, N, c, _build.stream(dev))
+            _build.check(err, "ssd")
+            ssd.launches += 1
     return y, hT, buf
 
 
@@ -157,7 +162,7 @@ def ssd_bwd(x, dt, A, Bm, C, D, scratch, dy, dhT=None, *, chunk: int = 256):
     (:func:`_forward`). Returns ``(dx, ddt, dA, dB, dC, dD, dh0)``: bf16,
     bf16, f32, bf16, bf16, f32, f32."""
     dev = x.device
-    if dev.type != "cuda":
+    if dev.type not in _build.DEVICES:
         raise ValueError(f"ssd_bwd kernel needs CUDA, got {dev}")
     B, S, Hs, P = x.shape
     N = Bm.shape[-1]
@@ -189,6 +194,9 @@ def ssd_bwd(x, dt, A, Bm, C, D, scratch, dy, dhT=None, *, chunk: int = 256):
     dHn = torch.empty(B, Hs, chunks, P, N, dtype=f32, device=dev)
     pBC = torch.empty(2, B, groups, S, N, dtype=f32, device=dev)
     pAD = torch.empty(2, B, Hs, chunks, dtype=f32, device=dev)
+    if dev.type == "meta":
+        record("ssd_bwd", bwd_cost(B, S, Hs, P, N, chunk=chunk))
+        return dx, ddt, dA, dB, dC, dD, dh0
     base = scratch.data_ptr()
     ptr = (lambda t: t.data_ptr() if t is not None else None)
     err = _bwd_lib()(*map(ptr, (x, dt, A, Bm, C, D, dy, dhT)), base,
@@ -205,6 +213,55 @@ def ssd_bwd(x, dt, A, Bm, C, D, scratch, dy, dhT=None, *, chunk: int = 256):
 ssd_bwd.launches = 0
 
 
+def _pairs(S: int, chunk: int) -> int:
+    """The causal (i, j) pairs of every chunk: n(n+1)/2 for a chunk of n
+    steps."""
+    c = max(1, min(chunk, S))
+    chunks = [min(c, S - c0) for c0 in range(0, S, c)]
+    return sum(n * (n + 1) // 2 for n in chunks)
+
+
+def cost(B: int, S: int, Hs: int, P: int, N: int, *, chunk: int = 256,
+         keep_scratch: bool = False, unit: str = "bf16") -> Cost:
+    """One forward call (two launches). Per chunk of n steps: C B^T once
+    for all heads (n(n+1)/2 pairs x N FMAs); per head the masked product
+    with x (pairs x P), the carried state's read and update (2 n P N), the
+    decay mask; an exponential a pair and two a step. x, dt, B, C, A, D
+    and h0 read, y and hT written, and with ``keep_scratch`` (training's
+    forward) the scratch its backward reads. The products run on bf16
+    operands, so the tensor cores' rate (``unit`` "f32": the same work on
+    the units outside them)."""
+    pairs = _pairs(S, chunk)
+    flops = B * (2 * pairs * N + Hs * (2 * pairs * P + 3 * pairs
+                                       + 4 * S * P * N))
+    nbytes = (2 * B * S * Hs * P * 2 + B * S * Hs * 2 + 2 * B * S * N * 2
+              + 2 * Hs * 4 + 2 * B * Hs * P * N * 4)
+    if keep_scratch:
+        nbytes += 4 * sum(scratch_sizes(B, S, Hs, P, N,
+                                        max(1, min(chunk, S))))
+    return Cost(flops, nbytes, exps=B * Hs * (pairs + 2 * S), unit=unit,
+                launches=2)
+
+
+def bwd_cost(B: int, S: int, Hs: int, P: int, N: int, *,
+             chunk: int = 256) -> Cost:
+    """One backward call (three launches). Per (b, chunk): C B^T on the
+    causal triangle; per head dy x^T, M^T dy (P deep), dG^T C, dG B (N
+    deep) on the triangle, and four (c, P, N) products with the states (the
+    local dH, dHn B, dHn^T x, dy H). Read: x, dy, dt, B, C, A, D and the
+    scratch; written: dx, ddt, dB, dC, dA, dD, dh0."""
+    pairs = _pairs(S, chunk)
+    sx, sn = B * S * Hs * P * 2, B * S * N * 2
+    state = B * Hs * P * N * 4
+    scratch = 4 * sum(scratch_sizes(B, S, Hs, P, N, max(1, min(chunk, S))))
+    flops = B * (2 * pairs * N + Hs * (4 * pairs * P + 4 * pairs * N
+                                       + 8 * S * P * N))
+    nbytes = (3 * sx + 2 * B * S * Hs * 2 + 4 * sn + 4 * Hs * 4 + state
+              + scratch)
+    return Cost(flops, nbytes, exps=B * Hs * (2 * pairs + 2 * S),
+                unit="bf16", launches=3)
+
+
 class SSD(torch.autograd.Function):
     """The SSD with its gradient: the forward kernel keeping its scratch,
     the backward kernel. ``h0`` may be None (zeros); ``chunk`` is not
@@ -212,7 +269,8 @@ class SSD(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, C, D, h0, chunk: int):
-        y, hT, buf = _forward(x, dt, A, Bm, C, D, h0, chunk)
+        y, hT, buf = _forward(x, dt, A, Bm, C, D, h0, chunk,
+                              keep_scratch=True)
         ctx.save_for_backward(x, dt, A, Bm, C, D, buf)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)

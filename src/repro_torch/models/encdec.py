@@ -43,11 +43,11 @@ from types import SimpleNamespace
 import torch
 from torch import nn
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as ll
 from repro_torch.models import transformer as tf
-from repro_torch.models.model_api import ModelFns, Params, PSpec, Tree
+from repro_torch.models.model_api import ModelFns, Params, PSpec, Tree, meta_tensor
 
 ENC_SEQ = 1500  # whisper: 30 s of audio -> 1500 frames after the conv stem
 
@@ -385,6 +385,22 @@ def loss_fn(tree: Tree, batch: dict, cfg: ModelConfig):
     return ll.lm_loss(top, x, batch["labels"], cfg)
 
 
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """A cell's inputs as meta tensors (``encdec.py:337-355``): the train
+    and prefill cells add ``frames`` of ``min(seq_len, ENC_SEQ)`` rows; a
+    decode cell takes the decoder's token and position."""
+    b, s = shape.global_batch, shape.seq_len
+    enc = {"frames": meta_tensor((b, min(s, ENC_SEQ), cfg.d_model),
+                                 torch.bfloat16)}
+    if shape.kind == "train":
+        return {**enc, "tokens": meta_tensor((b, s), torch.int32),
+                "labels": meta_tensor((b, s), torch.int32)}
+    if shape.kind == "prefill":
+        return {**enc, "tokens": meta_tensor((b, s), torch.int32)}
+    return {"tokens": meta_tensor((b, 1), torch.int32),
+            "positions": meta_tensor((b,), torch.int32)}
+
+
 def make_model(cfg: ModelConfig) -> ModelFns:
     # the whole per-token decoder cache lives in page pools (paged_state
     # False), so decoder prompt prefixes share copy-on-write; the engine
@@ -402,4 +418,5 @@ def make_model(cfg: ModelConfig) -> ModelFns:
         paged_cross_specs=functools.partial(paged_cross_specs, cfg),
         prefill_cross=functools.partial(prefill_cross_fn, cfg=cfg),
         loss=functools.partial(loss_fn, cfg=cfg),
+        input_specs=functools.partial(input_specs, cfg),
     )

@@ -33,6 +33,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as ll
 from repro_torch.models.mamba import new_conv_state, silu, slot_state
 from repro_torch.models.model_api import (ModelFns, Params, PSpec, Tree,
+                                          standard_input_specs,
                                           zeros_from_specs)
 from repro_torch.models.transformer import _cast, _remat
 
@@ -249,12 +250,13 @@ def prefill_fn(params: HybridLM, batch: dict, cfg: ModelConfig):
     """The whole prompt from a zero state (``hybrid.py:257-280``): each
     application of the shared block attends causally over every position,
     each Mamba2 layer runs one SSD over them. Returns the logits of the
-    last position (1, V) f32 and the batch-1 cache."""
-    x = ll.embed_lookup(params, batch["tokens"])          # (1, S, d)
+    last position (B, V) f32 and the batch-B cache (the engine's prompts
+    are one lane, a cell's ``B``)."""
+    x = ll.embed_lookup(params, batch["tokens"])          # (B, S, d)
     x0 = x
     S = x.shape[1]
     rows = ll.dense_rows(cfg, torch.arange(S, device=x.device))
-    state = zeros_from_specs(_state_specs(cfg, 1), device=x.device)
+    state = zeros_from_specs(_state_specs(cfg, x.shape[0]), device=x.device)
     att_k, att_v = [], []
 
     def attend(p, h):
@@ -433,4 +435,5 @@ def make_model(cfg: ModelConfig) -> ModelFns:
         # state cannot be skipped: prefix sharing is bookkeeping only
         paged_state=True,
         loss=functools.partial(loss_fn, cfg=cfg),
+        input_specs=functools.partial(standard_input_specs, cfg),
     )

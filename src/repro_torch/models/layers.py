@@ -107,15 +107,18 @@ def dense_decode_rows(cfg: ModelConfig, positions: torch.Tensor,
     of ``max_seq`` decodes once past its cache before the engine retires
     it — has its write dropped, as JAX's scatter drops an out-of-bounds
     update. Whether any lane's is, is read on the host once per step,
-    before the step queues any kernel, so the read waits for nothing."""
+    before the step queues any kernel, so the read waits for nothing. Meta
+    positions (a dry-run's, which has no values) drop none: a cell's lanes
+    decode inside their cache."""
     pos = positions.long()
     drop = pos >= max_seq
     cos = sin = None
     if cfg.rope_theta > 0 and not cfg.learned_positions:
         cos, sin = rope_tables(pos[:, None], cfg.d_head, cfg.rope_theta)
+    dropped = pos.device.type != "meta" and bool(drop.any())
     return Rows(cos, sin, torch.arange(pos.shape[0], device=pos.device),
                 pos.clamp(max=max_seq - 1),
-                drop[:, None, None] if bool(drop.any()) else None)
+                drop[:, None, None] if dropped else None)
 
 
 def decode_rows(cfg: ModelConfig, positions: torch.Tensor,

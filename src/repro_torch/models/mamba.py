@@ -31,6 +31,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as ll
 from repro_torch.models.model_api import (ModelFns, Params, PSpec, Tree,
+                                          standard_input_specs,
                                           zeros_from_specs)
 from repro_torch.models.transformer import _cast, _remat
 
@@ -188,10 +189,11 @@ def paged_cache_specs(cfg: ModelConfig, n_slots: int, n_pages: int,
 def prefill_fn(params: MambaLM, batch: dict, cfg: ModelConfig):
     """The whole prompt from a zero state (``mamba.py:163-174``): one
     selective scan per layer over every position. Returns the logits of the
-    last position (1, V) f32 and the batch-1 cache ``conv``/``ssm``."""
-    x = ll.embed_lookup(params, batch["tokens"])          # (1, S, d)
+    last position (B, V) f32 and the batch-B cache ``conv``/``ssm`` (the
+    engine's prompts are one lane, a cell's ``B``)."""
+    x = ll.embed_lookup(params, batch["tokens"])          # (B, S, d)
     S = x.shape[1]
-    state = zeros_from_specs(cache_specs(cfg, 1, 0), device=x.device)
+    state = zeros_from_specs(cache_specs(cfg, x.shape[0], 0), device=x.device)
     for i, lp in enumerate(params.layers):
         x, cs, ss = _block(lp, x, cfg, state["conv"][i], state["ssm"][i], S)
         state["conv"][i] = cs
@@ -286,4 +288,5 @@ def make_model(cfg: ModelConfig) -> ModelFns:
         # back to trie bookkeeping only
         paged_state=True,
         loss=functools.partial(loss_fn, cfg=cfg),
+        input_specs=functools.partial(standard_input_specs, cfg),
     )

@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShapeConfig
 
 Tree = dict[str, Any]
 
@@ -178,6 +178,10 @@ class ModelFns:
     ``loss(tree, batch)`` -> ``(loss, aux)`` over the layer-stacked f32
     master tree (:meth:`init_master`), not the serving module.
 
+    ``input_specs(shape)`` gives the inputs of a cell's program (the
+    dry-run's, ``launch/cells.py``) as meta tensors, where the reference
+    gives ``ShapeDtypeStruct``s (``repro/models/model_api.py:106-107``).
+
     ``paged_state`` is True when the cache carries per-slot recurrent state
     (``repro/models/model_api.py:121-130``): that state is not
     page-addressable, so the engine's prefix sharing falls back to trie
@@ -200,6 +204,7 @@ class ModelFns:
     paged_cross_specs: Callable[..., Tree] | None = None
     prefill_cross: Callable[..., None] | None = None
     paged_mm_inline: bool = False
+    input_specs: Callable[[ShapeConfig], dict] | None = None
 
     @property
     def supports_paged(self) -> bool:
@@ -297,6 +302,18 @@ class ModelFns:
         return zeros_from_specs(self.cache_specs(n_slots, max_seq), dtype,
                                 resolve_device(device))
 
+    def cache_axes(self, batch: int, max_seq: int) -> Tree:
+        """Each dense cache leaf's logical axes
+        (``repro/models/model_api.py:176-177``)."""
+        return {k: s.axes for k, s in self.cache_specs(batch, max_seq).items()}
+
+    def abstract_cache(self, batch: int, max_seq: int,
+                       dtype: torch.dtype = torch.bfloat16) -> Tree:
+        """Each dense cache leaf's shape and cache dtype as a meta tensor
+        (``repro/models/model_api.py:179-185``): allocates nothing."""
+        return {k: meta_tensor(s.shape, _cache_dtype(s, dtype))
+                for k, s in self.cache_specs(batch, max_seq).items()}
+
     def init_paged_cache(self, n_slots: int, n_pages: int, page_size: int,
                          dtype: torch.dtype = torch.bfloat16,
                          device: str | torch.device = "cuda") -> Tree:
@@ -349,3 +366,63 @@ def _cache_dtype(spec: PSpec, dtype: torch.dtype) -> torch.dtype:
     if "state" in (spec.axes or ()):
         return torch.float32
     return dtype
+
+
+# ---------------------------------------------------------------------------
+# Shared input-spec builders (``repro/models/model_api.py:276-322``): meta
+# tensors where the reference has ``ShapeDtypeStruct``s
+# ---------------------------------------------------------------------------
+
+
+def meta_tensor(shape, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def lm_train_inputs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    return {
+        "tokens": meta_tensor((shape.global_batch, shape.seq_len), torch.int32),
+        "labels": meta_tensor((shape.global_batch, shape.seq_len), torch.int32),
+    }
+
+
+def lm_prefill_inputs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    return {
+        "tokens": meta_tensor((shape.global_batch, shape.seq_len), torch.int32),
+    }
+
+
+def lm_decode_inputs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    b = shape.global_batch
+    return {
+        "tokens": meta_tensor((b, 1), torch.int32),
+        "positions": meta_tensor((b,), torch.int32),
+    }
+
+
+def standard_input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                         extra=None) -> dict:
+    if shape.kind == "train":
+        out = lm_train_inputs(cfg, shape)
+    elif shape.kind == "prefill":
+        out = lm_prefill_inputs(cfg, shape)
+    else:
+        out = lm_decode_inputs(cfg, shape)
+    if extra:
+        out.update(extra(cfg, shape))
+    return out
+
+
+def batch_axes_for(specs: dict) -> dict:
+    """Logical axes for input batches (tokens/labels/embeds/positions)."""
+    out = {}
+    for name, s in specs.items():
+        nd = len(s.shape)
+        if nd == 1:
+            out[name] = ("batch",)
+        elif nd == 2:
+            out[name] = ("batch", "seq")
+        elif nd == 3:
+            out[name] = ("batch", "seq", None)
+        else:
+            out[name] = ("batch",) + (None,) * (nd - 1)
+    return out

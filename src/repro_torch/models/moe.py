@@ -61,7 +61,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as ll
 from repro_torch.models import transformer as tf
-from repro_torch.models.model_api import ModelFns, Params, PSpec, Tree
+from repro_torch.models.model_api import (ModelFns, Params, PSpec, Tree,
+                                          standard_input_specs)
 
 
 def moe_mlp_specs(cfg: ModelConfig, layers: int) -> dict:
@@ -361,4 +362,5 @@ def make_model(cfg: ModelConfig) -> ModelFns:
         # a pure page-pool cache: prefix sharing, spill and speculation
         paged_state=False,
         loss=functools.partial(loss_fn, cfg=cfg),
+        input_specs=functools.partial(standard_input_specs, cfg),
     )

@@ -37,10 +37,12 @@ from types import SimpleNamespace
 import torch
 from torch import nn
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as ll
-from repro_torch.models.model_api import ModelFns, Params, PSpec, Tree
+from repro_torch.models.model_api import (ModelFns, Params, PSpec, Tree,
+                                          meta_tensor,
+                                          standard_input_specs)
 
 VISION_D = 1024  # stub vision-tower embedding width (CLIP-like)
 
@@ -376,6 +378,28 @@ def loss_fn(tree: Tree, batch: dict, cfg: ModelConfig):
     return ll.lm_loss(top, x, batch["labels"], cfg)
 
 
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """A cell's inputs as meta tensors (``transformer.py:275-290``): a
+    VLM's train and prefill cells add ``embeds`` (B, n_image_tokens,
+    VISION_D), whose rows take part of the sequence, so its text is
+    ``seq_len - n_image_tokens`` long."""
+    def extra(cfg, shape):
+        if cfg.family != "vlm" or shape.kind == "decode":
+            return {}
+        b = shape.global_batch
+        return {"embeds": meta_tensor((b, cfg.n_image_tokens, VISION_D),
+                                      torch.bfloat16)}
+
+    out = standard_input_specs(cfg, shape, extra)
+    if cfg.family == "vlm" and shape.kind != "decode":
+        s_text = shape.seq_len - cfg.n_image_tokens
+        b = shape.global_batch
+        out["tokens"] = meta_tensor((b, s_text), torch.int32)
+        if shape.kind == "train":
+            out["labels"] = meta_tensor((b, s_text), torch.int32)
+    return out
+
+
 def make_model(cfg: ModelConfig) -> ModelFns:
     return ModelFns(
         cfg=cfg,
@@ -391,4 +415,5 @@ def make_model(cfg: ModelConfig) -> ModelFns:
         # VLM prompts chunk their image rows inline (positions < mm_len)
         paged_mm_inline=cfg.family == "vlm",
         loss=functools.partial(loss_fn, cfg=cfg),
+        input_specs=functools.partial(input_specs, cfg),
     )

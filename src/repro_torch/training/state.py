@@ -29,7 +29,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models.model_api import ModelFns, tree_map
+from repro_torch.models.model_api import ModelFns, meta_tensor, tree_map
 from repro_torch.optim import adamw_init
 
 TrainState = dict  # alias: states are plain dicts
@@ -52,23 +52,23 @@ def init_train_state(model: ModelFns, seed: int = 0,
 
 
 def abstract_train_state(model: ModelFns) -> TrainState:
-    """Meta-tensor stand-ins of every leaf's shape and dtype: allocates
-    nothing."""
-    def meta(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device="meta")
-
-    params = tree_map(lambda s: meta(s.shape, torch.float32),
+    """A state the train step runs over without allocating: the tensors
+    (params, ``mu``, ``nu``) as meta tensors of their shape and dtype; the
+    host leaves (``opt["step"]``, ``rng``, ``data_step``) as the numpy
+    values a fresh state holds, since the step reads them on the host
+    (``split_rng``, ``adamw_update``)."""
+    params = tree_map(lambda s: meta_tensor(s.shape, torch.float32),
                       model.param_specs)
 
     def zeros_like(t):
-        return tree_map(lambda x: meta(x.shape, x.dtype), t)
+        return tree_map(lambda x: meta_tensor(x.shape, x.dtype), t)
 
     return {
         "params": params,
         "opt": {"mu": zeros_like(params), "nu": zeros_like(params),
-                "step": meta((), torch.int32)},
-        "rng": meta((2,), torch.uint32),
-        "data_step": meta((), torch.int32),
+                "step": np.zeros((), np.int32)},
+        "rng": _rng_words(0),
+        "data_step": np.zeros((), np.int32),
     }
 
 

@@ -25,7 +25,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
-def case(cs, gen, *, B, S, H, K, D) -> dict:
+def case(cs, gen, cost, *, B, S, H, K, D) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -52,15 +52,12 @@ def case(cs, gen, *, B, S, H, K, D) -> dict:
                for t in (q, k, v)]
     lib_out = F.scaled_dot_product_attention(*lib_ins, is_causal=True,
                                              enable_gqa=True)
-    pairs = B * H * S * (S + 1) // 2
-    io = (q.numel() + k.numel() + v.numel()) * 2
     row = {"shape": {"B": B, "S": S, "H": H, "K": K, "D": D},
            "grad_tile_share": shares,
            "ms": cs._time_ms(bwd_call, flush=True),
            "parts_ms": cs._parts_ms(bwd_call, cs.FLASH_BWD_PARTS),
            "library_ms": cs._grad_ms(lib_out, lib_ins, dout.transpose(1, 2)),
-           **cs._bound(2 * io + 2 * q.numel() * 2 + lse.numel() * 4,
-                       10 * D * pairs, cs.BF16_TC_FLOPS)}
+           **cs.bound(cost(B, S, S, H, K, D))}
     row["x_library"] = row["ms"] / row["library_ms"]
     row["x_bound"] = row["ms"] / row["bound_ms"]
     return row
@@ -74,6 +71,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import chip_smoke as cs
+    # the bound: this checkout's cost of the backward, whatever SRC holds
+    from repro_torch.kernels.flash_attention import bwd_cost
 
     # chip_smoke put this checkout's src first and imported from it: drop
     # what it imported, so that the package under SRC is the one timed
@@ -89,8 +88,9 @@ def main() -> int:
     out = {"package": repro_torch.__file__,
            "build_s": time.perf_counter() - t0}
     gen = torch.Generator(device="cuda").manual_seed(24)
-    out["smollm-360m"] = case(cs, gen, **cs.TRAIN, H=15, K=5, D=64)
-    out["qwen3-8b"] = case(cs, gen, B=cs.QWEN_TRAIN["B"],
+    out["smollm-360m"] = case(cs, gen, bwd_cost, **cs.TRAIN, H=15, K=5,
+                              D=64)
+    out["qwen3-8b"] = case(cs, gen, bwd_cost, B=cs.QWEN_TRAIN["B"],
                            S=cs.QWEN_TRAIN["S"], H=32, K=8, D=128)
     cs.log(out)
     return 0

@@ -37,7 +37,7 @@ NORM_SHAPES = {"smollm-360m block": (16384, 960),
                "qwen3-8b block": (4096, 4096)}
 
 
-def route_rows(cs, gen, empty_ms: float) -> dict:
+def route_rows(cs, gen, empty_ms: float, cost) -> dict:
     import torch
 
     from repro_torch.kernels import moe_route as rk
@@ -53,24 +53,22 @@ def route_rows(cs, gen, empty_ms: float) -> dict:
                 "ms": ms, "x_empty": ms / empty_ms,
                 "device_ops": cs._kernels_us(
                     lambda: rk.moe_route(xt, router, k)),
-                **cs._bound(T * d * 2 + d * E * 4 + T * k * 8, 2 * T * d * E,
-                            cs.F32_FLOPS, exps=T * E)}
+                **cs.bound(cost(T, d, E, k))}
     return out
 
 
-def norm_rows(cs, gen) -> dict:
+def norm_rows(cs, gen, cost) -> dict:
     from repro_torch.kernels import rmsnorm as rk
 
     out = {}
     for what, shape in NORM_SHAPES.items():
         x, w = cs._rmsnorm_case(gen, shape)
         g = cs._rmsnorm_case(gen, shape)[0]
-        nx = x.numel() * 2
         out[what] = {"ms": cs._time_ms(lambda: rk.rmsnorm_bwd(x, w, g)),
                      "device_ops": cs._kernels_us(
                          lambda: rk.rmsnorm_bwd(x, w, g)),
-                     **cs._bound(3 * nx + 2 * w.numel() * 4, 0,
-                                 cs.F32_FLOPS)}
+                     **cs.bound(cost(x.numel() // shape[-1], shape[-1],
+                                     x.element_size(), w.element_size()))}
         out[what]["x_bound"] = out[what]["ms"] / out[what]["bound_ms"]
     return out
 
@@ -83,6 +81,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import chip_smoke as cs
+    # the bounds: this checkout's costs, whatever SRC holds
+    from repro_torch.kernels.moe_route import cost as route_cost
+    from repro_torch.kernels.rmsnorm import bwd_cost as norm_cost
 
     # chip_smoke put this checkout's src first and imported from it: drop
     # what it imported, so that the package under SRC is the one timed
@@ -100,8 +101,9 @@ def main() -> int:
     dev = torch.device("cuda")
     out["empty_kernel_ms"] = cs._time_ms(lambda: nk.empty_launch(dev))
     gen = torch.Generator(device="cuda").manual_seed(26)
-    out["moe_route"] = route_rows(cs, gen, out["empty_kernel_ms"])
-    out["rmsnorm_bwd"] = norm_rows(cs, gen)
+    out["moe_route"] = route_rows(cs, gen, out["empty_kernel_ms"],
+                                  route_cost)
+    out["rmsnorm_bwd"] = norm_rows(cs, gen, norm_cost)
     cs.log(out)
     return 0
 
