@@ -192,7 +192,29 @@ Phases, each of which raises on failure (the exit code is then non-zero):
       relayout, replay, snapshot placement, ``gather_state``'s host copy)
       beside simulated ones, printed beside the card's name and power
       limit (``tools/cell_rehearsal.py`` predicts every counter on the
-      CPU).
+      CPU);
+   l. materialized (qwen3-8b only, ``phase_materialized``): the cell with
+      ``materialize=True`` on a one-rank NCCL group (``tcp://127.0.0.1``,
+      a free port) and a (1, 1) ``DeviceMesh``: params and the pool are
+      DTensors, every engine step runs under the mesh. One host of one
+      card serves phase_cell's 8 prompts (a second host, suspended, only
+      holds snapshots); the host crashes, the cell stalls below
+      ``min_hosts``, the host rejoins and the cell re-forms on it:
+      ``reshard_state`` copies the whole host checkpoint onto the card
+      again and the pool comes back from the snapshot, the streams replay.
+      Every stream equals phase_cell's trusted engine's, no forced
+      mismatch (a (1, 1) mesh replicates every leaf, so the arithmetic is
+      one device's), every kernel of the paged path launched and no plain
+      version, the device memory back within less than one pool; wall
+      seconds by part (``reshard_state``, pool placement, restore,
+      replay, ...) beside the same scenario's layout-only cell's, with the
+      bytes each moved. Then each of the path's kernels at the rank-local
+      shapes a (2, 2) grid gives one rank (16 of 32 query heads, 4 of 8 kv
+      heads, ``gemm_rows`` on N/2 column and K/2 row shards, the norms'
+      rows on a data shard of 4 lanes) against its plain version, and
+      against the matching slice of the full-shape call (bitwise or
+      not, printed; a row shard's two halves summed within tolerance). The
+      process group is destroyed before the next phase.
 
 5. train (``phase_train``): a, training's kernels at its shapes against
    autograd through the plain versions: the flash forward (with ``lse``)
@@ -283,7 +305,8 @@ tie) and the grouped product (rows below each expert's count).
 The line two before the last is the kernels summary as JSON (one row per
 kernel and model whose path runs it, and rows with ``"path": "spec"`` for
 the speculative path, ``"path": "batch"`` for the batch tier,
-``"path": "cell"`` for the elastic cell, ``"path": "train"`` for
+``"path": "cell"`` for the elastic cell, ``"path": "materialized"`` for
+the materialized cell, ``"path": "train"`` for
 training (the backward kernels among them), and
 whisper's routes: the cross fold, the encoder's flash and the dense cross
 read, each with the launches counted around that route's calls), the line
@@ -628,20 +651,14 @@ def check_paged_decode(gen, *, n_heads=32, n_kv=8, d=128) -> dict:
     }
 
 
-def check_paged_decode_pool(gen, lengths, engine: dict, what: str) -> dict:
-    """The paged decode at an engine's pool and table shape: the batch
-    tier's (``phase_batch``: 4 lanes of a workunit, prompt plus generated
-    positions up to 472, in a 24-page pool, page tables of 16) or the
-    elastic cell's (``phase_cell``: 8 lanes up to 416 positions in a
-    64-page pool, tables of 8): against the plain version, two runs
-    bitwise equal, and each lane bitwise the same alone as in its batch —
-    what bitwise hash quorum across replicas and the cell's exact replay
-    rest on."""
+def _pool_case(gen, lengths, engine: dict, H: int = 32, K: int = 8,
+               D: int = 128):
+    """q (B, H, D) and an engine's pools (``n_pages``, pages of ``PAGE``, K
+    kv heads) with each lane's pages drawn from a shuffled pool: q, k
+    pages, v pages, page tables, lengths."""
     import torch
 
-    from repro_torch.kernels import ops, paged_decode_attention as pk
-
-    B, H, K, D = len(lengths), 32, 8, 128
+    B = len(lengths)
     n_pages, width = engine["n_pages"], engine["max_seq"] // PAGE
     q = torch.randn(B, H, D, generator=gen, device="cuda").bfloat16()
     kp = torch.randn(n_pages, PAGE, K, D, generator=gen,
@@ -655,8 +672,28 @@ def check_paged_decode_pool(gen, lengths, engine: dict, what: str) -> dict:
         need = -(-n // PAGE)
         table[i, :need] = torch.tensor(pages[:need])
         pages = pages[need:]
-    table = table.cuda()
-    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return (q, kp, vp, table.cuda(),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+def check_paged_decode_pool(gen, lengths, engine: dict, what: str,
+                            heads: tuple[int, int] = (32, 8)) -> dict:
+    """The paged decode at an engine's pool and table shape: the batch
+    tier's (``phase_batch``: 4 lanes of a workunit, prompt plus generated
+    positions up to 472, in a 24-page pool, page tables of 16) or the
+    elastic cell's (``phase_cell``: 8 lanes up to 416 positions in a
+    64-page pool, tables of 8; with ``heads`` a (2, 2) grid's rank-local
+    16 of 32 query and 4 of 8 kv heads): against the plain version, two
+    runs bitwise equal, and each lane bitwise the same alone as in its
+    batch — what bitwise hash quorum across replicas and the cell's exact
+    replay rest on."""
+    import torch
+
+    from repro_torch.kernels import ops, paged_decode_attention as pk
+
+    (H, K), D, B = heads, 128, len(lengths)
+    n_pages, width = engine["n_pages"], engine["max_seq"] // PAGE
+    q, kp, vp, table, lens = _pool_case(gen, lengths, engine, H, K, D)
     got = pk.paged_decode_attention(q, kp, vp, table, lens)
     with ops.use_backend("plain"):
         want = ops.paged_decode_attention(q, kp, vp, table, lens)
@@ -1492,7 +1529,7 @@ def phase_kernels(seed: int = 0) -> dict:
                gen, [88, 300, 472, 150], BATCH_ENGINE, "batch")],
            # the elastic cell's decode step: 8 slots, a 64-page pool
            "paged_decode_attention@cell": [check_paged_decode_pool(
-               gen, [130, 250, 416, 96, 300, 180, 384, 222], CELL_ENGINE,
+               gen, CELL_LENGTHS, CELL_ENGINE,
                "cell")],
            # the MoE family: the router and the routed experts' products,
            # deepseek-moe's attention (MHA 16 of 128), every other decode
@@ -3683,6 +3720,8 @@ def phase_batch(model, params, card: str, seed: int = 6) -> dict:
 # (36 layers x 2 x 8 kv heads x 128 x 2 B x 64 = 9,437,184 B a page), so
 # a snapshot carries ~0.6 GB
 CELL_ENGINE = dict(n_slots=8, max_seq=512, page_size=PAGE, n_pages=64)
+# the cell's decode step's lane lengths in the kernel checks
+CELL_LENGTHS = [130, 250, 416, 96, 300, 180, 384, 222]
 # 4 hosts of 2 lanes on a model axis of 2: the (2, 2) grid; the simulated
 # clock as tests/test_cell.py sets it, but a re-shard's bytes move at
 # 12.5 GB/s (a 100 Gb/s link): full-width formation "moves" ~17 GB, 3.4
@@ -3801,14 +3840,16 @@ def _cell_checks(name: str, s: dict, cell, reqs, want) -> list[str]:
 
 class _CellParts:
     """Hooks on the cell's re-shard parts while a scenario runs: each
-    engine build (the factory call), relayout, replay, snapshot placement
-    and the elastic checkpoint's host copy (``gather_state``), in seconds
+    engine build (the factory call), relayout, replay, snapshot placement,
+    the elastic checkpoint's host copy (``gather_state``) and, on a
+    materialized cell, its copy onto the mesh (``reshard_state``) and the
+    pool's placement (``ServeEngine.lay_out``), in seconds
     between device syncs (a restore's are :class:`_EngineMeter`'s). The
     hooks sit on the class and the module, never on a cell, so they keep
     no dropped cell alive."""
 
     PARTS = ("engine_build", "relayout", "replay", "snapshot_placement",
-             "gather_state")
+             "gather_state", "reshard_state", "pool_placement")
 
     def __init__(self):
         import repro_torch.serving.cell as cell_mod
@@ -3829,12 +3870,16 @@ class _CellParts:
         return run
 
     def __enter__(self):
-        self.orig = [(self.mod, "gather_state", self.mod.gather_state)] + [
+        eng = self.mod.ServeEngine
+        self.orig = [(self.mod, n, getattr(self.mod, n))
+                     for n in ("gather_state", "reshard_state")] + [
             (self.cls, n, getattr(self.cls, n))
-            for n in ("_relayout", "_replay", "_place_snapshot")]
+            for n in ("_relayout", "_replay", "_place_snapshot")] + [
+            (eng, "lay_out", eng.lay_out)]
         for obj, attr, fn in self.orig:
             part = {"_relayout": "relayout", "_replay": "replay",
-                    "_place_snapshot": "snapshot_placement"}.get(attr, attr)
+                    "_place_snapshot": "snapshot_placement",
+                    "lay_out": "pool_placement"}.get(attr, attr)
             setattr(obj, attr, self._timed(part, fn))
         return self
 
@@ -3976,7 +4021,356 @@ def phase_cell(model, params, card: str, seed: int = 8) -> dict:
                 got["problems"]))
     out["launches"] = launches
     log(out)
+    # the trusted tokens for the materialized cell (phase_materialized)
+    out["want"] = want
     return out
+
+
+# ---------------------------------------------------------------------------
+# 4l. the materialized cell: a (1, 1) DeviceMesh of one NCCL rank
+# ---------------------------------------------------------------------------
+
+# phase_cell's engines, clock and prompts on one host of one card: a model
+# axis of 1, all 8 lanes on the host. A second member of the cloudlet,
+# suspended (never a candidate), holds the snapshots. A step takes 1.1
+# simulated s here, so the sixth step places a snapshot and the crash lands
+# one step after it; with no candidate left the cell stalls below
+# min_hosts, backing off without jitter, and re-forms when the host
+# rejoins, from the snapshot, replaying a token a lane.
+MAT_HOSTS = ("h0", "h1")
+MAT_CELL = dict(CELL, model_parallel=1, devices_per_host=1, target_hosts=1,
+                min_hosts=1, slots_per_host=CELL_ENGINE["n_slots"],
+                backoff_jitter=0.0)
+MAT_FAULTS = [(7.5, "crash", "h0"), (18.0, "rejoin", "h0")]
+# the rank-local shapes a (2, 2) grid gives rank (0, 0) of qwen3-8b's paged
+# path: lanes 0-3 of 8 (its data shard), query heads 0-15 of 32 and kv
+# heads 0-3 of 8 (its model shard); gemm_rows on N / 2 where the rules
+# shard a product's output (column-parallel) and on K / 2 where they shard
+# its input (row-parallel: o and down, whose halves' bf16 partials are
+# summed by the all-reduce)
+SHARD_LANES = 4
+SHARD_ROW_PARALLEL = ("o", "down")
+
+
+def _mat_formed(model, params, factory, prompts, *, materialize: bool):
+    """The materialized scenario's server and cell, requests submitted and
+    the cell formed (one tick of ``run``); the fault plan timed from the
+    end of formation. Returns (server, cell, requests, clock, plan)."""
+    from repro_torch.core.faults import FaultEvent, FaultPlan
+    from repro_torch.core.server import AdHocServer
+    from repro_torch.core.simulation import SimClock
+    from repro_torch.serving.cell import ElasticServeCell
+
+    srv = AdHocServer(failure_timeout=CELL_FAILURE_TIMEOUT_S)
+    srv.create_cloudlet("cell", model.cfg.arch_id)
+    for h in MAT_HOSTS:
+        srv.register_host(h, 0.0, cloudlets=["cell"])
+    srv.report_suspend(MAT_HOSTS[1], 0.0, True)
+    cell = ElasticServeCell(srv, "cell", model, params, factory=factory,
+                            materialize=materialize, **MAT_CELL)
+    reqs = [cell.submit(p, max_new_tokens=CELL_NEW) for p in prompts]
+    clock = SimClock()
+    cell.run(clock, max_ticks=1)
+    if cell.grid != (1, 1) or cell.cell_hosts != [MAT_HOSTS[0]]:
+        raise AssertionError(f"materialized cell formed on {cell.cell_hosts}"
+                             f", grid {cell.grid}")
+    t0 = clock.now()
+    plan = FaultPlan([FaultEvent(at=t0 + dt, kind=kind, host=host)
+                      for dt, kind, host in MAT_FAULTS])
+    return srv, cell, reqs, clock, plan
+
+
+def _mat_checks(s: dict, reqs, want) -> list[str]:
+    """Every stream done and equal to the trusted engine's; the crash timed
+    out a collective, the cell stalled, re-formed on the rejoined host
+    from the snapshot and replayed; no forced mismatch."""
+    problems = [f"request {r.req_id}: stream differs" for r in reqs
+                if r.committed != want[r.req_id]]
+    if s["requests_done"] != len(reqs) or s["requests_pending"]:
+        problems.append("requests left undone")
+    if not (s["collective_timeouts"] >= 1 and s["reshard_stalls"] >= 1
+            and s["resharded"] == 1 and s["resumed_from_snapshot"] == 1
+            and s["tokens_replayed"] >= 1 and s["grid"] == (1, 1)
+            and s["hosts"] == [MAT_HOSTS[0]]):
+        problems.append("no timeout, stall, re-shard from the snapshot or "
+                        "replay")
+    if s["forced_mismatches"]:
+        problems.append(f"{s['forced_mismatches']} forced mismatches")
+    return problems
+
+
+def _mat_run(model, params, factory, prompts, want, *,
+             materialize: bool) -> dict:
+    """The scenario on a fresh cell, counted and metered as ``_cell_run``
+    counts a phase_cell scenario; with ``materialize`` also each
+    ``reshard_state`` and pool placement (``ServeEngine.lay_out``) and
+    what the engine held on the mesh. Its peak device memory is held to
+    two pools and, on the mesh, one copy of the weights above what was
+    held before."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.model_api import tree_leaves
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gc.disable()
+    try:
+        with _CellParts() as parts, _EngineMeter() as meter:
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            srv, cell, reqs, clock, plan = _mat_formed(
+                model, params, parts.factory(factory), prompts,
+                materialize=materialize)
+            formed_s = time.perf_counter() - t0
+            summary = cell.run(clock, fault_plan=plan, max_ticks=2000)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.counts()
+        problems = _mat_checks(summary, reqs, want)
+        eng = cell.engine
+        held = {"params_dtensor": all(isinstance(p, DTensor)
+                                      for p in eng.params.parameters()),
+                "pool_placements": {k: [repr(p) for p in v.placements]
+                                    for k, v in eng.cache.items()
+                                    if isinstance(v, DTensor)},
+                "mesh": (None if cell.mesh is None else
+                         [list(cell.mesh.mesh_dim_names),
+                          list(cell.mesh.shape),
+                          cell.mesh.device_type])}
+        if materialize and not (held["params_dtensor"]
+                                and len(held["pool_placements"])
+                                == len(eng.cache)):
+            problems.append(f"the engine held no DTensors: {held}")
+        param_bytes = sum(x.numel() * x.element_size()
+                          for x in tree_leaves(cell.params_host))
+        pool_bytes = sum(v.numel() * v.element_size()
+                         for v in eng.cache.values())
+        events = [(round(t, 3), ev, {k: v for k, v in kv.items()
+                                     if k not in ("cell",)})
+                  for t, ev, kv in srv.log
+                  if ev.startswith("cell_") or ev == "fault_injected"]
+        peak = torch.cuda.max_memory_allocated()
+        del cell, srv, reqs, eng
+    finally:
+        gc.enable()
+    # above what the phase held before, with the collector off: the two
+    # pools a re-form holds at once (the one it restores and the one it
+    # replaces) and, on a mesh, one copy of the weights (the engine's
+    # shards, re-laid-out from the host copy): a dropped engine's weights
+    # kept alive past its re-form would go over
+    peak_limit = (2 * pool_bytes + (param_bytes if materialize else 0)
+                  + CELL_MEM_SLACK_BYTES)
+    if peak - mem0 > peak_limit:
+        problems.append(f"peak {peak - mem0} B above the memory before, "
+                        f"limit {peak_limit} B")
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    if mem1 - mem0 > CELL_MEM_SLACK_BYTES:
+        problems.append(f"device memory grew by {mem1 - mem0} B")
+    what = "materialized" if materialize else "layout-only"
+    _check_counts(counts, PATH_KERNELS["qwen3-8b"], f"cell {what}")
+    report = parts.report(meter.restore_s)
+    return {"summary": summary, "problems": problems, "counts": counts,
+            "numbers": {
+                "wall_s": wall, "formation_wall_s": formed_s,
+                "sim_s": clock.now(), "engine_steps": meter.steps,
+                "generated_tokens": meter.tokens,
+                "snapshots_taken": len(meter.snapshot_s),
+                "snapshot_s": sum(meter.snapshot_s),
+                "blob_bytes": max(meter.blob_bytes, default=None),
+                "parts": report, **held, "events": events,
+                # what the re-shards copied: the whole host checkpoint onto
+                # the card at each reshard_state, each restored pool from
+                # the host
+                "reshard_state_bytes": report["reshard_state"]["n"]
+                * param_bytes,
+                "restored_pool_bytes": report["restore"]["n"] * pool_bytes,
+                "memory_before_gb": mem0 / 1e9,
+                "memory_after_gb": mem1 / 1e9,
+                "max_memory_allocated_gb": peak / 1e9,
+                "peak_limit_gb": (mem0 + peak_limit) / 1e9}}
+
+
+def check_shard_shapes(gen) -> dict:
+    """Each kernel of qwen3-8b's paged path at the rank-local shapes of a
+    (2, 2) grid (``SHARD_LANES``, half the heads, ``gemm_rows`` on its N or
+    K half): against the matching slice of the same inputs' full-shape
+    call at the kernel's tolerance, with whether that slice is bitwise the
+    same (a row-parallel product's two halves, each a kernel call, summed
+    in bf16 as the all-reduce sums them). Then the kernel checks at those
+    shapes hold each against its plain version and print their rows (ms,
+    plain_ms, library_ms, bound); ``gemm_rows``' rows, which no check
+    makes at these shapes, are made here."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import flash_attention as fk, gemm_rows as gk
+    from repro_torch.kernels import ops, paged_decode_attention as pk
+    from repro_torch.kernels import rmsnorm as rk
+
+    cfg = get("qwen3-8b")
+    H, K, D, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
+    h, k, b = H // 2, K // 2, SHARD_LANES
+    slices, out = {}, {}
+
+    def held(name, got, full_slice):
+        slices[name] = {
+            "bitwise_full_slice": bool(torch.equal(got, full_slice)),
+            "max_abs_full_slice": _close(got, full_slice,
+                                         f"{name} at a (2, 2) shard")}
+
+    # RMSNorm: the block norm's rows, the q and k norms' rows of lanes 0-3
+    for what, shape, cut in (("block", (N_SLOTS, d), (slice(0, b),)),
+                             ("q_norm", (N_SLOTS, H, D),
+                              (slice(0, b), slice(0, h))),
+                             ("k_norm", (N_SLOTS, K, D),
+                              (slice(0, b), slice(0, k)))):
+        x, w = _rmsnorm_case(gen, shape)
+        full = rk.rmsnorm(x.reshape(-1, shape[-1]), w, 1e-6).view(shape)
+        xs = x[cut].contiguous().reshape(-1, shape[-1])
+        held(f"rmsnorm {what}", rk.rmsnorm(xs, w, 1e-6),
+             full[cut].reshape(-1, shape[-1]))
+    # the paged decode over the cell's pool: lanes 0-3, heads 0-15 of
+    # their kv heads 0-3
+    q, kp, vp, table, lens = _pool_case(gen, CELL_LENGTHS, CELL_ENGINE)
+    full = pk.paged_decode_attention(q, kp, vp, table, lens)
+    qs = q[:b, :h].contiguous()
+    ks, vs = kp[:, :, :k].contiguous(), vp[:, :, :k].contiguous()
+    held("paged_decode_attention",
+         pk.paged_decode_attention(qs, ks, vs, table[:b], lens[:b]),
+         full[:b, :h])
+    # flash: a second prefill chunk (256 queries over 512 keys)
+    q = torch.randn(1, CHUNK, H, D, generator=gen, device="cuda").bfloat16()
+    kk = torch.randn(1, 2 * CHUNK, K, D, generator=gen,
+                     device="cuda").bfloat16()
+    vv = torch.randn(1, 2 * CHUNK, K, D, generator=gen,
+                     device="cuda").bfloat16()
+    full = fk.flash_attention(q, kk, vv, causal=True, q_offset=CHUNK)
+    qs = q[:, :, :h].contiguous()
+    ks, vs = kk[:, :, :k].contiguous(), vv[:, :, :k].contiguous()
+    held("flash_attention",
+         fk.flash_attention(qs, ks, vs, causal=True, q_offset=CHUNK),
+         full[:, :, :h])
+    # gemm_rows: every decode product on its half
+    rows, step = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                      "cost": None, "max_abs_err": 0.0}
+    for name, Kd, N, _, times in gk.step_products(cfg):
+        w = (torch.randn(Kd, N, generator=gen, device="cuda")
+             * Kd ** -0.5).bfloat16()
+        x = torch.randn(N_SLOTS, Kd, generator=gen, device="cuda").bfloat16()
+        full = gk.gemm_rows(x, w)
+        if name in SHARD_ROW_PARALLEL:
+            xs, ws = x[:b, :Kd // 2].contiguous(), w[:Kd // 2].contiguous()
+            rest = gk.gemm_rows(x[:b, Kd // 2:].contiguous(),
+                                w[Kd // 2:].contiguous())
+            got = gk.gemm_rows(xs, ws)
+            held(f"gemm_rows {name} K/2, halves summed", got + rest,
+                 full[:b])
+            shard = "row"
+        else:
+            xs, ws = x[:b].contiguous(), w[:, :N // 2].contiguous()
+            got = gk.gemm_rows(xs, ws)
+            held(f"gemm_rows {name} N/2", got, full[:b, :N // 2])
+            shard = "column"
+        with ops.use_backend("plain"):
+            err = _close(got, ops.gemm_rows(xs, ws),
+                         f"gemm_rows {name} at a (2, 2) shard")
+        cost = gk.cost(b, *ws.shape)
+        row = {"shape": {"M": b, "K": ws.shape[0], "N": ws.shape[1],
+                         "product": name, "shard": shard, "arch": cfg.arch_id},
+               "max_abs_err": err,
+               "ms": _time_ms(lambda: gk.gemm_rows(xs, ws), flush=True),
+               "plain_ms": _time_ms(lambda: gk.plain(xs, ws), flush=True),
+               "library_ms": _time_ms(lambda: torch.matmul(xs, ws),
+                                      flush=True),
+               **bound(cost)}
+        rows.append(row)
+        for key in ("ms", "plain_ms", "library_ms"):
+            step[key] += times * row[key]
+        step["cost"] = (times * cost if step["cost"] is None
+                        else step["cost"] + times * cost)
+        step["max_abs_err"] = max(step["max_abs_err"], row["max_abs_err"])
+        del w, x, xs, ws, full, got
+    rows.append({"shape": {"M": b, "products": "one step", "arch": cfg.arch_id,
+                           "layers": cfg.n_layers, "shards": "(2, 2)"},
+                 "max_abs_err": step["max_abs_err"], "ms": step["ms"],
+                 "plain_ms": step["plain_ms"],
+                 "library_ms": step["library_ms"], **bound(step["cost"])})
+    out["rmsnorm@shard"] = check_rmsnorm(gen, [(b, d), (b * h, D),
+                                               (b * k, D)])
+    out["paged_decode_attention@shard"] = [check_paged_decode_pool(
+        gen, CELL_LENGTHS[:b], CELL_ENGINE, "shard", heads=(h, k))]
+    out["flash_attention@shard"] = check_flash(gen, H=h, K=k, D=D)
+    out["gemm_rows@shard"] = rows
+    for name, checks in out.items():
+        for r in checks:
+            r.update(_factors(r))
+            log({"kernel_check": name, **r})
+    log({"kernel_check": "(2, 2) shards against the full-shape call",
+         **slices})
+    return out
+
+
+def phase_materialized(model, params, card: str, want: list,
+                       seed: int = 8) -> dict:
+    """The materialized elastic cell on the card (``MAT_CELL``): a one-rank
+    NCCL group and a (1, 1) mesh, the scenario run materialized and then
+    layout-only on fresh cells, each stream held to phase_cell's trusted
+    engine's (``want``, from the same prompts), the re-shard's parts timed
+    beside each other; then the (2, 2) grid's rank-local shapes
+    (:func:`check_shard_shapes`). The group is destroyed before it
+    returns, and its meshes forgotten."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.elastic import clear_meshes
+    from repro_torch.serving.batch import make_engine_factory
+
+    prompts = _cell_prompts(model.cfg.vocab_size, seed)
+    factory = make_engine_factory(model, params, device="cuda", **CELL_ENGINE)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    out = {"phase": "materialized", "arch": model.cfg.arch_id, "card": card,
+           "layers": model.cfg.n_layers, "process_group": {
+               "backend": dist.get_backend(), "world": dist.get_world_size(),
+               "init_s": time.perf_counter() - t0},
+           "prompts": len(prompts), "new_tokens": CELL_NEW,
+           "engine": CELL_ENGINE, "cell": MAT_CELL, "faults": MAT_FAULTS}
+    runs = {}
+    try:
+        for materialize in (True, False):
+            name = "materialized" if materialize else "layout_only"
+            runs[name] = _mat_run(model, params, factory, prompts, want,
+                                  materialize=materialize)
+            out[name] = {**runs[name]["numbers"], **runs[name]["summary"],
+                         "launches": {n: c["launches"] for n, c in
+                                      runs[name]["counts"].items()}}
+    finally:
+        clear_meshes()
+        dist.destroy_process_group()
+    if dist.is_initialized():
+        raise AssertionError("the process group outlived the phase")
+    problems = [f"{name}: {p}" for name, r in runs.items()
+                for p in r["problems"]]
+    if problems:
+        log(out)
+        raise AssertionError("materialized cell: " + "; ".join(problems))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    checks = check_shard_shapes(gen)
+    log(out)
+    return {"launches": {n: c["launches"] for n, c in
+                         runs["materialized"]["counts"].items()},
+            "checks": checks}
 
 
 # ---------------------------------------------------------------------------
@@ -5958,7 +6352,7 @@ def run_model(arch: str, card: str) -> dict:
 
     serve = timed("serve", phase_serve, model, params, short=not full)
     per_call = serve["launches_per_call"]
-    dense = spec = batch = cell = None
+    dense = spec = batch = cell = mat = None
     if full:
         timed("profile", phase_profile, model, params)
     if full or arch == "granite-moe-1b-a400m":
@@ -5974,7 +6368,10 @@ def run_model(arch: str, card: str) -> dict:
         spec = timed("spec", phase_spec, model, params, card)["self_draft"]
         batch = timed("batch", phase_batch, model, params,
                       card)["launches"]
-        cell = timed("cell", phase_cell, model, params, card)["launches"]
+        cell = timed("cell", phase_cell, model, params, card)
+        mat = timed("materialized", phase_materialized, model, params, card,
+                    cell["want"])
+        cell = cell["launches"]
     elif arch == "deepseek-moe-16b":
         spec = timed("spec", phase_spec_moe, model, params,
                      card)["self_draft"]
@@ -5991,7 +6388,7 @@ def run_model(arch: str, card: str) -> dict:
             "dense": dense and (dense["launches"],
                                 dense["launches_per_call"]["decode_step"],
                                 dense["launches_per_call"]["prefill"]),
-            "spec": spec, "batch": batch, "cell": cell,
+            "spec": spec, "batch": batch, "cell": cell, "materialized": mat,
             "routes": {"paged": serve["route_launches"],
                        "dense": dense and dense["route_launches"]}}
 
@@ -6067,6 +6464,13 @@ def main() -> int:
         for name, (check, i) in (CELL_SUMMARY_ROW.items()
                                  if ran["cell"] else ()):
             row_of(name, check, i, arch, "cell", ran["cell"][name])
+        if ran["materialized"]:
+            # the (1, 1) mesh runs the cell's shapes; the (2, 2) grid's
+            # rank-local ones are printed by their own kernel_check lines
+            checks.update(ran["materialized"]["checks"])
+            for name, (check, i) in CELL_SUMMARY_ROW.items():
+                row_of(name, check, i, arch, "materialized",
+                       ran["materialized"]["launches"][name])
         for name, (check, i), path, key in ROUTE_ROWS.get(arch, ()):
             routes = ran["routes"]["dense" if path.startswith("dense")
                                    else "paged"]

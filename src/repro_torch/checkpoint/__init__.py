@@ -7,8 +7,9 @@
 - :mod:`~repro_torch.checkpoint.replicated` — P2P replicated checkpoint
   manager (placement per the paper's ≤5%-joint-failure rule).
 - :mod:`~repro_torch.checkpoint.elastic` — the grid a surviving elastic
-  cell re-forms on (``plan_elastic_mesh``) and the host copy it
-  re-lays-out from (``gather_state``).
+  cell re-forms on (``plan_elastic_mesh``), the mesh of real devices it
+  stands for (``make_elastic_mesh``), the host copy it re-lays-out from
+  (``gather_state``) and the re-lay-out (``reshard_state``).
 """
 
 from repro_torch.checkpoint.serializer import (
@@ -17,7 +18,12 @@ from repro_torch.checkpoint.serializer import (
     split_into_shards,
     join_shards,
 )
-from repro_torch.checkpoint.elastic import gather_state, plan_elastic_mesh
+from repro_torch.checkpoint.elastic import (
+    gather_state,
+    make_elastic_mesh,
+    plan_elastic_mesh,
+    reshard_state,
+)
 from repro_torch.checkpoint.store import DiskStore, SnapshotStore
 
 __all__ = [
@@ -28,5 +34,7 @@ __all__ = [
     "SnapshotStore",
     "DiskStore",
     "gather_state",
+    "make_elastic_mesh",
     "plan_elastic_mesh",
+    "reshard_state",
 ]

@@ -41,6 +41,21 @@ wrapper checks it and allocates as on the card, and at its launch records
 the call's cost (``kernels/_cost.py``) in place of the launch, with no
 ``ctypes`` call and no launch counted. Under ``use_backend("plain")`` it
 goes to the plain version like a CPU tensor.
+
+A DTensor (a tensor laid out on a ``DeviceMesh`` by the partition rules,
+``parallel/partition.py``) reaches ``rmsnorm``, ``attention``,
+``paged_decode_attention`` and ``gemm_rows``: each takes it through a
+``local_map`` whose placements keep every shard whole for the function,
+and calls itself on the local blocks, so that each block takes the path
+its device takes (the kernel on ``cuda``, the plain version on ``cpu`` or
+under ``use_backend("plain")``) and counts there. Heads shard with the kv
+heads: rank ``r`` of a model axis of size ``m`` holds query heads ``[r H /
+m, (r + 1) H / m)`` and kv heads ``[r K / m, (r + 1) K / m)``, so its GQA
+groups are whole. A row-parallel ``gemm_rows`` (``w`` sharded on K) gives a
+partial sum, reduced where ``shard()`` or the next operation asks; a row's
+bits then depend on the reduction's order, so the row invariance of one
+device is not claimed across a model axis. Every other entry refuses a
+DTensor: its sharded form is ROADMAP item 16b.
 """
 
 from __future__ import annotations
@@ -49,6 +64,8 @@ import contextlib
 import contextvars
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import _cost
 from repro_torch.kernels import decode_attention as _decode
@@ -121,6 +138,38 @@ def _plain(x: torch.Tensor, name: str) -> bool:
     return False
 
 
+def _dtensor(*ts) -> bool:
+    return any(isinstance(t, DTensor) for t in ts)
+
+
+def _refuse_dtensor(name: str, *ts) -> None:
+    """An entry with no sharded form yet takes no DTensor: it raises
+    rather than gather the shards behind the caller's back."""
+    if _dtensor(*ts):
+        raise NotImplementedError(
+            f"ops.{name} takes no DTensor: its sharded form (the SSM, "
+            "hybrid, MoE, enc-dec and speculative paths on a mesh) is "
+            "ROADMAP item 16b")
+
+
+def _lift(*ts) -> tuple:
+    """The mesh of the DTensors among ``ts``, then every one of ``ts`` as
+    a DTensor of it (a plain tensor replicated)."""
+    mesh = next(t for t in ts if isinstance(t, DTensor)).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    return (mesh, *(t if isinstance(t, DTensor) else
+                    DTensor.from_local(t, mesh, rep, run_check=False)
+                    for t in ts))
+
+
+def _whole(t: DTensor, *dims: int) -> list:
+    """``t``'s placements with ``dims`` whole: a shard of one of them, or a
+    partial sum, becomes ``Replicate()``."""
+    keep = {d % t.ndim for d in dims}
+    return [p if isinstance(p, Shard) and p.dim not in keep else Replicate()
+            for p in t.placements]
+
+
 def _note_grad(x: torch.Tensor, name: str) -> None:
     """A kernel call that needs a gradient: on meta tensors, its backward
     ``name`` noted for the meta pass (the tally ``plain_calls`` keeps for
@@ -135,6 +184,13 @@ def _needs_grad(*ts: torch.Tensor | None) -> bool:
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    if _dtensor(x, w):
+        # rows shard as they are; the normalized dim is whole, w replicated
+        mesh, x, w = _lift(x, w)
+        px = _whole(x, -1)
+        return local_map(rmsnorm, out_placements=px,
+                         in_placements=(px, [Replicate()] * mesh.ndim, None),
+                         device_mesh=mesh, redistribute_inputs=True)(x, w, eps)
     grad = _needs_grad(x, w)
     if _plain(x, "rmsnorm"):
         if grad:
@@ -154,6 +210,8 @@ def attention(
     causal: bool = True,
     q_offset: int = 0,
 ) -> torch.Tensor:
+    if _dtensor(q, k, v):
+        return _attention_shards(q, k, v, causal, q_offset)
     grad = _needs_grad(q, k, v)
     if _plain(q, "flash_attention"):
         if grad:
@@ -165,6 +223,40 @@ def attention(
     return _flash.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
 
 
+def _heads_and_batch(q: DTensor, kv: DTensor, hq: int, hk: int,
+                     bq: int | None, bk: int | None) -> tuple[list, list]:
+    """Placements that keep each GQA group whole: on a mesh dim where the
+    kv operand shards its heads (dim ``hk``), the queries shard theirs
+    (``hq``) alike; on a dim where the queries shard their batch (``bq``),
+    the kv operand shards its own (``bk``), or stays whole where it has
+    none (a page pool); every other dim is replicated."""
+    pq, pk = [], []
+    for a, b in zip(q.placements, kv.placements):
+        if isinstance(b, Shard) and b.dim == hk:
+            pq.append(Shard(hq))
+            pk.append(Shard(hk))
+        elif bq is not None and isinstance(a, Shard) and a.dim == bq:
+            pq.append(Shard(bq))
+            pk.append(Shard(bk) if bk is not None else Replicate())
+        else:
+            pq.append(Replicate())
+            pk.append(Replicate())
+    return pq, pk
+
+
+def _attention_shards(q, k, v, causal: bool, q_offset: int) -> DTensor:
+    """``attention`` on DTensors: heads sharded as k's kv heads are, the
+    batch as q's is; each rank runs its block."""
+    mesh, q, k, v = _lift(q, k, v)
+    pq, pk = _heads_and_batch(q, k, 2, 2, 0, 0)
+
+    def run(q, k, v):
+        return attention(q, k, v, causal=causal, q_offset=q_offset)
+
+    return local_map(run, out_placements=pq, in_placements=(pq, pk, pk),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
 def decode_attention(
     q: torch.Tensor,        # (B, H, D)
     k: torch.Tensor,        # (B, S, K, D)
@@ -173,6 +265,7 @@ def decode_attention(
 ) -> torch.Tensor:
     """One token per lane over a dense cache; zeros for a lane of length 0,
     as the TPU kernel gives (``ref.decode_attention``)."""
+    _refuse_dtensor("decode_attention", q, k, v, lengths)
     if _plain(q, "decode_attention"):
         return ref.decode_attention(q, k, v, lengths)
     return _decode.decode_attention(q, k, v, lengths)
@@ -185,11 +278,32 @@ def paged_decode_attention(
     page_table: torch.Tensor,  # (B, max_pages) int32
     lengths: torch.Tensor,     # (B,) int32
 ) -> torch.Tensor:
+    if _dtensor(q, k_pages, v_pages, page_table, lengths):
+        return _paged_decode_shards(q, k_pages, v_pages, page_table, lengths)
     if _plain(q, "paged_decode_attention"):
         return ref.paged_decode_attention(q, k_pages, v_pages, page_table,
                                           lengths)
     return _paged.paged_decode_attention(q, k_pages, v_pages, page_table,
                                          lengths)
+
+
+def _paged_decode_shards(q, k_pages, v_pages, page_table,
+                         lengths) -> DTensor:
+    """``paged_decode_attention`` on DTensors. A pool sharded on its kv
+    heads gives each rank the query heads of its groups; a pool sharded on
+    ``pages`` (the rules' fallback where the kv heads do not divide the
+    model axis) is gathered whole first, since the kernel reads any page
+    of a lane's table, and the queries are then whole on that dim too.
+    Lanes shard as the queries' batch does, their table rows and lengths
+    with them."""
+    mesh, q, k_pages, v_pages, page_table, lengths = _lift(
+        q, k_pages, v_pages, page_table, lengths)
+    pq, pk = _heads_and_batch(q, k_pages, 1, 2, 0, None)
+    lanes = [Shard(0) if p == Shard(0) else Replicate() for p in pq]
+    return local_map(paged_decode_attention, out_placements=pq,
+                     in_placements=(pq, pk, pk, lanes, lanes),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k_pages, v_pages, page_table, lengths)
 
 
 def _fold(q, k_pages, v_pages, page_table, lengths, *, rows: int = 1,
@@ -229,6 +343,8 @@ def paged_verify_attention(
     card the window folds into the batch of the paged decode kernel, lengths
     ``positions[:, None] + arange(W) + 1`` and the table repeated W times
     (``repro/kernels/ops.py:285-301``)."""
+    _refuse_dtensor("paged_verify_attention", q, k_pages, v_pages,
+                    page_table, positions)
     if _plain(q, "paged_decode_attention"):
         return ref.paged_verify_attention(q, k_pages, v_pages, page_table,
                                           positions)
@@ -288,6 +404,8 @@ def paged_cross_attention(
     rather than once a row, as the TPU path's one row a lane does
     (``repro/kernels/ops.py:323-349``). At C = 1 the lanes go as they
     are."""
+    _refuse_dtensor("paged_cross_attention", q, k_pages, v_pages,
+                    page_table, lengths)
     if _plain(q, "paged_decode_attention"):
         return ref.paged_cross_attention(q, k_pages, v_pages, page_table,
                                          lengths)
@@ -297,10 +415,39 @@ def paged_cross_attention(
 def gemm_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x (..., K) @ w (K, N)``, bf16 with f32 sums, each row's bits
     independent of the other rows of the call (the paged decode step's
-    product)."""
+    product). On DTensors (:func:`_gemm_rows_shards`) a ``w`` sharded on N
+    gives an output sharded on its last dim, one sharded on K a partial
+    sum."""
+    if _dtensor(x, w):
+        return _gemm_rows_shards(x, w)
     if _plain(x, "gemm_rows"):
         return ref.gemm_rows(x, w)
     return _gemm.gemm_rows(x, w)
+
+
+def _gemm_rows_shards(x, w) -> DTensor:
+    """``gemm_rows`` on DTensors, per mesh dim: column-parallel where ``w``
+    shards N (``x`` whole on K, the output ``Shard(-1)``), row-parallel
+    where it shards K (``x`` sharded on K, the output ``Partial()``), and
+    where ``w`` is replicated the rows of ``x`` shard as they are."""
+    mesh, x, w = _lift(x, w)
+    last = x.ndim - 1
+    px, pw, po = [], [], []
+    for a, b in zip(_whole(x, -1), w.placements):
+        if isinstance(b, Shard) and b.dim == 1:
+            px.append(Replicate())
+            pw.append(b)
+            po.append(Shard(last))
+        elif isinstance(b, Shard):
+            px.append(Shard(last))
+            pw.append(b)
+            po.append(Partial())
+        else:
+            px.append(a)
+            pw.append(Replicate())
+            po.append(a)
+    return local_map(gemm_rows, out_placements=po, in_placements=(px, pw),
+                     device_mesh=mesh, redistribute_inputs=True)(x, w)
 
 
 def gemm_rows_grouped(buf: torch.Tensor, w: torch.Tensor,
@@ -310,6 +457,7 @@ def gemm_rows_grouped(buf: torch.Tensor, w: torch.Tensor,
     MoE paged decode step's routed experts). On the card, rows of expert e
     at or past ``counts[e]`` are left unwritten; the plain version computes
     every row."""
+    _refuse_dtensor("gemm_rows_grouped", buf, w, counts)
     if _plain(buf, "gemm_rows_grouped"):
         return ref.gemm_rows_grouped(buf, w)
     return _gemm.gemm_rows_grouped(buf, w, counts)
@@ -321,6 +469,7 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, k: int, *,
     k)`` f32 and ``ids (T, k)`` int32 of each token's top-k experts, a
     token's result independent of the others; with ``with_probs`` also the
     softmax ``probs (T, E)`` f32 (training's aux loss)."""
+    _refuse_dtensor("moe_route", x, router)
     grad = _needs_grad(x, router)
     if _plain(x, "moe_route"):
         if grad:
@@ -344,6 +493,7 @@ def selective_scan(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mamba1 scan, f32 inside whatever the model's ``ssm_dtype`` (the TPU
     kernel ignores it too, ``repro/kernels/ops.py:423-429``)."""
+    _refuse_dtensor("selective_scan", x, dt, A, Bm, C, D, h0)
     grad = _needs_grad(x, dt, A, Bm, C, D, h0)
     if _plain(x, "selective_scan"):
         if grad:
@@ -366,6 +516,7 @@ def ssd(
     *,
     chunk: int = 256,
 ) -> tuple[torch.Tensor, torch.Tensor]:
+    _refuse_dtensor("ssd", x, dt, A, Bm, C, D, h0)
     grad = _needs_grad(x, dt, A, Bm, C, D, h0)
     if _plain(x, "ssd"):
         if grad:

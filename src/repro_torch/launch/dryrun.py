@@ -12,9 +12,10 @@ device's bytes of params, state and cache, and report a dim that does not
 divide its axis. Per-device figures follow the reference's
 ideal-partition convention (global / devices), and the terms are the
 H100's (``launch/roofline.py``): a prediction from the meta pass and the
-datasheet's peaks, not a measurement. ``collectives`` is null: the port
-runs no sharded program until the materialized cell (ROADMAP Queue 1,
-item 16). It runs on the CPU and needs no card.
+datasheet's peaks, not a measurement. ``collectives`` is null: the meta
+pass counts no collectives yet (ROADMAP item 16b; the materialized cell's
+sharded serving issues them through DTensor). It runs on the CPU and
+needs no card.
 
 Records land in ``artifacts/torch_dryrun/<arch>__<shape>__<mesh>.json``
 (the reference's stay in ``artifacts/dryrun/``). The sweep is resumable:
@@ -35,7 +36,7 @@ import os
 import time
 import traceback
 
-NO_COLLECTIVES = "no sharded execution until item 16"
+NO_COLLECTIVES = "no collective count until item 16b"
 
 
 def parse_variant(spec: str | None) -> dict:

@@ -6,8 +6,9 @@ per-device layout of every leaf from them. The reference's shapes: one
 pod (16, 16) over ``("data", "model")``, two pods (2, 16, 16) over
 ``("pod", "data", "model")``. The reference's TPU constants (peak FLOP/s,
 HBM and ICI rates) are not kept: the port's card's are in
-``launch/roofline.py``. Grids of real devices come with the materialized
-cell (ROADMAP Queue 1, item 16).
+``launch/roofline.py``. A grid of real devices is a ``DeviceMesh`` of the
+same axis names (``checkpoint.elastic.make_elastic_mesh``, the materialized
+elastic cell), which the same rules read (``parallel.partition.grid_of``).
 """
 
 from __future__ import annotations

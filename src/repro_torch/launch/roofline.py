@@ -25,8 +25,9 @@ its calls of each call's least time on its units: products by their
 operands' type (bf16 at ``PEAK_FLOPS_BF16``, f32 at ``PEAK_FLOPS_F32``) and
 a kernel's :class:`~repro_torch.kernels._cost.Cost` through
 :func:`ops_seconds` (its operations against its exponentials, the larger).
-The port runs no sharded program until the materialized cell
-(ROADMAP Queue 1, item 16), so its collective bytes are none yet.
+The materialized elastic cell runs sharded serving on a ``DeviceMesh``,
+but the meta pass counts no collectives yet (ROADMAP item 16b), so the
+collective bytes are none.
 
 Not ported: the reference's HLO parsers (``parse_collective_bytes``,
 ``analyze_collectives``, ``calibrate_cost_semantics``) read the text of a
@@ -161,7 +162,8 @@ def model_flops_for(cfg, shape) -> float:
 
 def terms_from_artifact(art: dict, cfg, shape) -> RooflineTerms:
     """A dry-run record's terms (``launch/dryrun.py``). Its ``collectives``
-    is None until the port runs sharded (item 16): no collective bytes."""
+    is None until the meta pass counts collectives (item 16b): no
+    collective bytes."""
     coll = art.get("collectives") or {}
     return RooflineTerms(
         arch=art["arch"],

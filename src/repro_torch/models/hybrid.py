@@ -36,6 +36,7 @@ from repro_torch.models.model_api import (ModelFns, Params, PSpec, Tree,
                                           standard_input_specs,
                                           zeros_from_specs)
 from repro_torch.models.transformer import _cast, _remat
+from repro_torch.parallel.partition import shard
 
 
 def mamba2_block_specs(cfg: ModelConfig, layers: int) -> dict:
@@ -125,7 +126,7 @@ def _dt(lp: nn.Module, h: torch.Tensor) -> torch.Tensor:
 def _gate_out(lp: nn.Module, x: torch.Tensor, y: torch.Tensor,
               z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y = ops.rmsnorm(y * silu(z), lp.gate_ln, cfg.norm_eps)
-    return x + y @ lp.out_proj
+    return x + shard(y @ lp.out_proj, "batch", None, None)
 
 
 def _mix(lp, x: torch.Tensor, cfg: ModelConfig,
@@ -139,7 +140,7 @@ def _mix(lp, x: torch.Tensor, cfg: ModelConfig,
     B, S, _ = x.shape
     h = ops.rmsnorm(x, lp.ln, cfg.norm_eps)
     z = h @ lp.wz
-    xbc = h @ lp.w_xbc
+    xbc = shard(h @ lp.w_xbc, "batch", None, "inner")
     pre_conv = xbc
     xbc = silu(ops.causal_conv1d(xbc, lp.conv_w, lp.conv_b, state=conv_state))
     xin, Bm, C = _split_xbc(xbc, cfg)

@@ -18,6 +18,12 @@ as ``mm`` (``x (..., a)``, ``w (a, n)`` -> ``(..., n)``): ``torch.matmul``
 by default, and ``ops.gemm_rows`` on the paged decode entry point, whose
 rows do not depend on how many rows share the call (see
 ``models/transformer.py``).
+
+Activations are laid out by logical axes through
+:func:`~repro_torch.parallel.partition.shard` at the reference's points
+(``layers.py:82-84, 110, 348, 370, 383``): a no-op without a mesh, a
+``redistribute`` under one, where the weights are DTensors and every
+product and kernel takes its shards (``kernels/ops.py``).
 """
 
 from __future__ import annotations
@@ -28,10 +34,12 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.model_api import PSpec
+from repro_torch.parallel.partition import shard
 
 Matmul = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -39,9 +47,76 @@ Matmul = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 def _mm(x: torch.Tensor, w: torch.Tensor,
         mm: Matmul = torch.matmul) -> torch.Tensor:
     """``x (..., a) @ w (a, ...)``: the einsums of the reference with the
-    contracted axis first in ``w`` and the rest of ``w`` kept."""
+    contracted axis first in ``w`` and the rest of ``w`` kept. A DTensor
+    ``w`` sharded on its first kept axis stays sharded through both
+    reshapes (the rules never shard ``head_dim``)."""
     out = mm(x, w.reshape(w.shape[0], -1))
     return out.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def _put(cache: torch.Tensor, idx: tuple, new: torch.Tensor) -> None:
+    """``cache[idx] = new`` in place, the leading ``len(idx)`` dims indexed
+    by tensors of one shape. A DTensor cache (a pool laid out on a mesh)
+    takes the write block by block, as ``index_put_`` has no sharding
+    rule on every torch: ``new`` is laid out as the cache's kept dims are,
+    whole where the cache shards an indexed dim, and there a rank keeps
+    only the rows whose index falls in its block (the rules' ``pages``
+    fallback)."""
+    new = new.to(cache.dtype)
+    if not isinstance(cache, DTensor):
+        cache.index_put_(idx, new)
+        return
+    mesh, coord = cache.device_mesh, cache.device_mesh.get_coordinate()
+    n, lead = len(idx), idx[0].ndim
+    want, lo, block = [], 0, cache.shape[0]
+    for i, p in enumerate(cache.placements):
+        if isinstance(p, Shard) and p.dim >= n:
+            want.append(Shard(p.dim - n + lead))
+            continue
+        want.append(Replicate())
+        if isinstance(p, Shard):
+            if p.dim != 0:
+                raise ValueError(f"a cache sharded on indexed dim {p.dim}")
+            block //= mesh.size(i)
+            lo += coord[i] * block
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    new = new.redistribute(mesh, want).to_local()
+    idx = [j.full_tensor() if isinstance(j, DTensor) else j for j in idx]
+    if block != cache.shape[0]:
+        keep = (idx[0] >= lo) & (idx[0] < lo + block)
+        idx = [idx[0][keep] - lo] + [j[keep] for j in idx[1:]]
+        new = new[keep]
+    cache.to_local().index_put_(tuple(idx), new)
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A host-made input whole as a plain tensor (under a mesh it enters
+    replicated): the page arithmetic of a call runs on plain tensors, as
+    not every torch has a sharding rule for each of its operations."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``. A DTensor table is read block by block: an index
+    the whole of every rank (replicated) picks rows of the local block,
+    which keeps the table's placements on its other dims; a table sharded
+    on its first dim is gathered whole first."""
+    if not isinstance(table, DTensor):
+        return table[idx]
+    mesh = table.device_mesh
+    place = [Replicate() if isinstance(p, Shard) and p.dim == 0 else p
+             for p in table.placements]
+    if any(isinstance(p, Shard) and p.dim == 0 for p in table.placements):
+        table = table.redistribute(mesh, place)
+    if isinstance(idx, DTensor):
+        idx = idx.full_tensor()
+    out = table.to_local()[idx]
+    shift = idx.ndim - 1
+    return DTensor.from_local(
+        out, mesh, [Shard(p.dim + shift) if isinstance(p, Shard) else p
+                    for p in place], run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +200,7 @@ def decode_rows(cfg: ModelConfig, positions: torch.Tensor,
                 page_table: torch.Tensor, page_size: int) -> Rows:
     """One token per lane at ``positions`` (B,), through the lanes' tables
     (B, max_pages). Inactive lanes point at the scratch page 0."""
-    pos = positions.long()
+    pos, page_table = _host(positions).long(), _host(page_table)
     pid = page_table.long().gather(1, (pos // page_size)[:, None])[:, 0]
     cos = sin = None
     if cfg.rope_theta > 0 and not cfg.learned_positions:
@@ -139,6 +214,7 @@ def chunk_rows(cfg: ModelConfig, offset: int, n: int,
     row (max_pages,). Pad-tail positions past the table's capacity land on
     the scratch page (id 0) instead of clobbering a clamped-index real page
     (``layers.py:271-277``)."""
+    page_table = _host(page_table)
     max_pages = page_table.shape[0]
     pos = offset + torch.arange(n, device=page_table.device)
     logical = pos // page_size
@@ -191,6 +267,9 @@ def _project_qkv(p: nn.Module, x: torch.Tensor, cfg: ModelConfig, rows: Rows,
     if rows.cos is not None:
         q = apply_rope(q, rows.cos, rows.sin)
         k = apply_rope(k, rows.cos, rows.sin)
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
     return q, k, v
 
 
@@ -219,7 +298,8 @@ def attn_forward(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
     else:
         q, (k, v) = _project_q(p, x, cfg, rows), kv
     out = ops.attention(q, k, v, causal=causal)
-    return _mm(out.flatten(2), p.wo.flatten(0, 1)), k, v
+    out = _mm(out.flatten(2), p.wo.flatten(0, 1))
+    return shard(out, "batch", None, None), k, v
 
 
 def kv_append(cache: torch.Tensor, new: torch.Tensor, rows: Rows) -> None:
@@ -266,7 +346,7 @@ def paged_kv_append(pages: torch.Tensor, new: torch.Tensor,
     Write targets are owned by one sequence each (the engine maps written
     positions to private pages); inactive lanes and pad-tail positions
     point at the scratch page 0 and collide harmlessly there."""
-    pages.index_put_((rows.pid, rows.off), new.to(pages.dtype))
+    _put(pages, (rows.pid, rows.off), new)
 
 
 def attn_decode_paged(
@@ -358,8 +438,8 @@ def attn_prefill_chunk(
     paged_kv_append(k_pages, k[0], rows)
     paged_kv_append(v_pages, v[0], rows)
     n_ctx = ctx.shape[0] * k_pages.shape[1]
-    k_ctx = k_pages[ctx].reshape(1, n_ctx, *k.shape[2:])
-    v_ctx = v_pages[ctx].reshape(1, n_ctx, *v.shape[2:])
+    k_ctx = _take(k_pages, ctx).reshape(1, n_ctx, *k.shape[2:])
+    v_ctx = _take(v_pages, ctx).reshape(1, n_ctx, *v.shape[2:])
     # keys past offset+C sit above the causal diagonal for every real query
     out = ops.attention(q, k_ctx, v_ctx, causal=True, q_offset=offset)
     return _mm(out.flatten(2), p.wo.flatten(0, 1))
@@ -414,10 +494,11 @@ def mlp_forward(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
     if not cfg.gated_mlp:
         h = mm(x, p.wi)
         h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
-        return mm(h, p.wd)
-    g = mm(x, p.wg)
-    u = mm(x, p.wu)
-    h = F.silu(g.float()).to(g.dtype) * u
+    else:
+        g = mm(x, p.wg)
+        u = mm(x, p.wu)
+        h = F.silu(g.float()).to(g.dtype) * u
+    h = shard(h, "batch", None, "mlp") if h.ndim == 3 else h
     return mm(h, p.wd)
 
 
@@ -439,7 +520,8 @@ def embed_specs(cfg: ModelConfig) -> dict:
 
 
 def embed_lookup(p: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
-    return p.embedding[tokens.long()]
+    x = _take(p.embedding, tokens.long())
+    return shard(x, "batch", None, None) if x.ndim == 3 else x
 
 
 def logits_last(p: nn.Module, h: torch.Tensor, cfg: ModelConfig,
@@ -455,6 +537,7 @@ def _chunk_loss(hc: torch.Tensor, lc: torch.Tensor, w: torch.Tensor,
     """One chunk of :func:`lm_loss`: the sums of its masked nll and
     squared log-normalizer, and its count of labels."""
     logits = (hc @ (w.t() if tied else w)).float()          # (B, c, V) f32
+    logits = shard(logits, "batch", None, "vocab")
     lse = torch.logsumexp(logits, dim=-1)                   # (B, c)
     mask = lc >= 0
     lbl = torch.where(mask, lc, torch.zeros_like(lc)).long()

@@ -34,6 +34,7 @@ from repro_torch.models.model_api import (ModelFns, Params, PSpec, Tree,
                                           standard_input_specs,
                                           zeros_from_specs)
 from repro_torch.models.transformer import _cast, _remat
+from repro_torch.parallel.partition import shard
 
 
 def mamba_block_specs(cfg: ModelConfig, layers: int) -> dict:
@@ -127,7 +128,7 @@ def _mix(lp, x: torch.Tensor, cfg: ModelConfig,
     Returns ``(out, the conv's input (B, S, Di), new ssm state)``."""
     S = x.shape[1]
     h = ops.rmsnorm(x, lp.ln, cfg.norm_eps)
-    xin = h @ lp.wx
+    xin = shard(h @ lp.wx, "batch", None, "inner")
     z = h @ lp.wz
     pre_conv = xin
     xin = silu(ops.causal_conv1d(xin, lp.conv_w, lp.conv_b, state=conv_state))
@@ -138,7 +139,7 @@ def _mix(lp, x: torch.Tensor, cfg: ModelConfig,
     y, hT = ops.selective_scan(xin, dt.to(xin.dtype), A, Bm, C, D,
                                h0=ssm_state)
     y = y * silu(z)
-    return x + y @ lp.out_proj, pre_conv, hT
+    return x + shard(y @ lp.out_proj, "batch", None, None), pre_conv, hT
 
 
 def _block(lp: nn.Module, x: torch.Tensor, cfg: ModelConfig,

@@ -63,6 +63,7 @@ from repro_torch.models import layers as ll
 from repro_torch.models import transformer as tf
 from repro_torch.models.model_api import (ModelFns, Params, PSpec, Tree,
                                           standard_input_specs)
+from repro_torch.parallel.partition import shard
 
 
 def moe_mlp_specs(cfg: ModelConfig, layers: int) -> dict:
@@ -181,7 +182,8 @@ def _expert_mlp(p: MoeMLP, buf: torch.Tensor, grouped, counts):
     (``moe.py:81-87``)."""
     g = grouped(buf, p.wg, counts)
     u = grouped(buf, p.wu, counts)
-    h = F.silu(g.float()).to(g.dtype) * u
+    h = shard(F.silu(g.float()).to(g.dtype) * u, "experts", None,
+              "expert_mlp")
     return grouped(h, p.wd, counts)
 
 
@@ -241,7 +243,7 @@ def _moe_mlp(p, x: torch.Tensor, cfg: ModelConfig, mm: ll.Matmul,
     slot = torch.where(keep, e * cap + rank, E * cap)
     flat = torch.zeros(E * cap + 1, d, dtype=x.dtype, device=x.device)
     flat[slot] = xf[:, None].expand(T, k, d).reshape(T * k, d)
-    buf = flat[:E * cap].view(E, cap, d)
+    buf = shard(flat[:E * cap].view(E, cap, d), "experts", None, None)
     out = _expert_mlp(p, buf, grouped or _bmm, counts).reshape(E * cap, d)
     # combine: each pair's row (a dropped pair reads slot (e, cap - 1) with
     # weight 0, as the reference's clamped rank does) times its weight in

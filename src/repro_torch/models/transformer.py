@@ -43,6 +43,7 @@ from repro_torch.models import layers as ll
 from repro_torch.models.model_api import (ModelFns, Params, PSpec, Tree,
                                           meta_tensor,
                                           standard_input_specs)
+from repro_torch.parallel.partition import shard
 
 VISION_D = 1024  # stub vision-tower embedding width (CLIP-like)
 
@@ -93,15 +94,24 @@ class DenseLM(nn.Module):
         )
 
 
+def _residual_shard(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Sequence parallelism (``transformer.py:53-61``): under a mesh, the
+    residual stream of a ``seq_parallel`` config keeps its sequence dim
+    sharded over the model axis between blocks; otherwise ``x``."""
+    if cfg.seq_parallel:
+        return shard(x, "batch", "seq_model", None)
+    return x
+
+
 def _block(lp: Block, x: torch.Tensor, cfg: ModelConfig, attend,
            mm: ll.Matmul = torch.matmul, grouped=None):
     """Pre-norm attention (``attend(p, h)``, the call's attention) + the
     block's MLP (``lp.ffn``; ``grouped`` is the routed experts' product of
     an MoE block, None for ``torch.bmm``)."""
     h = ops.rmsnorm(x, lp.attn.ln, cfg.norm_eps)
-    y = x + attend(lp.attn, h)
+    y = _residual_shard(x + attend(lp.attn, h), cfg)
     h = ops.rmsnorm(y, lp.mlp.ln, cfg.norm_eps)
-    return y + lp.ffn(h, cfg, mm, grouped)
+    return _residual_shard(y + lp.ffn(h, cfg, mm, grouped), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -361,7 +371,7 @@ def loss_fn(tree: Tree, batch: dict, cfg: ModelConfig):
     specs = build_specs(cfg)
     top = SimpleNamespace(**{k: _cast(v, specs[k]) for k, v in tree.items()
                              if k != "layers"})
-    x = _embed_inputs(top, cfg, batch)
+    x = _residual_shard(_embed_inputs(top, cfg, batch), cfg)
     rows = ll.dense_rows(cfg, torch.arange(x.shape[1], device=x.device))
     per_layer, view = _unstack(tree["layers"], specs["layers"])
 

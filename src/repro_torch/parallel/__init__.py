@@ -1,7 +1,9 @@
-"""Distribution layer of the port: the logical-axis partition rules on a
-layout grid (``repro/parallel/partition.py``) and gradient compression
-(``collectives``). Placement on real devices waits for the materialized
-elastic cell (ROADMAP Queue 1, item 16).
+"""Distribution layer of the port: the logical-axis partition rules
+(``repro/parallel/partition.py``) on a layout grid and, through
+``torch.distributed.tensor``, on a ``DeviceMesh`` of real devices
+(``to_placements``, ``tree_shardings``, ``activation_sharding``,
+``shard``, ``on_mesh``), and gradient compression (``collectives``). Expert
+parallelism and sharded training come with ROADMAP item 16b.
 
 The reference's ``parallel/tracing.py`` is not ported: its one job is to
 unroll ``lax.scan`` while tracing, so that XLA's ``cost_analysis`` counts a
@@ -13,16 +15,32 @@ from repro_torch.parallel.collectives import compress_grads
 from repro_torch.parallel.partition import (
     LayoutGrid,
     PartitionSpec,
+    Sharding,
+    activation_sharding,
+    current_mesh,
+    grid_of,
     layout_grid,
+    on_mesh,
+    shard,
     spec_for_axes,
+    to_placements,
     tree_partition_specs,
+    tree_shardings,
 )
 
 __all__ = [
     "compress_grads",
     "LayoutGrid",
     "PartitionSpec",
+    "Sharding",
+    "activation_sharding",
+    "current_mesh",
+    "grid_of",
     "layout_grid",
+    "on_mesh",
+    "shard",
     "spec_for_axes",
+    "to_placements",
     "tree_partition_specs",
+    "tree_shardings",
 ]

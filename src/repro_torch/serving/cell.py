@@ -43,15 +43,32 @@ attempts back off exponentially (:class:`JitteredBackoff`) while the
 cloudlet is below ``min_hosts``, and a ``rejoin`` fault/return grows the
 grid back gracefully (snapshot-first, zero replay).
 
-Ported from ``repro/serving/cell.py`` in its default, **layout-only**
-mode: the logical engine computes on one device while placement, layout
+Ported from ``repro/serving/cell.py``. In its default, **layout-only**
+mode the logical engine computes on one device while placement, layout
 (real :class:`~repro_torch.parallel.partition.PartitionSpec` trees on a
 :class:`~repro_torch.parallel.partition.LayoutGrid`, also the source of
 the ``reshard_bytes_moved`` accounting), detection, snapshots, shed and
 replay are all real. The bytes are the port's own leaves' (bf16 where it
-stores a weight in bf16), counted by the reference's rule. Placing params
-and the pool on a grid of real devices (``materialize=True``) is ROADMAP
-Queue 1, item 16; asked for, the cell raises.
+stores a weight in bf16), counted by the reference's rule.
+
+With ``materialize=True`` the grid is real: a ``DeviceMesh`` over the
+first ranks of the ``torch.distributed`` process group
+(:func:`make_elastic_mesh`), one process a device, the params re-laid-out
+from the elastic checkpoint as DTensors (:func:`reshard_state`), the pool
+by ``paged_cache_shardings`` and the paged entry points lifted onto the
+mesh (``ServeEngine.lay_out``), and every engine step under
+:func:`activation_sharding`, where each kernel runs on its shards
+(``kernels/ops.py``). Every rank runs the same cell program: the
+simulation is seeded and deterministic. A rank the grid leaves out after a
+shrink takes no part in the mesh's collectives: it computes nothing and
+takes global rank 0's logits (installed only while the grid is smaller
+than the process group) and snapshots (:func:`from_rank0`), so its
+engine's host state stays the members', and after each step every rank's
+committed streams are held to rank 0's. A shard's arithmetic sums in
+another order than one device's, so a replayed lane may recompute a token
+other than the committed one: teacher forcing commits the client's token
+all the same and ``forced_mismatches`` counts it. Sharded serving of the
+SSM, hybrid, MoE, enc-dec and speculative paths is ROADMAP item 16b.
 
 The engines come from :func:`make_engine_factory` (or the caller's
 ``factory``): they run on ``cuda`` unless ``engine_kwargs`` passes
@@ -59,25 +76,35 @@ The engines come from :func:`make_engine_factory` (or the caller's
 unless ``engine_kwargs`` names another (the reference's docstring says
 "the full continuous-batching scheduler", but its code takes the
 factory's default as this one does; ROADMAP Queue 3, R7). Each re-shard
-drops the old engine before the factory builds the next, so one pool is
-on the device at a time. Replay holds on the card because a lane's
-arithmetic does not depend on its batch (``gemm_rows`` and the per-lane
-attention kernels).
+drops the old engine's pool and weights before the factory builds the
+next, so one pool is on the device at a time. Replay holds on the card
+because a lane's arithmetic does not depend on its batch (``gemm_rows``
+and the per-lane attention kernels).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Any
 
-from repro_torch.checkpoint.elastic import gather_state, plan_elastic_mesh
+import torch
+import torch.distributed as dist
+
+from repro_torch.checkpoint.elastic import (
+    gather_state,
+    make_elastic_mesh,
+    plan_elastic_mesh,
+    reshard_state,
+)
 from repro_torch.core.backoff import JitteredBackoff
 from repro_torch.core.faults import FaultEvent, FaultPlan
 from repro_torch.core.server import AdHocServer
 from repro_torch.core.simulation import SimClock
 from repro_torch.models.model_api import tree_leaves
 from repro_torch.parallel.partition import (
+    activation_sharding,
     layout_grid,
     tree_map2,
     tree_partition_specs,
@@ -89,6 +116,37 @@ from repro_torch.serving.kvcache import paged_cache_partition_specs
 Tree = Any
 
 __all__ = ["CellRequest", "ElasticServeCell"]
+
+
+def from_rank0(obj):
+    """``obj`` as global rank 0 holds it, on every rank of the default
+    process group (``broadcast_object_list``); ``obj`` itself without a
+    group or in a group of one. A mesh takes the group's first ranks, so
+    rank 0 is always a member: the ranks a shrunken mesh leaves out get a
+    member's result, and every rank keeps the same host-side state."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return obj
+    if isinstance(obj, torch.Tensor) and obj.device.type != "cpu":
+        obj = obj.cpu()
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _logits_from_rank0(engine: ServeEngine, mesh) -> None:
+    """On a mesh smaller than the process group, every rank takes global
+    rank 0's logits from the engine's paged entry points: a member
+    computes them, a rank the mesh leaves out computes nothing."""
+    member = mesh.get_coordinate() is not None
+
+    def lift(fn):
+        def run(*args, **kw):
+            return from_rank0(fn(*args, **kw) if member else None)
+        return run
+
+    engine.model = dataclasses.replace(
+        engine.model, prefill_chunk=lift(engine.model.prefill_chunk),
+        decode_paged=lift(engine.model.decode_paged))
 
 
 @dataclass
@@ -144,11 +202,6 @@ class ElasticServeCell:
             raise ValueError((model_parallel, devices_per_host))
         if min_hosts < 1 or target_hosts < min_hosts:
             raise ValueError((min_hosts, target_hosts))
-        if materialize:
-            raise ValueError(
-                "materialize=True (params and the paged pool placed on a "
-                "grid of real devices) is not ported: the cell runs "
-                "layout-only; ROADMAP Queue 1, item 16")
         self.server = server
         self.cloudlet = cloudlet
         self.model = model
@@ -167,6 +220,8 @@ class ElasticServeCell:
         self.reshard_bw_bytes_s = reshard_bw_bytes_s
         self.max_replay_steps = max_replay_steps
         self.snapshot_fail_floor = snapshot_fail_floor
+        self.materialize = materialize
+        self.mesh = None                 # materialize: the DeviceMesh
 
         # the elastic checkpoint: a host-resident full copy of the params
         # every re-shard re-lays-out from (the cell's equivalent of the
@@ -443,7 +498,7 @@ class ElasticServeCell:
         # replay; on churn we fall back to the last placed snapshot
         blob = None
         if self.engine is not None and not self._dirty:
-            blob = self.engine.snapshot()
+            blob = self._snapshot()
         elif self.engine is not None:
             blob = self._restorable_blob()
 
@@ -456,8 +511,11 @@ class ElasticServeCell:
             self.server.hosts[h].guest_id = self._guest
             self.server.reliability.record_assignment(h)
 
-        # the old engine's pool goes before the new one is allocated: its
-        # state lives on in ``blob``
+        # the old engine's pool and weights go before the new ones are
+        # allocated, whatever may still hold the engine: its state lives
+        # on in ``blob``
+        if self.engine is not None:
+            self.engine.params = self.engine.cache = None
         self.engine = None
         engine = self.factory(hosts[0])
         if not engine.paged:
@@ -468,6 +526,14 @@ class ElasticServeCell:
             engine.restore(blob)
             restored = True
         moved = self._relayout(grid, engine)
+        if self.materialize:
+            # no counterpart of the reference's jax.clear_caches here: the
+            # port runs eagerly, and shard() reads the mesh at each call
+            engine.params = self.model.assemble(reshard_state(
+                self.params_host, self.param_axes, self.mesh))
+            engine.lay_out(self.mesh)
+            if self.mesh.size() < dist.get_world_size():
+                _logits_from_rank0(engine, self.mesh)
         self.engine = engine
         self._sync_requests(restored)
         shed = self._apply_capacity(now)
@@ -516,6 +582,15 @@ class ElasticServeCell:
         fraction of the leaves whose spec survived (their shards on the
         dead hosts re-materialize from the elastic checkpoint)."""
         mesh = layout_grid(*grid)
+        if self.materialize:
+            data, model = grid
+            world = dist.get_world_size() if dist.is_initialized() else 0
+            if data * model > world:
+                raise ValueError(
+                    f"materialize=True needs {data * model} devices, have "
+                    f"{world} (start a torch.distributed process group of "
+                    "that many ranks, one a device)")
+            self.mesh = make_elastic_mesh(range(world), data, model)
         p_specs = tree_partition_specs(self.param_axes, self.params_host,
                                        mesh)
         c_specs = paged_cache_partition_specs(
@@ -668,18 +743,40 @@ class ElasticServeCell:
 
     def _engine_step(self, clock: SimClock) -> int:
         eng = self.engine
-        # admit before building the force map: a lane admitted this very
-        # step must decode teacher-forced too, and its prefill-recomputed
-        # first token must be pinned back to the committed one *before* it
-        # feeds the next decode input
-        eng._admit()
-        self._fixup_first_tokens()
-        eng.step(self._force_map())
+        with activation_sharding(self.mesh):
+            # admit before building the force map: a lane admitted this
+            # very step must decode teacher-forced too, and its
+            # prefill-recomputed first token must be pinned back to the
+            # committed one *before* it feeds the next decode input
+            eng._admit()
+            self._fixup_first_tokens()
+            eng.step(self._force_map())
         self._fixup_first_tokens()
         worst = max((self.slow.get(h, 1.0) for h in self.cell_hosts),
                     default=1.0)
         clock.advance(self.step_time(worst))
-        return self._commit()
+        new = self._commit()
+        if self.materialize:
+            self._check_streams()
+        return new
+
+    def _check_streams(self) -> None:
+        """Every rank's committed streams are global rank 0's: the ranks
+        commit the same tokens because they decode rank 0's logits."""
+        mine = {r.req_id: (r.state, r.committed)
+                for r in self.requests.values()}
+        if from_rank0(mine) != mine:
+            raise RuntimeError(
+                f"rank {dist.get_rank()}: committed streams differ from "
+                "rank 0's")
+
+    def _snapshot(self) -> bytes:
+        """The engine's snapshot; on a mesh, taken by every member (the
+        pool's whole tensors are collective) and global rank 0's bytes on
+        every rank."""
+        with activation_sharding(self.mesh):
+            blob = self.engine.snapshot()
+        return from_rank0(blob) if self.materialize else blob
 
     def _commit(self) -> int:
         """Extend every committed stream with freshly decoded tokens.
@@ -733,7 +830,7 @@ class ElasticServeCell:
         )
         if not receivers:
             return      # every peer busy/full: keep the previous snapshot
-        blob = self.engine.snapshot()
+        blob = self._snapshot()
         self.server.report_snapshot(head, self._guest, receivers, joint,
                                     len(blob), now)
         self._blob = blob

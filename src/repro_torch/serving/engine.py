@@ -97,11 +97,20 @@ the conv/SSM state of every lane, that one included (ROADMAP Queue 3, R3).
 The model's entry points update the page pools in place; the JAX engine
 donates its cache to the jitted step for the same reason
 (``engine.py:612-613``).
+
+On a mesh (the materialized elastic cell, ``serving/cell.py``) the paged
+engine's weights and pool are DTensors: :meth:`ServeEngine.lay_out` places
+the pool by ``paged_cache_shardings`` and lifts the paged entry points onto
+the mesh (``parallel.partition.on_mesh``); they write K/V into the local
+blocks in place, and logits come back whole.
+A snapshot serializes whole tensors, so its bytes do not depend on the
+layout; a restore into a laid-out engine lays the pool out again.
 """
 
 from __future__ import annotations
 
 import base64
+import dataclasses
 import json
 import weakref
 import zlib
@@ -110,10 +119,13 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint.elastic import place
 from repro_torch.checkpoint.serializer import deserialize_tree, serialize_tree
 from repro_torch.models.model_api import ModelFns
+from repro_torch.parallel.partition import on_mesh
 from repro_torch.serving.kvcache import (
     PagePool,
     PrefixIndex,
@@ -125,6 +137,7 @@ from repro_torch.serving.kvcache import (
     init_paged_cache,
     install_page_payloads,
     pages_needed,
+    paged_cache_shardings,
     scatter_slot,
 )
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
@@ -369,6 +382,7 @@ class ServeEngine:
                 raise ValueError(f"{what} are not all on {self.device}")
         self.model = model
         self.params = params
+        self.mesh = None  # the mesh the pool is laid out on (lay_out)
         self._draft = draft
         self.draft_params = draft_params
         self.spec_k = spec_k
@@ -1757,6 +1771,32 @@ class ServeEngine:
         row = logits[0, -1] if logits.ndim == 3 else logits[0]
         self.lifecycle.activate(slot, req, int(row.argmax()), mm + bucket)
 
+    # ---------------------------------------------------------------- mesh
+    def lay_out(self, mesh) -> None:
+        """Run on ``mesh`` (``cell.py:470-476``): the paged pool placed by
+        ``paged_cache_shardings``, each leaf a DTensor whose local block
+        this rank cuts from the whole pool it holds (``place``), and the
+        paged entry points lifted onto the mesh (``on_mesh``). The weights
+        are the caller's to lay out."""
+        if not self.paged or self._draft is not None:
+            raise ValueError("only the paged engine without a draft lays "
+                             "its pool out on a mesh")
+        if self.mesh is not None:
+            raise ValueError("the pool is laid out already")
+        self.mesh = mesh
+        self._place_pool()
+        self.model = dataclasses.replace(
+            self.model,
+            prefill_chunk=on_mesh(self.model.prefill_chunk, mesh),
+            decode_paged=on_mesh(self.model.decode_paged, mesh))
+
+    def _place_pool(self) -> None:
+        shardings = paged_cache_shardings(self.model, self.n_slots,
+                                          self.n_pages, self.page_size,
+                                          self.mesh)
+        self.cache = {k: place(v, self.mesh, shardings[k].placements)
+                      for k, v in self.cache.items()}
+
     # -------------------------------------------------------------- snapshot
     def snapshot(self) -> bytes:
         """The engine's whole state as one blob, in the reference's format
@@ -1769,7 +1809,9 @@ class ServeEngine:
         if self.paged and self.prefilling:
             self._pump_prefill(None)
         state = {
-            "cache": self.cache,
+            # a laid-out pool whole: the bytes do not depend on the layout
+            "cache": {k: v.full_tensor() if isinstance(v, DTensor) else v
+                      for k, v in self.cache.items()},
             "lengths": self.lengths,
             "last_token": self.last_token,
             "steps": np.asarray(self.steps, np.int64),
@@ -1852,7 +1894,11 @@ class ServeEngine:
         assert meta.get("paged", False) == self.paged, (
             "snapshot/engine paged-mode mismatch")
         like = {
-            "cache": self.cache,
+            # a laid-out pool comes back whole on the host, then lay_out
+            # places it again
+            "cache": ({k: torch.empty((), dtype=v.dtype).expand(v.shape)
+                       for k, v in self.cache.items()}
+                      if self.mesh is not None else self.cache),
             "lengths": self.lengths,
             "last_token": self.last_token,
             "steps": np.asarray(self.steps, np.int64),
@@ -1866,6 +1912,8 @@ class ServeEngine:
                 like["cross_len"] = self.cross_len
         state = deserialize_tree(blob[4 + mlen:], like)
         self.cache = state["cache"]
+        if self.mesh is not None:
+            self._place_pool()
         self.lengths = state["lengths"].copy()
         self.last_token = state["last_token"].copy()
         self.steps = int(state["steps"])

@@ -5,8 +5,8 @@ trie — the pool allocation, and the multi-host spill tier.
 Ported from ``repro/serving/kvcache.py`` (``init_cache``, ``scatter_slot``,
 ``expand_prefill_cache``: lines 87-134; ``pages_needed``, ``PagePool``,
 ``PrefixIndex``: lines 137-487; the spill tier: lines 490-808;
-``init_paged_cache``: line 809; the layout half of
-``paged_cache_shardings``: lines 814-819). The allocator, the trie and the
+``init_paged_cache``: line 809; ``cache_shardings`` and
+``paged_cache_shardings``: lines 92-96 and 814-819). The allocator, the trie and the
 remote pool are plain Python, copied as they are; the caches themselves
 are torch tensors made by the model's ``init_cache`` and
 ``init_paged_cache``.
@@ -44,7 +44,11 @@ from repro_torch.checkpoint.serializer import read_leaves, serialize_tree
 from repro_torch.core.cloudlet import CloudletRegistry, PageLease
 from repro_torch.core.reliability import ReliabilityRegistry
 from repro_torch.models.model_api import ModelFns, Tree
-from repro_torch.parallel.partition import tree_partition_specs
+from repro_torch.parallel.partition import (
+    tree_partition_specs,
+    tree_shardings,
+)
+
 
 def init_cache(model: ModelFns, n_slots: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16,
@@ -887,9 +891,26 @@ def paged_cache_partition_specs(model: ModelFns, n_slots: int, n_pages: int,
     """The paged cache's :class:`~repro_torch.parallel.partition.
     PartitionSpec` per leaf on ``grid``, from its logical axes and abstract
     shapes: a pool shards over ``kv_heads`` where the count divides the
-    model axis, else over ``pages``. The layout half of the reference's
-    ``paged_cache_shardings``; placing the pool on real devices belongs to
-    the materialized cell (ROADMAP Queue 1, item 16)."""
+    model axis, else over ``pages``. The layout half of
+    :func:`paged_cache_shardings`."""
     axes = model.paged_cache_axes(n_slots, n_pages, page_size)
     abstract = model.abstract_paged_cache(n_slots, n_pages, page_size)
     return tree_partition_specs(axes, abstract, grid)
+
+
+def paged_cache_shardings(model: ModelFns, n_slots: int, n_pages: int,
+                          page_size: int, mesh) -> Tree:
+    """The paged cache's :class:`~repro_torch.parallel.partition.Sharding`
+    per leaf on ``mesh`` (``kvcache.py:814-819``): the placements of
+    :func:`paged_cache_partition_specs`."""
+    axes = model.paged_cache_axes(n_slots, n_pages, page_size)
+    abstract = model.abstract_paged_cache(n_slots, n_pages, page_size)
+    return tree_shardings(axes, abstract, mesh)
+
+
+def cache_shardings(model: ModelFns, n_slots: int, max_seq: int,
+                    mesh) -> Tree:
+    """The dense cache's :class:`~repro_torch.parallel.partition.Sharding`
+    per leaf on ``mesh`` (``kvcache.py:92-96``)."""
+    return tree_shardings(model.cache_axes(n_slots, max_seq),
+                          model.abstract_cache(n_slots, max_seq), mesh)

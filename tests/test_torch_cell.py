@@ -2,8 +2,8 @@
 against the JAX package's.
 
 Every in-process case of ``tests/test_cell.py`` (its 9; the tenth, the
-materialized cell on 8 forced host devices, runs a subprocess and is not
-ported) runs twice on REDUCED ``qwen3-8b`` with the same weights (the
+materialized cell on 8 forced host devices, runs a subprocess: its port,
+on 8 gloo ranks, is ``tests/test_torch_materialize.py``) runs twice on REDUCED ``qwen3-8b`` with the same weights (the
 reference's ``init(jax.random.key(0))``, handed across by the bridge):
 as written, on the reference's cell and engines, and retargeted to the
 port (``test_torch_core.ported``) on the port's, on the CPU. Each case
@@ -65,7 +65,8 @@ from test_partition import FakeMesh  # noqa: E402
 from test_torch_core import cases, module_of, run_case  # noqa: E402
 
 torch.set_num_threads(1)
-# the materialized case runs in a subprocess on 8 forced host devices
+# the materialized case runs in a subprocess on 8 forced host devices; the
+# port's runs on 8 gloo ranks in tests/test_torch_materialize.py
 CELL_CASES = [c for c in cases("test_cell")
               if c != "test_materialized_cell_survives_churn_on_a_real_mesh"]
 PACKAGES = {"repro": ref_cell, "repro_torch": port_cell}
@@ -328,9 +329,35 @@ def _cell(both, **kw):
     return srv, port_cell.ElasticServeCell(srv, "cell", tm, tp, **kw)
 
 
-def test_materialize_is_refused(both):
-    with pytest.raises(ValueError, match="item 16"):
-        _cell(both, factory=both["repro_torch"]["factory"], materialize=True)
+def test_materialize_is_refused(both, tmp_path):
+    """``materialize=True`` on a grid larger than the devices there are
+    raises the reference's too-few-devices ``ValueError`` at formation: a
+    (2, 2) grid over the reference's one CPU device, and over a process
+    group of one rank on the port. The materialized cell itself runs in
+    ``tests/test_torch_materialize.py``."""
+    import torch.distributed as dist
+
+    n = len(jax.devices())
+    want = f"materialize=True needs 4 devices, have {n} "
+    _, jm, jp = both["repro"]["qwen"]
+    ref_srv = ref_tests.AdHocServer(failure_timeout=6.0)
+    ref_srv.create_cloudlet("cell", "qwen3-8b")
+    for h in ("h0", "h1", "h2", "h3"):
+        ref_srv.register_host(h, 0.0, cloudlets=["cell"])
+    ref = ref_cell.ElasticServeCell(ref_srv, "cell", jm, jp,
+                                    factory=both["repro"]["factory"],
+                                    materialize=True)
+    with pytest.raises(ValueError, match=want):
+        ref.step(ref_tests.SimClock())       # formation
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rdv'}",
+                            rank=0, world_size=n)
+    try:
+        _, cell = _cell(both, factory=both["repro_torch"]["factory"],
+                        materialize=True)
+        with pytest.raises(ValueError, match=want):
+            cell.step(SimClock())            # formation
+    finally:
+        dist.destroy_process_group()
 
 
 def test_cell_engines_run_on_cuda_unless_asked_for_the_cpu(both):

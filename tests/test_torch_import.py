@@ -108,6 +108,43 @@ def test_no_source_imports_jax_or_the_reference_package():
             assert top not in ("jax", "jaxlib", "repro"), (f, name)
 
 
+def test_the_mesh_layer_stands_alone():
+    """The materialized cell's layer (placement on a ``DeviceMesh``, the
+    kernels' DTensor branches, the entry points lifted onto a mesh, the
+    cell) is built on ``torch.distributed`` alone: in a fresh interpreter
+    its names import without ``jax`` or ``repro``, and its modules'
+    sources name neither; ``tools/cell_rehearsal.py``, which drives it on
+    a gloo group, neither."""
+    code = ("import sys\n"
+            "from repro_torch.parallel import (activation_sharding, "
+            "current_mesh, shard, to_placements, tree_shardings)\n"
+            "from repro_torch.parallel.partition import on_mesh\n"
+            "from repro_torch.checkpoint import make_elastic_mesh, "
+            "reshard_state\n"
+            "from repro_torch.serving.kvcache import cache_shardings, "
+            "paged_cache_shardings\n"
+            "from repro_torch.serving.cell import ElasticServeCell\n"
+            "from repro_torch.serving.cell import from_rank0\n"
+            "bad = sorted(k for k in sys.modules\n"
+            "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n"
+            "assert 'torch.distributed.tensor' in sys.modules\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+    files = [PORT / "parallel" / "partition.py",
+             PORT / "checkpoint" / "elastic.py", PORT / "kernels" / "ops.py",
+             PORT / "models" / "model_api.py", PORT / "serving" / "cell.py",
+             PORT / "serving" / "engine.py", ROOT / "tools" / "cell_rehearsal.py"]
+    for f in files:
+        names = _imports(f)
+        assert all(n.split(".")[0] not in ("jax", "jaxlib", "repro")
+                   for n in names), f
+
+
 def test_no_source_imports_triton():
     """Every kernel is CUDA C++ built by ``kernels/_build.py``: no module of
     the port, nor ``chip_smoke.py``, imports ``triton``."""

@@ -1,5 +1,6 @@
-"""CPU rehearsal of ``chip_smoke.py``'s ``phase_cell``: predicts every
-counter of its four elastic-cell scenarios before the card runs them.
+"""CPU rehearsal of ``chip_smoke.py``'s ``phase_cell`` and
+``phase_materialized``: predicts every counter of the four elastic-cell
+scenarios and of the materialized cell's before the card runs them.
 
 Usage, from the root of a checkout (no card needed; ~10 s):
 
@@ -13,14 +14,17 @@ simulated seconds it takes, are reckoned from full-width ``qwen3-8b``'s
 abstract weights and pool (meta tensors, nothing allocated): the cell's
 relayout is handed those trees in place of the REDUCED ones, so its clock,
 and every counter that follows the clock, is the full-width run's. The
-tokens are REDUCED's. Prints one JSON line a scenario and the full-width
-byte counts.
+tokens are REDUCED's. The materialized scenario (``MAT_CELL``,
+``MAT_FAULTS``, ``_mat_formed``, ``_mat_checks``) runs on a one-rank gloo
+group and a (1, 1) mesh where the card uses NCCL, then layout-only. Prints
+one JSON line a scenario and the full-width byte counts.
 """
 
 from __future__ import annotations
 
 import json
 import sys
+import tempfile
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -29,8 +33,10 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 import chip_smoke as smoke  # noqa: E402
+from repro_torch.checkpoint.elastic import clear_meshes  # noqa: E402
 from repro_torch.configs import get  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.model_api import tree_leaves  # noqa: E402
@@ -96,6 +102,30 @@ def main() -> int:
             "states": [r.state for r in creqs],
             "committed": [len(r.committed) for r in creqs],
             "problems": problems}))
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv",
+                                rank=0, world_size=1)
+        try:
+            for materialize in (True, False):
+                srv, cell, creqs, clock, plan = smoke._mat_formed(
+                    model, params, factory, prompts, materialize=materialize)
+                summary = cell.run(clock, fault_plan=plan, max_ticks=2000)
+                problems = smoke._mat_checks(summary, creqs, want)
+                ok &= not problems
+                print(json.dumps({
+                    "scenario": "materialized" if materialize
+                    else "materialized, layout-only",
+                    **{k: v for k, v in summary.items()
+                       if k != "goodput_tok_s"},
+                    "sim_s": clock.now(),
+                    "reshards": [(round(t, 4), kv["cause"], kv["grid"],
+                                  kv["restored"], kv["replayed"])
+                                 for t, ev, kv in srv.log
+                                 if ev == "cell_resharded"],
+                    "problems": problems}))
+        finally:
+            clear_meshes()
+            dist.destroy_process_group()
     return 0 if ok else 1
 
 
